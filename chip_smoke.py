@@ -5,30 +5,49 @@
 
 Phases, in order; any failure exits non-zero and nothing is caught:
   build     print the card (nvidia-smi name and power limit), build every
-            CUDA kernel of the path from `narwhal_tpu_torch/gpu/csrc/` and
-            print each build wall (nvcc logs under chiprun_out/chip_smoke/);
+            CUDA kernel of the path from `narwhal_tpu_torch/gpu/csrc/` (one
+            nvcc per source, all started together) and print each build
+            wall (nvcc logs under chiprun_out/chip_smoke/);
   kernels   each kernel against its plain PyTorch version on the same card
-            tensors, bit-equal, at the main path's shapes (N = 50, W = 64,
-            a 2048-row signature bucket; chain_commit on a healed partition
-            where the gc filter provably bites), with kernel / plain /
-            library times from CUDA events (median of repeats);
+            tensors at the main path's shapes (N = 50, W = 64, 2048-row
+            buckets; chain_commit on a healed partition where the gc filter
+            provably bites; msm_accumulate in the group-lane shape, 20
+            compact proofs of 50 signers as 2000 doubled rows plus 48 zero
+            rows, and in the item shape with real R and z digits, a torsion
+            row and an invalid encoding), with kernel / plain / library
+            times from CUDA events (median of repeats). Verdicts, masks and
+            validity bit-equal; msm_accumulate's window lanes equal as
+            affine points (canonical x and y), and its epilogue verdicts;
   engine    GpuBullshark.process_batch_async on the card over a lossy
             unsigned N = 50 DAG of 200 rounds, built so the window both
             slides and grows and chains of up to 4 leaders commit at once;
-            the commit sequence must equal the same engine's on the CPU, and
-            every DAG kernel must have launched;
-  pipeline  FusedCertificatePipeline on the card, continuing the engine
-            phase's engine, over a fully signed N = 50 stream of the next 12
-            rounds (600 certificates x 50 votes, batches of 40 certificates
-            = 2000 items per 2048 bucket) with forged certificates mixed in:
-            exactly the forged ones are rejected, the sequence equals the CPU
-            engine's on the accepted stream, the window slides, and all four
-            kernels must have launched; then the same run again under
-            torch.profiler gives the card's busy and idle share and the host
-            stages (pipeline spans).
-Launch counts are set to 0 just before each of the two paths and read just
-after it. Then one JSON line with every kernel's numbers (launches summed
-over the two paths and per path), and as the last line
+            the commit sequence must equal the same engine's on the CPU;
+  pipeline  FusedCertificatePipeline (strict item lane) on the card,
+            continuing the engine phase's engine, over a fully signed
+            N = 50 stream of the next 12 rounds (600 certificates x 50
+            votes, batches of 40 certificates = 2000 items per 2048 bucket)
+            with forged certificates mixed in: exactly the forged ones are
+            rejected and the sequence equals the CPU engine's on the
+            accepted stream; then the same run again under torch.profiler
+            gives the card's busy and idle share and the host stages;
+  compact   the same 12 rounds as compact certificates (half-aggregated
+            from the pipeline phase's own vote signatures, no new signing)
+            through FusedCertificatePipeline's group lane, on an engine
+            brought to the same start state by replaying the unsigned
+            stream, with the same 3 certificates forged (one bit of agg_s):
+            exactly those rejected after exactly 3 host re-checks, and the
+            sequence equals the CPU engine's and the pipeline phase's; then
+            profiled as the pipeline phase is, with the host epilogue timed;
+  service   VerifyService.shared("item") serves the compact groups and a
+            2048-item burst of header signatures concurrently from an
+            asyncio loop; VerifyService.shared("msm") then checks one bucket
+            of valid vote signatures (the msm check alone: no verify_batch
+            launch) and one with a forged and a torsion item (verify_batch
+            fallback, cofactored: forged rejected, torsion accepted).
+Launch counts are set to 0 just before each of the four paths and read just
+after it, and each path must have launched the kernels it names
+(PATH_KERNELS). Then one JSON line with every kernel's numbers (launches
+summed over the paths and per path), and as the last line
 {"ok": true, "device": {...}}.
 
 The script needs a CUDA card: without one it exits 2 before printing any
@@ -63,6 +82,14 @@ N = 50  # the reference's largest published committee (bench-0-50-1-True-100000-
 GC_DEPTH = 50  # the reference default (config.py Parameters.gc_depth)
 W = GC_DEPTH + 14  # the engine's window
 BUCKET = 2048  # the verifier's fixed bucket
+
+# The kernels each driven path must launch (counts from 0 just before it).
+PATH_KERNELS = {
+    "engine": ("place_batch", "roll_window", "chain_commit"),
+    "pipeline": ("verify_batch", "place_batch", "roll_window", "chain_commit"),
+    "compact": ("msm_accumulate", "place_batch", "roll_window", "chain_commit"),
+    "service": ("verify_batch", "msm_accumulate"),
+}
 
 
 def log(msg: str) -> None:
@@ -112,6 +139,14 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def require_launches(path: str, launches: dict, device) -> None:
+    """Fail unless every kernel the path names launched on it (on the card;
+    a CPU rehearsal launches nothing)."""
+    for k in PATH_KERNELS[path]:
+        if device.type == "cuda" and launches[k] <= 0:
+            raise AssertionError(f"{path}: {k} never launched")
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +229,7 @@ def signature_bucket(seed: int, n_keys: int, bucket: int):
             msg = msg + b"!"
         items.append((kp.public, msg, sig))
     items += [_torsion_item(rng) for _ in range(4)]
-    packer = GpuVerifier(device="cpu")
+    packer = GpuVerifier(mode="item", device="cpu")
     idx, packed = packer.pack(items)
     checked = [items[i] for i in idx]
     m = len(checked)
@@ -262,6 +297,167 @@ def check_verify_batch(device, bucket: int, n_keys: int, n_ref: int, plain_reps:
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"B={bucket}", "sigs_per_s_kernel": bucket / ms * 1e3,
     }
+
+
+def _recording_verifier(bucket: int):
+    """A CPU GpuVerifier whose msm launches only record their host arrays:
+    the packing the main path gives the kernel, without the kernel."""
+    from narwhal_tpu_torch.gpu.verifier import GpuVerifier
+
+    v = GpuVerifier(max_bucket=bucket, mode="msm", msm_min_bucket=16, fixed_bucket=True,
+                    device="cpu")
+    calls = []
+    v._launch_msm = lambda arrays: calls.append([np.ascontiguousarray(a) for a in arrays])
+    return v, calls
+
+
+def compact_groups(f, n_groups: int, round0: int = 1):
+    """`n_groups` compact certificates' proofs, each signed by the whole
+    committee (one header per group)."""
+    from narwhal_tpu_torch.types import Certificate, Vote
+
+    groups = []
+    for g in range(n_groups):
+        h = f.header(author=g % f.committee.size(), round=round0 + g)
+        signers, sigs = [], []
+        for a in f.authorities:
+            signers.append(f.committee.index_of(a.public))
+            sigs.append(Vote.for_header(h, a.public, a.keypair).signature)
+        cert = Certificate.compact_from_votes(h, tuple(signers), tuple(sigs))
+        groups.append(cert.aggregate_group(f.committee))
+    return groups
+
+
+def msm_group_bucket(f, bucket: int):
+    """The group lane's launch at the main path's shape: as many compact
+    proofs of the committee's n signers as fill the bucket (20 x 50 signers
+    = 2000 doubled rows, then zero rows), the R slot all zero. Returns (the
+    six host arrays, sum_s, the number of doubled rows)."""
+    n_groups = bucket // (2 * f.committee.size())
+    v, calls = _recording_verifier(bucket)
+    handle = v.submit_groups(compact_groups(f, n_groups))
+    [(chunk, (_none, sum_s))] = handle[2]
+    return calls[0], sum_s, 2 * sum(len(g[1]) for g in chunk)
+
+
+def msm_item_bucket(seed: int, n_keys: int, bucket: int):
+    """The msm item lane's launch: real A, R, z*k and z digits. Valid,
+    corrupt-S and wrong-message signatures, torsion-defect signatures and
+    one signature whose R encodes a y with no x on the curve (it passes the
+    host precheck, so only the kernel's decompression flags it); rows are
+    reused to fill the bucket less 1/64, which stays zero padding. Returns
+    (the six host arrays, sum_s, the rows that must be invalid)."""
+    from narwhal_tpu_torch.crypto import KeyPair
+    from narwhal_tpu_torch.gpu import ed25519_ref as ref
+
+    rng = random.Random(seed)
+    items = []
+    for i in range(n_keys):
+        kp = KeyPair.from_seed(rng.randbytes(32))
+        msg = rng.randbytes(8 + i % 40)
+        sig = kp.sign(msg)
+        if i % 7 == 1:
+            b = bytearray(sig)
+            b[32 + rng.randrange(31)] ^= 1 << rng.randrange(8)
+            sig = bytes(b)
+        elif i % 7 == 2:
+            msg = msg + b"!"
+        items.append((kp.public, msg, sig))
+    items += [_torsion_item(rng) for _ in range(2)]
+    while True:
+        y = rng.randrange(ref.P)
+        if ref.recover_x(y, 0) is None:
+            break
+    pk, msg, sig = items[0]
+    items.append((pk, msg, y.to_bytes(32, "little") + sig[32:]))
+    v, calls = _recording_verifier(bucket)
+    idx, packed = v.pack(items)
+    m = idx.size
+    if idx[-1] != len(items) - 1:  # some corrupt S may exceed L; the bad R may not
+        raise AssertionError("msm item bucket: the invalid-R item failed the host precheck")
+    n_rows = bucket - bucket // 64
+    reuse = [i % m for i in range(n_rows)]
+    rows = tuple(np.ascontiguousarray(a[reuse]) for a in packed)
+    _none, sum_s = v._dispatch_msm(rows, 0, n_rows, bucket - n_rows)
+    invalid = {j for j, i in enumerate(reuse) if i == m - 1}
+    return calls[0], sum_s, invalid
+
+
+def _affine_lanes(v: np.ndarray) -> list[tuple[int, int]]:
+    """Canonical affine (x, y) of each window lane of V [4, NLIMB, W]."""
+    from narwhal_tpu_torch.gpu import ed25519
+    from narwhal_tpu_torch.gpu import ed25519_ref as ref
+
+    out = []
+    for w in range(v.shape[2]):
+        X, Y, Z = (ed25519.limbs_to_int(v[c, :, w]) % ref.P for c in range(3))
+        zi = pow(Z, ref.P - 2, ref.P)
+        out.append((X * zi % ref.P, Y * zi % ref.P))
+    return out
+
+
+def check_msm_accumulate(device, f, bucket: int, n_keys: int, plain_reps: int):
+    import torch
+    from narwhal_tpu_torch.gpu import ed25519
+    from narwhal_tpu_torch.gpu.verifier import msm_epilogue_check
+
+    group_arrays, group_sum, group_rows = msm_group_bucket(f, bucket)
+    item_arrays, item_sum, invalid = msm_item_bucket(23, n_keys, bucket)
+    err, row = 0, None
+    for shape, arrays, sum_s in (("group", group_arrays, group_sum),
+                                 ("item", item_arrays, item_sum)):
+        t = [torch.from_numpy(a).to(device) for a in arrays]
+        va, vr, valid = ed25519.msm_accumulate(*t)
+        pva, pvr, pvalid = ed25519.msm_accumulate_plain(*t)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        if not torch.equal(valid, pvalid):
+            bad = (valid != pvalid).nonzero().flatten()[:10].tolist()
+            raise AssertionError(f"msm_accumulate {shape}: valid differs at rows {bad}")
+        host = [x.cpu().numpy() for x in (va, vr, pva, pvr)]
+        for k_v, p_v, name in ((host[0], host[2], "V_a"), (host[1], host[3], "V_r")):
+            for w, (a, b) in enumerate(zip(_affine_lanes(k_v), _affine_lanes(p_v))):
+                err = max(err, abs(a[0] - b[0]), abs(a[1] - b[1]))
+                if a != b:
+                    raise AssertionError(f"msm_accumulate {shape}: {name} lane {w} differs")
+        got_invalid = set(np.flatnonzero(~valid.cpu().numpy()).tolist())
+        want_invalid = invalid if shape == "item" else set()
+        if got_invalid != want_invalid:
+            raise AssertionError(f"msm_accumulate {shape}: invalid rows {sorted(got_invalid)}")
+        verdicts = []
+        for s in (sum_s, sum_s + 1):
+            kv = msm_epilogue_check(host[0], host[1], s)
+            pv = msm_epilogue_check(host[2], host[3], s)
+            if kv != pv:
+                raise AssertionError(f"msm_accumulate {shape}: epilogue {kv} != plain {pv}")
+            verdicts.append(kv)
+        want = [True, False] if shape == "group" else [False, False]
+        if verdicts != want:
+            raise AssertionError(f"msm_accumulate {shape}: epilogue verdicts {verdicts}")
+        live = group_rows if shape == "group" else bucket - bucket // 64
+        log(f"msm_accumulate {shape}: B={bucket} ({live} live rows), valid bit-equal "
+            f"({len(want_invalid)} invalid), 96 lanes equal as affine points, epilogue "
+            f"verdicts {verdicts} == plain")
+        ms = time_ms(lambda: ed25519.msm_accumulate(*t), device, reps=5)
+        plain_ms = time_ms(lambda: ed25519.msm_accumulate_plain(*t), device, reps=1,
+                           groups=plain_reps)
+        per = ed25519.msm_field_muls_per_signature(bucket)
+        ops = bucket * (per["mul"] * 100 + per["sq"] * 55)
+        nbytes = bucket * (2 * 20 * 2 + 2 + 64 + 32 + 1) + 4 * 20 * 96 * 4
+        b, by = bound_ms(nbytes, ops)
+        log(f"  msm_accumulate {shape} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if shape == "group":
+            row = {"name": "msm_accumulate", "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "shape": f"B={bucket} group lane ({group_rows} doubled rows of "
+                            f"{group_rows // (2 * f.committee.size())} proofs, N="
+                            f"{f.committee.size()})",
+                   "rows_per_s_kernel": bucket / ms * 1e3}
+        else:
+            row["ms_item_shape"] = ms
+            row["plain_ms_item_shape"] = plain_ms
+    row["max_abs_err"] = err
+    return row
 
 
 def _random_window(rng: np.random.Generator, w: int, n: int):
@@ -473,9 +669,11 @@ def check_chain_commit(device, n: int, w: int, gc_depth: int = GC_DEPTH):
     return out
 
 
-def phase_kernels(device, n=N, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=3):
+def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=3):
+    n = f.committee.size()
     rows = [
         check_verify_batch(device, bucket, n_keys, n_ref, plain_reps),
+        check_msm_accumulate(device, f, bucket, n_keys, plain_reps),
         check_place_batch(device, n, w),
         check_roll_window(device, n, w),
         check_chain_commit(device, n, w),
@@ -610,9 +808,7 @@ def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
         raise AssertionError("engine: the window never slid")
     if max(chains) < 3:
         raise AssertionError(f"engine: no chain of 3+ leaders (max K {max(chains)})")
-    for k in ("place_batch", "roll_window", "chain_commit"):
-        if device.type == "cuda" and launches[k] <= 0:
-            raise AssertionError(f"engine: {k} never launched")
+    require_launches("engine", launches, device)
     log(f"engine: N={n}, {rounds} rounds, {len(certs)} certificates, {len(out)} "
         f"committed (== CPU engine), window grew to W={max_w} and slid to base "
         f"{eng.win.round_base}; {len(chains)} commit events, chain lengths "
@@ -626,6 +822,21 @@ def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
 # ---------------------------------------------------------------------------
 # Phase: the fused pipeline on a signed stream
 # ---------------------------------------------------------------------------
+
+
+def replay_engine(device, f, ctx):
+    """A new engine and state brought to the engine phase's end state by
+    replaying its unsigned stream (the pipeline phase's start state)."""
+    from narwhal_tpu_torch.consensus import ConsensusState
+    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
+    from narwhal_tpu_torch.stores import NodeStorage
+    from narwhal_tpu_torch.types import Certificate
+
+    st = ConsensusState(Certificate.genesis(f.committee))
+    eng = GpuBullshark(f.committee, NodeStorage(None).consensus_store, GC_DEPTH,
+                       device=device)
+    feed_rounds(eng, st, ctx["certs"], f.committee.size())
+    return eng, st
 
 
 def forge(cert, rng: random.Random):
@@ -647,20 +858,17 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
     state, not one fresh from genesis). The CPU engine of the engine phase
     continues over the accepted stream as the reference."""
     import torch
-    from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.fixtures import make_signed_certificates
     from narwhal_tpu_torch.gpu import kernel_registry
-    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
     from narwhal_tpu_torch.gpu.pipeline import FusedCertificatePipeline
     from narwhal_tpu_torch.gpu.verifier import GpuVerifier
-    from narwhal_tpu_torch.stores import NodeStorage
-    from narwhal_tpu_torch.types import Certificate
 
     n = f.committee.size()
     last = ctx["certs"][-1].round
     tips = {c.digest for c in ctx["certs"] if c.round == last}
     t_sign = time.perf_counter()
     certs, _ = make_signed_certificates(f, last + 1, last + rounds, tips)
+    signed = list(certs)
     rng = random.Random(5)
     forged_at = sorted(rng.sample(range(n, len(certs) - n), n_forged))
     for i in forged_at:
@@ -672,7 +880,7 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
 
     engine, state = ctx["eng"], ctx["state"]
     base0 = engine.win.round_base
-    verifier = GpuVerifier(max_bucket=bucket, fixed_bucket=True, device=device)
+    verifier = GpuVerifier(max_bucket=bucket, mode="item", fixed_bucket=True, device=device)
     pipe = FusedCertificatePipeline(verifier, engine, state, start_index=ctx["index"])
     batches = [certs[lo:lo + batch] for lo in range(0, len(certs), batch)]
     kernel_registry.reset_launch_counts()
@@ -705,19 +913,14 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
         raise AssertionError("pipeline: commit sequence differs from the CPU engine")
     if engine.win.round_base <= base0:
         raise AssertionError("pipeline: the window never slid")
-    for k in kernel_registry.KERNELS:
-        if device.type == "cuda" and launches[k] <= 0:
-            raise AssertionError(f"pipeline: {k} never launched")
+    require_launches("pipeline", launches, device)
     if device.type == "cuda":
         # The same run again under the profiler, on an engine brought to the
         # same state by replaying the unsigned stream (untraced).
-        st = ConsensusState(Certificate.genesis(f.committee))
-        eng = GpuBullshark(f.committee, NodeStorage(None).consensus_store, GC_DEPTH,
-                           device=device)
-        feed_rounds(eng, st, ctx["certs"], n)
+        eng, st = replay_engine(device, f, ctx)
         spans = SpanTotals()
         traced = FusedCertificatePipeline(
-            GpuVerifier(max_bucket=bucket, fixed_bucket=True, device=device), eng, st,
+            GpuVerifier(max_bucket=bucket, mode="item", fixed_bucket=True, device=device), eng, st,
             start_index=ctx["index"], tracer=spans)
         profile_run(lambda: traced.run(batches), device, "pipeline")
         log("  host stages (pipeline spans, summed over batches): " + ", ".join(
@@ -728,8 +931,226 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
         f"{base0} -> {engine.win.round_base}; {wall:.3f} s wall: "
         f"{n_items / wall:.1f} signatures/s, {len(certs) / wall:.1f} certificates/s; "
         f"launches {launches}")
-    return launches, {"signatures_per_s": n_items / wall,
-                      "certificates_per_s": len(certs) / wall}
+    return {"launches": launches, "signed": signed, "forged_at": forged_at,
+            "batch": batch, "seq": [(o.certificate.digest, o.consensus_index) for o in out],
+            "ref_seq": [(o.certificate.digest, o.consensus_index) for o in ref_out],
+            "rates": {"signatures_per_s": n_items / wall,
+                      "certificates_per_s": len(certs) / wall}}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the compact-certificate path (the group lane) on the same rounds
+# ---------------------------------------------------------------------------
+
+
+def forge_aggregate(cert):
+    """The compact certificate with one bit of agg_s flipped (same header,
+    so the same digest): its proof fails, nothing else changes."""
+    from narwhal_tpu_torch.types import Certificate
+
+    agg = bytes([cert.agg_s[0] ^ 0x10]) + cert.agg_s[1:]
+    return Certificate(cert.header, cert.signers, cert.signatures, agg)
+
+
+class HostCalls:
+    """Counts and times calls of one module function while installed."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.seconds: list[float] = []
+
+    def __enter__(self):
+        def wrapped(*args):
+            t0 = time.perf_counter()
+            try:
+                return self.real(*args)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def phase_compact(device, f, ctx, pctx, bucket=BUCKET):
+    """FusedCertificatePipeline over the pipeline phase's rounds in compact
+    form: each certificate half-aggregated from its own vote signatures
+    (`compact_from_votes` without a committee, so no verdict is pre-seeded),
+    the same 3 positions forged in agg_s. The strict item lane is unused:
+    every proof goes through the group lane (msm_accumulate), and a forged
+    one is re-checked on the host after its solo launch fails. The accepted
+    stream carries the same digests as the pipeline phase's, so both its
+    CPU-engine sequence and its card sequence are the reference."""
+    import torch
+    from narwhal_tpu_torch import types as types_mod
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu import verifier as verifier_mod
+    from narwhal_tpu_torch.gpu.pipeline import FusedCertificatePipeline
+    from narwhal_tpu_torch.gpu.verifier import GpuVerifier
+    from narwhal_tpu_torch.types import Certificate
+
+    n = f.committee.size()
+    t_agg = time.perf_counter()
+    certs = [Certificate.compact_from_votes(c.header, c.signers, c.signatures)
+             for c in pctx["signed"]]
+    for i in pctx["forged_at"]:
+        certs[i] = forge_aggregate(certs[i])
+    forged = {id(certs[i]) for i in pctx["forged_at"]}
+    log(f"compact: aggregated {len(certs)} certificates in "
+        f"{time.perf_counter() - t_agg:.1f} s (setup, untimed)")
+    batch = pctx["batch"]
+    batches = [certs[lo:lo + batch] for lo in range(0, len(certs), batch)]
+
+    eng, st = replay_engine(device, f, ctx)
+    base0 = eng.win.round_base
+    pipe = FusedCertificatePipeline(
+        GpuVerifier(max_bucket=bucket, mode="item", fixed_bucket=True, device=device),
+        eng, st, start_index=ctx["index"])
+    kernel_registry.reset_launch_counts()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    with HostCalls(types_mod, "host_verify_aggregate") as host:
+        t0 = time.perf_counter()
+        out = pipe.run(batches)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernel_registry.launch_counts()
+
+    if {id(c) for c in pipe.rejected} != forged or len(pipe.rejected) != len(forged):
+        raise AssertionError(f"compact: rejected {[c.round for c in pipe.rejected]}")
+    if len(host.seconds) != len(forged):
+        raise AssertionError(f"compact: {len(host.seconds)} host re-checks, want {len(forged)}")
+    seq = [(o.certificate.digest, o.consensus_index) for o in out]
+    if seq != pctx["ref_seq"]:
+        raise AssertionError("compact: commit sequence differs from the CPU engine")
+    if seq != pctx["seq"]:
+        raise AssertionError("compact: commit sequence differs from the full-format path")
+    if eng.win.round_base <= base0:
+        raise AssertionError("compact: the window never slid")
+    require_launches("compact", launches, device)
+    n_sigs = sum(len(c.signers) for c in certs)
+    if device.type == "cuda":
+        eng, st = replay_engine(device, f, ctx)
+        spans = SpanTotals()
+        traced = FusedCertificatePipeline(
+            GpuVerifier(max_bucket=bucket, mode="item", fixed_bucket=True, device=device),
+            eng, st, start_index=ctx["index"], tracer=spans)
+        with HostCalls(verifier_mod, "msm_epilogue_check") as epi, \
+                HostCalls(traced.verifier, "_dispatch_group_chunk") as packs, \
+                HostCalls(types_mod, "host_verify_aggregate") as walks:
+            profile_run(lambda: traced.run(batches), device, "compact")
+        log("  host stages (compact spans, summed over batches): " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in sorted(spans.totals.items())))
+        for what, calls in (("msm epilogue", epi), ("group chunk pack + launch", packs),
+                            ("host re-check", walks)):
+            log(f"  {what}: {len(calls.seconds)} calls, {sum(calls.seconds) * 1e3:.3f} ms, "
+                f"{statistics.median(calls.seconds) * 1e3:.3f} ms median")
+    log(f"compact: N={n}, {len(certs)} compact certificates in batches of {batch} "
+        f"({2 * n * batch} doubled rows per batch, {bucket}-row launches), "
+        f"{len(forged)} forged agg_s -> rejected exactly those after {len(host.seconds)} "
+        f"host re-checks ({sum(host.seconds):.3f} s); {len(out)} committed (== CPU engine "
+        f"== full-format path); window base {base0} -> {eng.win.round_base}; {wall:.3f} s "
+        f"wall: {n_sigs / wall:.1f} signatures/s, {len(certs) / wall:.1f} certificates/s; "
+        f"launches {launches}")
+    return {"launches": launches, "certs": certs,
+            "rates": {"signatures_per_s": n_sigs / wall,
+                      "certificates_per_s": len(certs) / wall}}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the process-wide VerifyService, both modes
+# ---------------------------------------------------------------------------
+
+
+def _serve(svc, groups, items, timeout: float = 600.0):
+    """Verdicts of `groups` (verify_aggregate) and `items` (verify) submitted
+    together from one asyncio loop."""
+
+    async def drive():
+        g = asyncio.gather(*(svc.verify_aggregate(*x) for x in groups))
+        i = asyncio.gather(*(svc.verify(*x) for x in items))
+        return await asyncio.wait_for(asyncio.gather(g, i), timeout)
+
+    t0 = time.perf_counter()
+    gres, ires = asyncio.run(drive())
+    return list(gres), list(ires), time.perf_counter() - t0
+
+
+def phase_service(device, f, pctx, cctx, bucket=BUCKET):
+    """VerifyService.shared("item") (the default strict config) serves the
+    compact proofs and a burst of header signatures concurrently; then
+    VerifyService.shared("msm") serves a bucket of valid vote signatures
+    (the msm check alone) and one with a forged and a torsion item (the
+    verify_batch fallback with the cofactored rule)."""
+    import torch
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.verifier import VerifyService
+
+    forged_at = set(pctx["forged_at"])
+    groups = [c.aggregate_group(f.committee) for c in cctx["certs"]]
+    want_groups = [i not in forged_at for i in range(len(groups))]
+    headers = [c.header.signature_item() for c in pctx["signed"]]
+    burst = [headers[i % len(headers)] for i in range(bucket)]
+    rng = random.Random(17)
+    bad_headers = sorted(rng.sample(range(bucket), 4))
+    for i in bad_headers:
+        pk, msg, sig = burst[i]
+        burst[i] = (pk, msg, sig[:40] + bytes([sig[40] ^ 0x01]) + sig[41:])
+    want_burst = [i not in bad_headers for i in range(bucket)]
+
+    votes = [it for c in pctx["signed"] for it in c.verify_items(f.committee)]
+    valid_votes = votes[:bucket]
+    mixed = list(votes[bucket:2 * bucket])
+    pk, msg, sig = mixed[5]
+    mixed[5] = (pk, msg, sig[:40] + bytes([sig[40] ^ 0x01]) + sig[41:])
+    mixed[9] = _torsion_item(rng)
+    want_mixed = [i != 5 for i in range(len(mixed))]
+
+    kernel_registry.reset_launch_counts()
+    item_svc = VerifyService.shared("item", device=device)
+    msm_svc = VerifyService.shared("msm", device=device)
+    try:
+        gres, ires, wall_item = _serve(item_svc, groups, burst)
+        if gres != want_groups:
+            wrong = [i for i, (a, b) in enumerate(zip(gres, want_groups)) if a != b]
+            raise AssertionError(f"service item: group verdicts wrong at {wrong}")
+        if ires != want_burst:
+            raise AssertionError("service item: header verdicts differ from the expected set")
+        a1_before = kernel_registry.launch_counts()["verify_batch"]
+        _g, valid_res, wall_valid = _serve(msm_svc, [], valid_votes)
+        a1_after = kernel_registry.launch_counts()["verify_batch"]
+        if valid_res != [True] * len(valid_votes):
+            raise AssertionError("service msm: a valid vote was rejected")
+        if device.type == "cuda" and a1_after != a1_before:
+            raise AssertionError("service msm: the valid bucket fell back to verify_batch")
+        _g, mixed_res, wall_mixed = _serve(msm_svc, [], mixed)
+        if mixed_res != want_mixed:
+            raise AssertionError(f"service msm: verdicts {mixed_res[:12]}...")
+        if device.type == "cuda" and kernel_registry.launch_counts()["verify_batch"] <= a1_after:
+            raise AssertionError("service msm: the failed bucket did not fall back")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        item_svc.shutdown()
+        msm_svc.shutdown()
+    for svc in (item_svc, msm_svc):
+        if svc._submit_thread.is_alive() or svc._collect_thread.is_alive():
+            raise AssertionError("service: a thread outlived shutdown")
+    launches = kernel_registry.launch_counts()
+    require_launches("service", launches, device)
+    log(f"service: item mode served {len(groups)} compact proofs ({sum(want_groups)} valid) "
+        f"and {bucket} header signatures ({len(bad_headers)} forged) concurrently in "
+        f"{wall_item:.3f} s; msm mode: {len(valid_votes)} valid votes in {wall_valid:.3f} s "
+        f"(no verify_batch launch), {len(mixed)} votes with a forged and a torsion item in "
+        f"{wall_mixed:.3f} s (fallback: forged rejected, torsion accepted); both services "
+        f"shut down; launches {launches}")
+    return {"launches": launches,
+            "rates": {"item_service_s": wall_item, "msm_valid_bucket_s": wall_valid,
+                      "msm_fallback_bucket_s": wall_mixed}}
 
 
 class SpanTotals:
@@ -805,12 +1226,17 @@ def main(argv=None) -> int:
     log(card)
 
     phase_build()
-    kernels = phase_kernels(device)
     f = CommitteeFixture(size=N)
+    kernels = phase_kernels(device, f)
     ctx = phase_engine(device, f)
-    pipe_launches, rates = phase_pipeline(device, f, ctx)
-    by_path = {"engine": ctx["launches"], "pipeline": pipe_launches}
-    rates["engine_certificates_per_s"] = ctx["certificates_per_s"]
+    pctx = phase_pipeline(device, f, ctx)
+    cctx = phase_compact(device, f, ctx, pctx)
+    sctx = phase_service(device, f, pctx, cctx)
+    by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
+               "compact": cctx["launches"], "service": sctx["launches"]}
+    rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
+             "pipeline": pctx["rates"], "compact": cctx["rates"],
+             "service": sctx["rates"]}
 
     rows = []
     build_walls = kernel_registry.build_walls()
@@ -831,6 +1257,7 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             "build_s": build_walls.get(kname),
+            **{k: v for k, v in r.items() if k.endswith("_item_shape")},
         })
     print(json.dumps({"kernels": rows, "card": card, "rates": rates}), flush=True)
     print(json.dumps({"ok": True, "device": {

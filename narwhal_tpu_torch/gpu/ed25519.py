@@ -1,12 +1,13 @@
 """Batched ed25519 verification: plain PyTorch field/point layer + CUDA kernel.
 
-Port of `narwhal_tpu/tpu/ed25519.py` (the JAX package's counterpart), item
-lane only: the field and point layer, `verify_batch` (the counterpart of
-`verify_batch_kernel`, TPU kernel A1) and the host packing helpers
-`bytes_to_limbs` / `bytes_to_digits`. The msm functions (A2, A6) and the
-staged kernels (A3-A5) are later slices (ROADMAP queue 2).
+Port of `narwhal_tpu/tpu/ed25519.py` (the JAX package's counterpart): the
+field and point layer, `verify_batch` (the counterpart of
+`verify_batch_kernel`, TPU kernel A1), `msm_accumulate` (the counterpart of
+`msm_accumulate_kernel`, TPU kernel A2) and the host packing helpers
+`bytes_to_limbs` / `bytes_to_digits`. The window kernel A6 and the staged
+kernels A3-A5 are later slices (ROADMAP queue 2).
 
-Two implementations of one function:
+Two implementations of each function:
 
 - the plain PyTorch version (`verify_batch_plain` and the `fe_*` / `pt_*`
   functions below) keeps the JAX module's arithmetic exactly: radix 2^13,
@@ -15,13 +16,15 @@ Two implementations of one function:
   int32 bound argument is the JAX module docstring's). The CPU tests hold
   it against the JAX functions evaluated eagerly and against the bigint
   oracle `ed25519_ref`;
-- the CUDA kernel `csrc/ed25519_verify.cu` computes the same verdicts with
-  one signature per thread in radix 2^25.5 (10 limbs, 64-bit column sums);
-  its own bound argument is written in the source.
+- the CUDA kernels `csrc/ed25519_verify.cu` (A1: the same verdicts with one
+  signature per thread) and `csrc/ed25519_msm.cu` (A2: the same window-lane
+  sums, canonical, from one thread per point and per (lane, chain)) work in
+  radix 2^25.5 (10 limbs, 64-bit column sums); their shared field layer and
+  its bound argument are `csrc/ed25519_field.cuh`.
 
-`verify_batch` dispatches on where its inputs lie: CPU tensors run the plain
-version, CUDA tensors launch the kernel (or raise). There is no fallback
-from the kernel to the plain version.
+`verify_batch` and `msm_accumulate` dispatch on where their inputs lie: CPU
+tensors run the plain version, CUDA tensors launch the kernel (or raise).
+There is no fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -481,13 +484,14 @@ def verify_batch(a_y, a_sign, r_y, r_sign, k_digits, s_digits):
     if B == 0:
         return strict, cof
     fn = kernel_registry.function("ed25519_verify", "ed25519_verify_batch", 10, 1)
-    rc = fn(
-        a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(),
-        k_digits.data_ptr(), s_digits.data_ptr(),
-        _const("BT", dev).data_ptr(), _const("KERNEL_CONSTS", dev).data_ptr(),
-        strict.data_ptr(), cof.data_ptr(), B,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch's device, whatever the thread's
+        rc = fn(
+            a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(),
+            k_digits.data_ptr(), s_digits.data_ptr(),
+            _const("BT", dev).data_ptr(), _const("KERNEL_CONSTS", dev).data_ptr(),
+            strict.data_ptr(), cof.data_ptr(), B,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     kernel_registry.check("ed25519_verify", "verify_batch", rc)
     kernel_registry.count_launch("verify_batch")
     return strict, cof
@@ -505,6 +509,157 @@ def field_muls_per_signature() -> dict:
     decompress = (255, 20)
     sq = 2 * decompress[0] + 64 * 16 + 254 + 3 * 4
     mul = 2 * decompress[1] + 127 + 64 * (4 * 4 + 8 + 7) + 11 + 2 + 9 + 3 * 4
+    return {"sq": sq, "mul": mul}
+
+
+# ---------------------------------------------------------------------------
+# Random-linear-combination batch verification: the window-lane accumulate
+# (TPU kernel A2). The batch equation
+#   [sum z_i S_i]B - sum [z_i k_i]A_i - sum [z_i]R_i == 0
+# needs each point added once per scalar window, with the doublings shared
+# by the whole batch; the device sums, per window lane, digit * (-P) over
+# the batch, and the host (verifier.msm_epilogue_check) Horner-collapses the
+# lanes. See the JAX module's section of the same name.
+# ---------------------------------------------------------------------------
+
+MSM_CHUNK = 128  # the JAX kernel's chains per window lane (`chunk`)
+MSM_WA, MSM_WR = 64, 32  # window lanes of the A (z*k) and R (z) scalars
+
+
+def _select_lanes(table, digits):
+    """table [16, NLIMB, C], digits [C, W] -> [NLIMB, W, C]: every window
+    lane of every chain picks its own table row."""
+    idx = digits.T.long()  # [W, C]
+    idx = idx.unsqueeze(0).expand(table.shape[1], idx.shape[0], idx.shape[1])
+    return table.permute(1, 0, 2).gather(1, idx)
+
+
+def _accumulate_windows(table, digits, chunk):
+    """Stream the M points through the window-lane accumulator.
+
+    table: 4 CACHED coords [16, NLIMB, M]; digits [M, W]. Returns V: 4
+    projective coords [NLIMB, W] = per window lane, sum_j digit_{j,w} P_j.
+    Chain c holds points c, C + c, 2C + c, ... in that order; the chains
+    then reduce in log2(C) fixed-width rounds, round r adding the chain
+    C/2^(r+1) to the right of every chain (the JAX scan's order)."""
+    M, W = digits.shape
+    C = min(chunk, M)
+    S = M // C
+    xs_table = tuple(t.reshape(16, NLIMB, S, C).permute(2, 0, 1, 3) for t in table)
+    xs_digits = digits.reshape(S, C, W)
+    acc = pt_identity((W, C), device=digits.device)
+    for s in range(S):
+        q = tuple(_select_lanes(xs_table[i][s], xs_digits[s]) for i in range(4))
+        acc = pt_add_cached(acc, q)
+    for r in range((C - 1).bit_length()):
+        idx = (torch.arange(C, device=digits.device) + (C >> (r + 1))) % C
+        partner = tuple(a.index_select(-1, idx) for a in acc)
+        acc = pt_add(acc, partner)
+    return tuple(a[..., 0] for a in acc)  # [NLIMB, W]
+
+
+def msm_accumulate_plain(a_y, a_sign, r_y, r_sign, ak_digits, z_digits, chunk=MSM_CHUNK):
+    """The plain PyTorch version of the kernel: per-window point sums of
+    sum [z_i k_i](-A_i) + sum [z_i](-R_i) over the batch, exactly as the JAX
+    `msm_accumulate_kernel` computes them (raw limbs equal).
+
+    Shapes (batch-leading, the JAX host layout): a_y/r_y int[B, NLIMB]
+    canonical y limbs; signs int[B]; ak_digits int[B, 64] = 4-bit MSB-first
+    digits of z_i k_i mod L; z_digits int[B, 32] = digits of the 128-bit z_i.
+    Zero rows are inert padding. Returns (V_a int32[4, NLIMB, 64], V_r
+    int32[4, NLIMB, 32] loose X/Y/Z/T limbs per window lane, valid bool[B])."""
+    ak_digits = ak_digits.to(torch.int32)
+    z_digits = z_digits.to(torch.int32)
+    B = a_y.shape[0]
+    ys = torch.cat([a_y.T, r_y.T], dim=1).to(torch.int32).contiguous()  # [NLIMB, 2B]
+    signs = torch.cat([a_sign, r_sign]).to(torch.int32)
+    points, valid = decompress(ys, signs)
+    table = _pt_cached_table(pt_neg(points), 2 * B)
+    table_a = tuple(t[..., :B] for t in table)
+    table_r = tuple(t[..., B:] for t in table)
+    v_a = _accumulate_windows(table_a, ak_digits, chunk)
+    v_r = _accumulate_windows(table_r, z_digits, chunk)
+    return torch.stack(v_a, dim=0), torch.stack(v_r, dim=0), valid[:B] & valid[B:]
+
+
+def _check_msm_inputs(a_y, a_sign, r_y, r_sign, ak_digits, z_digits) -> int:
+    B = a_y.shape[0] if a_y.dim() == 2 else -1
+    want = {
+        "a_y": (a_y, torch.int16, (B, NLIMB)),
+        "r_y": (r_y, torch.int16, (B, NLIMB)),
+        "a_sign": (a_sign, torch.int8, (B,)),
+        "r_sign": (r_sign, torch.int8, (B,)),
+        "ak_digits": (ak_digits, torch.int8, (B, MSM_WA)),
+        "z_digits": (z_digits, torch.int8, (B, MSM_WR)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.device != a_y.device:
+            raise ValueError(f"msm_accumulate: {name} on {t.device}, a_y on {a_y.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"msm_accumulate: {name} must be {dtype} {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"msm_accumulate: {name} must be contiguous")
+    C = min(MSM_CHUNK, B)  # chains per window lane, the JAX kernel's
+    if B < 1 or C & (C - 1) or B % C:
+        raise ValueError(
+            f"msm_accumulate: B={B} must be a multiple of its {C} chains, a power of two"
+        )
+    return B
+
+
+def msm_accumulate(a_y, a_sign, r_y, r_sign, ak_digits, z_digits):
+    """Window-lane sums of the batch's RLC terms and the rows' validity; the
+    JAX `msm_accumulate_kernel`'s signature and results.
+
+    On CPU tensors: the plain version (loose limbs). On CUDA tensors: the
+    kernels of `csrc/ed25519_msm.cu` (int16 limbs, int8 signs and digits,
+    the host layout), launched on the current stream, whose V lanes are
+    canonical limbs of the same values mod p; a failed build or launch
+    raises."""
+    dev = a_y.device
+    if dev.type == "cpu":
+        return msm_accumulate_plain(a_y, a_sign, r_y, r_sign, ak_digits, z_digits)
+    if dev.type != "cuda":
+        raise ValueError(f"msm_accumulate: unsupported device {dev}")
+    B = _check_msm_inputs(a_y, a_sign, r_y, r_sign, ak_digits, z_digits)
+    C = min(MSM_CHUNK, B)
+    v_a = torch.empty((4, NLIMB, MSM_WA), dtype=torch.int32, device=dev)
+    v_r = torch.empty((4, NLIMB, MSM_WR), dtype=torch.int32, device=dev)
+    valid = torch.empty((B,), dtype=torch.bool, device=dev)
+    # Scratch: the cached tables (2B points x 16 entries x 4 coords x 10
+    # limbs), each point's validity, and the chain sums (96 lanes x C
+    # chains x 4 coords x 10 limbs).
+    table = torch.empty((2 * B * 16 * 40,), dtype=torch.int32, device=dev)
+    pvalid = torch.empty((2 * B,), dtype=torch.uint8, device=dev)
+    partial = torch.empty(((MSM_WA + MSM_WR) * C * 40,), dtype=torch.int32, device=dev)
+    fn = kernel_registry.function("ed25519_msm", "ed25519_msm_accumulate", 13, 2)
+    with torch.cuda.device(dev):  # the launch's device, whatever the thread's
+        rc = fn(
+            a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(),
+            ak_digits.data_ptr(), z_digits.data_ptr(),
+            _const("KERNEL_CONSTS", dev).data_ptr(), table.data_ptr(), pvalid.data_ptr(),
+            partial.data_ptr(), v_a.data_ptr(), v_r.data_ptr(), valid.data_ptr(), B, C,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernel_registry.check("ed25519_msm", "msm_accumulate", rc)
+    kernel_registry.count_launch("msm_accumulate")
+    return v_a, v_r, valid
+
+
+def msm_field_muls_per_signature(batch: int, chunk: int = MSM_CHUNK) -> dict:
+    """Field operations one row (one A and one R point) costs in the kernel
+    of `msm_accumulate`, counted in its radix as `field_muls_per_signature`
+    counts A1's: decompress (A and R) 255 sq + 20 mul each; the two cached
+    tables 127 mul each (14 chain adds of 8 + 15 cache muls); one 8-mul
+    cached add per window lane, 64 for the A scalar and 32 for the R
+    scalar; and the row's share of the chain tree, C - 1 nine-mul adds per
+    lane over 96 lanes. `mul` is fractional through that share."""
+    c = min(chunk, batch)
+    sq = 2 * 255
+    mul = 2 * 20 + 2 * 127 + 8 * (MSM_WA + MSM_WR) + 9 * (c - 1) * (MSM_WA + MSM_WR) / batch
     return {"sq": sq, "mul": mul}
 
 

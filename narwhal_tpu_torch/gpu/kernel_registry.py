@@ -12,7 +12,8 @@ Pointers and the stream are passed as `c_void_p`; every C entry point
 returns `cudaGetLastError()` after its launch and `check` raises when it is
 not 0. One library per source; sources build in parallel (one nvcc each,
 all started together). The file name carries a hash of the source and the
-flags, so a changed source is rebuilt and an unchanged one is reused.
+flags, and of every header under `csrc/`, so a changed source or header is
+rebuilt and an unchanged one is reused.
 
 The registry keeps, in place of `compile_walls()`:
 - one build wall per kernel (the wall of the nvcc run of its source), and
@@ -43,6 +44,8 @@ NVCC_FLAGS = (
 KERNELS: dict[str, tuple[str, str]] = {
     "verify_batch": (
         "ed25519_verify", "narwhal_tpu/tpu/ed25519.py:395 verify_batch_kernel"),
+    "msm_accumulate": (
+        "ed25519_msm", "narwhal_tpu/tpu/ed25519.py:666 msm_accumulate_kernel"),
     "place_batch": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:95 place_batch"),
     "roll_window": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:79 roll_window"),
     "chain_commit": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit"),
@@ -69,10 +72,14 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def _target(stem: str) -> Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{stem}-{h}.so"
+def _target(stem: str, csrc: Path = CSRC) -> Path:
+    """The library's path: its name carries a hash of the source, of every
+    header under csrc/ (a source may include any of them) and of the flags."""
+    h = hashlib.sha256((csrc / f"{stem}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(stems=None) -> dict[str, float]:

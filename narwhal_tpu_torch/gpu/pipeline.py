@@ -17,9 +17,11 @@ entry point of the port's certificate path on the card.
 Output equivalence: the commit sequence is identical to feeding the same
 certificates one at a time through `process_certificate`.
 
-Only full-format certificates (`cert_format=full`: one signature per voter,
-checked as items) are ported; a compact certificate raises
-NotImplementedError until the msm slice.
+Both wire forms: a full-format certificate (`cert_format=full`) contributes
+one signature item per voter to `GpuVerifier.submit`; a compact certificate
+(`cert_format=compact`, the committee-wide default) contributes its
+half-aggregated proof to the group lane (`submit_groups`: one A2 launch per
+chunk of groups). The two halves of a batch are in flight together.
 """
 
 from __future__ import annotations
@@ -66,75 +68,97 @@ class FusedCertificatePipeline:
     def feed(self, certs: Sequence[Certificate], committee=None) -> None:
         """Pack + launch one verify batch; resolves the oldest in-flight
         batch first when the pipeline is full, so at most `depth` batches
-        ride the card at once. Full-format certificates contribute their
-        per-vote signature items; a compact certificate raises
-        NotImplementedError (its aggregate group lane is the msm slice)."""
+        ride the card at once. Full-format certificates launch their
+        per-vote signature items; compact certificates ride the verifier's
+        aggregate group lane, both halves of one batch in flight together."""
         while len(self._inflight) >= self.depth:
             self._resolve_one()
         committee = committee or self.engine.committee
         span_key = self._span_key(certs)
         t_pack = now()
         items: list = []
-        # Input order preserved: (cert, lo, hi) spans index into the item
-        # verdicts; an empty span marks a signature-free (genesis) cert.
+        groups: list = []
+        # Input order preserved: ("item", cert, lo, hi) spans index into the
+        # item verdicts, ("group", cert, g) into the group verdicts; an
+        # empty item span or g of None marks a signature-free (genesis)
+        # certificate: valid.
         spans: list[tuple] = []
+        # Staging split (traced batches only): items_s is the full-format
+        # per-vote item staging, groups_s the compact-format group staging.
+        items_s = groups_s = 0.0
         for cert in certs:
+            t_cert = now() if span_key is not None else 0.0
             if cert.is_compact:
-                raise NotImplementedError(
-                    "compact certificates need the msm lane (the next slice); "
-                    "run the committee with cert_format=full"
-                )
-            cert_items = cert.verify_items(committee)
-            spans.append((cert, len(items), len(items) + len(cert_items)))
-            items.extend(cert_items)
+                group = cert.aggregate_group(committee)
+                if group is None:
+                    spans.append(("group", cert, None))
+                else:
+                    spans.append(("group", cert, len(groups)))
+                    groups.append(group)
+                if span_key is not None:
+                    groups_s += now() - t_cert
+            else:
+                cert_items = cert.verify_items(committee)
+                spans.append(("item", cert, len(items), len(items) + len(cert_items)))
+                items.extend(cert_items)
+                if span_key is not None:
+                    items_s += now() - t_cert
         t_dispatch = now()
         handle = self.verifier.submit(items)
+        ghandle = self.verifier.submit_groups(groups) if groups else None
         if span_key is not None:
             n = len(certs)
             self.tracer.span("device_pack", span_key, t_pack, t_dispatch, {"n": n})
+            # Sub-spans laid out back to back inside device_pack: widths are
+            # the measured per-branch staging time.
             self.tracer.span(
-                "pack_items", span_key, t_pack, t_dispatch, {"n_items": len(items)}
+                "pack_items", span_key, t_pack, t_pack + items_s, {"n_items": len(items)}
+            )
+            self.tracer.span(
+                "pack_groups", span_key, t_pack + items_s, t_pack + items_s + groups_s,
+                {"n_groups": len(groups)},
             )
             self.tracer.span("device_dispatch", span_key, t_dispatch, now(), {"n": n})
-        self._inflight.append((spans, handle, span_key))
+        self._inflight.append((spans, handle, ghandle, span_key))
 
     def _resolve_one(self) -> None:
-        spans, handle, span_key = self._inflight.popleft()
+        spans, handle, ghandle, span_key = self._inflight.popleft()
         t_collect = now()
         ok = self.verifier.collect(handle)
+        gok = self.verifier.collect_groups(ghandle) if ghandle is not None else []
         if span_key is not None:
-            # collect() blocks on the device->host verdict copies.
+            # collect() blocks on the device->host verdict copies; for the
+            # group lane this span also holds the host epilogue.
             self.tracer.span(
-                "device_mask_readback", span_key, t_collect, now(),
-                {"n": len(spans)},
+                "device_mask_readback", span_key, t_collect, now(), {"n": len(spans)},
             )
         t_epilogue = now()
         accepted: list[Certificate] = []
-        for cert, lo, hi in spans:
-            if all(ok[lo:hi]):
+        for span in spans:
+            if span[0] == "group":
+                _, cert, g = span
+                passed = True if g is None else gok[g]
+            else:
+                _, cert, lo, hi = span
+                passed = all(ok[lo:hi])
+            if passed:
                 accepted.append(cert)
             else:
                 self.rejected.append(cert)
         t_unpack = now()
         if accepted:
-            outs = self.engine.process_batch(
-                self.state, self.consensus_index, accepted
-            )
+            outs = self.engine.process_batch(self.state, self.consensus_index, accepted)
             self.consensus_index += len(outs)
             self.outputs.extend(outs)
         if span_key is not None:
             t_end = now()
             self.tracer.span(
-                "epilogue_unpack", span_key, t_epilogue, t_unpack,
-                {"n": len(spans)},
+                "epilogue_unpack", span_key, t_epilogue, t_unpack, {"n": len(spans)},
             )
             self.tracer.span(
-                "epilogue_commit", span_key, t_unpack, t_end,
-                {"n_accepted": len(accepted)},
+                "epilogue_commit", span_key, t_unpack, t_end, {"n_accepted": len(accepted)},
             )
-            self.tracer.span(
-                "host_epilogue", span_key, t_epilogue, t_end, {"n": len(spans)}
-            )
+            self.tracer.span("host_epilogue", span_key, t_epilogue, t_end, {"n": len(spans)})
 
     def drain(self) -> list[ConsensusOutput]:
         """Resolve every in-flight batch and return the full committed

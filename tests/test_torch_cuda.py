@@ -7,7 +7,9 @@ inputs), so it also runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-Exact everywhere: verdicts and masks are compared bit for bit.
+Exact everywhere: verdicts, masks and validity are compared bit for bit;
+msm_accumulate's window lanes as affine points (the kernel writes them
+canonical, the plain version loose; both are the same points).
 """
 
 import random
@@ -51,7 +53,7 @@ def test_verify_batch_kernel_matches_plain():
             bad[32 + rng.randrange(31)] ^= 1 << rng.randrange(8)
             sig = bytes(bad)
         items.append((kp.public, msg, sig))
-    v = GpuVerifier(device="cuda")
+    v = GpuVerifier(mode="item", device="cuda")
     idx, packed = v.pack(items)
     arrays = GpuVerifier.bucket_arrays(packed, 0, idx.size, 64 - idx.size)
     t = [torch.from_numpy(a).cuda() for a in arrays]
@@ -61,6 +63,44 @@ def test_verify_batch_kernel_matches_plain():
     plain = tk.verify_batch_plain(*t)
     assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
     assert v(items) == [i % 3 != 1 for i in range(40)]
+
+
+def test_verify_batch_kernel_matches_plain_full_bucket():
+    """A1 at the main path's 2048 bucket, bit-equal after the field layer
+    moved to csrc/ed25519_field.cuh."""
+    _need_card("verify_batch", "csrc/ed25519_verify.cu")
+    arrays, _checked, _m = chip_smoke.signature_bucket(7, 120, 2048)
+    t = [torch.from_numpy(a).cuda() for a in arrays]
+    got, plain = tk.verify_batch(*t), tk.verify_batch_plain(*t)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("bucket", [64, 2048])
+def test_msm_accumulate_kernel_matches_plain(bucket):
+    """A2 in the group-lane shape (compact proofs as doubled rows, zero
+    padding, the R slot all zero) and the item shape (real R and z digits, a
+    torsion row, an invalid encoding): validity bit-equal, every window lane
+    equal as an affine point, the epilogue verdict equal."""
+    _need_card("msm_accumulate", "csrc/ed25519_msm.cu")
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+    from narwhal_tpu_torch.gpu.verifier import msm_epilogue_check
+
+    f = CommitteeFixture(size=4 if bucket == 64 else 50)
+    group = chip_smoke.msm_group_bucket(f, bucket)
+    item = chip_smoke.msm_item_bucket(3, 40, bucket)
+    for arrays, sum_s, want_ok in ((group[0], group[1], True), (item[0], item[1], False)):
+        t = [torch.from_numpy(a).cuda() for a in arrays]
+        kernel_registry.reset_launch_counts()
+        va, vr, valid = tk.msm_accumulate(*t)
+        assert kernel_registry.launch_counts()["msm_accumulate"] == 1
+        pva, pvr, pvalid = tk.msm_accumulate_plain(*t)
+        assert torch.equal(valid, pvalid)
+        host = [x.cpu().numpy() for x in (va, vr, pva, pvr)]
+        assert chip_smoke._affine_lanes(host[0]) == chip_smoke._affine_lanes(host[2])
+        assert chip_smoke._affine_lanes(host[1]) == chip_smoke._affine_lanes(host[3])
+        assert msm_epilogue_check(host[0], host[1], sum_s) is want_ok
+        assert msm_epilogue_check(host[2], host[3], sum_s) is want_ok
+    assert set(np.flatnonzero(~valid.cpu().numpy()).tolist()) == item[2]
 
 
 @pytest.mark.parametrize("shift", [0, 1, 63, 64])

@@ -223,7 +223,7 @@ def _items(seed=2, n=15):
 
 
 def _packed_bucket(items, pad_to):
-    v = GpuVerifier(device="cpu")
+    v = GpuVerifier(mode="item", device="cpu")
     idx, packed = v.pack(items)
     m = idx.size
     return idx, GpuVerifier.bucket_arrays(packed, 0, m, pad_to - m)
@@ -258,10 +258,10 @@ def test_verifier_item_lane_malformed_and_odd_sizes():
         (b"\xff" * 32, b"x", sig),  # y >= p: non-canonical key
         (kp.public, b"x", sig),
     ]
-    v = GpuVerifier(max_bucket=16, device="cpu")
+    v = GpuVerifier(max_bucket=16, mode="item", device="cpu")
     assert v(items) == [False, False, False, False, False, True]
     # Odd sizes across two buckets of a small max_bucket.
-    v3 = GpuVerifier(max_bucket=4, device="cpu")
+    v3 = GpuVerifier(max_bucket=4, mode="item", device="cpu")
     odd = [(kp.public, bytes([j]), kp.sign(bytes([j]))) for j in range(5)]
     odd[3] = (odd[3][0], b"other", odd[3][2])
     assert v3(odd) == [True, True, True, False, True]

@@ -87,6 +87,7 @@ def test_registry_sources_define_the_wrapped_entry_points():
 
     symbols = {
         "verify_batch": "ed25519_verify_batch",
+        "msm_accumulate": "ed25519_msm_accumulate",
         "place_batch": "dag_window_place_batch",
         "roll_window": "dag_window_roll_window",
         "chain_commit": "dag_window_chain_commit",
@@ -100,6 +101,27 @@ def test_registry_sources_define_the_wrapped_entry_points():
         path, _, _line = replaces.partition(" ")[0].partition(":")
         assert (REPO / path).is_file()
     assert "arch=compute_90a,code=sm_90a" in kr.NVCC_FLAGS
+
+
+def test_a_changed_header_changes_every_build_target(tmp_path):
+    """The library name hashes the source and every csrc/*.cuh: editing a
+    shared header rebuilds each source that may include it."""
+    import shutil
+
+    from narwhal_tpu_torch.gpu import kernel_registry as kr
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kr.CSRC, csrc)
+    stems = sorted({stem for stem, _ in kr.KERNELS.values()})
+    assert "ed25519_msm" in stems and list(csrc.glob("*.cuh"))
+    before = {s: kr._target(s, csrc) for s in stems}
+    assert before == {s: kr._target(s) for s in stems}
+    header = csrc / "ed25519_field.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: kr._target(s, csrc) for s in stems}
+    assert all(after[s] != before[s] for s in stems)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(kr._target(s, csrc) != after[s] for s in stems)
 
 
 def test_launch_counts_are_plain_integers():

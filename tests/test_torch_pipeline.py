@@ -2,7 +2,9 @@
 -> chain_commit through `narwhal_tpu_torch.gpu.pipeline`, held against the
 JAX package's host `Bullshark` fed the same fully signed stream one
 certificate at a time (the stream is built by each package's own
-fixtures from the same seeds, so the two carry identical bytes)."""
+fixtures from the same seeds, so the two carry identical bytes). The
+full-format stream goes through the item lane, its compact form through the
+group lane (the msm kernel's plain version)."""
 
 import pytest
 
@@ -32,7 +34,7 @@ def streams():
 
 
 def _pipeline(f, depth=2):
-    verifier = GpuVerifier(max_bucket=32, fixed_bucket=True, device="cpu")
+    verifier = GpuVerifier(max_bucket=32, mode="item", fixed_bucket=True, device="cpu")
     state = ConsensusState(Certificate.genesis(f.committee))
     engine = GpuBullshark(f.committee, NodeStorage(None).consensus_store, 50, device="cpu")
     return FusedCertificatePipeline(verifier, engine, state, depth=depth), state
@@ -78,10 +80,89 @@ def test_pipeline_rejects_bad_signatures(streams):
         assert win.present[win._off(cert.round), f.committee.index_of(cert.origin)] == 1
 
 
-def test_pipeline_refuses_compact_certificates(streams):
+def _compact(cert):
+    """The compact (half-aggregated) form of a full certificate, built from
+    its own vote signatures with no committee, so no verdict is pre-seeded."""
+    if cert.is_genesis():
+        return cert
+    return Certificate.compact_from_votes(cert.header, cert.signers, cert.signatures)
+
+
+def _host_sequence(jf, jc):
+    host_state = JState(JCert.genesis(jf.committee))
+    host = Bullshark(jf.committee, JStorage(None).consensus_store, 50)
+    want, i = [], 0
+    for cert in jc:
+        outs = host.process_certificate(host_state, i, cert)
+        i += len(outs)
+        want.extend((o.certificate.digest, o.consensus_index) for o in outs)
+    return want
+
+
+def _group_pipeline(f):
+    verifier = GpuVerifier(max_bucket=64, mode="item", fixed_bucket=False, device="cpu")
+    state = ConsensusState(Certificate.genesis(f.committee))
+    engine = GpuBullshark(f.committee, NodeStorage(None).consensus_store, 50, device="cpu")
+    return FusedCertificatePipeline(verifier, engine, state), state
+
+
+def test_pipeline_compact_stream_matches_jax_host_bullshark(streams):
+    """Compact certificates go through the group lane; a compact
+    certificate's digest is its header's, so the commit sequence equals the
+    JAX host Bullshark's over the full-format stream."""
+    jf, f, jc, c = streams
+    want = _host_sequence(jf, jc)
+    assert want
+    pipe, _state = _group_pipeline(f)
+    compact = [_compact(x) for x in c]
+    assert all(x.is_compact for x in compact)
+    for lo in range(0, len(compact), 8):  # 8 groups x 4 signers x 2 rows = 64
+        pipe.feed(compact[lo:lo + 8])
+    out = pipe.drain()
+    assert not pipe.rejected
+    assert [(o.certificate.digest, o.consensus_index) for o in out] == want
+
+
+def test_pipeline_mixed_full_and_compact_batches(streams):
+    """One batch carries both wire forms (items and groups in flight
+    together); verdicts route back to the right certificates."""
+    jf, f, jc, c = streams
+    pipe, _state = _group_pipeline(f)
+    mixed = [_compact(x) if i % 2 else x for i, x in enumerate(c)]
+    bad_full = mixed[10]
+    assert not bad_full.is_compact
+    mixed[10] = Certificate(bad_full.header, bad_full.signers,
+                            bad_full.signatures[:-1] + (b"\x00" * 64,))
+    for lo in range(0, len(mixed), 6):
+        pipe.feed(mixed[lo:lo + 6])
+    out = pipe.drain()
+    assert pipe.rejected == [mixed[10]]
+    want = _host_sequence(jf, [x for i, x in enumerate(jc) if i != 10])
+    assert want
+    assert [(o.certificate.digest, o.consensus_index) for o in out] == want
+
+
+def test_pipeline_rejects_forged_aggregate(streams, monkeypatch):
+    """A compact certificate whose agg_s has one bit flipped is rejected,
+    exactly it; the others of its chunk are accepted after the solo
+    re-launch, and only the forged group is re-checked on the host."""
+    from narwhal_tpu_torch import types as types_mod
+
     _jf, f, _jc, c = streams
-    fake_compact = Certificate(c[0].header, c[0].signers, tuple(s[:32] for s in c[0].signatures),
-                               agg_s=b"\x01" * 32)
-    pipe, _state = _pipeline(f)
-    with pytest.raises(NotImplementedError):
-        pipe.feed([fake_compact])
+    compact = [_compact(x) for x in c[:8]]
+    victim = compact[5]
+    forged = Certificate(victim.header, victim.signers, victim.signatures,
+                         bytes([victim.agg_s[0] ^ 0x04]) + victim.agg_s[1:])
+    compact[5] = forged
+    host_calls = []
+    real_host = types_mod.host_verify_aggregate
+    monkeypatch.setattr(types_mod, "host_verify_aggregate",
+                        lambda *g: host_calls.append(g) or real_host(*g))
+    pipe, _state = _group_pipeline(f)
+    pipe.run([compact])
+    assert pipe.rejected == [forged]
+    assert len(host_calls) == 1
+    win = pipe.engine.win
+    assert win.present[win._off(forged.round), f.committee.index_of(forged.origin)] == 0
+    for cert in compact[:5] + compact[6:]:
+        assert win.present[win._off(cert.round), f.committee.index_of(cert.origin)] == 1
