@@ -441,11 +441,18 @@ def check_msm_accumulate(device, f, bucket: int, n_keys: int, plain_reps: int):
         ms = time_ms(lambda: ed25519.msm_accumulate(*t), device, reps=5)
         plain_ms = time_ms(lambda: ed25519.msm_accumulate_plain(*t), device, reps=1,
                            groups=plain_reps)
-        per = ed25519.msm_field_muls_per_signature(bucket)
-        ops = bucket * (per["mul"] * 100 + per["sq"] * 55)
+        # The work this launch's data needs: nonzero encodings decompress,
+        # rows with a nonzero digit in a slot build a table and add into
+        # that slot's lanes (zero rows and the group lane's R slot do not).
+        a_y, a_sign, r_y, r_sign, ak, z = arrays
+        points = int((a_y.any(1) | (a_sign != 0)).sum() + (r_y.any(1) | (r_sign != 0)).sum())
+        cnt = ed25519.msm_field_ops(points, int(ak.any(1).sum()), int(z.any(1).sum()), bucket)
+        ops = cnt["mul"] * 100 + cnt["sq"] * 55
         nbytes = bucket * (2 * 20 * 2 + 2 + 64 + 32 + 1) + 4 * 20 * 96 * 4
         b, by = bound_ms(nbytes, ops)
-        log(f"  msm_accumulate {shape} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        log(f"  msm_accumulate {shape} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b:.6f} ms ({by}: {points} points decompressed, {cnt['mul']:.0f} mul + "
+            f"{cnt['sq']} sq), {100 * b / ms:.2f} % of bound")
         if shape == "group":
             row = {"name": "msm_accumulate", "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b, "bound_by": by, "library_ms": None,
@@ -456,6 +463,7 @@ def check_msm_accumulate(device, f, bucket: int, n_keys: int, plain_reps: int):
         else:
             row["ms_item_shape"] = ms
             row["plain_ms_item_shape"] = plain_ms
+            row["bound_ms_item_shape"] = b
     row["max_abs_err"] = err
     return row
 

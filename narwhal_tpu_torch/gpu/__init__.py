@@ -50,8 +50,12 @@ class HostCopy:
         else:
             self._host = list(tensors)
 
-    def result(self) -> list:
-        """The tensors as numpy arrays (blocks until the copies land)."""
+    def wait(self) -> None:
+        """Block until the copies land."""
         if self._event is not None:
             self._event.synchronize()
+
+    def result(self) -> list:
+        """The tensors as numpy arrays (blocks until the copies land)."""
+        self.wait()
         return [h.numpy() for h in self._host]

@@ -649,18 +649,31 @@ def msm_accumulate(a_y, a_sign, r_y, r_sign, ak_digits, z_digits):
     return v_a, v_r, valid
 
 
-def msm_field_muls_per_signature(batch: int, chunk: int = MSM_CHUNK) -> dict:
-    """Field operations one row (one A and one R point) costs in the kernel
-    of `msm_accumulate`, counted in its radix as `field_muls_per_signature`
-    counts A1's: decompress (A and R) 255 sq + 20 mul each; the two cached
-    tables 127 mul each (14 chain adds of 8 + 15 cache muls); one 8-mul
-    cached add per window lane, 64 for the A scalar and 32 for the R
-    scalar; and the row's share of the chain tree, C - 1 nine-mul adds per
-    lane over 96 lanes. `mul` is fractional through that share."""
+def msm_field_ops(points: int, a_live: int, r_live: int, batch: int, chunk: int = MSM_CHUNK) -> dict:
+    """Field squarings and multiplications that the kernel of
+    `msm_accumulate` must do for one launch of `batch` rows, counted in its
+    radix as `field_muls_per_signature` counts A1's: 255 sq + 20 mul to
+    decompress each of `points` nonzero encodings; for each live point (a
+    nonzero digit in its slot: `a_live` A points, `r_live` R points) its
+    cached table, 127 mul (14 chain adds of 8 + 15 cache muls), and one
+    8-mul cached add per window lane of its slot (64 for A, 32 for R); and
+    for each lane of a slot with a live point, the chain tree's C - 1
+    nine-mul adds. Zero rows (padding, the group lane's all-zero R slot)
+    select the identity: the kernel runs them, the data does not need
+    them, so they are not counted."""
     c = min(chunk, batch)
-    sq = 2 * 255
-    mul = 2 * 20 + 2 * 127 + 8 * (MSM_WA + MSM_WR) + 9 * (c - 1) * (MSM_WA + MSM_WR) / batch
+    sq = 255 * points
+    mul = 20 * points + 127 * (a_live + r_live) + 8 * (MSM_WA * a_live + MSM_WR * r_live)
+    mul += 9 * (c - 1) * (MSM_WA * (a_live > 0) + MSM_WR * (r_live > 0))
     return {"sq": sq, "mul": mul}
+
+
+def msm_field_muls_per_signature(batch: int, chunk: int = MSM_CHUNK) -> dict:
+    """`msm_field_ops` per row of a launch whose every row carries a live A
+    and a live R point (the item lane's full bucket). `mul` is fractional
+    through the row's share of the chain tree."""
+    ops = msm_field_ops(2 * batch, batch, batch, batch, chunk)
+    return {"sq": ops["sq"] / batch, "mul": ops["mul"] / batch}
 
 
 # ---------------------------------------------------------------------------

@@ -75,48 +75,38 @@ class FusedCertificatePipeline:
             self._resolve_one()
         committee = committee or self.engine.committee
         span_key = self._span_key(certs)
-        t_pack = now()
-        items: list = []
-        groups: list = []
         # Input order preserved: ("item", cert, lo, hi) spans index into the
         # item verdicts, ("group", cert, g) into the group verdicts; an
         # empty item span or g of None marks a signature-free (genesis)
-        # certificate: valid.
-        spans: list[tuple] = []
-        # Staging split (traced batches only): items_s is the full-format
-        # per-vote item staging, groups_s the compact-format group staging.
-        items_s = groups_s = 0.0
-        for cert in certs:
-            t_cert = now() if span_key is not None else 0.0
+        # certificate: valid. Full-format certificates stage first, then
+        # compact ones, so each branch's staging is one interval of its own.
+        spans: list = [None] * len(certs)
+        items: list = []
+        groups: list = []
+        t_pack = now()
+        for i, cert in enumerate(certs):
+            if not cert.is_compact:
+                cert_items = cert.verify_items(committee)
+                spans[i] = ("item", cert, len(items), len(items) + len(cert_items))
+                items.extend(cert_items)
+        t_groups = now()
+        for i, cert in enumerate(certs):
             if cert.is_compact:
                 group = cert.aggregate_group(committee)
                 if group is None:
-                    spans.append(("group", cert, None))
+                    spans[i] = ("group", cert, None)
                 else:
-                    spans.append(("group", cert, len(groups)))
+                    spans[i] = ("group", cert, len(groups))
                     groups.append(group)
-                if span_key is not None:
-                    groups_s += now() - t_cert
-            else:
-                cert_items = cert.verify_items(committee)
-                spans.append(("item", cert, len(items), len(items) + len(cert_items)))
-                items.extend(cert_items)
-                if span_key is not None:
-                    items_s += now() - t_cert
         t_dispatch = now()
         handle = self.verifier.submit(items)
         ghandle = self.verifier.submit_groups(groups) if groups else None
         if span_key is not None:
             n = len(certs)
             self.tracer.span("device_pack", span_key, t_pack, t_dispatch, {"n": n})
-            # Sub-spans laid out back to back inside device_pack: widths are
-            # the measured per-branch staging time.
+            self.tracer.span("pack_items", span_key, t_pack, t_groups, {"n_items": len(items)})
             self.tracer.span(
-                "pack_items", span_key, t_pack, t_pack + items_s, {"n_items": len(items)}
-            )
-            self.tracer.span(
-                "pack_groups", span_key, t_pack + items_s, t_pack + items_s + groups_s,
-                {"n_groups": len(groups)},
+                "pack_groups", span_key, t_groups, t_dispatch, {"n_groups": len(groups)}
             )
             self.tracer.span("device_dispatch", span_key, t_dispatch, now(), {"n": n})
         self._inflight.append((spans, handle, ghandle, span_key))
@@ -124,14 +114,22 @@ class FusedCertificatePipeline:
     def _resolve_one(self) -> None:
         spans, handle, ghandle, span_key = self._inflight.popleft()
         t_collect = now()
+        self.verifier.wait(handle)
+        if ghandle is not None:
+            self.verifier.wait(ghandle)
+        t_landed = now()
         ok = self.verifier.collect(handle)
+        t_items = now()
         gok = self.verifier.collect_groups(ghandle) if ghandle is not None else []
         if span_key is not None:
-            # collect() blocks on the device->host verdict copies; for the
-            # group lane this span also holds the host epilogue.
-            self.tracer.span(
-                "device_mask_readback", span_key, t_collect, now(), {"n": len(spans)},
-            )
+            n = len(spans)
+            # The device->host copies of both lanes; then each lane's host
+            # epilogue: item verdicts (with the msm epilogue and a failed
+            # bucket's fallback in msm mode), and the group lane's msm
+            # epilogue, solo bisect and host re-checks.
+            self.tracer.span("device_mask_readback", span_key, t_collect, t_landed, {"n": n})
+            self.tracer.span("item_epilogue", span_key, t_landed, t_items, {"n": n})
+            self.tracer.span("group_epilogue", span_key, t_items, now(), {"n": n})
         t_epilogue = now()
         accepted: list[Certificate] = []
         for span in spans:

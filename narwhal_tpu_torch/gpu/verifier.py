@@ -52,6 +52,7 @@ import torch
 
 from ..crypto import BatchItem
 from . import HostCopy, ed25519, resolve_device
+from . import ed25519_ref as ref
 
 logger = logging.getLogger("narwhal.gpu.verifier")
 
@@ -60,7 +61,7 @@ _MAX_BUCKET = 8192
 _MODES = ("msm", "item")
 
 
-def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int, kernel=ed25519) -> bool:
+def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
     """Host half of the batch check: Horner-collapse the device's
     per-window point sums and test
     [8]([sum z_iS_i]B + sum_w 16^(63-w) (V_a[w] + V_r[w-32])) == identity.
@@ -77,12 +78,11 @@ def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int, kernel=ed25519) -> bool:
     probability 1/8 over z, and two honest verifiers of the same bytes
     could disagree). In msm mode every per-item verdict (small buckets,
     fallback) therefore uses the kernel's cofactored output too."""
-    ref = kernel.ref
     Wa = va_limbs.shape[2]
     off = Wa - vr_limbs.shape[2]
 
     def window_point(v, w):
-        return tuple(kernel.limbs_to_int(v[c, :, w]) % ref.P for c in range(4))
+        return tuple(ed25519.limbs_to_int(v[c, :, w]) % ref.P for c in range(4))
 
     acc = (0, 1, 1, 0)  # identity, extended coordinates
     for w in range(Wa):
@@ -129,7 +129,6 @@ class GpuVerifier:
             # no launch depends on a thread's current device.
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
-        self.kernel = ed25519
 
     def _precheck_py(self, items: Sequence[BatchItem]):
         """Canonicality checks + challenge scalars: returns (precheck[n]
@@ -140,8 +139,8 @@ class GpuVerifier:
         r_raw = np.zeros((n, 32), np.uint8)
         s_raw = np.zeros((n, 32), np.uint8)
         k_raw = np.zeros((n, 32), np.uint8)
-        L = self.kernel.ref.L
-        P = self.kernel.ref.P
+        L = ref.L
+        P = ref.P
         sha512 = hashlib.sha512
         top_mask = (1 << 255) - 1
         frombuf = np.frombuffer
@@ -171,8 +170,8 @@ class GpuVerifier:
         idx = np.flatnonzero(precheck)
         a_raw = np.ascontiguousarray(a_all[idx])
         r_raw = np.ascontiguousarray(r_all[idx])
-        a_y = self.kernel.bytes_to_limbs(a_raw).astype(np.int16)
-        r_y = self.kernel.bytes_to_limbs(r_raw).astype(np.int16)
+        a_y = ed25519.bytes_to_limbs(a_raw).astype(np.int16)
+        r_y = ed25519.bytes_to_limbs(r_raw).astype(np.int16)
         a_sign = (a_raw[:, 31] >> 7).astype(np.int8)
         r_sign = (r_raw[:, 31] >> 7).astype(np.int8)
         packed = (
@@ -225,7 +224,7 @@ class GpuVerifier:
     def _fold_py(self, k_rows: np.ndarray, s_rows: np.ndarray, rnd: bytes):
         """ak_i = z_i*k_i mod L and sum(z_i*s_i) mod L, z_i the 16-byte
         little-endian words of `rnd`."""
-        L = self.kernel.ref.L
+        L = ref.L
         m = k_rows.shape[0]
         from_bytes = int.from_bytes
         kb, sb = k_rows.tobytes(), s_rows.tobytes()
@@ -256,9 +255,9 @@ class GpuVerifier:
             ak_raw = np.concatenate([ak_raw, np.zeros((pad, 32), np.uint8)])
         z_raw = np.zeros((m + pad, 32), np.uint8)
         z_raw[:m, :16] = np.frombuffer(rnd, np.uint8).reshape(m, 16)
-        ak_digits = self.kernel.bytes_to_digits(ak_raw).astype(np.int8)
+        ak_digits = ed25519.bytes_to_digits(ak_raw).astype(np.int8)
         # z < 2^128: the MSB-first digit vector's low half carries it.
-        z_digits = self.kernel.bytes_to_digits(z_raw)[:, 32:].astype(np.int8)
+        z_digits = ed25519.bytes_to_digits(z_raw)[:, 32:].astype(np.int8)
 
         def zpad(arr):
             if pad == 0:
@@ -304,13 +303,24 @@ class GpuVerifier:
                     continue
                 copy, sum_s = out
                 va, vr, valid = copy.result()
-                if bool(valid.all()) and msm_epilogue_check(va, vr, sum_s, self.kernel):
+                if bool(valid.all()) and msm_epilogue_check(va, vr, sum_s):
                     results[lo:hi] = True
                 else:
                     fallback = self._dispatch_items(packed, lo, hi, pad)
                     results[lo:hi] = fallback.result()[1][: hi - lo]
             ok[idx] = results
         return ok.tolist()
+
+    @staticmethod
+    def wait(handle) -> None:
+        """Block until the device-to-host copies of a `submit` or
+        `submit_groups` handle have landed. `collect` / `collect_groups`
+        then spend host time only: verdict routing, the msm epilogue, and a
+        failed bucket's re-launches."""
+        for out in handle[2]:
+            copy = out[-1][0] if isinstance(out[-1], tuple) else out[-1]
+            if copy is not None:
+                copy.wait()
 
     def __call__(self, items: Sequence[BatchItem]) -> list[bool]:
         return self.collect(self.submit(items))
@@ -356,7 +366,7 @@ class GpuVerifier:
         """One A2 launch over the doubled rows of `chunk`'s groups. Returns
         (HostCopy, sum_s) like _dispatch_msm, or None when an item fails
         the canonicality prechecks (the chunk then fails at collect)."""
-        L = self.kernel.ref.L
+        L = ref.L
         sum_s = 0
         flat_items = []
         for _, items, _zs, _s_agg, _w in chunk:
@@ -395,11 +405,11 @@ class GpuVerifier:
         if pad:
             a_rows = np.concatenate([a_rows, np.zeros((pad, 32), np.uint8)])
             ak_rows = np.concatenate([ak_rows, np.zeros((pad, 32), np.uint8)])
-        a_y = self.kernel.bytes_to_limbs(a_rows).astype(np.int16)
+        a_y = ed25519.bytes_to_limbs(a_rows).astype(np.int16)
         a_sign = (a_rows[:, 31] >> 7).astype(np.int8)
         arrays = [
             a_y, a_sign, np.zeros_like(a_y), np.zeros_like(a_sign),
-            self.kernel.bytes_to_digits(ak_rows).astype(np.int8),
+            ed25519.bytes_to_digits(ak_rows).astype(np.int8),
             np.zeros((bucket, 32), np.int8),
         ]
         return (self._launch_msm(arrays), sum_s)
@@ -411,7 +421,7 @@ class GpuVerifier:
             return False
         copy, sum_s = dispatched
         va, vr, valid = copy.result()
-        return bool(valid.all()) and msm_epilogue_check(va, vr, sum_s, self.kernel)
+        return bool(valid.all()) and msm_epilogue_check(va, vr, sum_s)
 
     def collect_groups(self, handle) -> list[bool]:
         """Resolve a `submit_groups` handle. A failed combined check
@@ -508,7 +518,7 @@ class VerifyService:
         atexit.register(self.shutdown)
 
     @classmethod
-    def shared(cls, mode: str, shards: int = 1, device=None, **kw) -> "VerifyService":
+    def shared(cls, mode: str, shards: int = 1, device=None) -> "VerifyService":
         """The process-wide instance for an accept-set mode ('item'/'msm').
         Raises if the device verifier cannot be built. The verifier runs
         fixed-bucket (every flush pads to 2048 rows), with the msm lane from
@@ -526,7 +536,6 @@ class VerifyService:
                     device=device,
                 ),
                 max_batch=2048,
-                **kw,
             )
             cls._shared[key] = svc
         return svc
@@ -666,11 +675,6 @@ class VerifyService:
             # The caller's loop closed before the card answered; nobody is
             # waiting anymore.
             pass
-
-    async def close(self) -> None:
-        """Per-node shutdown is a no-op for the process-wide instance: other
-        callers keep using it; its threads idle without traffic."""
-        return None
 
     def shutdown(self) -> None:
         """Really stop the threads (tests; process teardown)."""

@@ -2,8 +2,11 @@
 package, on the CPU.
 
 - `msm_accumulate_plain` against a Python-bigint sum of digit * (-P) per
-  window lane (affine points), and, under `-m slow`, raw-limb equal to the
-  jitted JAX `msm_accumulate_kernel` (minutes of XLA compile);
+  window lane (affine points); its steps after the decompress (the cached
+  table, `_select_lanes`, `_accumulate_windows`) raw-limb equal to the JAX
+  ones run op by op under `jax.disable_jit()`; and, under `-m slow`, the
+  whole of it raw-limb equal to the jitted JAX `msm_accumulate_kernel`
+  (minutes of XLA compile);
 - the port's `msm_epilogue_check` against the JAX one (pure Python) on the
   same V;
 - packing parity: the port's `GpuVerifier` and the JAX `TpuVerifier` hand
@@ -128,6 +131,58 @@ def test_msm_accumulate_plain_matches_bigint_lanes():
     assert all(_affine(wa.numpy(), w) == _affine(va.numpy(), w) for w in range(64))
 
 
+@pytest.fixture(scope="module")
+def msm_tables():
+    """The cached tables of _msm_rows(7)'s 2B points (A then R; the zero
+    rows included) from the port's plain decompress, and the int32 digits."""
+    arrays, _, _ = _msm_rows(7)
+    t = [torch.from_numpy(a) for a in arrays]
+    ys = torch.cat([t[0].T, t[2].T], dim=1).to(torch.int32).contiguous()
+    signs = torch.cat([t[1], t[3]]).to(torch.int32)
+    points, valid = tk.decompress(ys, signs)
+    assert bool(valid.all())
+    neg = tk.pt_neg(points)
+    return neg, tk._pt_cached_table(neg, 2 * B), t[4].to(torch.int32), t[5].to(torch.int32)
+
+
+def test_cached_table_matches_jax_eager(msm_tables):
+    """The 16-entry cached table of every point, raw limbs equal to the JAX
+    `_pt_cached_table` run op by op (no XLA compile of the whole kernel)."""
+    import jax
+    import jax.numpy as jnp
+
+    neg, table, _, _ = msm_tables
+    with jax.disable_jit():
+        jtable = jk._pt_cached_table(tuple(jnp.asarray(x.numpy()) for x in neg), 2 * B)
+    for j, p in zip(jtable, table):
+        assert np.array_equal(np.asarray(j), p.numpy())
+
+
+@pytest.mark.parametrize("slot", ["a", "r"])
+def test_window_accumulate_matches_jax_eager(msm_tables, slot):
+    """`_select_lanes` and `_accumulate_windows`, the steps of the plain A2
+    after the table, raw limbs equal to the JAX ones run op by op on the
+    same table and digits (B = 16, chunk 8: two chunks, three tree rounds);
+    the A slot has 64 window lanes, the R slot 32."""
+    import jax
+    import jax.numpy as jnp
+
+    _, table, ak, z = msm_tables
+    table_slot = tuple(x[..., :B] if slot == "a" else x[..., B:] for x in table)
+    digits = ak if slot == "a" else z
+    jtable = tuple(jnp.asarray(x.numpy()) for x in table_slot)
+    jdigits = jnp.asarray(digits.numpy())
+    with jax.disable_jit():
+        jsel = [jk._select_lanes(jt[:, :, :CHUNK], jdigits[:CHUNK]) for jt in jtable]
+        jv = jk._accumulate_windows(jtable, jdigits, CHUNK)
+    for j, x in zip(jsel, table_slot):
+        assert np.array_equal(np.asarray(j), tk._select_lanes(x[:, :, :CHUNK], digits[:CHUNK]).numpy())
+    v = tk._accumulate_windows(table_slot, digits, CHUNK)
+    assert tuple(v[0].shape) == (tk.NLIMB, digits.shape[1])
+    for j, x in zip(jv, v):
+        assert np.array_equal(np.asarray(j), x.numpy())
+
+
 def test_msm_accumulate_flags_invalid_encodings():
     arrays, _, _ = _msm_rows(2)
     rng = random.Random(6)
@@ -169,6 +224,12 @@ def test_msm_field_mul_count():
     assert per["mul"] == 2 * 20 + 2 * 127 + 8 * 96 + 9 * 127 * 96 / 2048
     products = 2048 * (per["mul"] * 100 + per["sq"] * 55)
     assert 1.3e5 * 2048 < products < 1.5e5 * 2048
+    full = tk.msm_field_ops(2 * 2048, 2048, 2048, 2048)
+    assert full == {"sq": per["sq"] * 2048, "mul": per["mul"] * 2048}
+    # The group lane at 2048 rows: 2000 live A points; its zero R slot and
+    # 48 zero rows are not counted.
+    group = tk.msm_field_ops(2000, 2000, 0, 2048)
+    assert group == {"sq": 255 * 2000, "mul": 2000 * (20 + 127 + 8 * 64) + 9 * 127 * 64}
 
 
 def _urandom_stream(seed):

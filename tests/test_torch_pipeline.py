@@ -166,3 +166,74 @@ def test_pipeline_rejects_forged_aggregate(streams, monkeypatch):
     assert win.present[win._off(forged.round), f.committee.index_of(forged.origin)] == 0
     for cert in compact[:5] + compact[6:]:
         assert win.present[win._off(cert.round), f.committee.index_of(cert.origin)] == 1
+
+
+class _SpanLog:
+    """The tracer interface the pipeline calls, keeping every span."""
+
+    enabled = True
+
+    def __init__(self):
+        self.spans: list[tuple] = []
+
+    def sampled(self, key) -> bool:
+        return True
+
+    def span(self, name, key, t0, t1, attrs=None) -> None:
+        self.spans.append((name, key, t0, t1))
+
+
+def test_pipeline_spans_time_each_stage(streams, monkeypatch):
+    """Each batch's staging splits device_pack into two real intervals, and
+    device_mask_readback covers the copies alone: the group lane's msm
+    epilogue and host re-checks fall inside group_epilogue."""
+    from narwhal_tpu_torch import clock
+    from narwhal_tpu_torch import types as types_mod
+    from narwhal_tpu_torch.gpu import verifier as verifier_mod
+
+    _jf, f, _jc, c = streams
+    mixed = [_compact(x) if i % 2 else x for i, x in enumerate(c)]
+    victim = mixed[9]
+    assert victim.is_compact
+    mixed[9] = Certificate(victim.header, victim.signers, victim.signatures,
+                           bytes([victim.agg_s[0] ^ 0x04]) + victim.agg_s[1:])
+    calls = []
+
+    def timed(module, name):
+        real = getattr(module, name)
+
+        def wrapper(*args):
+            t0 = clock.now()
+            try:
+                return real(*args)
+            finally:
+                calls.append((name, t0, clock.now()))
+
+        monkeypatch.setattr(module, name, wrapper)
+
+    timed(verifier_mod, "msm_epilogue_check")
+    timed(types_mod, "host_verify_aggregate")
+    pipe, _state = _group_pipeline(f)
+    log = _SpanLog()
+    pipe.tracer = log
+    for lo in range(0, len(mixed), 6):
+        pipe.feed(mixed[lo:lo + 6])
+    pipe.drain()
+    assert pipe.rejected == [mixed[9]]
+    by_name: dict = {}
+    for name, key, t0, t1 in log.spans:
+        by_name.setdefault(name, {})[key] = (t0, t1)
+    batches = by_name["device_pack"]
+    assert len(batches) == -(-len(mixed) // 6)
+    for key, (p0, p1) in batches.items():
+        i0, i1 = by_name["pack_items"][key]
+        g0, g1 = by_name["pack_groups"][key]
+        assert p0 == i0 <= i1 == g0 <= g1 == p1
+        r0, r1 = by_name["device_mask_readback"][key]
+        e0, e1 = by_name["item_epilogue"][key]
+        q0, q1 = by_name["group_epilogue"][key]
+        assert r0 <= r1 == e0 <= e1 == q0 <= q1
+    assert {n for n, *_ in calls} == {"msm_epilogue_check", "host_verify_aggregate"}
+    for _name, t0, t1 in calls:
+        assert any(q0 <= t0 <= t1 <= q1 for q0, q1 in by_name["group_epilogue"].values())
+        assert not any(r0 < t1 and t0 < r1 for r0, r1 in by_name["device_mask_readback"].values())
