@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's certificate path on one NVIDIA card.
+"""Drive the PyTorch port's certificate and DAG paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -14,14 +14,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             provably bites; msm_accumulate in the group-lane shape, 20
             compact proofs of 50 signers as 2000 doubled rows plus 48 zero
             rows, and in the item shape with real R and z digits, a torsion
-            row and an invalid encoding), with kernel / plain / library
+            row and an invalid encoding; reach_many at K = 64 with padding
+            slots, W = 64 and 128), with kernel / plain / library
             times from CUDA events (median of repeats). Verdicts, masks and
             validity bit-equal; msm_accumulate's window lanes equal as
             affine points (canonical x and y), and its epilogue verdicts;
   engine    GpuBullshark.process_batch_async on the card over a lossy
             unsigned N = 50 DAG of 200 rounds, built so the window both
             slides and grows and chains of up to 4 leaders commit at once;
-            the commit sequence must equal the same engine's on the CPU;
+            the commit sequence must equal the same engine's on the CPU
+            and the port's host Bullshark's;
   pipeline  FusedCertificatePipeline (strict item lane) on the card,
             continuing the engine phase's engine, over a fully signed
             N = 50 stream of the next 12 rounds (600 certificates x 50
@@ -44,7 +46,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             of valid vote signatures (the msm check alone: no verify_batch
             launch) and one with a forged and a torsion item (verify_batch
             fallback, cofactored: forged rejected, torsion accepted).
-Launch counts are set to 0 just before each of the four paths and read just
+  tusk      GpuTusk.process_batch_async on the card over another lossy
+            N = 50 DAG of 200 rounds built like the engine phase's: the
+            sequence must equal the port's host Tusk's and the CPU engine's;
+  dag_service
+            the external-consensus Dag service: 200 rounds of N = 50
+            certificates, about half with an empty payload, fed through
+            Dag.spawn() on a Channel into Dag(backend="cuda",
+            policy="device") and a host Dag(backend="cpu"), with the
+            certificates below the GC horizon removed every 10 rounds (not
+            in rounds 70..109, so the window grows once); at rounds 70
+            (W = 64) and 200 (W = 128) bursts of K in (1, 8, 64) concurrent
+            read_causal and node_read_causal calls over starts spread
+            across the live window (and one read at round 150, so the
+            grown window slides on the card): every answer equals the host
+            service's, reach_many launches once per fused dispatch; then
+            the same stream and
+            reads through an adaptive Dag(backend="cuda"), whose answers
+            must equal the host's too and whose routing_stats() give the
+            router's verdict.
+Launch counts are set to 0 just before each of the six paths and read just
 after it, and each path must have launched the kernels it names
 (PATH_KERNELS). Then one JSON line with every kernel's numbers (launches
 summed over the paths and per path), and as the last line
@@ -89,6 +110,8 @@ PATH_KERNELS = {
     "pipeline": ("verify_batch", "place_batch", "roll_window", "chain_commit"),
     "compact": ("msm_accumulate", "place_batch", "roll_window", "chain_commit"),
     "service": ("verify_batch", "msm_accumulate"),
+    "tusk": ("place_batch", "roll_window", "chain_commit"),
+    "dag_service": ("reach_many", "place_batch", "roll_window"),
 }
 
 
@@ -677,6 +700,67 @@ def check_chain_commit(device, n: int, w: int, gc_depth: int = GC_DEPTH):
     return out
 
 
+def reach_many_inputs(rng: np.random.Generator, w: int, n: int, k_slots: int, live: int):
+    """Inputs of one coalesced read dispatch, as numpy arrays: a sparse
+    random window (two parent links a certificate on average, 4 % at
+    N = 50, so walks branch and die out instead of saturating),
+    `uncommitted` (the service passes `present`) at 90 %, and
+    `live` distinct random starts over rows 0..w-1 (one at the top row),
+    each present and linking at least one parent, then `k_slots - live`
+    padding slots (offset 0, zero one-hot)."""
+    parent = (rng.random((w, n, n)) < 2.0 / n).astype(np.uint8)
+    present = (rng.random((w, n)) < 0.9).astype(np.uint8)
+    offs = np.zeros(k_slots, np.int32)
+    onehots = np.zeros((k_slots, n), np.uint8)
+    cells = rng.choice(w * n, live, replace=False)
+    offs[:live], cols = cells // n, cells % n
+    offs[0] = w - 1
+    onehots[np.arange(live), cols] = 1
+    present[offs[:live], cols] = 1  # a read starts at a certificate
+    parent[offs[:live], cols, rng.integers(0, n, live)] = 1
+    return parent, present, offs, onehots
+
+
+def reach_many_bytes(w: int, n: int, offs) -> int:
+    """B6's least traffic: parent rows 1..max(offs) and uncommitted rows
+    0..max(offs) read once, offs and the one-hots read, the K masks
+    written."""
+    k = len(offs)
+    top = int(np.max(offs))
+    return top * n * n + (top + 1) * n + 4 * k + k * n + k * w * n
+
+
+def check_reach_many(device, n: int, w: int):
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    rng = np.random.default_rng(14)
+    out, err = None, 0
+    for ww, K, live in ((w, 64, 56), (2 * w, 64, 61), (w, 1, 1)):
+        host = reach_many_inputs(rng, ww, n, K, live)
+        t = [torch.from_numpy(a).to(device) for a in host]
+        km = dk.reach_many(*t)
+        pm = dk.reach_many_plain(*t)
+        err = max(err, int((km.int() - pm.int()).abs().max()))
+        if not torch.equal(km, pm):
+            raise AssertionError(f"reach_many W={ww} K={K}: kernel != plain")
+        hits = pm.flatten(1).sum(1)
+        if int(hits[live:].sum()) != 0 or int((hits[:live] > 1).sum()) < live // 2:
+            raise AssertionError(f"reach_many W={ww} K={K}: walks {hits.tolist()}")
+        log(f"reach_many W={ww} N={n} K={K} ({live} starts, {K - live} padding): "
+            f"kernel == plain, {int(hits.sum())} certificates reached, padding rows empty")
+        if (ww, K) != (w, 64):
+            continue
+        ms = time_ms(lambda: dk.reach_many(*t), device, reps=50)
+        plain_ms = time_ms(lambda: dk.reach_many_plain(*t), device, reps=1, groups=3)
+        b, by = bound_ms(reach_many_bytes(ww, n, host[2]))
+        out = {"name": "reach_many", "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b, "bound_by": by, "library_ms": None,
+               "shape": f"W={ww} N={n} K={K} ({live} starts, top row {int(host[2].max())})"}
+    out["max_abs_err"] = err
+    return out
+
+
 def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=3):
     n = f.committee.size()
     rows = [
@@ -685,6 +769,7 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_place_batch(device, n, w),
         check_roll_window(device, n, w),
         check_chain_commit(device, n, w),
+        check_reach_many(device, n, w),
     ]
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -737,6 +822,24 @@ def lossy_dag(committee, rounds: int, seed: int, gap: range, weak: set, failure=
     return certs
 
 
+def host_sequence(engine_cls, f, certs, gc=GC_DEPTH):
+    """(digest, consensus_index) of every commit of the port's host engine
+    (`consensus.Bullshark` or `consensus.Tusk`, the pure-Python commit
+    rules) over `certs`, one certificate at a time."""
+    from narwhal_tpu_torch.consensus import ConsensusState
+    from narwhal_tpu_torch.stores import NodeStorage
+    from narwhal_tpu_torch.types import Certificate
+
+    state = ConsensusState(Certificate.genesis(f.committee))
+    eng = engine_cls(f.committee, NodeStorage(None).consensus_store, gc)
+    seq, i = [], 0
+    for c in certs:
+        outs = eng.process_certificate(state, i, c)
+        i += len(outs)
+        seq.extend((o.certificate.digest, o.consensus_index) for o in outs)
+    return seq
+
+
 def feed_rounds(eng, state, certs, n: int, idx: int = 0):
     """Feed `certs` to `eng` one round (n certificates) per
     process_batch_async call, as the consensus runner does. Returns the
@@ -755,33 +858,32 @@ def feed_rounds(eng, state, certs, n: int, idx: int = 0):
     return out, max_w
 
 
-def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
-    """The engine entry point on its own. Returns what the pipeline phase
-    continues from: the unsigned stream, the card engine and its state, and
-    the CPU engine and its state after the same stream."""
+def engine_stream(f, rounds: int, seed: int):
+    """The engine paths' lossy DAG: a gap of 22 rounds from 2/5 of the run
+    with no elected leader (the window grows) and three weak leaders near
+    13/20 of it (a chain of 3+ leaders commits at once)."""
+    gap = range(rounds * 2 // 5, rounds * 2 // 5 + 22)
+    weak = {r - (r % 2) for r in (rounds * 13 // 20 + d for d in (0, 2, 4))}
+    return lossy_dag(f.committee, rounds, seed, gap, weak)
+
+
+def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_state):
+    """Drive `engine_cls` (GpuBullshark or GpuTusk) on `device` over
+    `certs`, one round per process_batch_async call, with the launch counts
+    set to 0 just before and read just after. Its commit sequence must
+    equal the CPU engine's (`ref_out`, `ref_state`) and the host engine's
+    (`host_cls`); the window must grow and slide, and a chain of 3+ leaders
+    commit in one event. Returns the engine, its state and outputs, the
+    launch counts and the certificates per second."""
     import torch
     from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.gpu import kernel_registry
-    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
     from narwhal_tpu_torch.stores import NodeStorage
     from narwhal_tpu_torch.types import Certificate
 
     n = f.committee.size()
-    gap = range(rounds * 2 // 5, rounds * 2 // 5 + 22)
-    weak = {rounds * 13 // 20 + d for d in (0, 2, 4)}
-    weak = {r - (r % 2) for r in weak}
-    certs = lossy_dag(f.committee, rounds, 3, gap, weak)
-
-    ref_state = ConsensusState(Certificate.genesis(f.committee))
-    ref_eng = GpuBullshark(f.committee, NodeStorage(None).consensus_store, gc, device="cpu")
-    ref_out, ri = [], 0
-    for c in certs:
-        outs = ref_eng.process_certificate(ref_state, ri, c)
-        ri += len(outs)
-        ref_out.extend(outs)
-
     state = ConsensusState(Certificate.genesis(f.committee))
-    eng = GpuBullshark(f.committee, NodeStorage(None).consensus_store, gc, device=device)
+    eng = engine_cls(f.committee, NodeStorage(None).consensus_store, gc, device=device)
     w0 = eng.win.W
     chains: list[int] = []  # the chain length K of every commit event
     dispatch = eng._dispatch_commit
@@ -804,27 +906,313 @@ def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
     launches = kernel_registry.launch_counts()
     del eng._dispatch_commit
 
-    if [o.certificate.digest for o in out] != [o.certificate.digest for o in ref_out]:
-        raise AssertionError("engine: commit sequence differs from the CPU engine")
-    if [o.consensus_index for o in out] != [o.consensus_index for o in ref_out]:
-        raise AssertionError("engine: consensus indexes differ from the CPU engine")
+    seq = [(o.certificate.digest, o.consensus_index) for o in out]
+    if seq != [(o.certificate.digest, o.consensus_index) for o in ref_out]:
+        raise AssertionError(f"{path}: commit sequence differs from the CPU engine")
+    if seq != host_sequence(host_cls, f, certs, gc):
+        raise AssertionError(f"{path}: commit sequence differs from the host {host_cls.__name__}")
     if state.last_committed != ref_state.last_committed:
-        raise AssertionError("engine: last_committed differs from the CPU engine")
-    if max_w <= w0:
-        raise AssertionError(f"engine: the window never grew (max W {max_w})")
-    if eng.win.round_base == 0:
-        raise AssertionError("engine: the window never slid")
+        raise AssertionError(f"{path}: last_committed differs from the CPU engine")
+    if max_w <= w0 or eng.win.round_base == 0:
+        raise AssertionError(f"{path}: the window must grow and slide (W {max_w}, "
+                             f"base {eng.win.round_base})")
     if max(chains) < 3:
-        raise AssertionError(f"engine: no chain of 3+ leaders (max K {max(chains)})")
-    require_launches("engine", launches, device)
-    log(f"engine: N={n}, {rounds} rounds, {len(certs)} certificates, {len(out)} "
-        f"committed (== CPU engine), window grew to W={max_w} and slid to base "
-        f"{eng.win.round_base}; {len(chains)} commit events, chain lengths "
-        f"{sorted(set(chains))}; {wall:.3f} s host wall, {len(certs) / wall:.1f} "
+        raise AssertionError(f"{path}: no chain of 3+ leaders (max K {max(chains)})")
+    require_launches(path, launches, device)
+    log(f"{path}: N={n}, {certs[-1].round} rounds, {len(certs)} certificates, {len(out)} "
+        f"committed (== CPU engine == host {host_cls.__name__}), window grew to W={max_w} "
+        f"and slid to base {eng.win.round_base}; {len(chains)} commit events, chain "
+        f"lengths {sorted(set(chains))}; {wall:.3f} s host wall, {len(certs) / wall:.1f} "
         f"certificates/s; launches {launches}")
+    return eng, state, out, launches, len(certs) / wall
+
+
+def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
+    """The engine entry point on its own. Returns what the pipeline phase
+    continues from: the unsigned stream, the card engine and its state, and
+    the CPU engine and its state after the same stream."""
+    from narwhal_tpu_torch.consensus import Bullshark, ConsensusState
+    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
+    from narwhal_tpu_torch.stores import NodeStorage
+    from narwhal_tpu_torch.types import Certificate
+
+    certs = engine_stream(f, rounds, 3)
+    ref_state = ConsensusState(Certificate.genesis(f.committee))
+    ref_eng = GpuBullshark(f.committee, NodeStorage(None).consensus_store, gc, device="cpu")
+    ref_out, ri = [], 0
+    for c in certs:
+        outs = ref_eng.process_certificate(ref_state, ri, c)
+        ri += len(outs)
+        ref_out.extend(outs)
+    eng, state, out, launches, rate = engine_path(
+        "engine", device, f, GpuBullshark, Bullshark, certs, gc, ref_out, ref_state)
     return {"certs": certs, "eng": eng, "state": state, "index": len(out),
             "ref_eng": ref_eng, "ref_state": ref_state, "launches": launches,
-            "certificates_per_s": len(certs) / wall}
+            "certificates_per_s": rate}
+
+
+# ---------------------------------------------------------------------------
+# Phase: GpuTusk on an unsigned lossy DAG
+# ---------------------------------------------------------------------------
+
+
+def phase_tusk(device, f, rounds=200, gc=GC_DEPTH):
+    """GpuTusk.process_batch_async on the card over a lossy DAG built like
+    the engine phase's (another seed), held to the CPU engine, fed the same
+    way, and to the port's host Tusk."""
+    from narwhal_tpu_torch.consensus import ConsensusState, Tusk
+    from narwhal_tpu_torch.gpu.dag_kernels import GpuTusk
+    from narwhal_tpu_torch.types import Certificate
+
+    certs = engine_stream(f, rounds, 4)
+    ref_state = ConsensusState(Certificate.genesis(f.committee))
+    ref_out, _ = feed_rounds(GpuTusk(f.committee, None, gc, device="cpu"), ref_state, certs,
+                             f.committee.size())
+    _eng, _state, _out, launches, rate = engine_path(
+        "tusk", device, f, GpuTusk, Tusk, certs, gc, ref_out, ref_state)
+    return {"launches": launches, "certificates_per_s": rate}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the external-consensus Dag service with device causal reads
+# ---------------------------------------------------------------------------
+
+
+def service_stream(committee, rounds: int, seed: int):
+    """The Dag service's feed: N certificates a round, each linking a random
+    70 % (at least a quorum) of the round below; about half carry an empty
+    payload, so the DAG compresses them away as interiors."""
+    from narwhal_tpu_torch.fixtures import mock_certificate
+    from narwhal_tpu_torch.types import Certificate
+
+    rng = random.Random(seed)
+    keys = committee.authority_keys()
+    prev = [c.digest for c in Certificate.genesis(committee)]
+    quorum = 2 * len(keys) // 3 + 1
+    certs = []
+    for r in range(1, rounds + 1):
+        cur = []
+        for pk in keys:
+            kept = [d for d in prev if rng.random() >= 0.3]
+            if len(kept) < quorum:
+                kept = rng.sample(prev, quorum)
+            payload = {rng.randbytes(32): 0} if rng.random() < 0.5 else {}
+            cur.append(mock_certificate(committee, pk, r, set(kept), payload=payload))
+        prev = [c.digest for c in cur]
+        certs.extend(cur)
+    return certs
+
+
+class DispatchLog:
+    """Records the size of every fused device dispatch of a Dag service."""
+
+    def __init__(self, svc):
+        self.sizes: list[int] = []
+        real = svc._device_causal_many
+
+        def logged(starts):
+            self.sizes.append(len(starts))
+            return real(starts)
+
+        svc._device_causal_many = logged
+
+
+async def drive_dag_services(makers, f, certs, removals, checkpoints, horizon, pick_starts):
+    """Feed each service (`makers`: name -> callable(channel) -> Dag) the
+    stream through its own Channel and `Dag.spawn()`, one round at a time;
+    after each round in `removals`, remove every certificate below the GC
+    horizon (`horizon` rounds under the tip; genesis with the first batch)
+    as the primary's block remover does; at each round in `checkpoints`
+    (round -> the Ks read there), run a burst of K concurrent `read_causal`
+    and `node_read_causal` calls (alternating) for each K on every service,
+    over the starts `await pick_starts(round, K, removed_below)` gives. The
+    K = 1 burst comes first, so it also carries the window's sync of the
+    inserts since the last read. Returns the
+    services, the bursts (each with every service's answers and wall) and
+    the largest window W seen."""
+    from narwhal_tpu_torch.channels import Channel
+    from narwhal_tpu_torch.types import Certificate
+
+    n = f.committee.size()
+    rounds = len(certs) // n
+    chans = {name: Channel(capacity=2 * n) for name in makers}
+    svcs = {name: make(chans[name]) for name, make in makers.items()}
+    tasks = [svc.spawn() for svc in svcs.values()]
+    pending_gc = [c.digest for c in Certificate.genesis(f.committee)]
+    removed_below, max_w, bursts = 0, 0, []
+    try:
+        for r in range(1, rounds + 1):
+            batch = certs[(r - 1) * n:r * n]
+            for ch in chans.values():
+                await ch.send_many(batch)
+            for svc in svcs.values():
+                while not await svc.has_ever_contained(batch[-1].digest):
+                    await asyncio.sleep(0)
+                if svc._win is not None:
+                    max_w = max(max_w, svc._win.W)
+            if r in removals:
+                gone = pending_gc + [c.digest for c in certs[removed_below * n:(r - horizon) * n]]
+                pending_gc, removed_below = [], r - horizon
+                for svc in svcs.values():
+                    await svc.remove(gone)
+            if r not in checkpoints:
+                continue
+            for k in checkpoints[r]:
+                starts = await pick_starts(r, k, removed_below)
+                rec = {"round": r, "K": k, "starts": starts}
+                for name, svc in svcs.items():
+                    # read_causal and node_read_causal alternate within a
+                    # burst (and from one checkpoint to the next at K = 1).
+                    calls = [svc.read_causal(c.digest) if (i + r // 10) % 2 == 0
+                             else svc.node_read_causal(c.origin, c.round)
+                             for i, c in enumerate(starts)]
+                    t0 = time.perf_counter()
+                    answers = await asyncio.gather(*calls)
+                    rec[name] = (answers, time.perf_counter() - t0)
+                bursts.append(rec)
+    finally:
+        for svc in svcs.values():
+            await svc.shutdown()
+    if any(not task.done() for task in tasks):
+        raise AssertionError("dag_service: a feed task outlived shutdown")
+    return svcs, bursts, max_w
+
+
+def phase_dag_service(device, f, rounds=200, horizon=GC_DEPTH, every=10, stretch=(70, 110),
+                      checkpoints=None, b6_reps=20):
+    """The external-consensus Dag service on the card: a device service
+    (policy "device") and a host truth fed the same stream, with GC removals
+    (none in `stretch`, so the window grows once) and bursts of K in
+    (1, 8, 64) concurrent reads at the checkpoints. Every answer must equal
+    the host's; B6 must launch once per fused dispatch. Then the same stream
+    and reads through an adaptive service, whose answers must equal the
+    host's too, for its routing verdict."""
+    import torch
+    from narwhal_tpu_torch.consensus import Dag
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    n = f.committee.size()
+    if checkpoints is None:
+        checkpoints = {70: (1, 8, 64), 150: (1,), rounds: (1, 8, 64)}
+    t_build = time.perf_counter()
+    certs = service_stream(f.committee, rounds, 21)
+    log(f"dag_service: built {len(certs)} certificates of {rounds} rounds in "
+        f"{time.perf_counter() - t_build:.1f} s (setup, untimed)")
+    removals = {r for r in range(every, rounds + 1, every)
+                if r > horizon and not stretch[0] <= r < stretch[1]}
+    rng = random.Random(22)
+    chosen: dict[tuple[int, int], list] = {}
+    logs: dict[str, DispatchLog] = {}
+
+    def make_dev(policy):
+        def make(ch):
+            svc = Dag(f.committee, rx_primary=ch, backend="cuda", policy=policy, device=device)
+            logs[policy] = DispatchLog(svc)
+            return svc
+        return make
+
+    host_ref = {}
+
+    def make_host(ch):
+        host_ref["svc"] = Dag(f.committee, rx_primary=ch)
+        return host_ref["svc"]
+
+    async def pick_live(r, k, removed_below):
+        """k distinct live certificates spread over the live window."""
+        host = host_ref["svc"]
+        live = [c for c in certs[removed_below * n:r * n] if await host.contains(c.digest)]
+        chosen[(r, k)] = rng.sample(live, k)
+        return chosen[(r, k)]
+
+    async def replay(r, k, _removed_below):
+        return chosen[(r, k)]
+
+    captured: dict[int, tuple] = {}
+    real_reach_many = dk.reach_many
+
+    def capturing(*args):
+        captured[args[2].shape[0]] = tuple(a.clone() for a in args)
+        return real_reach_many(*args)
+
+    kernel_registry.reset_launch_counts()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dk.reach_many = capturing
+    try:
+        t0 = time.perf_counter()
+        svcs, bursts, max_w = asyncio.run(drive_dag_services(
+            {"device": make_dev("device"), "host": make_host}, f, certs, removals,
+            checkpoints, horizon, pick_live))
+        wall = time.perf_counter() - t0
+        ada_svcs, ada_bursts, _ = asyncio.run(drive_dag_services(
+            {"adaptive": make_dev("adaptive")}, f, certs, removals, checkpoints, horizon,
+            replay))
+    finally:
+        dk.reach_many = real_reach_many
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernel_registry.launch_counts()
+
+    dev, ada = svcs["device"], ada_svcs["adaptive"]
+    n_req = 0
+    for rec, ada_rec in zip(bursts, ada_bursts):
+        want = rec["host"][0]
+        for name, got in (("device", rec["device"][0]), ("adaptive", ada_rec["adaptive"][0])):
+            if got != want:
+                raise AssertionError(f"dag_service {name}: a K={rec['K']} burst at round "
+                                     f"{rec['round']} differs from the host service")
+        if any(a[0] != c.digest for a, c in zip(want, rec["starts"])):
+            raise AssertionError("dag_service: an answer does not start at its start")
+        n_req += rec["K"]
+    stats, ada_stats = dev.routing_stats(), ada.routing_stats()
+    n_dispatch = len(logs["device"].sizes) + len(logs["adaptive"].sizes)
+    if stats["dev_calls"] != sum(logs["device"].sizes) or stats["dev_calls"] != n_req:
+        raise AssertionError(f"dag_service: {stats['dev_calls']} device calls, "
+                             f"{sum(logs['device'].sizes)} served on the device, {n_req} reads")
+    if ada_stats["dev_calls"] != sum(logs["adaptive"].sizes):
+        raise AssertionError("dag_service adaptive: dev_calls != requests served on the device")
+    if device.type == "cuda" and launches["reach_many"] != n_dispatch:
+        raise AssertionError(f"dag_service: {launches['reach_many']} reach_many launches, "
+                             f"{n_dispatch} fused dispatches")
+    if max_w <= 64 or dev._win.round_base == 0:
+        raise AssertionError(f"dag_service: the window must grow and slide (W {max_w}, "
+                             f"base {dev._win.round_base})")
+    require_launches("dag_service", launches, device)
+    log(f"dag_service: N={n}, {rounds} rounds, {len(certs)} certificates through "
+        f"Dag.spawn() on a Channel, GC every {every} rounds {horizon} under the tip (none in "
+        f"rounds {stretch[0]}..{stretch[1] - 1}); window grew to W={max_w}, base "
+        f"{dev._win.round_base} at the end; {n_req} reads at rounds {sorted(checkpoints)}, "
+        f"every answer == host service; device service: {len(logs['device'].sizes)} fused "
+        f"dispatches of sizes {sorted(set(logs['device'].sizes))}; {wall:.3f} s wall "
+        f"(feed + reads, both services); launches {launches}")
+    per_k = {}
+    for k in (1, 8, 64):
+        recs = [x for x in bursts if x["K"] == k]
+        dev_s = sum(x["device"][1] for x in recs)
+        host_s = sum(x["host"][1] for x in recs)
+        ada_s = sum(x["adaptive"][1] for x in ada_bursts if x["K"] == k)
+        b6 = b6_bound = None
+        if k in captured:
+            args = captured[k]
+            b6 = time_ms(lambda: real_reach_many(*args), device, reps=b6_reps)
+            b6_bound, _ = bound_ms(reach_many_bytes(args[1].shape[0], n, args[2].cpu().numpy()))
+        per_k[k] = {"bursts": len(recs), "device_burst_ms": 1e3 * dev_s / len(recs),
+                    "host_burst_ms": 1e3 * host_s / len(recs),
+                    "adaptive_burst_ms": 1e3 * ada_s / len(recs),
+                    "device_per_request_ms": 1e3 * dev_s / (len(recs) * k),
+                    "host_per_request_ms": 1e3 * host_s / (len(recs) * k),
+                    "reach_many_ms": b6, "reach_many_bound_ms": b6_bound}
+        log(f"  K={k:2d}: burst wall device {per_k[k]['device_burst_ms']:.3f} ms, host "
+            f"{per_k[k]['host_burst_ms']:.3f} ms, adaptive {per_k[k]['adaptive_burst_ms']:.3f}"
+            f" ms; per request device {per_k[k]['device_per_request_ms']:.4f} ms, host "
+            f"{per_k[k]['host_per_request_ms']:.4f} ms (mean of {len(recs)} bursts); "
+            f"reach_many {b6 if b6 is None else f'{b6:.4f}'} ms on the last K={k} "
+            f"dispatch's inputs")
+    log(f"  device service routing_stats {stats}")
+    log(f"  adaptive service routing_stats {ada_stats}")
+    return {"launches": launches, "per_k": per_k, "routing_adaptive": ada_stats,
+            "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -1240,11 +1628,16 @@ def main(argv=None) -> int:
     pctx = phase_pipeline(device, f, ctx)
     cctx = phase_compact(device, f, ctx, pctx)
     sctx = phase_service(device, f, pctx, cctx)
+    tctx = phase_tusk(device, f)
+    dctx = phase_dag_service(device, f)
     by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
-               "compact": cctx["launches"], "service": sctx["launches"]}
+               "compact": cctx["launches"], "service": sctx["launches"],
+               "tusk": tctx["launches"], "dag_service": dctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
-             "service": sctx["rates"]}
+             "service": sctx["rates"], "tusk_certificates_per_s": tctx["certificates_per_s"],
+             "dag_service": {"per_k": dctx["per_k"], "wall_s": dctx["wall_s"],
+                             "adaptive_routing": dctx["routing_adaptive"]}}
 
     rows = []
     build_walls = kernel_registry.build_walls()

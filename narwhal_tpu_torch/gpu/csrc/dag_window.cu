@@ -1,9 +1,10 @@
-// The device DAG window and the Bullshark commit walk, for Hopper (sm_90a).
+// The device DAG window, the commit walk and the batched causal reads, for
+// Hopper (sm_90a).
 //
 // Tensors (the JAX package's layout, narwhal_tpu/tpu/dag_kernels.py):
 //   parent  [W, N, N] uint8   parent[w, a, p] = cert (w, a) links (w-1, p)
 //   present [W, N]    uint8   a certificate exists at (round offset w, authority)
-// Three kernels, each with a plain PyTorch version in ../dag_kernels.py:
+// Four kernels, each with a plain PyTorch version in ../dag_kernels.py:
 //
 // place_batch  replaces narwhal_tpu/tpu/dag_kernels.py:95 `place_batch` (B3).
 //   Scatter T padded placements: for each slot t with valid[t] != 0,
@@ -47,6 +48,23 @@
 //   well under a microsecond of HBM time. The kernel is latency-bound by its
 //   sequential row steps (two block barriers each), which is why it is one
 //   CTA and not many.
+//
+// reach_many   replaces narwhal_tpu/consensus/dag.py:262 `_reach_k` (B6), the
+//   jitted vmap of reach_mask over K read starts that serves the Dag
+//   service's coalesced read_causal: masks[k] = reach_mask(parent,
+//   uncommitted, offs[k], onehots[k]) for k < K. One CTA per walk (K CTAs,
+//   the walks are independent), thread p owns authority column p (N <= 1024),
+//   and each row step is the same `reach_step` device function as
+//   chain_commit's, with the same two barriers per row; the frontier sits
+//   in shared memory. `uncommitted` is what the caller passes (the service
+//   passes `present`): no lc or gc filter. A padding slot (zero one-hot)
+//   reaches nothing and writes an all-zero mask. W is an argument, so the
+//   window may grow (64, 128, 256, ...) without a rebuild. Bound: bytes,
+//   as for chain_commit: parent rows 1..max(offs) and uncommitted rows
+//   0..max(offs) read once, offs and the one-hots read, and the K masks
+//   written (K * W * N bytes). It inherits chain_commit's latency: W serial
+//   row steps with a dependent-load loop each, and the walk goes on below
+//   an empty frontier.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -158,6 +176,33 @@ __global__ void chain_commit_kernel(const uint8_t* __restrict__ parent,
   }
 }
 
+__global__ void reach_many_kernel(const uint8_t* __restrict__ parent,
+                                  const uint8_t* __restrict__ uncommitted,
+                                  const int32_t* __restrict__ offs,
+                                  const uint8_t* __restrict__ onehots,
+                                  bool* __restrict__ masks, int W, int N) {
+  extern __shared__ uint8_t frontier[];  // [N]
+  const int k = blockIdx.x;
+  const int p = threadIdx.x;
+  const bool live = p < N;
+  const int start_off = offs[k];
+  const bool start_bit = live && onehots[(size_t)k * N + p] != 0;
+  bool* out = masks + (size_t)k * W * N;
+  if (live) frontier[p] = 0;
+  __syncthreads();
+  for (int w = W - 1; w >= 0; w--) {
+    bool here = false;
+    if (live) {
+      here = reach_step(parent, frontier, w, W, N, p, start_off, start_bit);
+      here = here && uncommitted[(size_t)w * N + p] != 0;
+      out[(size_t)w * N + p] = here;
+    }
+    __syncthreads();  // every column has read the row above
+    if (live) frontier[p] = here;
+    __syncthreads();  // the row is complete before the next step reads it
+  }
+}
+
 }  // namespace
 
 extern "C" int dag_window_place_batch(void* parent, void* present, const void* offs,
@@ -192,6 +237,16 @@ extern "C" int dag_window_chain_commit(const void* parent, const void* present,
       (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)lc_rel,
       (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks, W, N, K, gc_depth,
       lcr_rel);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dag_window_reach_many(const void* parent, const void* uncommitted,
+                                     const void* offs, const void* onehots, void* masks,
+                                     int W, int N, int K, void* stream) {
+  const int threads = ((N + 31) / 32) * 32;
+  reach_many_kernel<<<K, threads, (size_t)N, (cudaStream_t)stream>>>(
+      (const uint8_t*)parent, (const uint8_t*)uncommitted, (const int32_t*)offs,
+      (const uint8_t*)onehots, (bool*)masks, W, N);
   return (int)cudaGetLastError();
 }
 

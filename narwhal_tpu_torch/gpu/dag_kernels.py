@@ -1,10 +1,14 @@
-"""The consensus commit walk as adjacency tensors, on the card.
+"""The consensus commit walk and the causal reads as adjacency tensors, on
+the card.
 
 Port of `narwhal_tpu/tpu/dag_kernels.py` (the JAX package's counterpart):
 the kernels `reach_mask` (B1), `roll_window` (B4), `place_batch` (B3) and
-`chain_commit` (B2), the device-resident `DagWindow`, and `GpuBullshark`,
-the counterpart of `TpuBullshark`. `leader_support` (B5), `TpuTusk` and the
-mesh-sharded dispatch are later slices (ROADMAP).
+`chain_commit` (B2), the device-resident `DagWindow`, `GpuBullshark` and
+`GpuTusk`, the counterparts of `TpuBullshark` and `TpuTusk`; and
+`reach_many` (B6), the batched reach walk of the Dag service's coalesced
+causal reads (`narwhal_tpu/consensus/dag.py` `_reach_k`).
+`leader_support` (B5) and the mesh-sharded dispatch are later slices
+(ROADMAP).
 
 The window is dense tensors, exactly the JAX layout:
   present[W, N]    uint8 - certificate exists at (round offset, authority)
@@ -14,9 +18,9 @@ The window is dense tensors, exactly the JAX layout:
 Each kernel has a plain PyTorch version (`*_plain`) in this module and a
 hand-written CUDA kernel in `csrc/dag_window.cu`; the public function runs
 the plain version on CPU tensors and launches the kernel on CUDA tensors
-(or raises). `reach_mask` runs on the card only as the device function
-inside `chain_commit`; its standalone batched launch (`_reach_k`, B6) is a
-later slice, so the public `reach_mask` here is the plain version.
+(or raises). `reach_mask` runs on the card as the device function
+`reach_step` inside `chain_commit` and `reach_many`, so the public
+`reach_mask` here is the plain version.
 
 The JAX engine's background prewarm threads are not ported: they existed to
 compile each new window shape ahead of need, and the CUDA kernels here take
@@ -68,6 +72,18 @@ def reach_mask(parent, uncommitted, start_off: int, start_onehot):
         rows[w] = here
         frontier = here
     return rows
+
+
+def reach_many_plain(parent, uncommitted, offs, onehots):
+    """K reach walks [K, W, N] bool: `reach_mask(parent, uncommitted,
+    offs[k], onehots[k])` stacked over k (the JAX `_reach_k`, a vmap of
+    reach_mask over the starts). A zero one-hot reaches nothing."""
+    W, N, _ = parent.shape
+    masks = [reach_mask(parent, uncommitted, off, onehot)
+             for off, onehot in zip(offs.tolist(), onehots)]
+    if not masks:
+        return torch.zeros((0, W, N), dtype=torch.bool, device=parent.device)
+    return torch.stack(masks, dim=0)
 
 
 def roll_window_plain(parent, present, shift: int):
@@ -223,6 +239,35 @@ def chain_commit(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs, one
     )
     kernel_registry.check("dag_window", "chain_commit", rc)
     kernel_registry.count_launch("chain_commit")
+    return masks
+
+
+def reach_many(parent, uncommitted, offs, onehots):
+    """`reach_many_plain` on CPU tensors; on CUDA tensors the
+    `dag_window.cu` kernel, one CTA per walk (reach_mask's row step is the
+    same device function as in `chain_commit`)."""
+    if not _on_cuda("reach_many", parent):
+        return reach_many_plain(parent, uncommitted, offs, onehots)
+    W, N = uncommitted.shape
+    K = offs.shape[0]
+    dev = parent.device
+    if N > _MAX_N:
+        raise ValueError(f"reach_many: committee axis {N} > {_MAX_N}")
+    _check("parent", parent, torch.uint8, (W, N, N), dev)
+    _check("uncommitted", uncommitted, torch.uint8, (W, N), dev)
+    _check("offs", offs, torch.int32, (K,), dev)
+    _check("onehots", onehots, torch.uint8, (K, N), dev)
+    masks = torch.empty((K, W, N), dtype=torch.bool, device=dev)
+    if K == 0:
+        return masks
+    with torch.cuda.device(dev):
+        fn = kernel_registry.function("dag_window", "dag_window_reach_many", 5, 3)
+        rc = fn(
+            parent.data_ptr(), uncommitted.data_ptr(), offs.data_ptr(),
+            onehots.data_ptr(), masks.data_ptr(), W, N, K, _stream(dev),
+        )
+    kernel_registry.check("dag_window", "reach_many", rc)
+    kernel_registry.count_launch("reach_many")
     return masks
 
 
@@ -468,6 +513,22 @@ class GpuBullshark:
         eng.win = win
         return eng
 
+    def recover(self, state: ConsensusState) -> None:
+        """Rebuild the window from a recovered host state (the consensus
+        runner's ConsensusState.new_from_store) so a restarted node resumes
+        committing from the on-disk DAG. Insertion is round-ascending
+        because parent links resolve against already-placed digests."""
+        keep_floor = max(0, state.last_committed_round - self.gc_depth)
+        for round in sorted(state.dag):
+            for _, cert in state.dag[round].values():
+                self.win.insert(cert, keep_floor)
+
+    def update_committee(self, new_committee: Committee) -> None:
+        """A new committee (epoch change): a fresh, empty window of the same
+        W for it."""
+        self.committee = new_committee
+        self.win = DagWindow(new_committee, self.win.W, device=self.device)
+
     # -- leader election --------------------------------------------------
     def _leader_index(self, round: Round, dag) -> int | None:
         if self._leader_fn is not None:
@@ -672,3 +733,17 @@ class GpuBullshark:
                         state.last_committed, consensus_index - 1, cert.digest
                     )
         return sequence
+
+
+class GpuTusk(GpuBullshark):
+    """Tusk with the DAG walks on the card: identical machinery to
+    GpuBullshark, the asynchronous commit rule (tusk.rs:47-82): a round-r
+    certificate (r-1 even, r-1 >= 4) makes the leader at round r-3 a commit
+    candidate, supported by its children at round r-2 carrying >= f+1
+    stake. Drop-in for consensus.Tusk; the counterpart of `TpuTusk`."""
+
+    def _commit_coords(self, round: Round) -> tuple[Round, Round] | None:
+        r = round - 1
+        if r % 2 != 0 or r < 4:
+            return None
+        return r - 2, r - 1

@@ -49,6 +49,7 @@ KERNELS: dict[str, tuple[str, str]] = {
     "place_batch": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:95 place_batch"),
     "roll_window": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:79 roll_window"),
     "chain_commit": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit"),
+    "reach_many": ("dag_window", "narwhal_tpu/consensus/dag.py:262 _reach_k"),
 }
 
 _LOCK = threading.Lock()

@@ -12,6 +12,7 @@ msm_accumulate's window lanes as affine points (the kernel writes them
 canonical, the plain version loose; both are the same points).
 """
 
+import asyncio
 import random
 
 import numpy as np
@@ -144,6 +145,48 @@ def test_chain_commit_kernel_matches_plain(K):
     a = td.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
     b = td.chain_commit_plain(t[0], t[1], 50, t[2], lcr, t[3], t[4])
     assert torch.equal(a, b) and torch.equal(a.cpu(), want) and bool(a.any())
+
+
+@pytest.mark.parametrize("w,K,live", [(64, 1, 1), (64, 64, 56), (128, 1, 1), (128, 64, 61)])
+def test_reach_many_kernel_matches_plain(w, K, live):
+    """B6 at the Dag service's shapes (N = 50, the default W = 64 and the
+    grown W = 128): K distinct starts, the rest padding slots, bit-equal
+    to the plain version, padding rows empty."""
+    _need_card("reach_many", "csrc/dag_window.cu")
+    host = chip_smoke.reach_many_inputs(np.random.default_rng(w + K), w, 50, K, live)
+    t = [torch.from_numpy(a).cuda() for a in host]
+    kernel_registry.reset_launch_counts()
+    a = td.reach_many(*t)
+    assert kernel_registry.launch_counts()["reach_many"] == 1
+    b = td.reach_many_plain(*t)
+    assert torch.equal(a, b) and bool(a[:live].any()) and not bool(a[live:].any())
+
+
+def test_dag_service_on_card_matches_host():
+    """Dag(backend="cuda") on the card answers coalesced reads as the host
+    Dag does, through one reach_many launch per burst."""
+    _need_card("reach_many", "csrc/dag_window.cu")
+    from narwhal_tpu_torch.consensus import Dag
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+
+    f = CommitteeFixture(size=7)
+    certs = chip_smoke.service_stream(f.committee, 30, 5)
+
+    async def scenario():
+        dev = Dag(f.committee, backend="cuda", window=16, policy="device")
+        host = Dag(f.committee)
+        for c in certs:
+            await dev.insert(c)
+            await host.insert(c)
+        starts = certs[-40::3]
+        kernel_registry.reset_launch_counts()
+        got = await asyncio.gather(*(dev.read_causal(c.digest) for c in starts))
+        assert kernel_registry.launch_counts()["reach_many"] == 1
+        for c, answer in zip(starts, got):
+            assert answer == await host.read_causal(c.digest) and answer[0] == c.digest
+        assert dev._win.W > 16  # no removals: the window grew
+
+    asyncio.run(asyncio.wait_for(scenario(), 120.0))
 
 
 def test_engine_on_card_matches_cpu():

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
-from narwhal_tpu.consensus import Bullshark, ConsensusState as JState
+from narwhal_tpu.consensus import Bullshark, Tusk, ConsensusState as JState
 from narwhal_tpu.fixtures import CommitteeFixture as JFixture
 from narwhal_tpu.fixtures import make_certificates as j_make_certificates
 from narwhal_tpu.stores import NodeStorage as JStorage
@@ -183,15 +183,23 @@ def _run(engine, state, certs, batch=None):
     return [(o.certificate.digest, o.consensus_index) for o in out]
 
 
+# (JAX host engine, JAX device engine, port engine) per commit rule
+ENGINES = {
+    "bullshark": (Bullshark, jd.TpuBullshark, td.GpuBullshark),
+    "tusk": (Tusk, jd.TpuTusk, td.GpuTusk),
+}
+
+
 def _run_against_jax(size, rounds, failure, seed, gc=GC, leader_fn=fixed_leader,
-                     window=None, with_tpu=False):
+                     window=None, with_tpu=False, rule="bullshark"):
+    host_cls, tpu_cls, gpu_cls = ENGINES[rule]
     jf, f, jc, c = _streams(size, rounds, failure, seed)
     host_state = JState(JCert.genesis(jf.committee))
-    host = Bullshark(jf.committee, JStorage(None).consensus_store, gc, leader_fn=leader_fn)
+    host = host_cls(jf.committee, JStorage(None).consensus_store, gc, leader_fn=leader_fn)
     want = _run(host, host_state, jc)
     state = ConsensusState(Certificate.genesis(f.committee))
-    eng = td.GpuBullshark(f.committee, NodeStorage(None).consensus_store, gc,
-                          leader_fn=leader_fn, window=window, device="cpu")
+    eng = gpu_cls(f.committee, NodeStorage(None).consensus_store, gc,
+                  leader_fn=leader_fn, window=window, device="cpu")
     got = _run(eng, state, c)
     assert got == want
     assert {k.hex(): v for k, v in state.last_committed.items()} == {
@@ -199,8 +207,8 @@ def _run_against_jax(size, rounds, failure, seed, gc=GC, leader_fn=fixed_leader,
     }
     if with_tpu:
         tpu_state = JState(JCert.genesis(jf.committee))
-        tpu = jd.TpuBullshark(jf.committee, None, gc, leader_fn=leader_fn, window=window,
-                              prewarm=False)
+        tpu = tpu_cls(jf.committee, None, gc, leader_fn=leader_fn, window=window,
+                      prewarm=False)
         assert _run(tpu, tpu_state, jc) == want
     return got, eng
 
@@ -227,6 +235,83 @@ def test_engine_window_slides():
     got, eng = _run_against_jax(size=4, rounds=60, failure=0.0, seed=0, gc=10, window=24)
     assert len(got) > 200
     assert eng.win.round_base > 0 and eng.win.W == 24
+
+
+@pytest.mark.parametrize(
+    "size,rounds,failure,seed,leader_fn",
+    [(4, 14, 0.0, 0, fixed_leader), (4, 25, 0.3, 0, fixed_leader),
+     (4, 25, 0.3, 1, fixed_leader), (7, 20, 0.15, 2, None)],
+    ids=["optimal", "lossy-0", "lossy-1", "weighted-leader"],
+)
+def test_tusk_engine_matches_jax_engines(size, rounds, failure, seed, leader_fn):
+    """GpuTusk(device="cpu") commits exactly as the JAX host Tusk and
+    TpuTusk: the leader two rounds below the wait round."""
+    got, _ = _run_against_jax(size, rounds, failure, seed, leader_fn=leader_fn,
+                              with_tpu=True, rule="tusk")
+    assert len(got) > 20
+
+
+@pytest.mark.parametrize("rule", ["bullshark", "tusk"])
+def test_recover_continues_like_the_jax_engine(rule):
+    """The JAX host engine and a port engine commit the first half of a
+    lossy stream. A fresh port engine rebuilt with `recover` from its
+    mid-stream ConsensusState holds the window that the JAX device engine's
+    `recover` builds from the JAX state, and continues with the JAX host
+    engine's sequence over the second half."""
+    host_cls, tpu_cls, gpu_cls = ENGINES[rule]
+    jf, f, jc, c = _streams(5, 50, 0.2, 9)
+    half = len(c) // 2
+    jstate = JState(JCert.genesis(jf.committee))
+    jhost = host_cls(jf.committee, JStorage(None).consensus_store, 10, leader_fn=fixed_leader)
+    first_j = _run(jhost, jstate, jc[:half])
+    state = ConsensusState(Certificate.genesis(f.committee))
+    first = _run(gpu_cls(f.committee, None, 10, leader_fn=fixed_leader, window=16,
+                         device="cpu"), state, c[:half])
+    assert first == first_j and first
+    jeng = tpu_cls(jf.committee, None, 10, leader_fn=fixed_leader, window=16, prewarm=False)
+    jeng.recover(jstate)
+    eng = gpu_cls(f.committee, None, 10, leader_fn=fixed_leader, window=16, device="cpu")
+    eng.recover(state)
+    assert eng.win.round_base == jeng.win.round_base > 0 and eng.win.W == jeng.win.W
+    assert np.array_equal(eng.win.present, jeng.win.present)
+    assert np.array_equal(eng.win.parent, jeng.win.parent)
+
+    def rest(engine, st, certs):
+        out, i = [], first[-1][1] + 1
+        for x in certs:
+            outs = engine.process_certificate(st, i, x)
+            i += len(outs)
+            out.extend((o.certificate.digest, o.consensus_index) for o in outs)
+        return out
+
+    want = rest(jhost, jstate, jc[half:])
+    assert rest(eng, state, c[half:]) == want and len(want) > 20
+
+
+def test_update_committee_gives_a_fresh_window():
+    """After an epoch change the engine holds an empty window of the same W
+    for the new committee (its genesis only), on the same device, and
+    commits the new committee's stream as the host engine does."""
+    f = CommitteeFixture(size=4)
+    _jf, _f, _jc, c = _streams(4, 20, 0.0, 0)
+    eng = td.GpuTusk(f.committee, None, GC, leader_fn=fixed_leader, window=24,
+                     device="cpu")
+    assert _run(eng, ConsensusState(Certificate.genesis(f.committee)), c)
+    new = CommitteeFixture(size=5).committee
+    eng.update_committee(new)
+    assert eng.committee is new and eng.win.committee is new
+    assert (eng.win.W, eng.win.N, eng.win.round_base) == (24, 5, 0)
+    assert int(eng.win.present.sum()) == 5 and int(eng.win.parent.sum()) == 0
+    assert eng.win.device.type == "cpu"
+    genesis = {x.digest for x in Certificate.genesis(new)}
+    certs, _ = make_certificates(new, 1, 16, genesis, failure_probability=0.2,
+                                 rng=random.Random(4))
+    host = ConsensusState(Certificate.genesis(new))
+    from narwhal_tpu_torch.consensus import Tusk as PortTusk
+
+    want = _run(PortTusk(new, NodeStorage(None).consensus_store, GC, leader_fn=fixed_leader),
+                host, certs)
+    assert _run(eng, ConsensusState(Certificate.genesis(new)), certs) == want and want
 
 
 def test_engine_window_grows_when_no_commits():

@@ -54,6 +54,8 @@ def test_port_package_imports_without_jax_loaded():
         "import sys\n"
         "import narwhal_tpu_torch.gpu.pipeline, narwhal_tpu_torch.gpu.verifier\n"
         "import narwhal_tpu_torch.gpu.dag_kernels, narwhal_tpu_torch.fixtures\n"
+        "import narwhal_tpu_torch.consensus, narwhal_tpu_torch.channels\n"
+        "import narwhal_tpu_torch.pacing, narwhal_tpu_torch.consensus.metrics\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
@@ -62,9 +64,10 @@ def test_port_package_imports_without_jax_loaded():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from narwhal_tpu_torch.consensus import Dag
     from narwhal_tpu_torch.fixtures import CommitteeFixture
     from narwhal_tpu_torch.gpu import resolve_device
-    from narwhal_tpu_torch.gpu.dag_kernels import DagWindow, GpuBullshark
+    from narwhal_tpu_torch.gpu.dag_kernels import DagWindow, GpuBullshark, GpuTusk
     from narwhal_tpu_torch.gpu.verifier import GpuVerifier
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,11 +78,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: GpuVerifier(),
         lambda: GpuBullshark(committee, None, 50),
         lambda: DagWindow(committee, 16),
+        lambda: GpuTusk(committee, None, 50),
+        lambda: Dag(committee, backend="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert resolve_device("cpu").type == "cpu"
     assert GpuBullshark(committee, None, 50, device="cpu").device.type == "cpu"
+    assert GpuTusk(committee, None, 50, device="cpu").device.type == "cpu"
+    assert Dag(committee, backend="cuda", device="cpu")._win.device.type == "cpu"
+    assert Dag(committee)._win is None  # the host backend needs no device
 
 
 def test_registry_sources_define_the_wrapped_entry_points():
@@ -91,6 +99,7 @@ def test_registry_sources_define_the_wrapped_entry_points():
         "place_batch": "dag_window_place_batch",
         "roll_window": "dag_window_roll_window",
         "chain_commit": "dag_window_chain_commit",
+        "reach_many": "dag_window_reach_many",
     }
     assert set(kr.KERNELS) == set(symbols)
     for name, (stem, replaces) in kr.KERNELS.items():
@@ -148,6 +157,8 @@ def test_cpu_tensors_never_launch():
     dk.chain_commit(parent, present, 50, torch.zeros(3, dtype=torch.int32), 0,
                     torch.tensor([2], dtype=torch.int32),
                     torch.tensor([[1, 0, 0]], dtype=torch.uint8))
+    dk.reach_many(parent, present, torch.tensor([2, 0], dtype=torch.int32),
+                  torch.tensor([[1, 0, 0], [0, 0, 0]], dtype=torch.uint8))
     assert set(kr.launch_counts().values()) == {0}
 
 
