@@ -1017,7 +1017,8 @@ class DispatchLog:
         svc._device_causal_many = logged
 
 
-async def drive_dag_services(makers, f, certs, removals, checkpoints, horizon, pick_starts):
+async def drive_dag_services(makers, f, certs, removals, checkpoints, horizon, pick_starts,
+                             after_burst=None):
     """Feed each service (`makers`: name -> callable(channel) -> Dag) the
     stream through its own Channel and `Dag.spawn()`, one round at a time;
     after each round in `removals`, remove every certificate below the GC
@@ -1027,7 +1028,8 @@ async def drive_dag_services(makers, f, certs, removals, checkpoints, horizon, p
     and `node_read_causal` calls (alternating) for each K on every service,
     over the starts `await pick_starts(round, K, removed_below)` gives. The
     K = 1 burst comes first, so it also carries the window's sync of the
-    inserts since the last read. Returns the
+    inserts since the last read. `after_burst()`, if given, runs after each
+    burst, outside its walls. Returns the
     services, the bursts (each with every service's answers and wall) and
     the largest window W seen."""
     from narwhal_tpu_torch.channels import Channel
@@ -1070,6 +1072,8 @@ async def drive_dag_services(makers, f, certs, removals, checkpoints, horizon, p
                     answers = await asyncio.gather(*calls)
                     rec[name] = (answers, time.perf_counter() - t0)
                 bursts.append(rec)
+                if after_burst is not None:
+                    after_burst()
     finally:
         for svc in svcs.values():
             await svc.shutdown()
@@ -1128,12 +1132,20 @@ def phase_dag_service(device, f, rounds=200, horizon=GC_DEPTH, every=10, stretch
     async def replay(r, k, _removed_below):
         return chosen[(r, k)]
 
+    # B6 is timed afterwards on the inputs of the last dispatch at each
+    # padded K. The wrapper keeps references only; they are copied after
+    # the burst, outside its walls (no insert or removal runs in a burst).
+    pending: dict[int, tuple] = {}
     captured: dict[int, tuple] = {}
     real_reach_many = dk.reach_many
 
     def capturing(*args):
-        captured[args[2].shape[0]] = tuple(a.clone() for a in args)
+        pending[args[2].shape[0]] = args
         return real_reach_many(*args)
+
+    def keep_last():
+        captured.update((k, tuple(a.clone() for a in args)) for k, args in pending.items())
+        pending.clear()
 
     kernel_registry.reset_launch_counts()
     if device.type == "cuda":
@@ -1143,11 +1155,11 @@ def phase_dag_service(device, f, rounds=200, horizon=GC_DEPTH, every=10, stretch
         t0 = time.perf_counter()
         svcs, bursts, max_w = asyncio.run(drive_dag_services(
             {"device": make_dev("device"), "host": make_host}, f, certs, removals,
-            checkpoints, horizon, pick_live))
+            checkpoints, horizon, pick_live, keep_last))
         wall = time.perf_counter() - t0
         ada_svcs, ada_bursts, _ = asyncio.run(drive_dag_services(
             {"adaptive": make_dev("adaptive")}, f, certs, removals, checkpoints, horizon,
-            replay))
+            replay, keep_last))
     finally:
         dk.reach_many = real_reach_many
     if device.type == "cuda":

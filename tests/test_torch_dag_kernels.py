@@ -158,14 +158,21 @@ def test_chain_commit_gc_filter_matches_jax(K, live):
 
 def _streams(size, rounds, failure, seed):
     jf, f = JFixture(size=size), CommitteeFixture(size=size)
-    jg = {c.digest for c in JCert.genesis(jf.committee)}
-    g = {c.digest for c in Certificate.genesis(f.committee)}
-    jc, _ = j_make_certificates(jf.committee, 1, rounds, jg,
+    jc, c = _committee_streams(jf.committee, f.committee, rounds, failure, seed)
+    return jf, f, jc, c
+
+
+def _committee_streams(jcommittee, committee, rounds, failure, seed):
+    """One certificate stream from genesis, built in both packages from one
+    seed for the same committee."""
+    jg = {c.digest for c in JCert.genesis(jcommittee)}
+    g = {c.digest for c in Certificate.genesis(committee)}
+    jc, _ = j_make_certificates(jcommittee, 1, rounds, jg,
                                 failure_probability=failure, rng=random.Random(seed))
-    c, _ = make_certificates(f.committee, 1, rounds, g,
+    c, _ = make_certificates(committee, 1, rounds, g,
                              failure_probability=failure, rng=random.Random(seed))
     assert [x.digest for x in jc] == [x.digest for x in c]  # one stream, two packages
-    return jf, f, jc, c
+    return jc, c
 
 
 def _run(engine, state, certs, batch=None):
@@ -289,29 +296,32 @@ def test_recover_continues_like_the_jax_engine(rule):
 
 
 def test_update_committee_gives_a_fresh_window():
-    """After an epoch change the engine holds an empty window of the same W
-    for the new committee (its genesis only), on the same device, and
-    commits the new committee's stream as the host engine does."""
-    f = CommitteeFixture(size=4)
-    _jf, _f, _jc, c = _streams(4, 20, 0.0, 0)
+    """After an epoch change the engine holds the window that the JAX
+    TpuTusk's `update_committee` builds (same W, the new committee's genesis
+    only) on the same device, and commits the new committee's stream as the
+    JAX host Tusk and the updated TpuTusk do."""
+    _jf, f, jc, c = _streams(4, 20, 0.0, 0)
+    jf = JFixture(size=4)
     eng = td.GpuTusk(f.committee, None, GC, leader_fn=fixed_leader, window=24,
                      device="cpu")
-    assert _run(eng, ConsensusState(Certificate.genesis(f.committee)), c)
-    new = CommitteeFixture(size=5).committee
+    jeng = jd.TpuTusk(jf.committee, None, GC, leader_fn=fixed_leader, window=24,
+                      prewarm=False)
+    first = _run(eng, ConsensusState(Certificate.genesis(f.committee)), c)
+    assert first == _run(jeng, JState(JCert.genesis(jf.committee)), jc) and first
+    jnew, new = JFixture(size=5).committee, CommitteeFixture(size=5).committee
     eng.update_committee(new)
+    jeng.update_committee(jnew)
     assert eng.committee is new and eng.win.committee is new
-    assert (eng.win.W, eng.win.N, eng.win.round_base) == (24, 5, 0)
-    assert int(eng.win.present.sum()) == 5 and int(eng.win.parent.sum()) == 0
-    assert eng.win.device.type == "cpu"
-    genesis = {x.digest for x in Certificate.genesis(new)}
-    certs, _ = make_certificates(new, 1, 16, genesis, failure_probability=0.2,
-                                 rng=random.Random(4))
-    host = ConsensusState(Certificate.genesis(new))
-    from narwhal_tpu_torch.consensus import Tusk as PortTusk
-
-    want = _run(PortTusk(new, NodeStorage(None).consensus_store, GC, leader_fn=fixed_leader),
-                host, certs)
-    assert _run(eng, ConsensusState(Certificate.genesis(new)), certs) == want and want
+    assert (eng.win.W, eng.win.N, eng.win.round_base) == (jeng.win.W, jeng.win.N,
+                                                           jeng.win.round_base) == (24, 5, 0)
+    assert np.array_equal(eng.win.present, jeng.win.present)
+    assert np.array_equal(eng.win.parent, jeng.win.parent)
+    assert int(eng.win.present.sum()) == 5 and eng.win.device.type == "cpu"
+    jcerts, certs = _committee_streams(jnew, new, 16, 0.2, 4)
+    jhost = Tusk(jnew, JStorage(None).consensus_store, GC, leader_fn=fixed_leader)
+    want = _run(jhost, JState(JCert.genesis(jnew)), jcerts)
+    assert _run(jeng, JState(JCert.genesis(jnew)), jcerts) == want and want
+    assert _run(eng, ConsensusState(Certificate.genesis(new)), certs) == want
 
 
 def test_engine_window_grows_when_no_commits():
