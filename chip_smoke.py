@@ -15,10 +15,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             compact proofs of 50 signers as 2000 doubled rows plus 48 zero
             rows, and in the item shape with real R and z digits, a torsion
             row and an invalid encoding; reach_many at K = 64 with padding
-            slots, W = 64 and 128), with kernel / plain / library
-            times from CUDA events (median of repeats). Verdicts, masks and
-            validity bit-equal; msm_accumulate's window lanes equal as
-            affine points (canonical x and y), and its epilogue verdicts;
+            slots, W = 64 and 128; the staged kernels of the sharded
+            verifier at B = 2048: verify_decompress on the item bucket's A
+            and R sets, verify_straus and verify_verdict on its output,
+            msm_window on the msm item and group buckets' A (64 lanes) and
+            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards), with
+            kernel / plain / library times from CUDA events (median of
+            repeats). Verdicts, masks and validity bit-equal;
+            verify_decompress's coordinates equal mod p; msm_accumulate's,
+            msm_window's and the reduce's window lanes and verify_straus's
+            accumulators equal as affine points (canonical x and y), and
+            the epilogue verdicts. The compositions against the monoliths:
+            decompress -> straus -> verdict bit-equal to verify_batch,
+            decompress -> msm_window (A, R) equal to msm_accumulate (lanes
+            as points, validity bit-equal), the reduced shards equal to its
+            V_a;
   engine    GpuBullshark.process_batch_async on the card over a lossy
             unsigned N = 50 DAG of 200 rounds, built so the window both
             slides and grows and chains of up to 4 leaders commit at once;
@@ -46,6 +57,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             of valid vote signatures (the msm check alone: no verify_batch
             launch) and one with a forged and a torsion item (verify_batch
             fallback, cofactored: forged rejected, torsion accepted).
+  sharded   VerifyService.shared("item" and "msm", shards=k) over every
+            card (k = the card count), or over the one card twice, on the
+            service phase's inputs: every verdict equal to the unsharded
+            services', through the staged kernels and the shard reduce
+            only (verify_batch and msm_accumulate launch 0 times);
   tusk      GpuTusk.process_batch_async on the card over another lossy
             N = 50 DAG of 200 rounds built like the engine phase's: the
             sequence must equal the port's host Tusk's and the CPU engine's;
@@ -65,8 +81,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             reads through an adaptive Dag(backend="cuda"), whose answers
             must equal the host's too and whose routing_stats() give the
             router's verdict.
-Launch counts are set to 0 just before each of the six paths and read just
-after it, and each path must have launched the kernels it names
+Launch counts are set to 0 just before each of the seven paths and read
+just after it, and each path must have launched the kernels it names
 (PATH_KERNELS). Then one JSON line with every kernel's numbers (launches
 summed over the paths and per path), and as the last line
 {"ok": true, "device": {...}}.
@@ -112,6 +128,8 @@ PATH_KERNELS = {
     "service": ("verify_batch", "msm_accumulate"),
     "tusk": ("place_batch", "roll_window", "chain_commit"),
     "dag_service": ("reach_many", "place_batch", "roll_window"),
+    "sharded": ("verify_decompress", "verify_straus", "verify_verdict", "msm_window",
+                "msm_shard_reduce"),
 }
 
 
@@ -484,11 +502,182 @@ def check_msm_accumulate(device, f, bucket: int, n_keys: int, plain_reps: int):
                             f"{f.committee.size()})",
                    "rows_per_s_kernel": bucket / ms * 1e3}
         else:
-            row["ms_item_shape"] = ms
-            row["plain_ms_item_shape"] = plain_ms
-            row["bound_ms_item_shape"] = b
+            row["extra"] = {"ms_item_shape": ms, "plain_ms_item_shape": plain_ms,
+                            "bound_ms_item_shape": b}
     row["max_abs_err"] = err
     return row
+
+
+def _mod_p(v: np.ndarray) -> list:
+    """Every coordinate of V [4, NLIMB, n] as its value mod p."""
+    from narwhal_tpu_torch.gpu import ed25519
+    from narwhal_tpu_torch.gpu import ed25519_ref as ref
+
+    return [[ed25519.limbs_to_int(v[c, :, j]) % ref.P for j in range(v.shape[2])]
+            for c in range(4)]
+
+
+def _same_points(kernel: str, got, want) -> int:
+    """Fail unless the points of two [4, NLIMB, n] tensors are equal as
+    affine points; the largest difference of their affine coordinates."""
+    a, b = _affine_lanes(got.cpu().numpy()), _affine_lanes(want.cpu().numpy())
+    bad = [j for j, (p, q) in enumerate(zip(a, b)) if p != q]
+    if bad:
+        raise AssertionError(f"{kernel}: points differ at lanes {bad[:10]}")
+    return max(max(abs(p[0] - q[0]), abs(p[1] - q[1])) for p, q in zip(a, b))
+
+
+def _same_bits(kernel: str, got, want) -> None:
+    import torch
+
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero().flatten()[:10].tolist()
+        raise AssertionError(f"{kernel}: differs at rows {bad}")
+
+
+def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
+    """A3-A6 and the shard reduce against their plain versions on the same
+    card tensors at B = `bucket`, and the compositions against the
+    monoliths: A3 -> A4 -> A5 against A1 on the item bucket of
+    `signature_bucket` (its forged, torsion, zero and random-limb rows), A3
+    -> A6 (A and R sets) against A2 on the msm item and group buckets (the
+    group lane's R set all zero), the reduce over k = 2 and 4 shards of the
+    item bucket's A set. Validity and verdicts bit-equal, A3's coordinates
+    equal mod p, every other point equal as an affine point."""
+    import torch
+    from narwhal_tpu_torch.gpu import ed25519
+
+    arrays, _checked, _m = signature_bucket(7, n_keys, bucket)
+    a_y, a_sign, r_y, r_sign, kd, sd = (torch.from_numpy(a).to(device) for a in arrays)
+    errs = {name: 0 for name in ("verify_decompress", "verify_straus", "verify_verdict",
+                                 "msm_window", "msm_shard_reduce")}
+
+    a_pt, a_valid = ed25519.verify_decompress(a_y, a_sign)
+    r_pt, r_valid = ed25519.verify_decompress(r_y, r_sign)
+    for name, (pt, valid), (y, sg) in (("A", (a_pt, a_valid), (a_y, a_sign)),
+                                        ("R", (r_pt, r_valid), (r_y, r_sign))):
+        p_pt, p_valid = ed25519.verify_decompress_plain(y, sg)
+        _same_bits(f"verify_decompress {name} valid", valid, p_valid)
+        if _mod_p(pt.cpu().numpy()) != _mod_p(p_pt.cpu().numpy()):
+            raise AssertionError(f"verify_decompress {name}: coordinates differ mod p")
+    n_invalid = int((~a_valid).sum() + (~r_valid).sum())
+    acc = ed25519.verify_straus(a_pt, kd, sd)
+    errs["verify_straus"] = _same_points("verify_straus", acc,
+                                         ed25519.verify_straus_plain(a_pt, kd, sd))
+    strict, cof = ed25519.verify_verdict(acc, r_pt, r_y, r_sign, a_valid, r_valid)
+    p_strict, p_cof = ed25519.verify_verdict_plain(acc, r_pt, r_y, r_sign, a_valid, r_valid)
+    _same_bits("verify_verdict strict", strict, p_strict)
+    _same_bits("verify_verdict cofactored", cof, p_cof)
+    m_strict, m_cof = ed25519.verify_batch(a_y, a_sign, r_y, r_sign, kd, sd)
+    _same_bits("A3 -> A4 -> A5 strict against verify_batch", strict, m_strict)
+    _same_bits("A3 -> A4 -> A5 cofactored against verify_batch", cof, m_cof)
+    log(f"staged item: B={bucket}, A3 valid bit-equal and coordinates equal mod p "
+        f"({n_invalid} invalid points), A4 equal as affine points, A5 bit-equal; "
+        f"A3 -> A4 -> A5 == verify_batch ({int(strict.sum())} strict, {int(cof.sum())} "
+        f"cofactored valid)")
+    item_t = (a_y, a_sign, r_y, r_sign, kd, sd)
+
+    msm = {"item": msm_item_bucket(23, n_keys, bucket)[0], "group": msm_group_bucket(f, bucket)[0]}
+    msm_t = {}
+    for shape, host in msm.items():
+        t = [torch.from_numpy(a).to(device) for a in host]
+        msm_t[shape] = t
+        m_va, m_vr, m_valid = ed25519.msm_accumulate(*t)
+        pa, va_ok = ed25519.verify_decompress(t[0], t[1])
+        pr, vr_ok = ed25519.verify_decompress(t[2], t[3])
+        for pts, digits, mono, lanes in ((pa, t[4], m_va, "V_a"), (pr, t[5], m_vr, "V_r")):
+            v = ed25519.msm_window(pts, digits)
+            err = _same_points(f"msm_window {shape} {lanes}", v,
+                               ed25519.msm_window_plain(pts, digits))
+            errs["msm_window"] = max(errs["msm_window"], err)
+            _same_points(f"A3 -> A6 {shape} {lanes} against msm_accumulate", v, mono)
+        _same_bits(f"A3 -> A6 {shape} valid against msm_accumulate", va_ok & vr_ok, m_valid)
+        log(f"staged msm {shape}: B={bucket}, A6 (64 and 32 lanes) equal to plain as affine "
+            f"points; A3 -> A6 == msm_accumulate (V_a, V_r as points, valid bit-equal, "
+            f"{int((~m_valid).sum())} invalid)")
+
+    t = msm_t["item"]
+    pa, _ = ed25519.verify_decompress(t[0], t[1])
+    whole = ed25519.msm_accumulate(*t)[0]
+    for k in (2, 4):
+        n = bucket // k
+        lanes = torch.stack([
+            ed25519.msm_window(pa[..., i * n:(i + 1) * n].contiguous(), t[4][i * n:(i + 1) * n])
+            for i in range(k)])
+        got = ed25519.msm_shard_reduce(lanes)
+        err = _same_points(f"msm_shard_reduce k={k}", got, ed25519.msm_shard_reduce_plain(lanes))
+        errs["msm_shard_reduce"] = max(errs["msm_shard_reduce"], err)
+        _same_points(f"msm_shard_reduce k={k} against msm_accumulate V_a", got, whole)
+        if k == 2:
+            lanes2 = lanes
+    log(f"msm_shard_reduce: k in (2, 4) shards of the item bucket's A set: equal to plain "
+        f"as affine points, and to msm_accumulate's V_a")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    # Times and bounds (operations: 55 multiply-adds a squaring, 100 a
+    # product, as A1's; bytes: each input read once, each output written once).
+    per = ed25519.staged_field_ops()
+    pts_bytes = 4 * 20 * 4 * bucket
+
+    def ops_of(name, rows):
+        return rows * (per[name]["mul"] * 100 + per[name]["sq"] * 55)
+
+    group_t = msm_t["group"]
+    g_pts, _ = ed25519.verify_decompress(group_t[0], group_t[1])
+    g_live = int(group_t[4].any(1).sum())
+    timed = dict(verify_decompress=(
+        lambda: ed25519.verify_decompress(a_y, a_sign),
+        lambda: ed25519.verify_decompress_plain(a_y, a_sign),
+        ops_of("verify_decompress", bucket), bucket * (2 * 20 + 1) + pts_bytes + bucket,
+        f"B={bucket} (A set of the item bucket)"),
+        verify_straus=(
+        lambda: ed25519.verify_straus(a_pt, kd, sd),
+        lambda: ed25519.verify_straus_plain(a_pt, kd, sd),
+        ops_of("verify_straus", bucket), 2 * pts_bytes + bucket * 2 * 64, f"B={bucket}"),
+        verify_verdict=(
+        lambda: ed25519.verify_verdict(acc, r_pt, r_y, r_sign, a_valid, r_valid),
+        lambda: ed25519.verify_verdict_plain(acc, r_pt, r_y, r_sign, a_valid, r_valid),
+        ops_of("verify_verdict", bucket), 2 * pts_bytes + bucket * (2 * 20 + 1 + 2 + 2),
+        f"B={bucket}"),
+        msm_window=(
+        lambda: ed25519.msm_window(g_pts, group_t[4]),
+        lambda: ed25519.msm_window_plain(g_pts, group_t[4]),
+        ed25519.msm_window_ops(g_live, 64, bucket) * 100,
+        pts_bytes + bucket * 64 + 4 * 20 * 64 * 4,
+        f"B={bucket} group lane A set, 64 lanes ({g_live} live rows)"),
+        msm_shard_reduce=(
+        lambda: ed25519.msm_shard_reduce(lanes2),
+        lambda: ed25519.msm_shard_reduce_plain(lanes2),
+        (2 - 1) * 64 * 9 * 100, 3 * 4 * 20 * 64 * 4, "k=2 lane sets of 64 lanes"),
+    )
+    rows = []
+    for name, (kernel, plain, ops, nbytes, shape) in timed.items():
+        ms = time_ms(kernel, device, reps=5)
+        plain_ms = time_ms(plain, device, reps=1, groups=plain_reps)
+        b, by = bound_ms(nbytes, ops)
+        rows.append({"name": name, "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": None, "shape": shape})
+    # A6's other shape on the path: the R set's 32 lanes (the item bucket).
+    r_live = int(t[5].any(1).sum())
+    pr, _ = ed25519.verify_decompress(t[2], t[3])
+    rows[3]["extra"] = {
+        "ms_r_lanes": time_ms(lambda: ed25519.msm_window(pr, t[5]), device, reps=5),
+        "bound_ms_r_lanes": bound_ms(pts_bytes + bucket * 32 + 4 * 20 * 32 * 4,
+                                     ed25519.msm_window_ops(r_live, 32, bucket) * 100)[0],
+    }
+    # The staged item path on one card beside A1 (both on the same bucket).
+    def staged_item():
+        ap, av = ed25519.verify_decompress(a_y, a_sign)
+        rp, rv = ed25519.verify_decompress(r_y, r_sign)
+        return ed25519.verify_verdict(ed25519.verify_straus(ap, kd, sd), rp, r_y, r_sign, av, rv)
+
+    rows[0]["extra"] = {"staged_item_ms": time_ms(staged_item, device, reps=5),
+                        "verify_batch_ms": time_ms(lambda: ed25519.verify_batch(*item_t),
+                                                   device, reps=5)}
+    log(f"  staged item path (A3 x2, A4, A5) {rows[0]['extra']['staged_item_ms']:.4f} ms "
+        f"beside verify_batch {rows[0]['extra']['verify_batch_ms']:.4f} ms at B={bucket}")
+    return rows
 
 
 def _random_window(rng: np.random.Generator, w: int, n: int):
@@ -766,6 +955,7 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
     rows = [
         check_verify_batch(device, bucket, n_keys, n_ref, plain_reps),
         check_msm_accumulate(device, f, bucket, n_keys, plain_reps),
+        *check_staged(device, f, bucket, n_keys, plain_reps),
         check_place_batch(device, n, w),
         check_roll_window(device, n, w),
         check_chain_commit(device, n, w),
@@ -1558,6 +1748,63 @@ def phase_service(device, f, pctx, cctx, bucket=BUCKET):
         f"shut down; launches {launches}")
     return {"launches": launches,
             "rates": {"item_service_s": wall_item, "msm_valid_bucket_s": wall_valid,
+                      "msm_fallback_bucket_s": wall_mixed},
+            "inputs": {"groups": groups, "burst": burst, "valid_votes": valid_votes,
+                       "mixed": mixed},
+            "verdicts": {"groups": gres, "burst": ires, "valid_votes": valid_res,
+                         "mixed": mixed_res}}
+
+
+def phase_sharded(device, sctx):
+    """VerifyService.shared("item" and "msm", shards=k, devices=D) on the
+    service phase's inputs (the compact proofs with the header burst, the
+    valid vote bucket, the bucket with a forged and a torsion item): every
+    verdict must equal the unsharded services'; the path runs the staged
+    kernels and the shard reduce, and never verify_batch or msm_accumulate."""
+    import torch
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.verifier import VerifyService
+
+    # Every card present; on one card that card twice, so the split and the
+    # cross-shard reduce run on it; on the CPU (a rehearsal) two CPU shards.
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    devices = ([f"cuda:{i}" for i in range(n)] if n > 1
+               else ["cuda:0", "cuda:0"] if n == 1 else ["cpu", "cpu"])
+    k = len(devices)
+    log(f"sharded: {k} shards over {devices}"
+        + (" (one device, repeated)" if len(set(devices)) < k else ""))
+    inputs, want = sctx["inputs"], sctx["verdicts"]
+    kernel_registry.reset_launch_counts()
+    item_svc = VerifyService.shared("item", shards=k, devices=devices)
+    msm_svc = VerifyService.shared("msm", shards=k, devices=devices)
+    try:
+        gres, ires, wall_item = _serve(item_svc, inputs["groups"], inputs["burst"])
+        a4_before = kernel_registry.launch_counts()["verify_straus"]
+        _g, valid_res, wall_valid = _serve(msm_svc, [], inputs["valid_votes"])
+        a4_after = kernel_registry.launch_counts()["verify_straus"]
+        _g, mixed_res, wall_mixed = _serve(msm_svc, [], inputs["mixed"])
+    finally:
+        item_svc.shutdown()
+        msm_svc.shutdown()
+    got = {"groups": gres, "burst": ires, "valid_votes": valid_res, "mixed": mixed_res}
+    for name, verdicts in got.items():
+        if verdicts != want[name]:
+            wrong = [i for i, (a, b) in enumerate(zip(verdicts, want[name])) if a != b]
+            raise AssertionError(f"sharded: {name} verdicts differ from the unsharded "
+                                 f"service's at {wrong[:10]}")
+    launches = kernel_registry.launch_counts()
+    require_launches("sharded", launches, device)
+    if launches["verify_batch"] or launches["msm_accumulate"]:
+        raise AssertionError(f"sharded: a monolith launched ({launches})")
+    if device.type == "cuda" and a4_after != a4_before:
+        raise AssertionError("sharded: the valid msm bucket fell back to the item stages")
+    log(f"sharded: item mode served {len(gres)} compact proofs and {len(ires)} header "
+        f"signatures in {wall_item:.3f} s; msm mode {len(valid_res)} valid votes in "
+        f"{wall_valid:.3f} s (no item-stage launch), {len(mixed_res)} votes with a forged "
+        f"and a torsion item in {wall_mixed:.3f} s; every verdict equal to the unsharded "
+        f"services'; launches {launches}")
+    return {"launches": launches, "devices": devices,
+            "rates": {"item_service_s": wall_item, "msm_valid_bucket_s": wall_valid,
                       "msm_fallback_bucket_s": wall_mixed}}
 
 
@@ -1640,14 +1887,18 @@ def main(argv=None) -> int:
     pctx = phase_pipeline(device, f, ctx)
     cctx = phase_compact(device, f, ctx, pctx)
     sctx = phase_service(device, f, pctx, cctx)
+    shctx = phase_sharded(device, sctx)
     tctx = phase_tusk(device, f)
     dctx = phase_dag_service(device, f)
     by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
                "compact": cctx["launches"], "service": sctx["launches"],
+               "sharded": shctx["launches"],
                "tusk": tctx["launches"], "dag_service": dctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
-             "service": sctx["rates"], "tusk_certificates_per_s": tctx["certificates_per_s"],
+             "service": sctx["rates"],
+             "sharded": {"devices": shctx["devices"], **shctx["rates"]},
+             "tusk_certificates_per_s": tctx["certificates_per_s"],
              "dag_service": {"per_k": dctx["per_k"], "wall_s": dctx["wall_s"],
                              "adaptive_routing": dctx["routing_adaptive"]}}
 
@@ -1670,7 +1921,7 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             "build_s": build_walls.get(kname),
-            **{k: v for k, v in r.items() if k.endswith("_item_shape")},
+            **r.get("extra", {}),
         })
     print(json.dumps({"kernels": rows, "card": card, "rates": rates}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 #pragma once
 
 // The radix-2^25.5 field and extended-Edwards point layer of the port's
-// ed25519 kernels, shared by ed25519_verify.cu (A1, per-signature verify)
-// and ed25519_msm.cu (A2, window-lane accumulate).
+// ed25519 kernels, shared by ed25519_verify.cu (A1, per-signature verify),
+// ed25519_staged.cu (A3-A5, the staged verify stages) and ed25519_msm.cu
+// (A2 and A6, window-lane accumulates).
 //
 // Field elements mod p = 2^255 - 19 are ref10's layout: 10 signed int32 limbs
 // alternating 26 and 25 bits (limb i at bit ceil(25.5 i)); one product is 100
@@ -212,6 +213,49 @@ HD void fe_from13(fe& r, const T* l) {
   fe_reduce64(h, r);
 }
 
+// Radix-2^13 limbs of any size (the plain versions' loose limbs, at most
+// 9500, or canonical ones) at l[i * stride] -> tight limbs of the same value
+// mod p. A sequential carry first brings every limb under 2^13 (arithmetic
+// shifts, so a negative limb is carried too); what leaves limb 19 sits at
+// bit 260, and 2^260 = 608 mod p.
+HD void fe_from13_loose(fe& r, const i32* l, int stride) {
+  i32 c[20];
+  i32 carry = 0;
+#pragma unroll
+  for (int i = 0; i < 20; i++) {
+    const i32 v = l[(size_t)i * stride] + carry;
+    c[i] = v & 0x1FFF;
+    carry = v >> 13;
+  }
+  fe_from13(r, c);
+  r.v[0] += 608 * carry;
+  fe_carry(r, r);
+}
+
+// Canonical value of a, as the JAX layout's 20 radix-2^13 limbs at
+// out[i * stride].
+HD void fe_to13(const fe& a, i32* out, int stride) {
+  fe c;
+  fe_canonical(c, a);
+  const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
+  uint32_t w[9];
+#pragma unroll
+  for (int i = 0; i < 9; i++) w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const uint64_t x = (uint64_t)(uint32_t)c.v[i] << (off[i] & 31);
+    w[off[i] >> 5] |= (uint32_t)x;
+    w[(off[i] >> 5) + 1] |= (uint32_t)(x >> 32);
+  }
+#pragma unroll
+  for (int i = 0; i < 20; i++) {
+    const int bit = 13 * i, word = bit >> 5, sh = bit & 31;
+    uint32_t val = w[word] >> sh;
+    if (sh + 13 > 32) val |= w[word + 1] << (32 - sh);
+    out[(size_t)i * stride] = (i32)(val & 0x1FFFu);
+  }
+}
+
 HD void fe_sq_times(fe& r, const fe& a, int n) {
   r = a;
   for (int i = 0; i < n; i++) fe_sq(r, r);
@@ -363,6 +407,32 @@ HD void pt_add_cached_z1(ge& r, const ge& p, const ga& q) {
   fe_mul(r.Y, g, h);
   fe_mul(r.Z, f, g);
   fe_mul(r.T, e, h);
+}
+
+// Point p of a stage boundary: the JAX layout int32 [4, 20, n], coordinate
+// c's limb i of point j at base[(c * 20 + i) * n + j]; a thread per point
+// reads and writes with stride n, so a warp's accesses are coalesced.
+HD void pt_load13(ge& p, const i32* base, int n, int j) {
+  fe_from13_loose(p.X, base + (size_t)0 * 20 * n + j, n);
+  fe_from13_loose(p.Y, base + (size_t)1 * 20 * n + j, n);
+  fe_from13_loose(p.Z, base + (size_t)2 * 20 * n + j, n);
+  fe_from13_loose(p.T, base + (size_t)3 * 20 * n + j, n);
+}
+
+// Canonical limbs of p into the same layout.
+HD void pt_store13(const ge& p, i32* base, int n, int j) {
+  fe_to13(p.X, base + (size_t)0 * 20 * n + j, n);
+  fe_to13(p.Y, base + (size_t)1 * 20 * n + j, n);
+  fe_to13(p.Z, base + (size_t)2 * 20 * n + j, n);
+  fe_to13(p.T, base + (size_t)3 * 20 * n + j, n);
+}
+
+// The curve constants, radix-2^13 rows [d, 2d, sqrt(-1)] of 20 limbs; entry t
+// of 3, so three threads of a block load them into shared memory together.
+HD void load_consts(int t, const i32* consts13, Consts& k) {
+  if (t == 0) fe_from13(k.d, consts13 + 0 * 20);
+  if (t == 1) fe_from13(k.d2, consts13 + 1 * 20);
+  if (t == 2) fe_from13(k.sqrtm1, consts13 + 2 * 20);
 }
 
 // x from y (tight) and the sign bit, as the JAX decompress: returns validity.

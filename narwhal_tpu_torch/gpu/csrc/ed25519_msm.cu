@@ -13,6 +13,24 @@
 // (verifier.msm_epilogue_check) reads the kernel and the plain version alike.
 // The plain PyTorch version is `msm_accumulate_plain` in ../ed25519.py.
 //
+// The same source holds two more entry points of the mesh-sharded verifier:
+//   A6  ed25519_msm_window replaces narwhal_tpu/tpu/ed25519.py:549
+//       `msm_window_kernel`: one point set already decompressed by A3
+//       (int32 [4, 20, B], the JAX stage layout) and one digit set int8
+//       [B, W] (W = 64 for A or 32 for R, the two widths it is built for)
+//       -> V int32 [4, 20, W]. Its table
+//       launch reads the points instead of y and sign; the chain and tree
+//       launches are A2's, over one lane set of W. A3 -> A6 (A) and A3 -> A6
+//       (R) give A2's V_a and V_r point for point (the same point operations
+//       in the same order), invalid rows included.
+//   The shard reduce ed25519_msm_shard_reduce, the port's counterpart of the
+//       cross-device reduce that XLA inserts after A6 on a mesh
+//       (narwhal_tpu/tpu/verifier.py:96-102, out_specs=None): n lane sets
+//       [n][4, 20, W], one per shard, summed lane by lane with the complete
+//       addition in shard order, one thread per lane. ~9 (n - 1) W products:
+//       a few microseconds, bound by its launch.
+// Their plain versions are `msm_window_plain` and `msm_shard_reduce_plain`.
+//
 // Three launches on one stream, each a thread per independent piece of work:
 //   1. msm_table_kernel, one thread per point (2B: A then R): decompress,
 //      negate, and the 16-entry cached table (identity, P, 2P .. 15P), written
@@ -56,7 +74,9 @@
 // accumulators, and its operands are again sums of at most 2 tight values.
 // decompress and the table chain are A1's code, whose operands were checked
 // there. fe_to13 canonicalises before it repacks, so the output limbs are
-// exact.
+// exact. A6's points and the shard reduce's lane sets enter through
+// fe_from13_loose, whose outputs are tight, so A6's table and the reduce's
+// pt_add see the operands that A2's do.
 
 #include "ed25519_field.cuh"
 
@@ -66,25 +86,11 @@ using namespace ed25519_field;
 
 constexpr int kWa = 64;        // window lanes of the A scalars (256-bit z k)
 constexpr int kWr = 32;        // window lanes of the R scalars (128-bit z)
-constexpr int kLanes = kWa + kWr;
+constexpr int kMaxLanes = 64;  // the most window lanes one lane set has
 constexpr int kMaxChains = 128;
 
-HD void load_consts(int t, const i32* consts13, Consts& k) {
-  if (t == 0) fe_from13(k.d, consts13 + 0 * 20);
-  if (t == 1) fe_from13(k.d2, consts13 + 1 * 20);
-  if (t == 2) fe_from13(k.sqrtm1, consts13 + 2 * 20);
-}
-
-// Stage 1 for point p of 2B (A rows, then R rows): decompress, negate, and
-// the 16 cached multiples written to tab[0..15]. Returns the point's validity.
-template <typename L, typename S>
-HD bool msm_point_table(const L* y13, S sign, const Consts& k, gc* tab) {
-  fe y;
-  fe_from13(y, y13);
-  ge P;
-  const bool valid = decompress(P, y, (i32)sign, k);
-  ge neg;
-  pt_neg(neg, P);
+// The 16 cached multiples (identity, P, 2P .. 15P) of neg = -P to tab[0..15].
+HD void msm_table_of(const ge& neg, const Consts& k, gc* tab) {
   fe_one(tab[0].YpX);
   fe_one(tab[0].YmX);
   fe_one(tab[0].Z);
@@ -95,25 +101,54 @@ HD bool msm_point_table(const L* y13, S sign, const Consts& k, gc* tab) {
     pt_add_cached(cur, cur, tab[1]);
     pt_cache(tab[i], cur, k);
   }
+}
+
+// A2's stage 1 for point p of 2B (A rows, then R rows): decompress, negate,
+// and the table. Returns the point's validity.
+template <typename L, typename S>
+HD bool msm_point_table(const L* y13, S sign, const Consts& k, gc* tab) {
+  fe y;
+  fe_from13(y, y13);
+  ge P;
+  const bool valid = decompress(P, y, (i32)sign, k);
+  ge neg;
+  pt_neg(neg, P);
+  msm_table_of(neg, k, tab);
   return valid;
 }
 
-// Stage 2 for (lane, chain c): the chain's sum over points c, c + C, ... < B
-// of its digit's table entry. table: [2B][16]; A lanes read rows [0, B),
-// R lanes rows [B, 2B).
+// A6's stage 1 for point j of B: the point as A3 wrote it ([4, 20, B]),
+// negated, and its table.
+HD void msm_window_table(const i32* pts, int B, int j, const Consts& k, gc* tab) {
+  ge P, neg;
+  pt_load13(P, pts, B, j);
+  pt_neg(neg, P);
+  msm_table_of(neg, k, tab);
+}
+
+// Stage 2 for window w of a W-lane set and chain c: the chain's sum over
+// points c, c + C, ... < B of its digit's entry of table ([B][16]).
 template <typename D>
-HD void msm_chain_sum(ge& acc, const gc* table, const D* ak_digits, const D* z_digits,
-                      int B, int C, int lane, int c) {
-  const bool is_a = lane < kWa;
-  const D* digits = is_a ? ak_digits : z_digits;
-  const int W = is_a ? kWa : kWr;
-  const int w = is_a ? lane : lane - kWa;
-  const gc* base = table + (is_a ? (size_t)0 : (size_t)B * 16);
+HD void msm_chain_sum(ge& acc, const gc* table, const D* digits, int W, int w, int B, int C,
+                      int c) {
   pt_identity(acc);
   for (int j = c; j < B; j += C) {
     const int d = ((i32)digits[(size_t)j * W + w]) & 15;
-    pt_add_cached(acc, acc, base[(size_t)j * 16 + d]);
+    pt_add_cached(acc, acc, table[(size_t)j * 16 + d]);
   }
+}
+
+// Stage 2 for (lane, chain c) of a launch over two lane sets: lanes
+// [0, wa) are the windows of digits_a over table rows [0, B), lanes
+// [wa, wa + wr) those of digits_r over rows [B, 2B). A2 has wa = 64,
+// wr = 32; A6 one set, wa = W, wr = 0. The set is chosen before the one
+// loop, so the chain's point additions are inlined once.
+template <typename D>
+HD void msm_lane_chain(ge& acc, const gc* table, const D* digits_a, const D* digits_r,
+                       int wa, int wr, int B, int C, int lane, int c) {
+  const bool is_a = lane < wa;
+  msm_chain_sum(acc, table + (is_a ? (size_t)0 : (size_t)B * 16), is_a ? digits_a : digits_r,
+                is_a ? wa : wr, is_a ? lane : lane - wa, B, C, c);
 }
 
 // Stage 3, one tree round: chain t absorbs chain t + off (t < off).
@@ -121,35 +156,23 @@ HD void msm_reduce_step(ge* s, int t, int off, const Consts& k) {
   pt_add(s[t], s[t], s[t + off], k);
 }
 
-// Canonical value of a, as the JAX layout's 20 radix-2^13 limbs at out[i * stride].
-HD void fe_to13(const fe& a, i32* out, int stride) {
-  fe c;
-  fe_canonical(c, a);
-  const int off[10] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230};
-  uint32_t w[9];
-#pragma unroll
-  for (int i = 0; i < 9; i++) w[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    const uint64_t x = (uint64_t)(uint32_t)c.v[i] << (off[i] & 31);
-    w[off[i] >> 5] |= (uint32_t)x;
-    w[(off[i] >> 5) + 1] |= (uint32_t)(x >> 32);
-  }
-#pragma unroll
-  for (int i = 0; i < 20; i++) {
-    const int bit = 13 * i, word = bit >> 5, sh = bit & 31;
-    uint32_t val = w[word] >> sh;
-    if (sh + 13 > 32) val |= w[word + 1] << (32 - sh);
-    out[i * stride] = (i32)(val & 0x1FFFu);
-  }
+// Stage 3, the lane's output: coordinate `coord` (0..3 = X, Y, Z, T) of v,
+// canonical, into v_a [4, 20, wa] (lane < wa) or v_r [4, 20, wr].
+HD void msm_write_lane(const ge& v, int lane, int coord, int wa, int wr, i32* v_a, i32* v_r) {
+  const fe& f = coord == 0 ? v.X : coord == 1 ? v.Y : coord == 2 ? v.Z : v.T;
+  if (lane < wa) fe_to13(f, v_a + (size_t)coord * 20 * wa + lane, wa);
+  else fe_to13(f, v_r + (size_t)coord * 20 * wr + (lane - wa), wr);
 }
 
-// Stage 3, the lane's output: coordinate `coord` (0..3 = X, Y, Z, T) of v into
-// V_a [4, 20, 64] (lane < 64) or V_r [4, 20, 32].
-HD void msm_write_lane(const ge& v, int lane, int coord, i32* v_a, i32* v_r) {
-  const fe& f = coord == 0 ? v.X : coord == 1 ? v.Y : coord == 2 ? v.Z : v.T;
-  if (lane < kWa) fe_to13(f, v_a + (size_t)coord * 20 * kWa + lane, kWa);
-  else fe_to13(f, v_r + (size_t)coord * 20 * kWr + (lane - kWa), kWr);
+// The cross-shard reduce for window w: lane set 0 plus sets 1 .. n-1 of
+// lanes ([n][4, 20, W]) in that order, with the complete addition.
+HD void msm_shard_sum(ge& acc, const i32* lanes, int n, int W, int w, const Consts& k) {
+  pt_load13(acc, lanes, W, w);
+  for (int s = 1; s < n; s++) {
+    ge q;
+    pt_load13(q, lanes + (size_t)s * 4 * 20 * W, W, w);
+    pt_add(acc, acc, q, k);
+  }
 }
 
 }  // namespace ed25519_msm
@@ -178,18 +201,36 @@ msm_table_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_s
 }
 
 __global__ void __launch_bounds__(kThreads)
-msm_chain_kernel(const gc* __restrict__ table, const int8_t* __restrict__ ak_digits,
-                 const int8_t* __restrict__ z_digits, const uint8_t* __restrict__ pvalid,
+msm_window_table_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ consts13,
+                        gc* __restrict__ table, int B) {
+  __shared__ Consts s_k;
+  for (int i = threadIdx.x; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
+  __syncthreads();
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= B) return;
+  const Consts k = s_k;
+  msm_window_table(pts, B, j, k, table + (size_t)j * 16);
+}
+
+// The lane counts are template arguments, so A2's launches (<64, 32>) keep
+// their compile-time index arithmetic; A6 instantiates <64, 0> and <32, 0>.
+// valid may be null (A6 has no validity to combine).
+template <int WA, int WR>
+__global__ void __launch_bounds__(kThreads)
+msm_chain_kernel(const gc* __restrict__ table, const int8_t* __restrict__ digits_a,
+                 const int8_t* __restrict__ digits_r, const uint8_t* __restrict__ pvalid,
                  ge* __restrict__ partial, bool* __restrict__ valid, int B, int C) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < B) valid[t] = pvalid[t] && pvalid[B + t];
-  if (t >= kLanes * C) return;
-  const int lane = t % kLanes, c = t / kLanes;
+  if (valid != nullptr && t < B) valid[t] = pvalid[t] && pvalid[B + t];
+  constexpr int lanes = WA + WR;
+  if (t >= lanes * C) return;
+  const int lane = t % lanes, c = t / lanes;
   ge acc;
-  msm_chain_sum(acc, table, ak_digits, z_digits, B, C, lane, c);
+  msm_lane_chain(acc, table, digits_a, digits_r, WA, WR, B, C, lane, c);
   partial[(size_t)lane * C + c] = acc;
 }
 
+template <int WA, int WR>
 __global__ void __launch_bounds__(kMaxChains / 2)
 msm_reduce_kernel(const ge* __restrict__ partial, const int32_t* __restrict__ consts13,
                   int32_t* __restrict__ v_a, int32_t* __restrict__ v_r, int C) {
@@ -204,7 +245,41 @@ msm_reduce_kernel(const ge* __restrict__ partial, const int32_t* __restrict__ co
     if (t < off) msm_reduce_step(s, t, off, k);
     __syncthreads();
   }
-  for (int coord = t; coord < 4; coord += blockDim.x) msm_write_lane(s[0], lane, coord, v_a, v_r);
+  for (int coord = t; coord < 4; coord += blockDim.x)
+    msm_write_lane(s[0], lane, coord, WA, WR, v_a, v_r);
+}
+
+__global__ void __launch_bounds__(kMaxLanes)
+msm_shard_reduce_kernel(const int32_t* __restrict__ lanes, const int32_t* __restrict__ consts13,
+                        int32_t* __restrict__ v, int n, int W) {
+  __shared__ Consts s_k;
+  for (int i = threadIdx.x; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
+  __syncthreads();
+  const int w = threadIdx.x;
+  if (w >= W) return;
+  const Consts k = s_k;
+  ge acc;
+  msm_shard_sum(acc, lanes, n, W, w, k);
+  pt_store13(acc, v, W, w);
+}
+
+static bool chains_ok(int B, int chains) {
+  return chains >= 1 && chains <= kMaxChains && !(chains & (chains - 1)) && B % chains == 0;
+}
+
+// The chain and tree launches over a table already built: lanes WA + WR.
+template <int WA, int WR>
+static int msm_lanes(const gc* table, const int8_t* digits_a, const int8_t* digits_r,
+                     const uint8_t* pvalid, ge* partial, bool* valid, int32_t* v_a,
+                     int32_t* v_r, const int32_t* consts13, int B, int chains, int work,
+                     cudaStream_t s) {
+  msm_chain_kernel<WA, WR><<<(work + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      table, digits_a, digits_r, pvalid, partial, valid, B, chains);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int threads = chains / 2 > 0 ? chains / 2 : 1;
+  msm_reduce_kernel<WA, WR><<<WA + WR, threads, 0, s>>>(partial, consts13, v_a, v_r, chains);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ed25519_msm_accumulate(const void* a_y, const void* a_sign, const void* r_y,
@@ -213,24 +288,44 @@ extern "C" int ed25519_msm_accumulate(const void* a_y, const void* a_sign, const
                                       void* table, void* pvalid, void* partial, void* v_a,
                                       void* v_r, void* valid, int B, int chains,
                                       void* stream) {
-  if (chains < 1 || chains > kMaxChains || (chains & (chains - 1)) || B % chains)
-    return (int)cudaErrorInvalidValue;
+  if (!chains_ok(B, chains)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int points = 2 * B;
   msm_table_kernel<<<(points + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       (const int16_t*)a_y, (const int8_t*)a_sign, (const int16_t*)r_y,
       (const int8_t*)r_sign, (const int32_t*)consts13, (gc*)table, (uint8_t*)pvalid, B);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int work = kLanes * chains > B ? kLanes * chains : B;
-  msm_chain_kernel<<<(work + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (const gc*)table, (const int8_t*)ak_digits, (const int8_t*)z_digits,
-      (const uint8_t*)pvalid, (ge*)partial, (bool*)valid, B, chains);
-  err = cudaGetLastError();
+  const int work = (kWa + kWr) * chains > B ? (kWa + kWr) * chains : B;
+  return msm_lanes<kWa, kWr>((const gc*)table, (const int8_t*)ak_digits,
+                             (const int8_t*)z_digits, (const uint8_t*)pvalid, (ge*)partial,
+                             (bool*)valid, (int32_t*)v_a, (int32_t*)v_r,
+                             (const int32_t*)consts13, B, chains, work, s);
+}
+
+extern "C" int ed25519_msm_window(const void* pts, const void* digits, const void* consts13,
+                                  void* table, void* partial, void* v, int B, int W,
+                                  int chains, void* stream) {
+  if (!chains_ok(B, chains) || (W != kWa && W != kWr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  msm_window_table_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      (const int32_t*)pts, (const int32_t*)consts13, (gc*)table, B);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int threads = chains / 2 > 0 ? chains / 2 : 1;
-  msm_reduce_kernel<<<kLanes, threads, 0, s>>>(
-      (const ge*)partial, (const int32_t*)consts13, (int32_t*)v_a, (int32_t*)v_r, chains);
+  const gc* t = (const gc*)table;
+  const int8_t* d = (const int8_t*)digits;
+  if (W == kWa)
+    return msm_lanes<kWa, 0>(t, d, nullptr, nullptr, (ge*)partial, nullptr, (int32_t*)v,
+                             nullptr, (const int32_t*)consts13, B, chains, kWa * chains, s);
+  return msm_lanes<kWr, 0>(t, d, nullptr, nullptr, (ge*)partial, nullptr, (int32_t*)v,
+                           nullptr, (const int32_t*)consts13, B, chains, kWr * chains, s);
+}
+
+extern "C" int ed25519_msm_shard_reduce(const void* lanes, const void* consts13, void* v, int n,
+                                        int W, void* stream) {
+  if (n < 1 || W < 1 || W > kMaxLanes) return (int)cudaErrorInvalidValue;
+  msm_shard_reduce_kernel<<<1, kMaxLanes, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)lanes, (const int32_t*)consts13, (int32_t*)v, n, W);
   return (int)cudaGetLastError();
 }
 

@@ -32,16 +32,18 @@
 //     is far from full (see PERF.md). Splitting a signature over several lanes
 //     is the next step for speed, not for this version.
 //
-// The field and point layer, with its bound argument, is ed25519_field.cuh.
+// The field and point layer, with its bound argument, is ed25519_field.cuh;
+// the walk and the epilogue, shared with A4 and A5, are ed25519_straus.cuh.
 
-#include "ed25519_field.cuh"
+#include "ed25519_straus.cuh"
 
 namespace ed25519_verify {
 
-using namespace ed25519_field;
+using namespace ed25519_straus;
 
 // The whole per-signature check.  tab: this thread's 16-entry -A table
-// (local memory); bt: the fixed-base table; k: the curve constants.
+// (local memory); bt: the fixed-base table; k: the curve constants. The walk
+// and the epilogue are ed25519_straus.cuh's, shared with A4 and A5.
 template <typename L, typename S, typename D>
 HD void verify_one(const L* a_y, S a_sign, const L* r_y, S r_sign,
                    const D* k_digits, const D* s_digits, const ga* bt,
@@ -51,59 +53,11 @@ HD void verify_one(const L* a_y, S a_sign, const L* r_y, S r_sign,
   fe_from13(ry, r_y);
   const i32 as = (i32)a_sign, rs = (i32)r_sign;
 
-  ge A;
+  ge A, acc, R;
   const bool valid = decompress(A, ay, as, k);
-  ge negA;
-  pt_neg(negA, A);
-
-  fe_one(tab[0].YpX);
-  fe_one(tab[0].YmX);
-  fe_one(tab[0].Z);
-  fe_zero(tab[0].T2d);
-  pt_cache(tab[1], negA, k);
-  ge cur = negA;
-  for (int i = 2; i < 16; i++) {
-    pt_add_cached(cur, cur, tab[1]);
-    pt_cache(tab[i], cur, k);
-  }
-
-  ge acc;
-  pt_identity(acc);
-  for (int w = 0; w < 64; w++) {
-    for (int i = 0; i < 4; i++) pt_double(acc, acc);
-    pt_add_cached(acc, acc, tab[((i32)k_digits[w]) & 15]);
-    pt_add_cached_z1(acc, acc, bt[((i32)s_digits[w]) & 15]);
-  }
-
-  fe zinv, x, y, xc;
-  fe_invert(zinv, acc.Z);
-  fe_mul(x, acc.X, zinv);
-  fe_mul(y, acc.Y, zinv);
-  fe_canonical(xc, x);
-  strict = fe_eq(y, ry) && ((xc.v[0] & 1) == rs) && valid;
-
-  ge R, negR, diff;
+  straus_walk(acc, A, k_digits, s_digits, bt, k, tab);
   const bool r_valid = decompress(R, ry, rs, k);
-  pt_neg(negR, R);
-  pt_add(diff, acc, negR, k);
-  for (int i = 0; i < 3; i++) pt_double(diff, diff);
-  fe zero;
-  fe_zero(zero);
-  cof = fe_eq(diff.X, zero) && fe_eq(diff.Y, diff.Z) && valid && r_valid;
-}
-
-HD void load_tables(int t, const i32* bt13, const i32* consts13, ga* bt, Consts& k) {
-  if (t < 16) {
-    fe_from13(bt[t].YpX, bt13 + (t * 3 + 0) * 20);
-    fe_from13(bt[t].YmX, bt13 + (t * 3 + 1) * 20);
-    fe_from13(bt[t].T2d, bt13 + (t * 3 + 2) * 20);
-  } else if (t == 16) {
-    fe_from13(k.d, consts13 + 0 * 20);
-  } else if (t == 17) {
-    fe_from13(k.d2, consts13 + 1 * 20);
-  } else if (t == 18) {
-    fe_from13(k.sqrtm1, consts13 + 2 * 20);
-  }
+  straus_verdict(acc, R, ry, rs, valid, r_valid, k, strict, cof);
 }
 
 }  // namespace ed25519_verify

@@ -3,9 +3,11 @@
 Port of `narwhal_tpu/tpu/ed25519.py` (the JAX package's counterpart): the
 field and point layer, `verify_batch` (the counterpart of
 `verify_batch_kernel`, TPU kernel A1), `msm_accumulate` (the counterpart of
-`msm_accumulate_kernel`, TPU kernel A2) and the host packing helpers
-`bytes_to_limbs` / `bytes_to_digits`. The window kernel A6 and the staged
-kernels A3-A5 are later slices (ROADMAP queue 2).
+`msm_accumulate_kernel`, TPU kernel A2), the stages of the mesh-sharded
+verifier (`verify_decompress`, `verify_straus`, `verify_verdict` and
+`msm_window`: TPU kernels A3-A6, and `msm_shard_reduce`, the cross-shard
+sum of A6's lanes) and the host packing helpers `bytes_to_limbs` /
+`bytes_to_digits`.
 
 Two implementations of each function:
 
@@ -17,14 +19,18 @@ Two implementations of each function:
   it against the JAX functions evaluated eagerly and against the bigint
   oracle `ed25519_ref`;
 - the CUDA kernels `csrc/ed25519_verify.cu` (A1: the same verdicts with one
-  signature per thread) and `csrc/ed25519_msm.cu` (A2: the same window-lane
-  sums, canonical, from one thread per point and per (lane, chain)) work in
-  radix 2^25.5 (10 limbs, 64-bit column sums); their shared field layer and
-  its bound argument are `csrc/ed25519_field.cuh`.
+  signature per thread), `csrc/ed25519_staged.cu` (A3-A5: A1 split at the
+  JAX stage boundaries, one row per thread) and `csrc/ed25519_msm.cu` (A2
+  and A6: the same window-lane sums, canonical, from one thread per point
+  and per (lane, chain); the shard reduce) work in radix 2^25.5 (10 limbs,
+  64-bit column sums); their shared field layer and its bound argument are
+  `csrc/ed25519_field.cuh`. Stage outputs keep the JAX layout, int32
+  [4, NLIMB, B] radix 2^13 (canonical from a kernel, loose from a plain
+  version), so either can feed the next stage.
 
-`verify_batch` and `msm_accumulate` dispatch on where their inputs lie: CPU
-tensors run the plain version, CUDA tensors launch the kernel (or raise).
-There is no fallback from a kernel to its plain version.
+Every wrapper dispatches on where its inputs lie: CPU tensors run the plain
+version, CUDA tensors launch the kernel (or raise). There is no fallback
+from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -393,6 +399,42 @@ def _pt_cached_table(neg_p, batch):
     )
 
 
+def _straus_walk(a_point, k_digits, s_digits):
+    """acc = [S]B + [k](-A) per lane: the -A table, then one window per row
+    of k_digits / s_digits (int32 [64, B], MSB first) of four doublings and
+    two cached adds."""
+    dev = a_point[0].device
+    B = a_point[0].shape[1]
+    table_a = _pt_cached_table(pt_neg(a_point), B)
+    bt = _const("BT", dev)
+    acc = pt_identity((B,), device=dev)
+    for kd, sd in zip(k_digits, s_digits):
+        for _ in range(4):
+            acc = pt_double(acc)
+        qa = tuple(_select(table_a[i], kd) for i in range(4))
+        acc = pt_add_cached(acc, qa)
+        qb = tuple(_select_const(bt[:, i], sd) for i in range(3))
+        acc = pt_add_cached_z1(acc, qb)
+    return acc
+
+
+def _verdicts(acc, r_point, r_y, r_sign, a_valid, r_valid):
+    """Strict and cofactored verdicts from the walk's accumulator and R
+    (r_y limb-major [NLIMB, B], r_sign int32 [B])."""
+    zinv = fe_invert(acc[2])
+    x = fe_mul(acc[0], zinv)
+    y = fe_mul(acc[1], zinv)
+    x_can = fe_canonical(x)
+    ok_strict = fe_eq(y, r_y) & ((x_can[0] & 1) == r_sign) & a_valid
+
+    # Cofactored verdict: [8](Rcheck + (-R)) == identity.
+    diff = pt_add(acc, pt_neg(r_point))
+    for _ in range(3):
+        diff = pt_double(diff)
+    ok_cof = fe_eq(diff[0], torch.zeros_like(diff[0])) & fe_eq(diff[1], diff[2])
+    return ok_strict, ok_cof & a_valid & r_valid
+
+
 def verify_batch_plain(a_y, a_sign, r_y, r_sign, k_digits, s_digits):
     """The plain PyTorch version of the kernel: per-lane check of
     [S]B + [k](-A) against R under BOTH rules, exactly as the JAX
@@ -405,63 +447,56 @@ def verify_batch_plain(a_y, a_sign, r_y, r_sign, k_digits, s_digits):
     Shapes (batch-leading, the JAX host layout): a_y/r_y int[B, NLIMB]
     canonical y limbs; a_sign/r_sign int[B]; k_digits/s_digits int[B, 64]
     4-bit digits MSB-first. Returns (strict bool[B], cofactored bool[B])."""
-    dev = a_y.device
     a_y = a_y.T.to(torch.int32).contiguous()  # -> limb-major [NLIMB, B]
     r_y = r_y.T.to(torch.int32).contiguous()
     a_sign = a_sign.to(torch.int32)
     r_sign = r_sign.to(torch.int32)
-    k_digits = k_digits.T.to(torch.int32)  # -> [64, B]
-    s_digits = s_digits.T.to(torch.int32)
-    B = a_y.shape[1]
-
     a_point, valid = decompress(a_y, a_sign)
-    table_a = _pt_cached_table(pt_neg(a_point), B)
-    bt = _const("BT", dev)
-    acc = pt_identity((B,), device=dev)
-    for w in range(WINDOWS):
-        kd, sd = k_digits[w], s_digits[w]
-        for _ in range(4):
-            acc = pt_double(acc)
-        qa = tuple(_select(table_a[i], kd) for i in range(4))
-        acc = pt_add_cached(acc, qa)
-        qb = tuple(_select_const(bt[:, i], sd) for i in range(3))
-        acc = pt_add_cached_z1(acc, qb)
-
-    zinv = fe_invert(acc[2])
-    x = fe_mul(acc[0], zinv)
-    y = fe_mul(acc[1], zinv)
-    x_can = fe_canonical(x)
-    ok_strict = fe_eq(y, r_y) & ((x_can[0] & 1) == r_sign) & valid
-
-    # Cofactored verdict: [8](Rcheck + (-R)) == identity.
+    acc = _straus_walk(a_point, k_digits.T.to(torch.int32), s_digits.T.to(torch.int32))
     r_point, r_valid = decompress(r_y, r_sign)
-    diff = pt_add(acc, pt_neg(r_point))
-    for _ in range(3):
-        diff = pt_double(diff)
-    ok_cof = fe_eq(diff[0], torch.zeros_like(diff[0])) & fe_eq(diff[1], diff[2])
-    return ok_strict, ok_cof & valid & r_valid
+    return _verdicts(acc, r_point, r_y, r_sign, valid, r_valid)
+
+
+def _check_inputs(kernel: str, want: dict, device) -> None:
+    """Refuse what a kernel does not take: `want` maps each argument's name
+    to (tensor, dtype, shape); every tensor must lie on `device`, be
+    contiguous and have that dtype and shape."""
+    for name, (t, dtype, shape) in want.items():
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, expected {device}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{kernel}: {name} must be {dtype} {tuple(shape)}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def _launch(stem: str, symbol: str, kernel: str, dev, ptrs, ints=()) -> None:
+    """Launch `symbol` of the library built from `csrc/<stem>.cu` on `dev`'s
+    current stream (tensor arguments as pointers, then ints), raise if the
+    launch failed, and count it."""
+    fn = kernel_registry.function(stem, symbol, len(ptrs), len(ints))
+    with torch.cuda.device(dev):  # the launch's device, whatever the thread's
+        rc = fn(
+            *(t.data_ptr() for t in ptrs), *ints,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernel_registry.check(stem, kernel, rc)
+    kernel_registry.count_launch(kernel)
 
 
 def _check_kernel_inputs(a_y, a_sign, r_y, r_sign, k_digits, s_digits) -> int:
     B = a_y.shape[0] if a_y.dim() == 2 else -1
-    want = {
+    _check_inputs("verify_batch", {
         "a_y": (a_y, torch.int16, (B, NLIMB)),
         "r_y": (r_y, torch.int16, (B, NLIMB)),
         "a_sign": (a_sign, torch.int8, (B,)),
         "r_sign": (r_sign, torch.int8, (B,)),
         "k_digits": (k_digits, torch.int8, (B, WINDOWS)),
         "s_digits": (s_digits, torch.int8, (B, WINDOWS)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.device != a_y.device:
-            raise ValueError(f"verify_batch: {name} on {t.device}, a_y on {a_y.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"verify_batch: {name} must be {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"verify_batch: {name} must be contiguous")
+    }, a_y.device)
     return B
 
 
@@ -483,17 +518,10 @@ def verify_batch(a_y, a_sign, r_y, r_sign, k_digits, s_digits):
     cof = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return strict, cof
-    fn = kernel_registry.function("ed25519_verify", "ed25519_verify_batch", 10, 1)
-    with torch.cuda.device(dev):  # the launch's device, whatever the thread's
-        rc = fn(
-            a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(),
-            k_digits.data_ptr(), s_digits.data_ptr(),
-            _const("BT", dev).data_ptr(), _const("KERNEL_CONSTS", dev).data_ptr(),
-            strict.data_ptr(), cof.data_ptr(), B,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernel_registry.check("ed25519_verify", "verify_batch", rc)
-    kernel_registry.count_launch("verify_batch")
+    _launch("ed25519_verify", "ed25519_verify_batch", "verify_batch", dev, (
+        a_y, a_sign, r_y, r_sign, k_digits, s_digits,
+        _const("BT", dev), _const("KERNEL_CONSTS", dev), strict, cof,
+    ), (B,))
     return strict, cof
 
 
@@ -510,6 +538,137 @@ def field_muls_per_signature() -> dict:
     sq = 2 * decompress[0] + 64 * 16 + 254 + 3 * 4
     mul = 2 * decompress[1] + 127 + 64 * (4 * 4 + 8 + 7) + 11 + 2 + 9 + 3 * 4
     return {"sq": sq, "mul": mul}
+
+
+# ---------------------------------------------------------------------------
+# Staged per-item verification (TPU kernels A3-A5): A1 split at the JAX
+# stage boundaries for the mesh-sharded verifier (verifier._sharded_kernels):
+# decompress (run once for the A set, once for the R set) -> Straus walk ->
+# verdict. Points cross the boundaries as int32 [4, NLIMB, B] (X, Y, Z, T),
+# radix 2^13, limb-major. The per-lane arithmetic is A1's, so the verdicts
+# are A1's bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def verify_decompress_plain(y_rows, signs):
+    """The JAX `verify_decompress_kernel`: y_rows int[B, NLIMB] canonical y
+    limbs (host layout), signs int[B] -> (points int32 [4, NLIMB, B]
+    extended coordinates, valid bool [B])."""
+    y = y_rows.T.to(torch.int32).contiguous()
+    point, valid = decompress(y, signs.to(torch.int32))
+    return torch.stack(point, dim=0), valid
+
+
+def verify_straus_plain(a_pt, k_digits, s_digits):
+    """The JAX `verify_straus_kernel`: a_pt int32 [4, NLIMB, B] decompressed
+    A points, k_digits / s_digits int[B, 64] 4-bit MSB-first -> acc int32
+    [4, NLIMB, B] = [S]B + [k](-A), projective."""
+    a_point = tuple(a_pt[i] for i in range(4))
+    acc = _straus_walk(a_point, k_digits.T.to(torch.int32), s_digits.T.to(torch.int32))
+    return torch.stack(acc, dim=0)
+
+
+def verify_verdict_plain(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid):
+    """The JAX `verify_verdict_kernel`: both verdicts from the walk's
+    accumulator and the decompressed R set -> (strict bool [B], cofactored
+    bool [B])."""
+    acc = tuple(acc_pt[i] for i in range(4))
+    r_point = tuple(r_pt[i] for i in range(4))
+    r_y_lm = r_y.T.to(torch.int32).contiguous()
+    return _verdicts(acc, r_point, r_y_lm, r_sign.to(torch.int32), a_valid, r_valid)
+
+
+def _points_spec(t, B: int) -> tuple:
+    return (t, torch.int32, (4, NLIMB, B))
+
+
+def verify_decompress(y_rows, signs):
+    """A3: decompress one point set; `verify_decompress_plain`'s signature and
+    results (points canonical from the kernel). On CPU tensors the plain
+    version; on CUDA tensors the kernel of `csrc/ed25519_staged.cu` (int16
+    limbs, int8 signs)."""
+    dev = y_rows.device
+    if dev.type == "cpu":
+        return verify_decompress_plain(y_rows, signs)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_decompress: unsupported device {dev}")
+    B = y_rows.shape[0] if y_rows.dim() == 2 else -1
+    _check_inputs("verify_decompress", {
+        "y_rows": (y_rows, torch.int16, (B, NLIMB)),
+        "signs": (signs, torch.int8, (B,)),
+    }, dev)
+    pts = torch.empty((4, NLIMB, B), dtype=torch.int32, device=dev)
+    valid = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B:
+        _launch("ed25519_staged", "ed25519_verify_decompress", "verify_decompress", dev,
+                (y_rows, signs, _const("KERNEL_CONSTS", dev), pts, valid), (B,))
+    return pts, valid
+
+
+def verify_straus(a_pt, k_digits, s_digits):
+    """A4: the Straus walk over decompressed A points; `verify_straus_plain`'s
+    signature and results (the kernel's accumulator canonical, the same
+    projective point). On CUDA tensors the kernel of `csrc/ed25519_staged.cu`
+    (int32 points, int8 digits)."""
+    dev = a_pt.device
+    if dev.type == "cpu":
+        return verify_straus_plain(a_pt, k_digits, s_digits)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_straus: unsupported device {dev}")
+    B = a_pt.shape[2] if a_pt.dim() == 3 else -1
+    _check_inputs("verify_straus", {
+        "a_pt": _points_spec(a_pt, B),
+        "k_digits": (k_digits, torch.int8, (B, WINDOWS)),
+        "s_digits": (s_digits, torch.int8, (B, WINDOWS)),
+    }, dev)
+    acc = torch.empty((4, NLIMB, B), dtype=torch.int32, device=dev)
+    if B:
+        _launch("ed25519_staged", "ed25519_verify_straus", "verify_straus", dev, (
+            a_pt, k_digits, s_digits, _const("BT", dev), _const("KERNEL_CONSTS", dev), acc,
+        ), (B,))
+    return acc
+
+
+def verify_verdict(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid):
+    """A5: the strict and cofactored verdicts; `verify_verdict_plain`'s
+    signature and results. On CUDA tensors the kernel of
+    `csrc/ed25519_staged.cu` (int32 points, int16 r_y, int8 r_sign, bool
+    validity)."""
+    dev = acc_pt.device
+    if dev.type == "cpu":
+        return verify_verdict_plain(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_verdict: unsupported device {dev}")
+    B = acc_pt.shape[2] if acc_pt.dim() == 3 else -1
+    _check_inputs("verify_verdict", {
+        "acc_pt": _points_spec(acc_pt, B),
+        "r_pt": _points_spec(r_pt, B),
+        "r_y": (r_y, torch.int16, (B, NLIMB)),
+        "r_sign": (r_sign, torch.int8, (B,)),
+        "a_valid": (a_valid, torch.bool, (B,)),
+        "r_valid": (r_valid, torch.bool, (B,)),
+    }, dev)
+    strict = torch.empty((B,), dtype=torch.bool, device=dev)
+    cof = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B:
+        _launch("ed25519_staged", "ed25519_verify_verdict", "verify_verdict", dev, (
+            acc_pt, r_pt, r_y, r_sign, a_valid, r_valid, _const("KERNEL_CONSTS", dev),
+            strict, cof,
+        ), (B,))
+    return strict, cof
+
+
+def staged_field_ops() -> dict:
+    """Field squarings and multiplications per row of each staged kernel,
+    counted as `field_muls_per_signature` counts A1's (whose walk, epilogue
+    and decompression they are): A3 one decompression; A4 the -A table and
+    the 64-window walk; A5 the inversion, x and y, the 9-mul pt_add and 3
+    doublings. Two A3 rows (A and R), one A4 and one A5 make A1's count."""
+    return {
+        "verify_decompress": {"sq": 255, "mul": 20},
+        "verify_straus": {"sq": 64 * 16, "mul": 127 + 64 * (4 * 4 + 8 + 7)},
+        "verify_verdict": {"sq": 254 + 3 * 4, "mul": 11 + 2 + 9 + 3 * 4},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -582,31 +741,28 @@ def msm_accumulate_plain(a_y, a_sign, r_y, r_sign, ak_digits, z_digits, chunk=MS
     return torch.stack(v_a, dim=0), torch.stack(v_r, dim=0), valid[:B] & valid[B:]
 
 
+def _check_chains(kernel: str, B: int) -> int:
+    """The chains of a window accumulate over B rows, min(128, B) as the JAX
+    kernel's `chunk`; B must be a multiple of them and they a power of two."""
+    C = min(MSM_CHUNK, B)
+    if B < 1 or C & (C - 1) or B % C:
+        raise ValueError(
+            f"{kernel}: B={B} must be a multiple of its {C} chains, a power of two"
+        )
+    return C
+
+
 def _check_msm_inputs(a_y, a_sign, r_y, r_sign, ak_digits, z_digits) -> int:
     B = a_y.shape[0] if a_y.dim() == 2 else -1
-    want = {
+    _check_inputs("msm_accumulate", {
         "a_y": (a_y, torch.int16, (B, NLIMB)),
         "r_y": (r_y, torch.int16, (B, NLIMB)),
         "a_sign": (a_sign, torch.int8, (B,)),
         "r_sign": (r_sign, torch.int8, (B,)),
         "ak_digits": (ak_digits, torch.int8, (B, MSM_WA)),
         "z_digits": (z_digits, torch.int8, (B, MSM_WR)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.device != a_y.device:
-            raise ValueError(f"msm_accumulate: {name} on {t.device}, a_y on {a_y.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"msm_accumulate: {name} must be {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"msm_accumulate: {name} must be contiguous")
-    C = min(MSM_CHUNK, B)  # chains per window lane, the JAX kernel's
-    if B < 1 or C & (C - 1) or B % C:
-        raise ValueError(
-            f"msm_accumulate: B={B} must be a multiple of its {C} chains, a power of two"
-        )
+    }, a_y.device)
+    _check_chains("msm_accumulate", B)
     return B
 
 
@@ -625,7 +781,7 @@ def msm_accumulate(a_y, a_sign, r_y, r_sign, ak_digits, z_digits):
     if dev.type != "cuda":
         raise ValueError(f"msm_accumulate: unsupported device {dev}")
     B = _check_msm_inputs(a_y, a_sign, r_y, r_sign, ak_digits, z_digits)
-    C = min(MSM_CHUNK, B)
+    C = _check_chains("msm_accumulate", B)
     v_a = torch.empty((4, NLIMB, MSM_WA), dtype=torch.int32, device=dev)
     v_r = torch.empty((4, NLIMB, MSM_WR), dtype=torch.int32, device=dev)
     valid = torch.empty((B,), dtype=torch.bool, device=dev)
@@ -635,18 +791,94 @@ def msm_accumulate(a_y, a_sign, r_y, r_sign, ak_digits, z_digits):
     table = torch.empty((2 * B * 16 * 40,), dtype=torch.int32, device=dev)
     pvalid = torch.empty((2 * B,), dtype=torch.uint8, device=dev)
     partial = torch.empty(((MSM_WA + MSM_WR) * C * 40,), dtype=torch.int32, device=dev)
-    fn = kernel_registry.function("ed25519_msm", "ed25519_msm_accumulate", 13, 2)
-    with torch.cuda.device(dev):  # the launch's device, whatever the thread's
-        rc = fn(
-            a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(),
-            ak_digits.data_ptr(), z_digits.data_ptr(),
-            _const("KERNEL_CONSTS", dev).data_ptr(), table.data_ptr(), pvalid.data_ptr(),
-            partial.data_ptr(), v_a.data_ptr(), v_r.data_ptr(), valid.data_ptr(), B, C,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernel_registry.check("ed25519_msm", "msm_accumulate", rc)
-    kernel_registry.count_launch("msm_accumulate")
+    _launch("ed25519_msm", "ed25519_msm_accumulate", "msm_accumulate", dev, (
+        a_y, a_sign, r_y, r_sign, ak_digits, z_digits, _const("KERNEL_CONSTS", dev),
+        table, pvalid, partial, v_a, v_r, valid,
+    ), (B, C))
     return v_a, v_r, valid
+
+
+def msm_window_plain(pts, digits, chunk=MSM_CHUNK):
+    """The JAX `msm_window_kernel`: A2's cached-table build and window-lane
+    accumulate over ONE point set. pts int32 [4, NLIMB, B] decompressed
+    points, digits int[B, W] -> V int32 [4, NLIMB, W] loose limbs per window
+    lane: sum_j digit_{j,w} (-P_j)."""
+    point = tuple(pts[i] for i in range(4))
+    table = _pt_cached_table(pt_neg(point), pts.shape[2])
+    v = _accumulate_windows(table, digits.to(torch.int32), chunk)
+    return torch.stack(v, dim=0)
+
+
+def msm_window(pts, digits):
+    """A6: `msm_window_plain`'s signature and results (the kernel's lanes
+    canonical, the same points). On CUDA tensors the kernels of
+    `csrc/ed25519_msm.cu` (int32 points, int8 digits of the A scalars' 64
+    or the R scalars' 32 lanes), with A2's min(128, B) chains."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return msm_window_plain(pts, digits)
+    if dev.type != "cuda":
+        raise ValueError(f"msm_window: unsupported device {dev}")
+    B = pts.shape[2] if pts.dim() == 3 else -1
+    W = digits.shape[1] if digits.dim() == 2 else -1
+    if W not in (MSM_WA, MSM_WR):
+        raise ValueError(f"msm_window: digits must have {MSM_WA} or {MSM_WR} lanes, got {W}")
+    _check_inputs("msm_window", {
+        "pts": _points_spec(pts, B),
+        "digits": (digits, torch.int8, (B, W)),
+    }, dev)
+    C = _check_chains("msm_window", B)
+    v = torch.empty((4, NLIMB, W), dtype=torch.int32, device=dev)
+    # Scratch: the cached tables (B points x 16 entries x 4 coords x 10
+    # limbs) and the chain sums (W lanes x C chains x 4 coords x 10 limbs).
+    table = torch.empty((B * 16 * 40,), dtype=torch.int32, device=dev)
+    partial = torch.empty((W * C * 40,), dtype=torch.int32, device=dev)
+    _launch("ed25519_msm", "ed25519_msm_window", "msm_window", dev, (
+        pts, digits, _const("KERNEL_CONSTS", dev), table, partial, v,
+    ), (B, W, C))
+    return v
+
+
+def msm_shard_reduce_plain(lanes):
+    """The cross-shard sum of A6's lanes: lanes int32 [k, 4, NLIMB, W], one
+    lane set per shard -> [4, NLIMB, W], lane by lane the pt_add fold of the
+    sets in shard order (the reduce XLA inserts after the sharded JAX
+    `msm_window_kernel`, in an order of its own)."""
+    acc = tuple(lanes[0, c] for c in range(4))
+    for s in range(1, lanes.shape[0]):
+        acc = pt_add(acc, tuple(lanes[s, c] for c in range(4)))
+    return torch.stack(acc, dim=0)
+
+
+def msm_shard_reduce(lanes):
+    """`msm_shard_reduce_plain`'s signature and results (canonical from the
+    kernel). On CUDA tensors the kernel of `csrc/ed25519_msm.cu`."""
+    dev = lanes.device
+    if dev.type == "cpu":
+        return msm_shard_reduce_plain(lanes)
+    if dev.type != "cuda":
+        raise ValueError(f"msm_shard_reduce: unsupported device {dev}")
+    k = lanes.shape[0] if lanes.dim() == 4 else -1
+    W = lanes.shape[3] if lanes.dim() == 4 else -1
+    if k < 1 or not 1 <= W <= MSM_WA:
+        raise ValueError(f"msm_shard_reduce: lanes must be [k >= 1, 4, {NLIMB}, W <= 64]")
+    _check_inputs("msm_shard_reduce", {"lanes": (lanes, torch.int32, (k, 4, NLIMB, W))}, dev)
+    v = torch.empty((4, NLIMB, W), dtype=torch.int32, device=dev)
+    _launch("ed25519_msm", "ed25519_msm_shard_reduce", "msm_shard_reduce", dev,
+            (lanes, _const("KERNEL_CONSTS", dev), v), (k, W))
+    return v
+
+
+def msm_window_ops(live: int, lanes: int, batch: int, chunk: int = MSM_CHUNK) -> int:
+    """Field multiplications (it squares nothing) that the kernels of
+    `msm_window` must do for one launch of `batch` points and `lanes` window
+    lanes, counted as `msm_field_ops` counts A2's lanes: for each of the
+    `live` points (a nonzero digit) its table, 127 mul, and one 8-mul cached
+    add per lane; and, when any point is live, the chain tree's C - 1
+    nine-mul adds per lane. The decompression is A3's. Zero-digit rows
+    select the identity and are not counted."""
+    c = min(chunk, batch)
+    return 127 * live + 8 * lanes * live + 9 * (c - 1) * lanes * (live > 0)
 
 
 def msm_field_ops(points: int, a_live: int, r_live: int, batch: int, chunk: int = MSM_CHUNK) -> dict:

@@ -20,6 +20,10 @@ The registry keeps, in place of `compile_walls()`:
 - one plain-integer launch count per kernel, incremented by the kernel's
   wrapper where it launches the kernel and nowhere else, so that a run can
   show its main path went through the kernels.
+
+The JAX registry's per-mesh cache of sharded jit wrappers (`sharded()`)
+has no counterpart: it exists to share XLA compiles between verifiers over
+one mesh, and a CUDA library is built once per process whatever the mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +50,16 @@ KERNELS: dict[str, tuple[str, str]] = {
         "ed25519_verify", "narwhal_tpu/tpu/ed25519.py:395 verify_batch_kernel"),
     "msm_accumulate": (
         "ed25519_msm", "narwhal_tpu/tpu/ed25519.py:666 msm_accumulate_kernel"),
+    "verify_decompress": (
+        "ed25519_staged", "narwhal_tpu/tpu/ed25519.py:485 verify_decompress_kernel"),
+    "verify_straus": (
+        "ed25519_staged", "narwhal_tpu/tpu/ed25519.py:496 verify_straus_kernel"),
+    "verify_verdict": (
+        "ed25519_staged", "narwhal_tpu/tpu/ed25519.py:527 verify_verdict_kernel"),
+    "msm_window": ("ed25519_msm", "narwhal_tpu/tpu/ed25519.py:549 msm_window_kernel"),
+    "msm_shard_reduce": (
+        "ed25519_msm",
+        "narwhal_tpu/tpu/verifier.py:96 the cross-device reduce of msm_window (out_specs=None)"),
     "place_batch": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:95 place_batch"),
     "roll_window": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:79 roll_window"),
     "chain_commit": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit"),

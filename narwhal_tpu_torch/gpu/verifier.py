@@ -20,7 +20,12 @@ reference:
 - the group lane for compact certificates (`submit_groups` /
   `collect_groups`): many half-aggregated proofs checked by one A2 launch
   under per-group random outer weights, a failed chunk bisected by solo
-  launches, and only groups that still fail re-checked on the host.
+  launches, and only groups that still fail re-checked on the host;
+- mesh sharding (`--verify-shards k`): `GpuVerifier(mesh=data_mesh(k))`
+  splits every bucket into k contiguous shards, one per device, and runs
+  the staged kernels on each (`_sharded_kernels`: A3 `verify_decompress`,
+  A4 `verify_straus`, A5 `verify_verdict`, A6 `msm_window`), the window
+  lanes of the shards summed on the first device by `msm_shard_reduce`.
 
 `submit` / `submit_groups` launch the kernels and start the results' copy to
 pinned host memory (`HostCopy`: a non-blocking copy plus a CUDA event), so
@@ -30,8 +35,9 @@ event.
 Not ported (ROADMAP): `make_batch_verifier`, `AsyncVerifierPool` and the
 strict-mode host-library fallback (queue 1 item 5, with the node boot rules
 that decide when a host fallback is allowed); the `NARWHAL_TPU_VERIFY_MODE`
-reader (item 7); the mesh-sharded verifier (item 6); the native host scalar
-library (item 7) — the port uses the Python precheck and fold.
+reader (item 7); `data_mesh`'s fallback to virtual CPU devices (the port
+raises instead: a silent CPU mesh would hide the card); the native host
+scalar library (item 7) — the port uses the Python precheck and fold.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from __future__ import annotations
 import asyncio
 import atexit
 import collections
+import contextlib
 import hashlib
 import logging
 import os
@@ -50,6 +57,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..config import ConfigError
 from ..crypto import BatchItem
 from . import HostCopy, ed25519, resolve_device
 from . import ed25519_ref as ref
@@ -98,6 +106,122 @@ def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
     return acc[0] % ref.P == 0 and (acc[1] - acc[2]) % ref.P == 0
 
 
+def _named(device) -> torch.device:
+    """`resolve_device`, with a bare `cuda` pinned to the current card: the
+    launches happen on VerifyService's threads, so no launch may depend on a
+    thread's current device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class DataMesh:
+    """The verify-sharding mesh: one 'data' axis over `devices` (a tuple of
+    torch.device, one shard each; a device may repeat). The counterpart of
+    the JAX package's 1-axis `Mesh`, with the same `.shape` mapping."""
+
+    def __init__(self, devices):
+        self.devices = tuple(devices)
+        self.shape = {"data": len(self.devices)}
+
+
+def data_mesh(shards: int, devices=None) -> DataMesh:
+    """The verify-sharding mesh of `shards` devices (--verify-shards).
+
+    `devices` pins an explicit list; an entry may name one device more than
+    once (the tests pass ["cpu"] * k, as the JAX tests pin virtual CPU
+    devices; a single card can run [cuda:0, cuda:0]). By default the first
+    `shards` cards. Too few devices raise ConfigError: unlike the JAX
+    package, which falls back to virtual CPU devices with a warning, the
+    port never moves a sharded verifier off the card unasked."""
+    if shards < 1:
+        raise ConfigError(f"--verify-shards {shards} must be at least 1")
+    if devices is not None:
+        devs = [_named(d) for d in devices]
+        if len(devs) < shards:
+            raise ConfigError(
+                f"--verify-shards {shards} exceeds the {len(devs)} pinned devices"
+            )
+    else:
+        count = torch.cuda.device_count()
+        if count < shards:
+            raise ConfigError(
+                f"--verify-shards {shards} exceeds available devices ({count} cuda)"
+            )
+        devs = [torch.device("cuda", i) for i in range(shards)]
+    return DataMesh(devs[:shards])
+
+
+def _sharded_kernels(mesh: DataMesh):
+    """The mesh-sharded verify pipeline: the STAGED kernels on every shard.
+
+    A bucket's host arrays split into k equal contiguous shards, each
+    uploaded to its device and run there (every launch under that device's
+    guard, on its current stream; launches are asynchronous, so the shards
+    of different cards run together):
+    - item_fn: A3 on the A set and on the R set, A4, A5; the verdicts of the
+      shards concatenated on the first device in shard order;
+    - msm_fn: A3 twice, A6 over the A set's 64 lanes and the R set's 32; the
+      shards' lane sets brought to the first device and summed there by
+      `msm_shard_reduce` (the reduce XLA inserts on the JAX mesh), and
+      valid = a_valid & r_valid per row.
+    The per-lane arithmetic is A1's and A2's, so verdicts are bit-equal to
+    the monoliths', and V is the same sum (as points: the shards' chains
+    group the rows differently). Cross-device copies order themselves after
+    the work on both devices, so the first device's stream, and the
+    HostCopy event recorded on it, follows every shard.
+
+    Returns (item_fn, msm_fn), each taking the six host arrays of the
+    monolith's signature and returning its device outputs."""
+    devices = mesh.devices
+    first = devices[0]
+
+    def guard(dev):
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    def upload(arrays, i, dev):
+        """Shard i of the six host arrays, on its device."""
+        n = arrays[0].shape[0] // len(devices)
+        return [torch.from_numpy(np.ascontiguousarray(a[i * n:(i + 1) * n])).to(dev)
+                for a in arrays]
+
+    def gather(parts):
+        return torch.cat([t.to(first) for t in parts])
+
+    def item_fn(arrays):
+        strict, cof = [], []
+        for i, dev in enumerate(devices):
+            with guard(dev):
+                a_y, a_sign, r_y, r_sign, k_digits, s_digits = upload(arrays, i, dev)
+                a_pt, a_valid = ed25519.verify_decompress(a_y, a_sign)
+                r_pt, r_valid = ed25519.verify_decompress(r_y, r_sign)
+                acc = ed25519.verify_straus(a_pt, k_digits, s_digits)
+                s, c = ed25519.verify_verdict(acc, r_pt, r_y, r_sign, a_valid, r_valid)
+            strict.append(s)
+            cof.append(c)
+        return gather(strict), gather(cof)
+
+    def msm_fn(arrays):
+        v_a, v_r, valid = [], [], []
+        for i, dev in enumerate(devices):
+            with guard(dev):
+                a_y, a_sign, r_y, r_sign, ak_digits, z_digits = upload(arrays, i, dev)
+                a_pt, a_valid = ed25519.verify_decompress(a_y, a_sign)
+                r_pt, r_valid = ed25519.verify_decompress(r_y, r_sign)
+                v_a.append(ed25519.msm_window(a_pt, ak_digits))
+                v_r.append(ed25519.msm_window(r_pt, z_digits))
+                valid.append(a_valid & r_valid)
+        reduce = ed25519.msm_shard_reduce
+        return (
+            reduce(torch.stack([v.to(first) for v in v_a])),
+            reduce(torch.stack([v.to(first) for v in v_r])),
+            gather(valid),
+        )
+
+    return item_fn, msm_fn
+
+
 class GpuVerifier:
     """Synchronous batch verifier backed by the CUDA kernels (or, with
     `device="cpu"`, by their plain PyTorch versions).
@@ -107,7 +231,12 @@ class GpuVerifier:
     sum[z_i]R_i == 0 with fresh 128-bit z_i — through A2 and the host
     epilogue; a failed bucket falls back to A1 to locate offenders. Every
     msm-mode verdict (the batch check, small buckets, the fallback) is the
-    cofactored rule. mode="item": always A1, strict verdict."""
+    cofactored rule. mode="item": always A1, strict verdict.
+
+    mesh (a `data_mesh`): every bucket is sharded over the mesh's data axis
+    and runs the staged kernels A3-A6 (`_sharded_kernels`) in place of A1
+    and A2, with the same verdicts. Every bucket this verifier can pad to
+    must split evenly, or construction raises ConfigError."""
 
     def __init__(
         self,
@@ -116,6 +245,8 @@ class GpuVerifier:
         msm_min_bucket: int = 512,
         fixed_bucket: bool = False,
         device=None,
+        mesh: DataMesh | None = None,
+        data_axis: str = "data",
     ):
         if mode not in _MODES:
             raise ValueError(f"verify mode must be one of {_MODES}, got {mode!r}")
@@ -123,12 +254,31 @@ class GpuVerifier:
         self.mode = mode
         self.msm_min_bucket = msm_min_bucket
         self.fixed_bucket = fixed_bucket
-        dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            # Launches happen on VerifyService's threads: name the card so
-            # no launch depends on a thread's current device.
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self.mesh = mesh
+        if mesh is None:
+            self.device = _named(device)
+            self._item_fn = lambda arrays: ed25519.verify_batch(*self._upload(arrays))
+            self._msm_fn = lambda arrays: ed25519.msm_accumulate(*self._upload(arrays))
+            return
+        if device is not None:
+            raise ValueError("GpuVerifier: pass a device or a mesh, not both")
+        # Fail at construction, as the JAX verifier does: every bucket is a
+        # power of two in [_MIN_BUCKET, max_bucket] (or max_bucket itself
+        # with fixed_bucket), and the data axis must divide each.
+        if data_axis not in mesh.shape:
+            raise ConfigError(
+                f"verifier mesh has no {data_axis!r} axis (axes: {tuple(mesh.shape)})"
+            )
+        data_size = mesh.shape[data_axis]
+        smallest = self.max_bucket if self.fixed_bucket else _MIN_BUCKET
+        if smallest % data_size != 0 or self.max_bucket % data_size != 0:
+            raise ConfigError(
+                f"verify shard count {data_size} must divide every dispatch bucket "
+                f"(smallest {smallest}, largest {self.max_bucket}); use a power of "
+                f"two <= {smallest}"
+            )
+        self.device = mesh.devices[0]
+        self._item_fn, self._msm_fn = _sharded_kernels(mesh)
 
     def _precheck_py(self, items: Sequence[BatchItem]):
         """Canonicality checks + challenge scalars: returns (precheck[n]
@@ -211,15 +361,16 @@ class GpuVerifier:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays]
 
     def _dispatch_items(self, packed, lo, hi, pad) -> HostCopy:
-        """A1 over one padded bucket: upload, launch, start the verdicts'
-        copy. The copy's result is (strict, cofactored)."""
-        strict, cof = ed25519.verify_batch(*self._upload(self.bucket_arrays(packed, lo, hi, pad)))
-        return HostCopy(strict, cof)
+        """A1 (or, on a mesh, A3-A5 on every shard) over one padded bucket:
+        upload, launch, start the verdicts' copy. The copy's result is
+        (strict, cofactored)."""
+        return HostCopy(*self._item_fn(self.bucket_arrays(packed, lo, hi, pad)))
 
     def _launch_msm(self, arrays) -> HostCopy:
-        """A2 over six host arrays: upload, launch, start the copy of
-        (V_a, V_r, valid)."""
-        return HostCopy(*ed25519.msm_accumulate(*self._upload(arrays)))
+        """A2 (or, on a mesh, A3 and A6 on every shard and the shard reduce)
+        over six host arrays: upload, launch, start the copy of (V_a, V_r,
+        valid)."""
+        return HostCopy(*self._msm_fn(arrays))
 
     def _fold_py(self, k_rows: np.ndarray, s_rows: np.ndarray, rnd: bytes):
         """ak_i = z_i*k_i mod L and sum(z_i*s_i) mod L, z_i the 16-byte
@@ -518,22 +669,22 @@ class VerifyService:
         atexit.register(self.shutdown)
 
     @classmethod
-    def shared(cls, mode: str, shards: int = 1, device=None) -> "VerifyService":
-        """The process-wide instance for an accept-set mode ('item'/'msm').
-        Raises if the device verifier cannot be built. The verifier runs
-        fixed-bucket (every flush pads to 2048 rows), with the msm lane from
-        16 rows up."""
-        if shards > 1:
-            raise NotImplementedError(
-                "the mesh-sharded verifier (--verify-shards) is not ported yet"
-            )
+    def shared(cls, mode: str, shards: int = 1, device=None, devices=None) -> "VerifyService":
+        """The process-wide instance for an accept-set mode ('item'/'msm')
+        and shard count. Raises if the device verifier cannot be built. The
+        verifier runs fixed-bucket (every flush pads to 2048 rows), with the
+        msm lane from 16 rows up. `shards > 1` (--verify-shards) shards
+        every flush over `data_mesh(shards, devices)` (`device` is then
+        unused); a mesh that cannot split the bucket raises ConfigError
+        here, not at the first verify."""
         key = f"{mode}:{shards}"
         svc = cls._shared.get(key)
         if svc is None:
+            mesh = data_mesh(shards, devices) if shards > 1 else None
             svc = cls(
                 GpuVerifier(
                     max_bucket=2048, msm_min_bucket=16, mode=mode, fixed_bucket=True,
-                    device=device,
+                    device=None if mesh else device, mesh=mesh,
                 ),
                 max_batch=2048,
             )

@@ -8,8 +8,10 @@ inputs), so it also runs on a machine with a card and no JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
 Exact everywhere: verdicts, masks and validity are compared bit for bit;
-msm_accumulate's window lanes as affine points (the kernel writes them
-canonical, the plain version loose; both are the same points).
+msm_accumulate's, msm_window's and the shard reduce's window lanes and
+verify_straus's accumulators as affine points, verify_decompress's
+coordinates mod p (the kernels write canonical limbs, the plain versions
+loose ones; both are the same values).
 """
 
 import asyncio
@@ -102,6 +104,111 @@ def test_msm_accumulate_kernel_matches_plain(bucket):
         assert msm_epilogue_check(host[0], host[1], sum_s) is want_ok
         assert msm_epilogue_check(host[2], host[3], sum_s) is want_ok
     assert set(np.flatnonzero(~valid.cpu().numpy()).tolist()) == item[2]
+
+
+@pytest.fixture(scope="module")
+def staged_bucket():
+    """The item bucket of chip_smoke.signature_bucket at B = 2048 (forged,
+    torsion, zero and random-limb rows) on the card, and A3's kernel
+    outputs for its A and R sets."""
+    if not torch.cuda.is_available():
+        pytest.skip("verify_decompress CUDA kernel (csrc/ed25519_staged.cu) needs a card")
+    arrays, _checked, _m = chip_smoke.signature_bucket(7, 120, 2048)
+    t = [torch.from_numpy(a).cuda() for a in arrays]
+    return t, tk.verify_decompress(t[0], t[1]), tk.verify_decompress(t[2], t[3])
+
+
+def test_verify_decompress_kernel_matches_plain(staged_bucket):
+    t, a, r = staged_bucket
+    for (pts, valid), y, sign in ((a, t[0], t[1]), (r, t[2], t[3])):
+        p_pts, p_valid = tk.verify_decompress_plain(y, sign)
+        assert torch.equal(valid, p_valid)
+        assert chip_smoke._mod_p(pts.cpu().numpy()) == chip_smoke._mod_p(p_pts.cpu().numpy())
+    assert not bool(r[1].all())  # the corrupt R encodings are flagged
+
+
+def test_staged_kernels_match_plain_and_verify_batch(staged_bucket):
+    """A4 equal to its plain version as affine points, A5 bit-equal, and
+    A3 -> A4 -> A5 bit-equal to A1 on both lanes."""
+    t, (a_pt, a_valid), (r_pt, r_valid) = staged_bucket
+    kernel_registry.reset_launch_counts()
+    acc = tk.verify_straus(a_pt, t[4], t[5])
+    strict, cof = tk.verify_verdict(acc, r_pt, t[2], t[3], a_valid, r_valid)
+    counts = kernel_registry.launch_counts()
+    assert counts["verify_straus"] == 1 and counts["verify_verdict"] == 1
+    chip_smoke._same_points("verify_straus", acc, tk.verify_straus_plain(a_pt, t[4], t[5]))
+    p_strict, p_cof = tk.verify_verdict_plain(acc, r_pt, t[2], t[3], a_valid, r_valid)
+    assert torch.equal(strict, p_strict) and torch.equal(cof, p_cof)
+    m_strict, m_cof = tk.verify_batch(*t)
+    assert torch.equal(strict, m_strict) and torch.equal(cof, m_cof)
+    assert 0 < int(strict.sum()) < int(cof.sum()) < 2048  # torsion rows: cofactored only
+
+
+@pytest.mark.parametrize("shape", ["item", "group"])
+def test_msm_window_kernel_matches_plain_and_msm_accumulate(shape):
+    """A6 over the A (64 lanes) and R (32 lanes) sets of the msm buckets at
+    B = 2048, equal to its plain version as affine points; A3 -> A6 equal
+    to A2 (lanes as points, validity bit for bit)."""
+    _need_card("msm_window", "csrc/ed25519_msm.cu")
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+
+    host = (chip_smoke.msm_item_bucket(3, 40, 2048)[0] if shape == "item"
+            else chip_smoke.msm_group_bucket(CommitteeFixture(size=50), 2048)[0])
+    t = [torch.from_numpy(a).cuda() for a in host]
+    va, vr, valid = tk.msm_accumulate(*t)
+    pa, a_valid = tk.verify_decompress(t[0], t[1])
+    pr, r_valid = tk.verify_decompress(t[2], t[3])
+    for pts, digits, mono in ((pa, t[4], va), (pr, t[5], vr)):
+        kernel_registry.reset_launch_counts()
+        v = tk.msm_window(pts, digits)
+        assert kernel_registry.launch_counts()["msm_window"] == 1
+        chip_smoke._same_points("msm_window", v, tk.msm_window_plain(pts, digits))
+        chip_smoke._same_points("A3 -> A6 against msm_accumulate", v, mono)
+    assert torch.equal(a_valid & r_valid, valid)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_msm_shard_reduce_kernel_matches_plain(k):
+    """The reduce over k shards of the msm item bucket's A set equals its
+    plain version, and the unsharded A2's V_a, as affine points."""
+    _need_card("msm_shard_reduce", "csrc/ed25519_msm.cu")
+    t = [torch.from_numpy(a).cuda() for a in chip_smoke.msm_item_bucket(3, 40, 2048)[0]]
+    pa, _ = tk.verify_decompress(t[0], t[1])
+    n = 2048 // k
+    lanes = torch.stack([tk.msm_window(pa[..., i * n:(i + 1) * n].contiguous(),
+                                       t[4][i * n:(i + 1) * n]) for i in range(k)])
+    got = tk.msm_shard_reduce(lanes)
+    chip_smoke._same_points("msm_shard_reduce", got, tk.msm_shard_reduce_plain(lanes))
+    chip_smoke._same_points("shards against msm_accumulate", got, tk.msm_accumulate(*t)[0])
+
+
+@pytest.mark.parametrize("layout", ["one card twice", "every card"])
+def test_sharded_verifier_matches_unsharded(layout):
+    """GpuVerifier over one card twice (two shards), or over every card
+    (which needs two or more), gives the unsharded verifier's verdicts in
+    both modes, and launches no monolith."""
+    _need_card("the staged kernels", "csrc/ed25519_staged.cu, csrc/ed25519_msm.cu")
+    from narwhal_tpu_torch.gpu.verifier import data_mesh
+
+    n_cards = torch.cuda.device_count()
+    if layout == "every card" and n_cards < 2:
+        pytest.skip("a mesh over every card needs two or more cards")
+    mesh = (data_mesh(2, devices=["cuda:0", "cuda:0"]) if layout == "one card twice"
+            else data_mesh(n_cards))
+    items = []
+    for i in range(60):
+        kp = KeyPair.from_seed(bytes([i, 9]) * 16)
+        msg = b"sharded %d" % i
+        items.append((kp.public, msg if i % 7 else msg + b"!", kp.sign(msg)))
+    for mode in ("item", "msm"):
+        flat = GpuVerifier(max_bucket=64, msm_min_bucket=16, mode=mode, device="cuda")
+        want = flat(items)
+        kernel_registry.reset_launch_counts()
+        got = GpuVerifier(max_bucket=64, msm_min_bucket=16, mode=mode, mesh=mesh)(items)
+        counts = kernel_registry.launch_counts()
+        assert got == want == [bool(i % 7) for i in range(60)]
+        assert counts["verify_batch"] == counts["msm_accumulate"] == 0
+        assert counts["verify_verdict"] > 0
 
 
 @pytest.mark.parametrize("shift", [0, 1, 63, 64])

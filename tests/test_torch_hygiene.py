@@ -100,6 +100,11 @@ def test_registry_sources_define_the_wrapped_entry_points():
         "roll_window": "dag_window_roll_window",
         "chain_commit": "dag_window_chain_commit",
         "reach_many": "dag_window_reach_many",
+        "verify_decompress": "ed25519_verify_decompress",
+        "verify_straus": "ed25519_verify_straus",
+        "verify_verdict": "ed25519_verify_verdict",
+        "msm_window": "ed25519_msm_window",
+        "msm_shard_reduce": "ed25519_msm_shard_reduce",
     }
     assert set(kr.KERNELS) == set(symbols)
     for name, (stem, replaces) in kr.KERNELS.items():

@@ -445,7 +445,9 @@ def test_group_lane_empty_and_oversized_groups(fx):
 def test_service_items_msm_and_errors(monkeypatch):
     """VerifyService's item lane answers with the verifier's verdicts; a
     failing submit resolves the futures with its exception (no host
-    fallback); shared() refuses shards and keys instances by mode."""
+    fallback); shared() keys instances by mode and shard count, and its
+    2-shard msm service (a CPU data mesh) serves the 1-shard one's
+    verdicts."""
     v = GpuVerifier(max_bucket=B, msm_min_bucket=B, mode="msm", device="cpu")
     svc = VerifyService(v, max_batch=B, max_delay=0.002)
     items = _items(6, tag=11)
@@ -470,20 +472,32 @@ def test_service_items_msm_and_errors(monkeypatch):
     finally:
         svc.shutdown()
 
-    with pytest.raises(NotImplementedError):
-        VerifyService.shared("msm", shards=2, device="cpu")
     a = VerifyService.shared("item", device="cpu")
     b = VerifyService.shared("msm", device="cpu")
+    c = VerifyService.shared("msm", shards=2, devices=["cpu"] * 2)
     try:
         assert a is VerifyService.shared("item", device="cpu") and a is not b
-        for svc_, mode in ((a, "item"), (b, "msm")):
+        assert c is VerifyService.shared("msm", shards=2) and c is not b
+        for svc_, mode in ((a, "item"), (b, "msm"), (c, "msm")):
             ver = svc_.verifier
             assert (ver.mode, ver.max_bucket, ver.msm_min_bucket, ver.fixed_bucket) == (
                 mode, 2048, 16, True)
+        assert b.verifier.mesh is None and c.verifier.mesh.shape == {"data": 2}
+        mixed = _items(6, tag=12)
+        mixed[4] = (mixed[4][0], b"other", mixed[4][2])  # the fallback runs too
+
+        async def served():
+            return await asyncio.wait_for(asyncio.gather(
+                asyncio.gather(*(b.verify(*it) for it in mixed)),
+                asyncio.gather(*(c.verify(*it) for it in mixed))), 300.0)
+
+        one, two = asyncio.run(served())
+        assert one == two == [True] * 4 + [False, True]
     finally:
         a.shutdown()
         b.shutdown()
-    assert "item:1" not in VerifyService._shared and "msm:1" not in VerifyService._shared
+        c.shutdown()
+    assert not {"item:1", "msm:1", "msm:2"} & set(VerifyService._shared)
 
     async def closed():
         return await a.verify(*items[0])
