@@ -19,7 +19,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             verifier at B = 2048: verify_decompress on the item bucket's A
             and R sets, verify_straus and verify_verdict on its output,
             msm_window on the msm item and group buckets' A (64 lanes) and
-            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards), with
+            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards;
+            leader_support at B = 64 (rows 0 and W - 1 among the offsets),
+            consensus_commit on B6's K = 64 masks with a support vector
+            around the quorum, reach_shard_step on one shard of 2 and of 4
+            (N = 50 padded to 52), and its compositions over 2 and 4 shards
+            of the card: chain_commit_sharded against chain_commit on the
+            healed-partition chains, reach_many_sharded against reach_many
+            at W = 64 and 128), with
             kernel / plain / library times from CUDA events (median of
             repeats). Verdicts, masks and validity bit-equal;
             verify_decompress's coordinates equal mod p; msm_accumulate's,
@@ -35,6 +42,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             slides and grows and chains of up to 4 leaders commit at once;
             the commit sequence must equal the same engine's on the CPU
             and the port's host Bullshark's;
+  dag_shards
+            GpuBullshark(mesh=auth_mesh(2)) (--dag-shards 2) over two cards,
+            or the one card twice, on the engine phase's stream: the same
+            sequence as the host Bullshark and the unmeshed card engine,
+            through reach_shard_step only (chain_commit, place_batch and
+            roll_window launch 0 times), certificates/s beside the engine's;
   pipeline  FusedCertificatePipeline (strict item lane) on the card,
             continuing the engine phase's engine, over a fully signed
             N = 50 stream of the next 12 rounds (600 certificates x 50
@@ -80,8 +93,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             the same stream and
             reads through an adaptive Dag(backend="cuda"), whose answers
             must equal the host's too and whose routing_stats() give the
-            router's verdict.
-Launch counts are set to 0 just before each of the seven paths and read
+            router's verdict;
+  consensus_step
+            B7 on the card: B = 64 walks on an N = 50, W = 64 window
+            through consensus_step (reach_many, leader_support,
+            consensus_commit), then over a 2 x 2 data x auth mesh (four
+            cards, or the card four times): every output equal;
+  dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
+            plain reach; dryrun_multichip(4) over four cards, or the card
+            four times, passes every check of its three legs.
+Launch counts are set to 0 just before each of the ten paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS). Then one JSON line with every kernel's numbers (launches
 summed over the paths and per path), and as the last line
@@ -130,6 +151,12 @@ PATH_KERNELS = {
     "dag_service": ("reach_many", "place_batch", "roll_window"),
     "sharded": ("verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                 "msm_shard_reduce"),
+    "dag_shards": ("reach_shard_step",),
+    "consensus_step": ("reach_many", "leader_support", "consensus_commit",
+                       "reach_shard_step"),
+    "dryrun": ("reach_many", "reach_shard_step", "leader_support", "consensus_commit",
+               "verify_decompress", "verify_straus", "verify_verdict", "msm_window",
+               "msm_shard_reduce"),
 }
 
 
@@ -950,6 +977,184 @@ def check_reach_many(device, n: int, w: int):
     return out
 
 
+def support_inputs(rng: np.random.Generator, w: int, n: int, b: int, density: float):
+    """B walks of one consensus step on a random window: parent links at
+    `density`, present at 90 %, stakes 1..4, offsets and leaders at random
+    (row 0 and the top row among them), each walk's one-hot on its leader,
+    and each authority's last committed round."""
+    parent = (rng.random((w, n, n)) < density).astype(np.uint8)
+    present = (rng.random((w, n)) < 0.9).astype(np.uint8)
+    stakes = rng.integers(1, 5, n).astype(np.int32)
+    offs = rng.integers(0, w, b).astype(np.int32)
+    offs[:2] = (w - 1, 0)[:b]
+    leaders = rng.integers(0, n, b).astype(np.int32)
+    onehots = np.zeros((b, n), np.uint8)
+    onehots[np.arange(b), leaders] = 1
+    last = rng.integers(-3, w // 2, n).astype(np.int32)
+    return parent, present, stakes, offs, onehots, leaders, last
+
+
+def check_leader_support(device, n: int, w: int):
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    rng = np.random.default_rng(15)
+    parent, present, stakes, offs, _oh, leaders, _last = support_inputs(rng, w, n, 64, 0.3)
+    t = [torch.from_numpy(a).to(device) for a in (parent, present, stakes, offs, leaders)]
+    got, want = dk.leader_support(*t), dk.leader_support_plain(*t)
+    if not torch.equal(got, want):
+        raise AssertionError("leader_support: kernel != plain")
+    if tuple(got.shape) != (64,) or not 0 < int(got.min()) < int(got.max()):
+        raise AssertionError(f"leader_support: sums {got.tolist()}")
+    log(f"leader_support W={w} N={n} B=64 (rows 0 and {w - 1} among the offsets): "
+        f"kernel == plain, support {int(got.min())}..{int(got.max())}")
+    ms = time_ms(lambda: dk.leader_support(*t), device, reps=50)
+    plain_ms = time_ms(lambda: dk.leader_support_plain(*t), device, reps=20)
+    # Per walk its parent column (N bytes) and offset and leader read, its
+    # sum written; each distinct present row and the stakes read once.
+    nbytes = 64 * (n + 8 + 4) + len(set(offs.tolist())) * n + 4 * n
+    b, by = bound_ms(nbytes)
+    return {"name": "leader_support", "max_abs_err": int((got - want).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "shape": f"W={w} N={n} B=64"}
+
+
+def check_consensus_commit(device, n: int, w: int):
+    """On B6's K = 64 masks (the kernels phase's reach_many inputs), with a
+    support vector whose values straddle the quorum."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    rng = np.random.default_rng(16)
+    host = reach_many_inputs(rng, w, n, 64, 56)
+    masks = dk.reach_many(*(torch.from_numpy(a).to(device) for a in host))
+    stakes = rng.integers(1, 5, n).astype(np.int32)
+    quorum = int(stakes.sum()) // 3 + 1
+    support = (quorum + rng.integers(-4, 4, 64)).astype(np.int32)
+    last = rng.integers(-3, w, n).astype(np.int32)
+    t = [masks] + [torch.from_numpy(a).to(device) for a in (support, stakes, last)]
+    (kc, kl), (pc, pl) = dk.consensus_commit(*t), dk.consensus_commit_plain(*t)
+    if not (torch.equal(kc, pc) and torch.equal(kl, pl)):
+        raise AssertionError("consensus_commit: kernel != plain")
+    ok = support >= quorum
+    if ok.all() or not ok.any() or torch.equal(kl, t[3]):
+        raise AssertionError("consensus_commit: the inputs do not straddle the quorum")
+    log(f"consensus_commit W={w} N={n} B=64 ({int(ok.sum())} of 64 walks at quorum "
+        f"{quorum}): kernel == plain, {int((kl != t[3]).sum())} last-committed rounds moved")
+    ms = time_ms(lambda: dk.consensus_commit(*t), device, reps=50)
+    plain_ms = time_ms(lambda: dk.consensus_commit_plain(*t), device, reps=50)
+    # The masks read and the committed masks written once; support, stakes,
+    # last_committed read, new_last written.
+    b, by = bound_ms(2 * 64 * w * n + 4 * 64 + 4 * n + 8 * n)
+    return {"name": "consensus_commit", "max_abs_err": int((kl - pl).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, "shape": f"W={w} N={n} B=64"}
+
+
+def shard_step_inputs(rng: np.random.Generator, w: int, n: int, auth: int, k: int, row: int):
+    """One shard's operands of a reach_shard_step at `row`: shard 1 of the
+    committee axis padded to a multiple of `auth`, a healed-partition
+    window, lc and lcr as a chain leaves them, K walks starting above the
+    row (with K > 1 one at the row itself, on a column of the shard) and a
+    random frontier of the row above."""
+    parent, present, lc, lcr, _o, _h = healed_partition_chain(rng, w, n, GC_DEPTH, 1, 1)
+    npad = -(-n // auth) * auth
+    m = npad // auth
+    parent = np.pad(parent, ((0, 0), (0, npad - n), (0, npad - n)))
+    present = np.pad(present, ((0, 0), (0, npad - n)))
+    lc = np.pad(lc, (0, npad - n))
+    cols = slice(m, 2 * m)
+    offs = rng.integers(row + 1, w, k).astype(np.int32)
+    onehots = np.zeros((k, npad), np.uint8)
+    onehots[np.arange(k), rng.integers(0, npad, k)] = 1
+    if k > 1:
+        offs[0] = row
+        onehots[0] = 0
+        onehots[0, m + 1] = present[row, m + 1] = 1
+    frontier = (rng.random((k, npad)) < 0.3).astype(np.uint8)
+    frontier[:, n:] = 0
+    committed = np.full((k, m), -(2**30), np.int32)
+    committed[:, ::3] = row + 1
+    return (np.ascontiguousarray(parent[..., cols]), np.ascontiguousarray(present[:, cols]),
+            np.ascontiguousarray(lc[cols]), frontier, offs,
+            np.ascontiguousarray(onehots[:, cols]), np.array([lcr], np.int32),
+            np.zeros((k, w, m), bool), committed)
+
+
+def check_reach_shard_step(device, n: int, w: int, gc_depth: int = GC_DEPTH):
+    """The step kernel against its plain version on one shard, then its
+    compositions over `auth` in {2, 4} shards of this device (N = 50 padded
+    to 52 over 4) against the unsharded kernels: chain_commit_sharded
+    against chain_commit on the healed-partition chains, reach_many_sharded
+    against reach_many on the read dispatches (W = 64 and 128)."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    rng = np.random.default_rng(17)
+    out, err, extra = None, 0, {}
+    for auth, k in ((2, 1), (4, 16)):
+        row = w - 8
+        host = shard_step_inputs(rng, w, n, auth, k, row)
+        t = [torch.from_numpy(a).to(device) for a in host]
+        kt, pt = [x.clone() for x in t], [x.clone() for x in t]
+        kf = dk.reach_shard_step(*kt, row, gc_depth)
+        pf = dk.reach_shard_step_plain(*pt, row, gc_depth)
+        for name, a, b in (("frontier", kf, pf), ("masks", kt[7], pt[7]),
+                           ("committed", kt[8], pt[8])):
+            err = max(err, int((a.int() - b.int()).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"reach_shard_step auth={auth} K={k}: {name} kernel != plain")
+        if not kf.any() or torch.equal(kt[8], t[8]):
+            raise AssertionError(f"reach_shard_step auth={auth} K={k}: the step reached nothing")
+        if auth == 2:
+            ms = time_ms(lambda: dk.reach_shard_step(*kt, row, gc_depth), device, reps=50)
+            plain_ms = time_ms(lambda: dk.reach_shard_step_plain(*pt, row, gc_depth), device,
+                               reps=20)
+            m, npad = host[1].shape[1], host[3].shape[1]
+            # Parent row w + 1's block, the present row, lc, the frontier,
+            # offs, one-hots and lcr read; the mask row, the frontier block
+            # and committed written.
+            nbytes = (npad * m + m + 4 * m + k * npad + 4 * k + k * m + 4
+                      + k * m + k * m + 4 * k * m)
+            b, by = bound_ms(nbytes)
+            out = {"name": "reach_shard_step", "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "shape": f"W={w} N={n} auth=2 (25 columns a shard) K={k} row {row}"}
+        mesh = auth_mesh(auth, devices=[device] * auth)
+        for K, live in ((1, 1), (2, 2), (4, 3)):
+            chain = healed_partition_chain(rng, w, n, gc_depth, K, live)
+            parent, present, lc, lcr, offs, onehots = chain
+            ct = [torch.from_numpy(a).to(device) for a in (parent, present, lc, offs, onehots)]
+            want = dk.chain_commit(ct[0], ct[1], gc_depth, ct[2], lcr, ct[3], ct[4])
+            got = dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr, offs,
+                                          onehots)
+            if not torch.equal(got, want):
+                raise AssertionError(f"chain_commit_sharded auth={auth} K={K} != chain_commit")
+            if auth == 2 and K == 1:
+                extra["chain_commit_sharded_ms"] = time_ms(
+                    lambda: dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr,
+                                                    offs, onehots), device, reps=5)
+                extra["chain_commit_ms_same_inputs"] = time_ms(
+                    lambda: dk.chain_commit(ct[0], ct[1], gc_depth, ct[2], lcr, ct[3], ct[4]),
+                    device, reps=20)
+        for ww, K, live in ((w, 64, 56), (2 * w, 64, 61)):
+            rin = reach_many_inputs(rng, ww, n, K, live)
+            want = dk.reach_many(*(torch.from_numpy(a).to(device) for a in rin))
+            got = dk.reach_many_sharded(mesh, *rin)
+            if not torch.equal(got, want):
+                raise AssertionError(f"reach_many_sharded auth={auth} W={ww} != reach_many")
+            if auth == 2 and ww == w:
+                extra["reach_many_sharded_ms"] = time_ms(
+                    lambda: dk.reach_many_sharded(mesh, *rin), device, reps=5)
+        log(f"reach_shard_step auth={auth} (N={n} padded to {-(-n // auth) * auth}): step "
+            f"== plain; chain_commit_sharded == chain_commit (K 1, 2, 4), "
+            f"reach_many_sharded == reach_many (W {w}, {2 * w})")
+    out["max_abs_err"] = err
+    out["extra"] = extra
+    return out
+
+
 def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=3):
     n = f.committee.size()
     rows = [
@@ -960,6 +1165,9 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_roll_window(device, n, w),
         check_chain_commit(device, n, w),
         check_reach_many(device, n, w),
+        check_leader_support(device, n, w),
+        check_consensus_commit(device, n, w),
+        check_reach_shard_step(device, n, w),
     ]
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1057,14 +1265,16 @@ def engine_stream(f, rounds: int, seed: int):
     return lossy_dag(f.committee, rounds, seed, gap, weak)
 
 
-def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_state):
-    """Drive `engine_cls` (GpuBullshark or GpuTusk) on `device` over
-    `certs`, one round per process_batch_async call, with the launch counts
-    set to 0 just before and read just after. Its commit sequence must
-    equal the CPU engine's (`ref_out`, `ref_state`) and the host engine's
-    (`host_cls`); the window must grow and slide, and a chain of 3+ leaders
-    commit in one event. Returns the engine, its state and outputs, the
-    launch counts and the certificates per second."""
+def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_state,
+                mesh=None):
+    """Drive `engine_cls` (GpuBullshark or GpuTusk) on `device`, or on
+    `mesh` when given, over `certs`, one round per process_batch_async
+    call, with the launch counts set to 0 just before and read just after.
+    Its commit sequence must equal the CPU engine's (`ref_out`,
+    `ref_state`) and the host engine's (`host_cls`); the window must grow
+    and slide, and a chain of 3+ leaders commit in one event. Returns the
+    engine, its state and outputs, the launch counts and the certificates
+    per second."""
     import torch
     from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.gpu import kernel_registry
@@ -1073,7 +1283,8 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
 
     n = f.committee.size()
     state = ConsensusState(Certificate.genesis(f.committee))
-    eng = engine_cls(f.committee, NodeStorage(None).consensus_store, gc, device=device)
+    where = {"device": device} if mesh is None else {"mesh": mesh}
+    eng = engine_cls(f.committee, NodeStorage(None).consensus_store, gc, **where)
     w0 = eng.win.W
     chains: list[int] = []  # the chain length K of every commit event
     dispatch = eng._dispatch_commit
@@ -1136,7 +1347,7 @@ def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
         ref_out.extend(outs)
     eng, state, out, launches, rate = engine_path(
         "engine", device, f, GpuBullshark, Bullshark, certs, gc, ref_out, ref_state)
-    return {"certs": certs, "eng": eng, "state": state, "index": len(out),
+    return {"certs": certs, "eng": eng, "state": state, "index": len(out), "ref_out": ref_out,
             "ref_eng": ref_eng, "ref_state": ref_state, "launches": launches,
             "certificates_per_s": rate}
 
@@ -1161,6 +1372,115 @@ def phase_tusk(device, f, rounds=200, gc=GC_DEPTH):
     _eng, _state, _out, launches, rate = engine_path(
         "tusk", device, f, GpuTusk, Tusk, certs, gc, ref_out, ref_state)
     return {"launches": launches, "certificates_per_s": rate}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the committee-sharded engine, the consensus step, the dry run
+# ---------------------------------------------------------------------------
+
+
+def mesh_devices(device, k: int) -> list:
+    """k devices for a mesh: the first k cards when there are k, else this
+    card k times (on the CPU, a rehearsal, the CPU k times)."""
+    import torch
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    return [f"cuda:{i}" for i in range(k)] if n >= k else [device] * k
+
+
+def phase_dag_shards(device, f, ctx, gc=GC_DEPTH):
+    """GpuBullshark(mesh=auth_mesh(2, ...)) (`--dag-shards 2`) over the
+    engine phase's stream: its sequence must equal the host Bullshark's and
+    the unmeshed card engine's, through reach_shard_step only (chain_commit,
+    place_batch and roll_window launch 0 times)."""
+    from narwhal_tpu_torch.consensus import Bullshark
+    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    mesh = auth_mesh(2, devices=mesh_devices(device, 2))
+    log(f"dag_shards: auth mesh over {[str(d) for d in mesh.rows('auth')[0]]}")
+    _eng, state, _out, launches, rate = engine_path(
+        "dag_shards", device, f, GpuBullshark, Bullshark, ctx["certs"], gc,
+        ctx["ref_out"], ctx["ref_state"], mesh=mesh)
+    if state.last_committed != ctx["state"].last_committed:
+        raise AssertionError("dag_shards: last_committed differs from the unmeshed card engine")
+    for k in ("chain_commit", "place_batch", "roll_window"):
+        if launches[k]:
+            raise AssertionError(f"dag_shards: {k} launched {launches[k]} times on the meshed "
+                                 "engine")
+    log(f"dag_shards: {rate:.1f} certificates/s against the unmeshed engine's "
+        f"{ctx['certificates_per_s']:.1f}")
+    return {"launches": launches, "certificates_per_s": rate,
+            "devices": [str(d) for d in mesh.rows("auth")[0]]}
+
+
+def phase_consensus_step(device, f, w=W, b=64):
+    """B7 on the card: B = 64 walks on an N = 50, W = 64 window through
+    consensus_step (reach_many, leader_support, consensus_commit), then the
+    same inputs over a 2 x 2 data x auth mesh (consensus_step_sharded):
+    every output equal, some walks at the quorum and some below."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    n = f.committee.size()
+    host = support_inputs(np.random.default_rng(18), w, n, b, 0.3)
+    mesh = auth_mesh(2, devices=mesh_devices(device, 4), data=2)
+    kernel_registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    flat = dk.consensus_step(*(torch.from_numpy(a).to(device) for a in host))
+    flat = [x.cpu() for x in flat]
+    t1 = time.perf_counter()
+    meshed = [x.cpu() for x in dk.consensus_step_sharded(mesh, *host)]
+    t2 = time.perf_counter()
+    launches = kernel_registry.launch_counts()
+    for name, a, c in zip(("committed", "support", "new_last"), flat, meshed):
+        if not torch.equal(a, c):
+            raise AssertionError(f"consensus_step: {name} differs meshed and unmeshed")
+    plain = dk.consensus_step(*(torch.from_numpy(a) for a in host))
+    for name, a, c in zip(("committed", "support", "new_last"), flat, plain):
+        if not torch.equal(a, c):
+            raise AssertionError(f"consensus_step: {name} differs from the plain composition")
+    quorum = int(host[2].sum()) // 3 + 1
+    at = int((flat[1] >= quorum).sum())
+    if not 0 < at < b:
+        raise AssertionError(f"consensus_step: {at} of {b} walks at the quorum")
+    require_launches("consensus_step", launches, device)
+    log(f"consensus_step: W={w} N={n} B={b}, {at} walks at quorum {quorum}, "
+        f"{int(flat[0].sum())} certificates committed; unmeshed {t1 - t0:.4f} s, over a "
+        f"2 x 2 mesh {t2 - t1:.4f} s, outputs equal (and equal to the plain composition); "
+        f"launches {launches}")
+    return {"launches": launches, "unmeshed_s": t1 - t0, "meshed_s": t2 - t1}
+
+
+def phase_dryrun(device):
+    """The port's driver entry points: entry()'s walk on the card equals the
+    plain reach, then dryrun_multichip(4) over four cards, or this card four
+    times, passes every check of its three legs."""
+    import torch
+    from narwhal_tpu_torch import entry as tentry
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    kernel_registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    fn, args = tentry.entry(device=device)
+    mask = fn(*args)
+    if not torch.equal(mask.cpu(), dk.reach_many_plain(*(a.cpu() for a in args))):
+        raise AssertionError("dryrun: entry()'s walk differs from the plain reach")
+    devices = mesh_devices(device, 4)
+    if len(set(devices)) == 4:
+        tentry.dryrun_multichip(4)
+    else:
+        tentry.dryrun_multichip(4, devices=devices)
+    wall = time.perf_counter() - t0
+    launches = kernel_registry.launch_counts()
+    require_launches("dryrun", launches, device)
+    log(f"dryrun: entry() reached {int(mask.sum())} certificates (== plain); "
+        f"dryrun_multichip(4) over {[str(d) for d in devices]} passed in {wall:.3f} s; "
+        f"launches {launches}")
+    return {"launches": launches, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -1884,23 +2204,33 @@ def main(argv=None) -> int:
     f = CommitteeFixture(size=N)
     kernels = phase_kernels(device, f)
     ctx = phase_engine(device, f)
+    dsctx = phase_dag_shards(device, f, ctx)  # before the pipeline moves ctx's states on
     pctx = phase_pipeline(device, f, ctx)
     cctx = phase_compact(device, f, ctx, pctx)
     sctx = phase_service(device, f, pctx, cctx)
     shctx = phase_sharded(device, sctx)
     tctx = phase_tusk(device, f)
     dctx = phase_dag_service(device, f)
+    csctx = phase_consensus_step(device, f)
+    drctx = phase_dryrun(device)
     by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
                "compact": cctx["launches"], "service": sctx["launches"],
                "sharded": shctx["launches"],
-               "tusk": tctx["launches"], "dag_service": dctx["launches"]}
+               "tusk": tctx["launches"], "dag_service": dctx["launches"],
+               "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
+               "dryrun": drctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
              "sharded": {"devices": shctx["devices"], **shctx["rates"]},
              "tusk_certificates_per_s": tctx["certificates_per_s"],
              "dag_service": {"per_k": dctx["per_k"], "wall_s": dctx["wall_s"],
-                             "adaptive_routing": dctx["routing_adaptive"]}}
+                             "adaptive_routing": dctx["routing_adaptive"]},
+             "dag_shards": {"devices": dsctx["devices"],
+                            "certificates_per_s": dsctx["certificates_per_s"]},
+             "consensus_step": {"unmeshed_s": csctx["unmeshed_s"],
+                                "meshed_s": csctx["meshed_s"]},
+             "dryrun_wall_s": drctx["wall_s"]}
 
     rows = []
     build_walls = kernel_registry.build_walls()

@@ -5,8 +5,8 @@ configures XLA's persistent compilation cache; here the kernels are CUDA
 C++ sources under `csrc/`, built once per process with nvcc into
 `_build/` (see `kernel_registry`), so there is no compile cache to manage.
 What this module keeps is what every entry point of the port shares: the
-device policy (`resolve_device`) and the device-to-host readback
-(`HostCopy`).
+device policy (`resolve_device`, `named_device`) and the device-to-host
+readback (`HostCopy`).
 """
 
 from __future__ import annotations
@@ -30,6 +30,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def named_device(device=None) -> torch.device:
+    """`resolve_device`, with a bare `cuda` pinned to the current card, so
+    that no launch depends on the current device of the thread that makes
+    it (the verifier's service threads, a mesh's device list)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class HostCopy:
     """Device tensors on their way to the host. On the card: a non-blocking
     copy of each into pinned memory plus one CUDA event that `result` waits
@@ -37,6 +47,7 @@ class HostCopy:
     tensors themselves."""
 
     def __init__(self, *tensors: torch.Tensor):
+        self.devices = tuple(t.device for t in tensors)  # where the sources lie
         self._event = None
         if tensors and tensors[0].device.type == "cuda":
             dev = tensors[0].device

@@ -6,9 +6,12 @@ the kernels `reach_mask` (B1), `roll_window` (B4), `place_batch` (B3) and
 `chain_commit` (B2), the device-resident `DagWindow`, `GpuBullshark` and
 `GpuTusk`, the counterparts of `TpuBullshark` and `TpuTusk`; and
 `reach_many` (B6), the batched reach walk of the Dag service's coalesced
-causal reads (`narwhal_tpu/consensus/dag.py` `_reach_k`).
-`leader_support` (B5) and the mesh-sharded dispatch are later slices
-(ROADMAP).
+causal reads (`narwhal_tpu/consensus/dag.py` `_reach_k`); `leader_support`
+(B5) and `consensus_commit`, which with B6 make the consensus step of
+`__graft_entry__.py` (B7, `consensus_step`); and the committee-axis
+sharded walk of `--dag-shards` (`reach_shard_step`, composed into
+`chain_commit_sharded`, `reach_many_sharded` and `consensus_step_sharded`
+over a `mesh.DeviceMesh`), behind `GpuBullshark(mesh=...)`.
 
 The window is dense tensors, exactly the JAX layout:
   present[W, N]    uint8 - certificate exists at (round offset, authority)
@@ -84,6 +87,77 @@ def reach_many_plain(parent, uncommitted, offs, onehots):
     if not masks:
         return torch.zeros((0, W, N), dtype=torch.bool, device=parent.device)
     return torch.stack(masks, dim=0)
+
+
+def _wrap32(x):
+    """`x` (an int or an int64 tensor) as int32 arithmetic wraps it, as
+    jnp.sum over int32 does."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def leader_support_plain(parent, present, stakes, support_offs, leader_idxs):
+    """Stake of the support-round voters for each leader, [B] int32: for
+    walk b, the sum of stakes[a] over the a with parent[support_offs[b], a,
+    leader_idxs[b]] and present[support_offs[b], a] set (the JAX
+    `leader_support`, vmapped over b), summed with int32 wrap-around.
+
+    parent [W, N, M] uint8 (M = N, or a shard's link columns), present
+    [W, N], stakes [N]; the indices are taken as given (the wrapper checks
+    them)."""
+    offs = support_offs.long()
+    links = parent[offs, :, leader_idxs.long()].bool()  # [B, N]
+    voters = links & present[offs].bool()
+    sums = torch.where(voters, stakes.long()[None, :], 0).sum(dim=1)
+    return _wrap32(sums).to(torch.int32)
+
+
+def consensus_commit_plain(masks, support, stakes, last_committed):
+    """The tail of the consensus step: the walks whose leader has a quorum
+    of support commit their masks, and each authority's last committed
+    round advances to the newest round it commits in.
+
+    masks [B, W, M] bool, support [B] int32, stakes [S] int32 (the whole
+    committee: quorum = sum(stakes) // 3 + 1), last_committed [M] int32.
+    Returns (committed [B, W, M] bool, new_last [M] int32), where new_last
+    = max(last_committed, max over (b, w) of committed[b, w] * w), as
+    `__graft_entry__.py` computes it (so at least 0 when B > 0)."""
+    B, W, M = masks.shape
+    quorum = _wrap32(int(stakes.long().sum())) // 3 + 1
+    committed = masks & (support.long() >= quorum)[:, None, None]
+    if B == 0 or W == 0:
+        return committed, last_committed.clone()
+    rows = torch.arange(W, dtype=torch.int32, device=masks.device)[None, :, None]
+    best = (committed.to(torch.int32) * rows).amax(dim=(0, 1))
+    return committed, torch.maximum(last_committed.to(torch.int32), best)
+
+
+def reach_shard_step_plain(parent, present, lc, frontier, offs, onehots, lcr, masks,
+                           committed, w: int, gc_depth: int):
+    """One row step, at row `w`, of K walks on one shard of the committee
+    axis. The shard holds M link columns: parent [W, N, M], present [W, M],
+    lc [M] int32; the row above's frontier [K, N] covers every column.
+    offs [K] int32 and onehots [K, M] are the walks' starts, lcr [1] int32
+    the last committed round before this walk.
+
+    For each walk k and column p: reached as `reach_mask`'s row step,
+    uncommitted = present[w, p] & (w > lc[p]), keep = reached & uncommitted
+    & (w + gc_depth >= lcr). Writes masks[k, w] = keep and raises
+    committed[k, p] to w where kept, in place; returns this shard's block of
+    the next frontier, [K, M] uint8 (reached & uncommitted)."""
+    W, N, M = parent.shape
+    K = offs.shape[0]
+    dev = parent.device
+    start = offs.long()[:, None]
+    if w + 1 < W:
+        above = (parent[w + 1].bool()[None] & frontier.bool()[:, :, None]).any(dim=1)
+    else:
+        above = torch.zeros((K, M), dtype=torch.bool, device=dev)
+    here = torch.where(start == w, onehots.bool(), above & (start > w))
+    here = here & present[w].bool()[None] & (lc < w)[None]
+    keep = here & (w + int(gc_depth) >= int(lcr[0]))
+    masks[:, w] = keep
+    committed.copy_(torch.where(keep & (committed < w), w, committed))
+    return here.to(torch.uint8)
 
 
 def roll_window_plain(parent, present, shift: int):
@@ -271,6 +345,318 @@ def reach_many(parent, uncommitted, offs, onehots):
     return masks
 
 
+def leader_support(parent, present, stakes, support_offs, leader_idxs):
+    """`leader_support_plain` on CPU tensors; on CUDA tensors the
+    `dag_window.cu` kernel (one warp per walk). B = 1 is the JAX scalar
+    call. Raises on an offset outside the window or a leader index outside
+    the link columns (jnp.take would fill or wrap them)."""
+    W, N, M = parent.shape
+    B = support_offs.shape[0]
+    if B:
+        lo_off, hi_off, lo_l, hi_l = torch.stack([
+            support_offs.min(), support_offs.max(), leader_idxs.min(), leader_idxs.max()
+        ]).tolist()
+        if lo_off < 0 or hi_off >= W or lo_l < 0 or hi_l >= M:
+            raise ValueError(
+                f"leader_support: offsets {lo_off}..{hi_off} must lie in [0, {W}) and "
+                f"leader indices {lo_l}..{hi_l} in [0, {M})"
+            )
+    if not _on_cuda("leader_support", parent):
+        return leader_support_plain(parent, present, stakes, support_offs, leader_idxs)
+    dev = parent.device
+    _check("parent", parent, torch.uint8, (W, N, M), dev)
+    _check("present", present, torch.uint8, (W, N), dev)
+    _check("stakes", stakes, torch.int32, (N,), dev)
+    _check("support_offs", support_offs, torch.int32, (B,), dev)
+    _check("leader_idxs", leader_idxs, torch.int32, (B,), dev)
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    with torch.cuda.device(dev):
+        fn = kernel_registry.function("dag_window", "dag_window_leader_support", 6, 3)
+        rc = fn(
+            parent.data_ptr(), present.data_ptr(), stakes.data_ptr(),
+            support_offs.data_ptr(), leader_idxs.data_ptr(), out.data_ptr(), N, M, B,
+            _stream(dev),
+        )
+    kernel_registry.check("dag_window", "leader_support", rc)
+    kernel_registry.count_launch("leader_support")
+    return out
+
+
+def consensus_commit(masks, support, stakes, last_committed):
+    """`consensus_commit_plain` on CPU tensors; on CUDA tensors the
+    `dag_window.cu` kernel (one thread per authority column)."""
+    if not _on_cuda("consensus_commit", masks):
+        return consensus_commit_plain(masks, support, stakes, last_committed)
+    B, W, M = masks.shape
+    S = stakes.shape[0]
+    dev = masks.device
+    _check("masks", masks, torch.bool, (B, W, M), dev)
+    _check("support", support, torch.int32, (B,), dev)
+    _check("stakes", stakes, torch.int32, (S,), dev)
+    _check("last_committed", last_committed, torch.int32, (M,), dev)
+    committed = torch.empty_like(masks)
+    new_last = torch.empty_like(last_committed)
+    with torch.cuda.device(dev):
+        fn = kernel_registry.function("dag_window", "dag_window_consensus_commit", 6, 4)
+        rc = fn(
+            masks.data_ptr(), support.data_ptr(), stakes.data_ptr(),
+            last_committed.data_ptr(), committed.data_ptr(), new_last.data_ptr(),
+            B, W, M, S, _stream(dev),
+        )
+    kernel_registry.check("dag_window", "consensus_commit", rc)
+    kernel_registry.count_launch("consensus_commit")
+    return committed, new_last
+
+
+def reach_shard_step(parent, present, lc, frontier, offs, onehots, lcr, masks, committed,
+                     w: int, gc_depth: int):
+    """`reach_shard_step_plain` on CPU tensors; on CUDA tensors the
+    `dag_window.cu` kernel (one CTA per walk, one thread per column of the
+    shard). Updates `masks` row w and `committed` in place and returns the
+    shard's block of the next frontier."""
+    W, N, M = parent.shape
+    K = offs.shape[0]
+    if not 0 <= w < W:
+        raise ValueError(f"reach_shard_step: row {w} outside the window of {W}")
+    if not _on_cuda("reach_shard_step", parent):
+        return reach_shard_step_plain(parent, present, lc, frontier, offs, onehots, lcr,
+                                      masks, committed, w, gc_depth)
+    dev = parent.device
+    if M > _MAX_N:
+        raise ValueError(f"reach_shard_step: {M} columns a shard > {_MAX_N}")
+    _check("parent", parent, torch.uint8, (W, N, M), dev)
+    _check("present", present, torch.uint8, (W, M), dev)
+    _check("lc", lc, torch.int32, (M,), dev)
+    _check("frontier", frontier, torch.uint8, (K, N), dev)
+    _check("offs", offs, torch.int32, (K,), dev)
+    _check("onehots", onehots, torch.uint8, (K, M), dev)
+    _check("lcr", lcr, torch.int32, (1,), dev)
+    _check("masks", masks, torch.bool, (K, W, M), dev)
+    _check("committed", committed, torch.int32, (K, M), dev)
+    out = torch.empty((K, M), dtype=torch.uint8, device=dev)
+    if K == 0:
+        return out
+    with torch.cuda.device(dev):
+        fn = kernel_registry.function("dag_window", "dag_window_reach_shard_step", 10, 6)
+        rc = fn(
+            parent.data_ptr(), present.data_ptr(), lc.data_ptr(), frontier.data_ptr(),
+            offs.data_ptr(), onehots.data_ptr(), lcr.data_ptr(), out.data_ptr(),
+            masks.data_ptr(), committed.data_ptr(), W, N, M, K, int(w), int(gc_depth),
+            _stream(dev),
+        )
+    kernel_registry.check("dag_window", "reach_shard_step", rc)
+    kernel_registry.count_launch("reach_shard_step")
+    return out
+
+
+def consensus_step(parent, uncommitted, stakes, offs, onehots, leaders, last_committed):
+    """The per-validator consensus step of `__graft_entry__.py:229` (B7) on
+    one device: B reach walks (`reach_many`), each leader's support
+    (`leader_support`) and the quorum mask with the last-committed advance
+    (`consensus_commit`). parent [W, N, N] uint8, uncommitted [W, N] uint8,
+    stakes [N] int32, offs [B] int32, onehots [B, N] uint8, leaders [B]
+    int32, last_committed [N] int32. Returns (committed [B, W, N] bool,
+    support [B] int32, new_last [N] int32)."""
+    masks = reach_many(parent, uncommitted, offs, onehots)
+    support = leader_support(parent, uncommitted, stakes, offs, leaders)
+    committed, new_last = consensus_commit(masks, support, stakes, last_committed)
+    return committed, support, new_last
+
+
+# ---------------------------------------------------------------------------
+# The committee-axis sharded walk: JAX's chain_commit and reach_mask under
+# in-specs P(None, None, "auth"), P(None, "auth"), P("auth"). Each shard of
+# an auth row of the mesh holds a block of the link columns; the host steps
+# every shard one row at a time and all-gathers the frontier blocks between
+# rows (`.to(device)` over the row's devices), the exchange XLA inserts.
+# ---------------------------------------------------------------------------
+
+
+class _Shards:
+    """The column blocks of a window on one auth row of devices. The
+    committee axis is padded to a multiple of the row's length with absent
+    slots (no parent links, not present, zero stake), which reach nothing
+    and relay nothing; `cols(t)` cuts a host array's last axis into the
+    blocks and uploads each to its device."""
+
+    def __init__(self, devices, n: int):
+        self.devices = tuple(devices)
+        a = len(self.devices)
+        self.n = n
+        self.npad = -(-n // a) * a
+        self.m = self.npad // a
+
+    def pad(self, arr, axes) -> np.ndarray:
+        arr = np.asarray(arr)
+        if self.npad == self.n:
+            return np.ascontiguousarray(arr)
+        width = [(0, self.npad - self.n if i in axes else 0) for i in range(arr.ndim)]
+        return np.pad(arr, width)
+
+    def cols(self, arr) -> list[torch.Tensor]:
+        """The blocks of the (padded) last axis, each on its device."""
+        return [
+            torch.from_numpy(np.ascontiguousarray(arr[..., i * self.m:(i + 1) * self.m])).to(dev)
+            for i, dev in enumerate(self.devices)
+        ]
+
+    def replicate(self, arr) -> list[torch.Tensor]:
+        return [torch.from_numpy(np.ascontiguousarray(arr)).to(dev) for dev in self.devices]
+
+    def gather(self, blocks, dev, dim: int = -1) -> torch.Tensor:
+        """The blocks joined along `dim` on `dev` (an all-gather's share)."""
+        return torch.cat([b.to(dev) for b in blocks], dim=dim)
+
+    def walk(self, parent_s, present_s, lc_s, offs_s, onehots_s, lcr_s, masks_s,
+             gc_depth: int, top: int) -> list[torch.Tensor]:
+        """Rows `top` .. 0 of one launch set of walks: a `reach_shard_step`
+        on every shard per row, the frontier blocks all-gathered between
+        rows. Fills masks_s in place; returns each shard's committed rounds
+        [K, m] (the sentinel where nothing was kept)."""
+        K = offs_s[0].shape[0]
+        committed = [torch.full((K, self.m), _SENTINEL, dtype=torch.int32, device=dev)
+                     for dev in self.devices]
+        frontier = [torch.zeros((K, self.npad), dtype=torch.uint8, device=dev)
+                    for dev in self.devices]
+        for w in range(top, -1, -1):
+            blocks = [
+                reach_shard_step(parent_s[i], present_s[i], lc_s[i], frontier[i], offs_s[i],
+                                 onehots_s[i], lcr_s[i], masks_s[i], committed[i], w, gc_depth)
+                for i in range(len(self.devices))
+            ]
+            if w:
+                frontier = [self.gather(blocks, dev) for dev in self.devices]
+        return committed
+
+
+def chain_commit_sharded(mesh, parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs,
+                         onehots):
+    """`chain_commit` (B2) with the committee axis sharded over the mesh's
+    `auth` axis: each shard holds parent [W, N, N/a] (the link columns),
+    present [W, N/a] and lc [N/a] and steps every leader's walk one row at
+    a time (`reach_shard_step`); between leaders the shards fold their
+    committed rounds into lc and the max of their lcr candidates becomes
+    the next leader's lcr. A `data` axis is replicated in JAX; here the
+    first data row computes (the others would compute the same).
+
+    Operands are host arrays (numpy or CPU tensors), the full window, as
+    the JAX dispatch takes numpy operands and places them by its in-specs;
+    N need not divide the axis (absent slots pad it). Returns masks
+    [K, W, N] bool on the mesh's first device, equal to `chain_commit`'s."""
+    W, N = np.asarray(present).shape
+    shards = _Shards(mesh.rows("auth")[0], N)
+    offs = np.asarray(offs, np.int32)
+    onehots = np.asarray(onehots, np.uint8)
+    K = offs.shape[0]
+    parent_s = shards.cols(shards.pad(parent, (1, 2)))
+    present_s = shards.cols(shards.pad(present, (1,)))
+    lc_s = shards.cols(shards.pad(np.asarray(lc_rel, np.int32), (0,)))
+    onehots_p = shards.pad(onehots, (1,))
+    lcr_s = shards.replicate(np.array([lcr_rel], np.int32))
+    masks_s = [torch.zeros((K, W, shards.m), dtype=torch.bool, device=dev)
+               for dev in shards.devices]
+    first = shards.devices[0]
+    for k in range(K):
+        if not onehots[k].any():
+            continue  # a padding slot reaches nothing and changes nothing
+        committed = shards.walk(
+            parent_s, present_s, lc_s, shards.replicate(offs[k:k + 1]),
+            shards.cols(onehots_p[k:k + 1]), lcr_s, [m[k:k + 1] for m in masks_s],
+            gc_depth, min(int(offs[k]), W - 1))
+        lc_s = [torch.maximum(lc, c[0]) for lc, c in zip(lc_s, committed)]
+        cand = torch.stack([c.amax().to(first) for c in committed]).amax()
+        lcr = torch.maximum(lcr_s[0][0].to(first), cand).reshape(1)
+        lcr_s = [lcr.to(dev) for dev in shards.devices]
+    return shards.gather(masks_s, first)[..., :N]
+
+
+def reach_many_sharded(mesh, parent, uncommitted, offs, onehots):
+    """`reach_many` (B6) with the committee axis sharded over the mesh's
+    `auth` axis (the first data row): the K walks advance together, one
+    `reach_shard_step` a row on every shard, with no lc, gc filter or
+    update between walks. Operands are host arrays; returns masks
+    [K, W, N] bool on the mesh's first device, equal to `reach_many`'s."""
+    shards = _Shards(mesh.rows("auth")[0], np.asarray(uncommitted).shape[1])
+    masks_s = _reach_blocks(shards, parent, uncommitted, offs, onehots)[0]
+    return shards.gather(masks_s, shards.devices[0])[..., :shards.n]
+
+
+def _reach_blocks(shards: _Shards, parent, uncommitted, offs, onehots):
+    """The sharded reach walks on one auth row: (the masks blocks
+    [K, W, m], the parent blocks, the uncommitted blocks) of each shard."""
+    W = np.asarray(uncommitted).shape[0]
+    offs = np.asarray(offs, np.int32)
+    K = offs.shape[0]
+    parent_s = shards.cols(shards.pad(parent, (1, 2)))
+    unc_s = shards.cols(shards.pad(uncommitted, (1,)))
+    masks_s = [torch.zeros((K, W, shards.m), dtype=torch.bool, device=dev)
+               for dev in shards.devices]
+    if K:
+        lc_s = shards.cols(np.full((shards.npad,), _SENTINEL, np.int32))
+        shards.walk(parent_s, unc_s, lc_s, shards.replicate(offs),
+                    shards.cols(shards.pad(onehots, (1,))),
+                    shards.replicate(np.array([_SENTINEL], np.int32)), masks_s, 0,
+                    min(int(offs.max()), W - 1))
+    return masks_s, parent_s, unc_s
+
+
+def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, leaders,
+                           last_committed):
+    """`consensus_step` (B7) over a `data x auth` mesh, the layout of
+    `__graft_entry__.py:248`: the B walks split over the data rows, and on
+    each row the committee axis over its auth shards. A row runs its walks
+    with `reach_shard_step` (as `reach_many_sharded`), each walk's support
+    on the shard that holds its leader's column (`leader_support` on the
+    shard's parent columns and the all-gathered uncommitted rows), and
+    `consensus_commit` on every shard's block; new_last is the max over
+    the data rows. Operands are host arrays; B must divide by the data
+    axis. Returns (committed [B, W, N] bool, support [B] int32, new_last
+    [N] int32) on the mesh's first device, equal to `consensus_step`'s."""
+    rows = mesh.rows("auth")
+    W, N = np.asarray(uncommitted).shape
+    offs = np.asarray(offs, np.int32)
+    onehots = np.asarray(onehots, np.uint8)
+    leaders = np.asarray(leaders, np.int32)
+    B = offs.shape[0]
+    if B % len(rows):
+        raise ValueError(f"consensus_step_sharded: {B} walks over {len(rows)} data rows")
+    if B and (leaders.min() < 0 or leaders.max() >= N):
+        raise ValueError(f"consensus_step_sharded: leader indices outside [0, {N})")
+    bd = B // len(rows)
+    first = rows[0][0]
+    committed, support, new_last = [], [], []
+    for r, devs in enumerate(rows):
+        shards = _Shards(devs, N)
+        b = slice(r * bd, (r + 1) * bd)
+        masks_s, parent_s, unc_s = _reach_blocks(shards, parent, uncommitted, offs[b],
+                                                 onehots[b])
+        stakes_s = shards.replicate(shards.pad(np.asarray(stakes, np.int32), (0,)))
+        sup = torch.zeros((bd,), dtype=torch.int32, device=first)
+        owner = leaders[b] // shards.m
+        for i, dev in enumerate(shards.devices):
+            mine = np.nonzero(owner == i)[0]
+            if not mine.size:
+                continue
+            part = leader_support(
+                parent_s[i], shards.gather(unc_s, dev), stakes_s[i],
+                torch.from_numpy(offs[b][mine]).to(dev),
+                torch.from_numpy(leaders[b][mine] - i * shards.m).to(dev))
+            sup[torch.from_numpy(mine).to(first)] = part.to(first)
+        last_s = shards.cols(shards.pad(np.asarray(last_committed, np.int32), (0,)))
+        blocks, lasts = [], []
+        for i, dev in enumerate(shards.devices):
+            c, nl = consensus_commit(masks_s[i], sup.to(dev), stakes_s[i], last_s[i])
+            blocks.append(c)
+            lasts.append(nl)
+        committed.append(shards.gather(blocks, first)[..., :N])
+        support.append(sup)
+        new_last.append(shards.gather(lasts, first)[:N])
+    return (torch.cat(committed), torch.cat(support),
+            torch.stack(new_last).amax(dim=0))
+
+
 # ---------------------------------------------------------------------------
 # The window and the engine.
 # ---------------------------------------------------------------------------
@@ -285,17 +671,28 @@ class DagWindow:
     Inserts buffer as pending coordinates and apply as ONE `place_batch`
     scatter at the next `device_view()`; a slid base applies as one
     `roll_window`; a full upload happens only on first use and after
-    `_grow`."""
+    `_grow`.
 
-    def __init__(self, committee: Committee, window: int = 64, device=None):
+    `pad_authorities_to` widens the committee axis with always-absent slots
+    (not present, zero stake) so that it divides a mesh's `auth` axis; they
+    never hold certificates, relay reachability or carry stake. A window
+    with `device_resident=False` (a meshed engine's: the sharded walk
+    uploads its operands from the host mirror itself) keeps no device copy
+    and buffers no placements."""
+
+    def __init__(self, committee: Committee, window: int = 64, device=None,
+                 pad_authorities_to: int | None = None, device_resident: bool = True):
         self.committee = committee
         self.device = resolve_device(device)
-        self.N = committee.size()
+        n = committee.size()
+        self.N = max(n, pad_authorities_to or 0)
         self.W = window
         self.round_base: Round = 0
         self.present = np.zeros((self.W, self.N), np.uint8)
         self.parent = np.zeros((self.W, self.N, self.N), np.uint8)
-        self.stakes = np.asarray(committee.stakes_array(), np.int32)
+        self.stakes = np.zeros((self.N,), np.int32)
+        self.stakes[:n] = np.asarray(committee.stakes_array(), np.int32)
+        self._dev_resident = device_resident
         self.certs: dict[tuple[Round, int], Certificate] = {}
         self.digest_pos: dict = {}
         self._dev: tuple | None = None
@@ -319,7 +716,8 @@ class DagWindow:
             pos = self.digest_pos.get(pd)
             if pos is not None and pos[0] == cert.round - 1:
                 self.parent[off, idx, pos[1]] = 1
-        self._dev_pending.append((cert.round, idx))
+        if self._dev_resident:
+            self._dev_pending.append((cert.round, idx))
 
     def insert(self, cert: Certificate, keep_floor: Round) -> bool:
         """Add a certificate; slides the window forward (dropping only rounds
@@ -476,11 +874,18 @@ def window_from_numpy(
 
 class GpuBullshark:
     """Bullshark with the DAG walks on the card: the counterpart of
-    `narwhal_tpu.tpu.dag_kernels.TpuBullshark` (unmeshed), same
-    process_certificate / process_batch / process_batch_async semantics.
-    The host keeps the bookkeeping (commit rule, chain linkage, the final
-    index -> certificate gather); each commit event is ONE `chain_commit`
-    launch over the device-resident window."""
+    `narwhal_tpu.tpu.dag_kernels.TpuBullshark`, same process_certificate /
+    process_batch / process_batch_async semantics. The host keeps the
+    bookkeeping (commit rule, chain linkage, the final index -> certificate
+    gather); each commit event is ONE `chain_commit` launch over the
+    device-resident window.
+
+    With `mesh` (a `mesh.DeviceMesh` with an `auth` axis, `--dag-shards`)
+    each commit event is `chain_commit_sharded` instead: the committee axis
+    of the window split over the auth devices, padded to a multiple of the
+    axis with absent slots. The meshed window stays on the host (the walk
+    uploads each shard's columns itself), so `place_batch` and
+    `roll_window` do not run; `device` is then the mesh's first device."""
 
     def __init__(
         self,
@@ -490,13 +895,25 @@ class GpuBullshark:
         leader_fn=None,
         window: int | None = None,
         device=None,
+        mesh=None,
     ):
         self.committee = committee
         self.store = store
         self.gc_depth = gc_depth
         self._leader_fn = leader_fn
+        if mesh is not None:
+            device = mesh.rows("auth")[0][0]  # ConfigError without an auth axis
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.win = DagWindow(committee, window or (gc_depth + 14), device=self.device)
+        self.win = self._window(committee, window or (gc_depth + 14))
+
+    def _window(self, committee: Committee, w: int) -> DagWindow:
+        pad = None
+        if self.mesh is not None:
+            auth = self.mesh.shape["auth"]
+            pad = -(-committee.size() // auth) * auth
+        return DagWindow(committee, w, device=self.device, pad_authorities_to=pad,
+                         device_resident=self.mesh is None)
 
     @classmethod
     def from_window(
@@ -509,6 +926,7 @@ class GpuBullshark:
         eng.store = store
         eng.gc_depth = gc_depth
         eng._leader_fn = leader_fn
+        eng.mesh = None
         eng.device = win.device
         eng.win = win
         return eng
@@ -525,9 +943,9 @@ class GpuBullshark:
 
     def update_committee(self, new_committee: Committee) -> None:
         """A new committee (epoch change): a fresh, empty window of the same
-        W for it."""
+        W for it (padded anew for a meshed engine)."""
         self.committee = new_committee
-        self.win = DagWindow(new_committee, self.win.W, device=self.device)
+        self.win = self._window(new_committee, self.win.W)
 
     # -- leader election --------------------------------------------------
     def _leader_index(self, round: Round, dag) -> int | None:
@@ -699,13 +1117,22 @@ class GpuBullshark:
             offs[i] = self.win._off(lr)
             onehots[i, lidx] = 1
 
+        lcr_rel = state.last_committed_round - self.win.round_base
+        if self.mesh is not None:
+            # The window's shape is read at each call, so a grown window is
+            # walked at its new W over the same mesh.
+            masks = chain_commit_sharded(
+                self.mesh, self.win.parent, self.win.present, self.gc_depth,
+                self._lc_rel(state), lcr_rel, offs, onehots,
+            )
+            return HostCopy(masks), K
         parent_op, present_op = self.win.device_view()
         masks = chain_commit(
             parent_op,
             present_op,
             self.gc_depth,
             self.win._upload(self._lc_rel(state)),
-            state.last_committed_round - self.win.round_base,
+            lcr_rel,
             self.win._upload(offs),
             self.win._upload(onehots),
         )

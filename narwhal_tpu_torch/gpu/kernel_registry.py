@@ -64,6 +64,11 @@ KERNELS: dict[str, tuple[str, str]] = {
     "roll_window": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:79 roll_window"),
     "chain_commit": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit"),
     "reach_many": ("dag_window", "narwhal_tpu/consensus/dag.py:262 _reach_k"),
+    "leader_support": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:119 leader_support"),
+    "consensus_commit": ("dag_window", "__graft_entry__.py:229 consensus_step"),
+    "reach_shard_step": (
+        "dag_window",
+        "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit (auth-sharded, node.py:296-330)"),
 }
 
 _LOCK = threading.Lock()

@@ -59,7 +59,7 @@ import torch
 
 from ..config import ConfigError
 from ..crypto import BatchItem
-from . import HostCopy, ed25519, resolve_device
+from . import HostCopy, ed25519, named_device as _named
 from . import ed25519_ref as ref
 
 logger = logging.getLogger("narwhal.gpu.verifier")
@@ -104,16 +104,6 @@ def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
         acc = ref.point_double(acc)
     # Identity <=> X == 0 and Y == Z (mod p).
     return acc[0] % ref.P == 0 and (acc[1] - acc[2]) % ref.P == 0
-
-
-def _named(device) -> torch.device:
-    """`resolve_device`, with a bare `cuda` pinned to the current card: the
-    launches happen on VerifyService's threads, so no launch may depend on a
-    thread's current device."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class DataMesh:

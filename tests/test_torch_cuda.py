@@ -317,3 +317,72 @@ def test_engine_on_card_matches_cpu():
             seq.extend((o.certificate.digest, o.consensus_index) for o in got)
         outs[dev] = seq
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 100
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_leader_support_kernel_matches_plain(b):
+    _need_card("leader_support", "csrc/dag_window.cu")
+    host = chip_smoke.support_inputs(np.random.default_rng(b), 64, 50, b, 0.3)
+    parent, present, stakes, offs, _oh, leaders, _last = host
+    t = [torch.from_numpy(a).cuda() for a in (parent, present, stakes, offs, leaders)]
+    kernel_registry.reset_launch_counts()
+    a = td.leader_support(*t)
+    assert kernel_registry.launch_counts()["leader_support"] == 1
+    assert torch.equal(a, td.leader_support_plain(*t)) and bool((a > 0).any())
+
+
+def test_consensus_commit_kernel_matches_plain():
+    _need_card("consensus_commit", "csrc/dag_window.cu")
+    rng = np.random.default_rng(6)
+    host = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
+    masks = td.reach_many(*(torch.from_numpy(a).cuda() for a in host))
+    stakes = rng.integers(1, 5, 50).astype(np.int32)
+    support = (int(stakes.sum()) // 3 + 1 + rng.integers(-4, 4, 64)).astype(np.int32)
+    last = rng.integers(-3, 64, 50).astype(np.int32)
+    t = [masks] + [torch.from_numpy(a).cuda() for a in (support, stakes, last)]
+    (kc, kl), (pc, pl) = td.consensus_commit(*t), td.consensus_commit_plain(*t)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl) and not torch.equal(kl, t[3])
+
+
+@pytest.mark.parametrize("auth,k", [(2, 1), (4, 16)])
+def test_reach_shard_step_kernel_matches_plain(auth, k):
+    """One row step on shard 1 of N = 50 padded to a multiple of `auth`."""
+    _need_card("reach_shard_step", "csrc/dag_window.cu")
+    host = chip_smoke.shard_step_inputs(np.random.default_rng(auth), 64, 50, auth, k, 56)
+    kt = [torch.from_numpy(a).cuda() for a in host]
+    pt = [x.clone() for x in kt]
+    kf = td.reach_shard_step(*kt, 56, 50)
+    pf = td.reach_shard_step_plain(*pt, 56, 50)
+    assert torch.equal(kf, pf) and bool(kf.any())
+    assert torch.equal(kt[7], pt[7]) and torch.equal(kt[8], pt[8])
+
+
+def test_sharded_compositions_match_unsharded_kernels():
+    """Over [cuda:0, cuda:0]: chain_commit_sharded equals chain_commit on a
+    healed-partition chain, reach_many_sharded equals reach_many, and
+    consensus_step_sharded (2 x 2) equals consensus_step, launching
+    reach_shard_step and neither unsharded walk."""
+    _need_card("reach_shard_step", "csrc/dag_window.cu")
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    mesh = auth_mesh(2, devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(7)
+    parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
+        rng, 64, 50, 50, 4, 3)
+    t = [torch.from_numpy(a).cuda() for a in (parent, present, lc, offs, onehots)]
+    want = td.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
+    rin = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
+    want_r = td.reach_many(*(torch.from_numpy(a).cuda() for a in rin))
+    kernel_registry.reset_launch_counts()
+    got = td.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots)
+    got_r = td.reach_many_sharded(mesh, *rin)
+    counts = kernel_registry.launch_counts()
+    assert torch.equal(got, want) and torch.equal(got_r, want_r)
+    assert counts["reach_shard_step"] > 0
+    assert counts["chain_commit"] == counts["reach_many"] == 0
+    host = chip_smoke.support_inputs(rng, 64, 50, 64, 0.3)
+    flat = td.consensus_step(*(torch.from_numpy(a).cuda() for a in host))
+    meshed = td.consensus_step_sharded(
+        auth_mesh(2, devices=["cuda:0"] * 4, data=2), *host)
+    for a, b in zip(flat, meshed):
+        assert torch.equal(a, b)

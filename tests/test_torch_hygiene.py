@@ -56,6 +56,7 @@ def test_port_package_imports_without_jax_loaded():
         "import narwhal_tpu_torch.gpu.dag_kernels, narwhal_tpu_torch.fixtures\n"
         "import narwhal_tpu_torch.consensus, narwhal_tpu_torch.channels\n"
         "import narwhal_tpu_torch.pacing, narwhal_tpu_torch.consensus.metrics\n"
+        "import narwhal_tpu_torch.entry, narwhal_tpu_torch.gpu.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
@@ -65,6 +66,7 @@ def test_port_package_imports_without_jax_loaded():
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from narwhal_tpu_torch.consensus import Dag
+    from narwhal_tpu_torch.entry import entry
     from narwhal_tpu_torch.fixtures import CommitteeFixture
     from narwhal_tpu_torch.gpu import resolve_device
     from narwhal_tpu_torch.gpu.dag_kernels import DagWindow, GpuBullshark, GpuTusk
@@ -80,6 +82,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: DagWindow(committee, 16),
         lambda: GpuTusk(committee, None, 50),
         lambda: Dag(committee, backend="cuda"),
+        lambda: entry(),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -105,6 +108,9 @@ def test_registry_sources_define_the_wrapped_entry_points():
         "verify_verdict": "ed25519_verify_verdict",
         "msm_window": "ed25519_msm_window",
         "msm_shard_reduce": "ed25519_msm_shard_reduce",
+        "leader_support": "dag_window_leader_support",
+        "consensus_commit": "dag_window_consensus_commit",
+        "reach_shard_step": "dag_window_reach_shard_step",
     }
     assert set(kr.KERNELS) == set(symbols)
     for name, (stem, replaces) in kr.KERNELS.items():
