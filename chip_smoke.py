@@ -23,10 +23,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             leader_support at B = 64 (rows 0 and W - 1 among the offsets),
             consensus_commit on B6's K = 64 masks with a support vector
             around the quorum, reach_shard_step on one shard of 2 and of 4
-            (N = 50 padded to 52), and its compositions over 2 and 4 shards
-            of the card: chain_commit_sharded against chain_commit on the
-            healed-partition chains, reach_many_sharded against reach_many
-            at W = 64 and 128), with
+            (N = 50 padded to 52); sharded_walk over 2 and 4 shards of the
+            card on the "cluster" route and on "peer" forced (a launch per
+            shard), against its plain version, chain_commit (chain mode,
+            K = 1, 2, 4 on the healed-partition chains) and reach_many
+            (many mode, K = 64 at W = 64 and 128), and the compositions
+            chain_commit_sharded / reach_many_sharded on every route
+            (rowstep included) against B2 / B6; then a missing peer (one of
+            two peer launches issued, a 100 ms deadline) must raise), with
             kernel / plain / library times from CUDA events (median of
             repeats). Verdicts, masks and validity bit-equal;
             verify_decompress's coordinates equal mod p; msm_accumulate's,
@@ -46,8 +50,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             GpuBullshark(mesh=auth_mesh(2)) (--dag-shards 2) over two cards,
             or the one card twice, on the engine phase's stream: the same
             sequence as the host Bullshark and the unmeshed card engine,
-            through reach_shard_step only (chain_commit, place_batch and
-            roll_window launch 0 times), certificates/s beside the engine's;
+            through the sharded walk only (chain_commit, place_batch and
+            roll_window launch 0 times): on the "cluster" route (one card)
+            or "peer" (cards with peer access) one sharded_walk launch per
+            card per commit event and no reach_shard_step; on "rowstep"
+            reach_shard_step. Certificates/s beside the engine's;
   pipeline  FusedCertificatePipeline (strict item lane) on the card,
             continuing the engine phase's engine, over a fully signed
             N = 50 stream of the next 12 rounds (600 certificates x 50
@@ -98,13 +105,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             B7 on the card: B = 64 walks on an N = 50, W = 64 window
             through consensus_step (reach_many, leader_support,
             consensus_commit), then over a 2 x 2 data x auth mesh (four
-            cards, or the card four times): every output equal;
+            cards, or the card four times: the mesh's route, then the
+            other routes forced, "rowstep" included): every output equal;
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
 Launch counts are set to 0 just before each of the ten paths and read
 just after it, and each path must have launched the kernels it names
-(PATH_KERNELS). Then one JSON line with every kernel's numbers (launches
+(PATH_KERNELS; the sharded walk's kernel by the mesh's route, which the
+script prints). Then one JSON line with every kernel's numbers (launches
 summed over the paths and per path), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -135,11 +144,19 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 # integer multiply-adds per second.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# An estimate of one L2 hit on an H100 (~260 cycles, as Hopper
+# microbenchmarks report; NVIDIA publishes no figure), used only for the
+# sharded walk's latency floor: each row waits on one load of the row above.
+L2_HIT_S = 150e-9
 
 N = 50  # the reference's largest published committee (bench-0-50-1-True-100000-512)
 GC_DEPTH = 50  # the reference default (config.py Parameters.gc_depth)
 W = GC_DEPTH + 14  # the engine's window
 BUCKET = 2048  # the verifier's fixed bucket
+
+# The kernel of the sharded walk on each route (narwhal_tpu_torch/gpu/mesh.py
+# walk_route): "walk" in PATH_KERNELS stands for it.
+WALK_KERNEL = {"cluster": "sharded_walk", "peer": "sharded_walk", "rowstep": "reach_shard_step"}
 
 # The kernels each driven path must launch (counts from 0 just before it).
 PATH_KERNELS = {
@@ -151,10 +168,9 @@ PATH_KERNELS = {
     "dag_service": ("reach_many", "place_batch", "roll_window"),
     "sharded": ("verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                 "msm_shard_reduce"),
-    "dag_shards": ("reach_shard_step",),
-    "consensus_step": ("reach_many", "leader_support", "consensus_commit",
-                       "reach_shard_step"),
-    "dryrun": ("reach_many", "reach_shard_step", "leader_support", "consensus_commit",
+    "dag_shards": ("walk",),
+    "consensus_step": ("reach_many", "leader_support", "consensus_commit", "walk"),
+    "dryrun": ("reach_many", "walk", "leader_support", "consensus_commit",
                "verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                "msm_shard_reduce"),
 }
@@ -209,10 +225,12 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def require_launches(path: str, launches: dict, device) -> None:
+def require_launches(path: str, launches: dict, device, route: str | None = None) -> None:
     """Fail unless every kernel the path names launched on it (on the card;
-    a CPU rehearsal launches nothing)."""
+    a CPU rehearsal launches nothing); "walk" is the sharded walk's kernel
+    on `route`."""
     for k in PATH_KERNELS[path]:
+        k = WALK_KERNEL[route] if k == "walk" else k
         if device.type == "cuda" and launches[k] <= 0:
             raise AssertionError(f"{path}: {k} never launched")
 
@@ -1082,17 +1100,13 @@ def shard_step_inputs(rng: np.random.Generator, w: int, n: int, auth: int, k: in
 
 
 def check_reach_shard_step(device, n: int, w: int, gc_depth: int = GC_DEPTH):
-    """The step kernel against its plain version on one shard, then its
-    compositions over `auth` in {2, 4} shards of this device (N = 50 padded
-    to 52 over 4) against the unsharded kernels: chain_commit_sharded
-    against chain_commit on the healed-partition chains, reach_many_sharded
-    against reach_many on the read dispatches (W = 64 and 128)."""
+    """The step kernel of the "rowstep" route against its plain version on
+    one shard of `auth` in {2, 4} (N = 50 padded to 52 over 4)."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
-    from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     rng = np.random.default_rng(17)
-    out, err, extra = None, 0, {}
+    out, err = None, 0
     for auth, k in ((2, 1), (4, 16)):
         row = w - 8
         host = shard_step_inputs(rng, w, n, auth, k, row)
@@ -1107,52 +1121,214 @@ def check_reach_shard_step(device, n: int, w: int, gc_depth: int = GC_DEPTH):
                 raise AssertionError(f"reach_shard_step auth={auth} K={k}: {name} kernel != plain")
         if not kf.any() or torch.equal(kt[8], t[8]):
             raise AssertionError(f"reach_shard_step auth={auth} K={k}: the step reached nothing")
-        if auth == 2:
-            ms = time_ms(lambda: dk.reach_shard_step(*kt, row, gc_depth), device, reps=50)
-            plain_ms = time_ms(lambda: dk.reach_shard_step_plain(*pt, row, gc_depth), device,
-                               reps=20)
-            m, npad = host[1].shape[1], host[3].shape[1]
-            # Parent row w + 1's block, the present row, lc, the frontier,
-            # offs, one-hots and lcr read; the mask row, the frontier block
-            # and committed written.
-            nbytes = (npad * m + m + 4 * m + k * npad + 4 * k + k * m + 4
-                      + k * m + k * m + 4 * k * m)
-            b, by = bound_ms(nbytes)
-            out = {"name": "reach_shard_step", "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b, "bound_by": by, "library_ms": None,
-                   "shape": f"W={w} N={n} auth=2 (25 columns a shard) K={k} row {row}"}
+        log(f"reach_shard_step auth={auth} K={k} (N={n} padded to {-(-n // auth) * auth}): "
+            f"step == plain")
+        if auth != 2:
+            continue
+        ms = time_ms(lambda: dk.reach_shard_step(*kt, row, gc_depth), device, reps=50)
+        plain_ms = time_ms(lambda: dk.reach_shard_step_plain(*pt, row, gc_depth), device,
+                           reps=20)
+        m, npad = host[1].shape[1], host[3].shape[1]
+        # Parent row w + 1's block, the present row, lc, the frontier, offs,
+        # one-hots and lcr read; the mask row, the frontier block and
+        # committed written.
+        nbytes = (npad * m + m + 4 * m + k * npad + 4 * k + k * m + 4
+                  + k * m + k * m + 4 * k * m)
+        b, by = bound_ms(nbytes)
+        out = {"name": "reach_shard_step", "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b, "bound_by": by, "library_ms": None,
+               "shape": f"W={w} N={n} auth=2 (25 columns a shard) K={k} row {row}"}
+    out["max_abs_err"] = err
+    return out
+
+
+def walk_blocks(auth: int, parent, present, lc, onehots):
+    """numpy operands of sharded_walk over `auth` shards: the committee axis
+    padded to a multiple of `auth` with absent slots, then cut into column
+    blocks stacked first: parent [a, W, Npad, m], present [a, W, m], lc
+    [a, m] (None passes through), the one-hots whole [K, Npad]."""
+    n = present.shape[1]
+    pad = -(-n // auth) * auth - n
+    m = (n + pad) // auth
+
+    def blocks(x):
+        x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+        return np.ascontiguousarray(np.stack([x[..., i * m:(i + 1) * m] for i in range(auth)]))
+
+    parent = np.pad(parent, ((0, 0), (0, pad), (0, 0)))
+    return (blocks(parent), blocks(present), None if lc is None else blocks(lc),
+            np.pad(onehots, ((0, 0), (0, pad))))
+
+
+def unblock(masks, n: int):
+    """sharded_walk's masks [a, K, W, m] as [K, W, N]."""
+    a, k, w, m = masks.shape
+    return masks.permute(1, 2, 0, 3).reshape(k, w, a * m)[..., :n]
+
+
+def walk_peer(mesh, ops, gc_depth: int, lcr: int, chain: bool, **kw):
+    """sharded_walk on the "peer" route over the mesh's first auth row (on
+    one card repeated, forced: each slot its own launch, stream and
+    exchange buffer; over cards with peer access, a launch per card).
+    `ops` are the cluster form's tensors on one card; returns the masks in
+    that form, on that card."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    ex = mesh.walk(0, "peer")
+    parent, present, lc, offs, onehots = ops
+    cut = (lambda t: None if t is None else [t[s].to(d) for s, d in zip(ex.groups, ex.devices)])
+    whole = (lambda t: [t.to(d) for d in ex.devices])
+    masks = dk.sharded_walk(cut(parent), cut(present), cut(lc), whole(offs), whole(onehots),
+                            gc_depth, lcr, chain, exchange=ex, **kw)
+    out = torch.empty((parent.shape[0], *masks[0].shape[1:]), dtype=torch.bool,
+                      device=parent.device)
+    for s, m in zip(ex.groups, masks):
+        out[s] = m.to(parent.device)
+    return out
+
+
+def walk_bytes(w: int, npad: int, offs, onehots, k: int) -> int:
+    """sharded_walk's least traffic: with top the highest start row of a
+    live walk, each shard's parent rows 1..top and present rows 0..top of
+    its block, lc, offs and the one-hots read, the K masks written."""
+    live = np.asarray(onehots).any(axis=1)
+    top = int(min(np.max(np.asarray(offs)[live]), w - 1)) if live.any() else 0
+    return top * npad * npad + (top + 1) * npad + 4 * npad + 4 * k + k * npad + k * w * npad
+
+
+def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
+    """sharded_walk against its plain version and against B2 / B6 over
+    `auth` in {2, 4} shards of this card (N = 50 padded to 52 over 4), on
+    the "cluster" route and on "peer" forced on the card repeated: chain
+    mode at K = 1, 2, 4 on the healed-partition chains (a padding slot at
+    K = 4), many mode at K = 64 on the sparse read windows (W and 2W); and
+    the compositions chain_commit_sharded / reach_many_sharded on every
+    route (rowstep included) against chain_commit / reach_many. Bit-equal."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    rng = np.random.default_rng(19)
+    out, err, extra = None, 0, {"walk_routes": ["cluster", "peer"]}
+
+    def same(what, got, want):
+        nonlocal err
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"sharded_walk {what}: differs")
+
+    for auth in (2, 4):
         mesh = auth_mesh(auth, devices=[device] * auth)
         for K, live in ((1, 1), (2, 2), (4, 3)):
-            chain = healed_partition_chain(rng, w, n, gc_depth, K, live)
-            parent, present, lc, lcr, offs, onehots = chain
+            parent, present, lc, lcr, offs, onehots = healed_partition_chain(
+                rng, w, n, gc_depth, K, live)
             ct = [torch.from_numpy(a).to(device) for a in (parent, present, lc, offs, onehots)]
             want = dk.chain_commit(ct[0], ct[1], gc_depth, ct[2], lcr, ct[3], ct[4])
-            got = dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr, offs,
-                                          onehots)
-            if not torch.equal(got, want):
-                raise AssertionError(f"chain_commit_sharded auth={auth} K={K} != chain_commit")
+            pb, qb, lb, oh = walk_blocks(auth, parent, present, lc, onehots)
+            ops = [torch.from_numpy(a).to(device) for a in (pb, qb, lb, offs, oh)]
+            km = dk.sharded_walk(*ops, gc_depth, lcr, True)
+            same(f"chain auth={auth} K={K} cluster against plain", km,
+                 dk.sharded_walk_plain(*ops, gc_depth, lcr, True))
+            same(f"chain auth={auth} K={K} cluster against chain_commit", unblock(km, n), want)
+            same(f"chain auth={auth} K={K} peer against cluster",
+                 walk_peer(mesh, ops, gc_depth, lcr, True), km)
+            for route in ("cluster", "peer", "rowstep"):
+                same(f"chain_commit_sharded auth={auth} K={K} {route}",
+                     dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr, offs,
+                                             onehots, route=route), want)
             if auth == 2 and K == 1:
-                extra["chain_commit_sharded_ms"] = time_ms(
-                    lambda: dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr,
-                                                    offs, onehots), device, reps=5)
+                args = (*ops, gc_depth, lcr, True)
+                ms = time_ms(lambda: dk.sharded_walk(*args), device, reps=50)
+                plain_ms = time_ms(lambda: dk.sharded_walk_plain(*args), device, reps=3)
+                extra["peer_ms"] = time_ms(
+                    lambda: walk_peer(mesh, ops, gc_depth, lcr, True), device, reps=20)
                 extra["chain_commit_ms_same_inputs"] = time_ms(
                     lambda: dk.chain_commit(ct[0], ct[1], gc_depth, ct[2], lcr, ct[3], ct[4]),
-                    device, reps=20)
+                    device, reps=50)
+                for route in ("cluster", "peer", "rowstep"):
+                    extra[f"chain_commit_sharded_ms_{route}"] = time_ms(
+                        lambda: dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc,
+                                                        lcr, offs, onehots, route=route),
+                        device, reps=5 if route == "rowstep" else 20)
+                top = int(offs.max())
+                b, by = bound_ms(walk_bytes(w, n, offs, onehots, K))
+                extra["latency_floor_ms"] = top * L2_HIT_S * 1e3
+                out = {"name": "sharded_walk", "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b, "bound_by": by, "library_ms": None,
+                       "shape": f"W={w} N={n} auth=2 ({pb.shape[-1]} columns a shard) K=1 "
+                                f"leader row {top}, chain mode, cluster route"}
         for ww, K, live in ((w, 64, 56), (2 * w, 64, 61)):
             rin = reach_many_inputs(rng, ww, n, K, live)
             want = dk.reach_many(*(torch.from_numpy(a).to(device) for a in rin))
-            got = dk.reach_many_sharded(mesh, *rin)
-            if not torch.equal(got, want):
-                raise AssertionError(f"reach_many_sharded auth={auth} W={ww} != reach_many")
+            pb, qb, _lb, oh = walk_blocks(auth, rin[0], rin[1], None, rin[3])
+            ops = [torch.from_numpy(a).to(device) for a in (pb, qb)] + [None] + [
+                torch.from_numpy(a).to(device) for a in (rin[2], oh)]
+            km = dk.sharded_walk(*ops, 0, -(2**30), False)
+            same(f"many auth={auth} W={ww} cluster against plain", km,
+                 dk.sharded_walk_plain(*ops, 0, -(2**30), False))
+            same(f"many auth={auth} W={ww} cluster against reach_many", unblock(km, n), want)
+            same(f"many auth={auth} W={ww} peer against cluster",
+                 walk_peer(mesh, ops, 0, -(2**30), False), km)
+            for route in ("cluster", "peer", "rowstep"):
+                same(f"reach_many_sharded auth={auth} W={ww} {route}",
+                     dk.reach_many_sharded(mesh, *rin, route=route), want)
             if auth == 2 and ww == w:
-                extra["reach_many_sharded_ms"] = time_ms(
-                    lambda: dk.reach_many_sharded(mesh, *rin), device, reps=5)
-        log(f"reach_shard_step auth={auth} (N={n} padded to {-(-n // auth) * auth}): step "
-            f"== plain; chain_commit_sharded == chain_commit (K 1, 2, 4), "
-            f"reach_many_sharded == reach_many (W {w}, {2 * w})")
+                extra["many_ms_k64"] = time_ms(
+                    lambda: dk.sharded_walk(*ops, 0, -(2**30), False), device, reps=50)
+                extra["many_bound_ms_k64"] = bound_ms(
+                    walk_bytes(ww, n, rin[2], rin[3], K) - 4 * n)[0]
+                extra["reach_many_ms_same_inputs"] = time_ms(
+                    lambda: dk.reach_many(*(torch.from_numpy(a).to(device) for a in rin)),
+                    device, reps=20)
+                for route in ("cluster", "peer", "rowstep"):
+                    extra[f"reach_many_sharded_ms_{route}"] = time_ms(
+                        lambda: dk.reach_many_sharded(mesh, *rin, route=route), device,
+                        reps=2 if route == "rowstep" else 10)
+        log(f"sharded_walk auth={auth} (N={n} padded to {-(-n // auth) * auth}): == plain, "
+            f"== chain_commit (K 1, 2, 4) and == reach_many (K 64, W {w} and {2 * w}) on the "
+            f"cluster and peer routes; the compositions == B2 / B6 on cluster, peer, rowstep")
+    log(f"sharded_walk: chain K=1 {out['ms']:.4f} ms (cluster), {extra['peer_ms']:.4f} ms "
+        f"(peer, two launches on the card); B2 {extra['chain_commit_ms_same_inputs']:.4f} ms; "
+        f"many K=64 {extra['many_ms_k64']:.4f} ms (B6 {extra['reach_many_ms_same_inputs']:.4f}); "
+        f"bound {out['bound_ms']:.7f} ms ({out['bound_by']}), latency floor (estimate) "
+        f"{extra['latency_floor_ms']:.4f} ms; chain_commit_sharded cluster / peer / rowstep "
+        f"{extra['chain_commit_sharded_ms_cluster']:.4f} / "
+        f"{extra['chain_commit_sharded_ms_peer']:.4f} / "
+        f"{extra['chain_commit_sharded_ms_rowstep']:.4f} ms")
     out["max_abs_err"] = err
     out["extra"] = extra
     return out
+
+
+def check_walk_deadline(device, n: int = 50, w: int = 64, timeout_ms: int = 100):
+    """A missing peer: only slot 0 of a forced peer route launched, with a
+    short deadline. The call must raise RuntimeError within the deadline
+    (plus the host's own wait), and the exchange must work again after."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    parent, present, lc, lcr, offs, onehots = healed_partition_chain(
+        np.random.default_rng(20), w, n, GC_DEPTH, 1, 1)
+    pb, qb, lb, oh = walk_blocks(2, parent, present, lc, onehots)
+    ops = [torch.from_numpy(a).to(device) for a in (pb, qb, lb, offs, oh)]
+    mesh = auth_mesh(2, devices=[device] * 2)
+    want = dk.sharded_walk(*ops, GC_DEPTH, lcr, True)
+    t0 = time.perf_counter()
+    try:
+        walk_peer(mesh, ops, GC_DEPTH, lcr, True, launch=[0], timeout_ms=timeout_ms)
+    except RuntimeError as e:
+        wall = time.perf_counter() - t0
+        log(f"sharded_walk: a missing peer raised after {wall * 1e3:.1f} ms "
+            f"(deadline {timeout_ms} ms): {e}")
+    else:
+        raise AssertionError("sharded_walk: a missing peer did not raise")
+    if wall > timeout_ms / 1e3 + 2.0:
+        raise AssertionError(f"sharded_walk: a missing peer took {wall:.3f} s to raise")
+    if not torch.equal(walk_peer(mesh, ops, GC_DEPTH, lcr, True), want):
+        raise AssertionError("sharded_walk: the peer route differs after a missed deadline")
+    return wall
 
 
 def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=3):
@@ -1168,7 +1344,10 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_leader_support(device, n, w),
         check_consensus_commit(device, n, w),
         check_reach_shard_step(device, n, w),
+        check_sharded_walk(device, n, w),
     ]
+    if device.type == "cuda":
+        check_walk_deadline(device, n, w)
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['name']:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -1273,8 +1452,8 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
     Its commit sequence must equal the CPU engine's (`ref_out`,
     `ref_state`) and the host engine's (`host_cls`); the window must grow
     and slide, and a chain of 3+ leaders commit in one event. Returns the
-    engine, its state and outputs, the launch counts and the certificates
-    per second."""
+    engine, its state and outputs, the launch counts, the certificates per
+    second and the number of commit events."""
     import torch
     from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.gpu import kernel_registry
@@ -1319,13 +1498,13 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
                              f"base {eng.win.round_base})")
     if max(chains) < 3:
         raise AssertionError(f"{path}: no chain of 3+ leaders (max K {max(chains)})")
-    require_launches(path, launches, device)
+    require_launches(path, launches, device, mesh.routes[0] if mesh is not None else None)
     log(f"{path}: N={n}, {certs[-1].round} rounds, {len(certs)} certificates, {len(out)} "
         f"committed (== CPU engine == host {host_cls.__name__}), window grew to W={max_w} "
         f"and slid to base {eng.win.round_base}; {len(chains)} commit events, chain "
         f"lengths {sorted(set(chains))}; {wall:.3f} s host wall, {len(certs) / wall:.1f} "
         f"certificates/s; launches {launches}")
-    return eng, state, out, launches, len(certs) / wall
+    return eng, state, out, launches, len(certs) / wall, len(chains)
 
 
 def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
@@ -1345,7 +1524,7 @@ def phase_engine(device, f, rounds=200, gc=GC_DEPTH):
         outs = ref_eng.process_certificate(ref_state, ri, c)
         ri += len(outs)
         ref_out.extend(outs)
-    eng, state, out, launches, rate = engine_path(
+    eng, state, out, launches, rate, _events = engine_path(
         "engine", device, f, GpuBullshark, Bullshark, certs, gc, ref_out, ref_state)
     return {"certs": certs, "eng": eng, "state": state, "index": len(out), "ref_out": ref_out,
             "ref_eng": ref_eng, "ref_state": ref_state, "launches": launches,
@@ -1369,7 +1548,7 @@ def phase_tusk(device, f, rounds=200, gc=GC_DEPTH):
     ref_state = ConsensusState(Certificate.genesis(f.committee))
     ref_out, _ = feed_rounds(GpuTusk(f.committee, None, gc, device="cpu"), ref_state, certs,
                              f.committee.size())
-    _eng, _state, _out, launches, rate = engine_path(
+    _eng, _state, _out, launches, rate, _events = engine_path(
         "tusk", device, f, GpuTusk, Tusk, certs, gc, ref_out, ref_state)
     return {"launches": launches, "certificates_per_s": rate}
 
@@ -1391,15 +1570,19 @@ def mesh_devices(device, k: int) -> list:
 def phase_dag_shards(device, f, ctx, gc=GC_DEPTH):
     """GpuBullshark(mesh=auth_mesh(2, ...)) (`--dag-shards 2`) over the
     engine phase's stream: its sequence must equal the host Bullshark's and
-    the unmeshed card engine's, through reach_shard_step only (chain_commit,
-    place_batch and roll_window launch 0 times)."""
+    the unmeshed card engine's, through the sharded walk only (chain_commit,
+    place_batch and roll_window launch 0 times). On the "cluster" and
+    "peer" routes that is one sharded_walk launch per card per commit
+    event, and no reach_shard_step."""
     from narwhal_tpu_torch.consensus import Bullshark
     from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     mesh = auth_mesh(2, devices=mesh_devices(device, 2))
-    log(f"dag_shards: auth mesh over {[str(d) for d in mesh.rows('auth')[0]]}")
-    _eng, state, _out, launches, rate = engine_path(
+    route = mesh.routes[0]
+    cards = len(mesh.walk(0).groups)
+    log(f"dag_shards: auth mesh over {[str(d) for d in mesh.rows('auth')[0]]}, route {route}")
+    _eng, state, _out, launches, rate, events = engine_path(
         "dag_shards", device, f, GpuBullshark, Bullshark, ctx["certs"], gc,
         ctx["ref_out"], ctx["ref_state"], mesh=mesh)
     if state.last_committed != ctx["state"].last_committed:
@@ -1408,17 +1591,25 @@ def phase_dag_shards(device, f, ctx, gc=GC_DEPTH):
         if launches[k]:
             raise AssertionError(f"dag_shards: {k} launched {launches[k]} times on the meshed "
                                  "engine")
-    log(f"dag_shards: {rate:.1f} certificates/s against the unmeshed engine's "
+    if device.type == "cuda" and route != "rowstep":
+        if launches["sharded_walk"] != cards * events or launches["reach_shard_step"]:
+            raise AssertionError(
+                f"dag_shards: {launches['sharded_walk']} sharded_walk and "
+                f"{launches['reach_shard_step']} reach_shard_step launches for {events} "
+                f"commit events on {cards} card(s)")
+    log(f"dag_shards: route {route}, {events} commit events, {launches['sharded_walk']} "
+        f"sharded_walk launches; {rate:.1f} certificates/s against the unmeshed engine's "
         f"{ctx['certificates_per_s']:.1f}")
-    return {"launches": launches, "certificates_per_s": rate,
-            "devices": [str(d) for d in mesh.rows("auth")[0]]}
+    return {"launches": launches, "certificates_per_s": rate, "route": route,
+            "commit_events": events, "devices": [str(d) for d in mesh.rows("auth")[0]]}
 
 
 def phase_consensus_step(device, f, w=W, b=64):
     """B7 on the card: B = 64 walks on an N = 50, W = 64 window through
     consensus_step (reach_many, leader_support, consensus_commit), then the
-    same inputs over a 2 x 2 data x auth mesh (consensus_step_sharded):
-    every output equal, some walks at the quorum and some below."""
+    same inputs over a 2 x 2 data x auth mesh (consensus_step_sharded) on
+    the mesh's own route, and on the card once more on the "peer" route
+    forced: every output equal, some walks at the quorum and some below."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
     from narwhal_tpu_torch.gpu import kernel_registry
@@ -1427,6 +1618,7 @@ def phase_consensus_step(device, f, w=W, b=64):
     n = f.committee.size()
     host = support_inputs(np.random.default_rng(18), w, n, b, 0.3)
     mesh = auth_mesh(2, devices=mesh_devices(device, 4), data=2)
+    route = mesh.routes[0]
     kernel_registry.reset_launch_counts()
     t0 = time.perf_counter()
     flat = dk.consensus_step(*(torch.from_numpy(a).to(device) for a in host))
@@ -1434,10 +1626,18 @@ def phase_consensus_step(device, f, w=W, b=64):
     t1 = time.perf_counter()
     meshed = [x.cpu() for x in dk.consensus_step_sharded(mesh, *host)]
     t2 = time.perf_counter()
+    runs, walls = [(route, meshed)], {route: t2 - t1}
+    # The other routes this topology allows, forced: every walk kernel runs.
+    others = {"cluster": ("peer", "rowstep"), "peer": ("rowstep",), "rowstep": ()}[route]
+    for r in others:
+        t3 = time.perf_counter()
+        runs.append((r, [x.cpu() for x in dk.consensus_step_sharded(mesh, *host, route=r)]))
+        walls[r] = time.perf_counter() - t3
     launches = kernel_registry.launch_counts()
-    for name, a, c in zip(("committed", "support", "new_last"), flat, meshed):
-        if not torch.equal(a, c):
-            raise AssertionError(f"consensus_step: {name} differs meshed and unmeshed")
+    for r, out in runs:
+        for name, a, c in zip(("committed", "support", "new_last"), flat, out):
+            if not torch.equal(a, c):
+                raise AssertionError(f"consensus_step: {name} differs meshed ({r}) and unmeshed")
     plain = dk.consensus_step(*(torch.from_numpy(a) for a in host))
     for name, a, c in zip(("committed", "support", "new_last"), flat, plain):
         if not torch.equal(a, c):
@@ -1446,12 +1646,15 @@ def phase_consensus_step(device, f, w=W, b=64):
     at = int((flat[1] >= quorum).sum())
     if not 0 < at < b:
         raise AssertionError(f"consensus_step: {at} of {b} walks at the quorum")
-    require_launches("consensus_step", launches, device)
+    for r, _out in runs:
+        require_launches("consensus_step", launches, device, r)
     log(f"consensus_step: W={w} N={n} B={b}, {at} walks at quorum {quorum}, "
         f"{int(flat[0].sum())} certificates committed; unmeshed {t1 - t0:.4f} s, over a "
-        f"2 x 2 mesh {t2 - t1:.4f} s, outputs equal (and equal to the plain composition); "
-        f"launches {launches}")
-    return {"launches": launches, "unmeshed_s": t1 - t0, "meshed_s": t2 - t1}
+        f"2 x 2 mesh ({route}) {t2 - t1:.4f} s; forced routes "
+        f"{ {r: round(s, 6) for r, s in walls.items() if r != route} }; outputs equal (and "
+        f"equal to the plain composition); launches {launches}")
+    return {"launches": launches, "unmeshed_s": t1 - t0, "meshed_s": t2 - t1,
+            "route": route, "meshed_s_by_route": walls}
 
 
 def phase_dryrun(device):
@@ -1462,6 +1665,7 @@ def phase_dryrun(device):
     from narwhal_tpu_torch import entry as tentry
     from narwhal_tpu_torch.gpu import dag_kernels as dk
     from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     kernel_registry.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1476,7 +1680,8 @@ def phase_dryrun(device):
         tentry.dryrun_multichip(4, devices=devices)
     wall = time.perf_counter() - t0
     launches = kernel_registry.launch_counts()
-    require_launches("dryrun", launches, device)
+    route = auth_mesh(2, devices=devices[:2]).routes[0]
+    require_launches("dryrun", launches, device, route)
     log(f"dryrun: entry() reached {int(mask.sum())} certificates (== plain); "
         f"dryrun_multichip(4) over {[str(d) for d in devices]} passed in {wall:.3f} s; "
         f"launches {launches}")
@@ -2226,10 +2431,12 @@ def main(argv=None) -> int:
              "tusk_certificates_per_s": tctx["certificates_per_s"],
              "dag_service": {"per_k": dctx["per_k"], "wall_s": dctx["wall_s"],
                              "adaptive_routing": dctx["routing_adaptive"]},
-             "dag_shards": {"devices": dsctx["devices"],
+             "dag_shards": {"devices": dsctx["devices"], "route": dsctx["route"],
+                            "commit_events": dsctx["commit_events"],
                             "certificates_per_s": dsctx["certificates_per_s"]},
              "consensus_step": {"unmeshed_s": csctx["unmeshed_s"],
-                                "meshed_s": csctx["meshed_s"]},
+                                "meshed_s": csctx["meshed_s"], "route": csctx["route"],
+                                "meshed_s_by_route": csctx["meshed_s_by_route"]},
              "dryrun_wall_s": drctx["wall_s"]}
 
     rows = []

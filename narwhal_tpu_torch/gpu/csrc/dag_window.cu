@@ -4,7 +4,7 @@
 // Tensors (the JAX package's layout, narwhal_tpu/tpu/dag_kernels.py):
 //   parent  [W, N, N] uint8   parent[w, a, p] = cert (w, a) links (w-1, p)
 //   present [W, N]    uint8   a certificate exists at (round offset w, authority)
-// Seven kernels, each with a plain PyTorch version in ../dag_kernels.py:
+// Eight kernels, each with a plain PyTorch version in ../dag_kernels.py:
 //
 // place_batch  replaces narwhal_tpu/tpu/dag_kernels.py:95 `place_batch` (B3).
 //   Scatter T padded placements: for each slot t with valid[t] != 0,
@@ -104,8 +104,72 @@
 //   parent row w + 1 block, present row, lc, the frontier and the walk's
 //   one-hots read, the mask row, frontier block and committed written; a few
 //   KB per launch at N = 50, so each launch costs its launch latency, and a
-//   walk costs W of them per shard.
+//   walk costs W of them per shard. It serves only the "rowstep" route: an
+//   auth row over cards without peer access.
+//
+// sharded_walk replaces narwhal_tpu/tpu/dag_kernels.py:497-519, the sharded
+//   `chain_commit` (one XLA program under shard_map, P(None, None, "auth"),
+//   whose per-row frontier all-gather XLA places on the interconnect): a
+//   whole walk set, every row and every leader, in ONE launch per card.
+//   Layout: one CTA per shard of the auth row held on this card, one thread
+//   per column of the shard's block (m <= 1024); the card's CTAs form one
+//   thread-block cluster (cluster size = local shards, <= 16). A shard's
+//   operands are its column blocks: parent [W, Npad, m], present [W, m],
+//   lc [m]; offs [K] and the one-hots [K, Npad] are whole (a slot is live
+//   when any byte of its one-hot is set, which every CTA of every card sees
+//   alike). Each CTA keeps the FULL frontier of the row above, [Npad]
+//   bytes, in shared memory, double-buffered by row parity.
+//   One row w: thread p runs `reach_step` (unchanged, so the bits equal
+//   B2's) against buf[(w+1)&1], applies the uncommitted and gc filters as
+//   reach_shard_step_kernel does, writes its mask byte, stores its bit into
+//   buf[w&1][s*m + p] of EVERY CTA of the cluster (distributed shared
+//   memory, map_shared_rank), then one cluster.sync():
+//
+//     CTA r:  | read buf[(w+1)&1], write buf[w&1] everywhere | SYNC(w) | read buf[w&1], write buf[(w-1)&1] everywhere | SYNC(w-1) | ...
+//
+//   A CTA writes buf[w&1] of a peer CTA only after SYNC(w+1), i.e. after
+//   that peer finished reading buf[w&1] as row w+2's "row above": one
+//   barrier per row is enough. Row 0 has no row below: no store, no sync.
+//   Chain mode (chain_commit_sharded): the K leaders run in order inside
+//   the launch as in chain_commit_kernel; an all-zero slot is skipped on
+//   the device (its masks written zero, lc and lcr untouched); after each
+//   live leader every CTA folds its committed rounds into its lc block and
+//   the lcr candidates (a block atomicMax, then each CTA reads every CTA's
+//   candidate through distributed shared memory after one cluster.sync,
+//   double-buffered by live-leader parity) give the next leader's lcr. No
+//   host round trip anywhere in the walk.
+//   Many mode (reach_many_sharded, consensus_step_sharded): one cluster per
+//   walk, K clusters in the grid, `present` is the caller's uncommitted, no
+//   lc and no gc filter (as reach_many_kernel).
+//   Across cards ("peer" route, G > 1 launches, one per card, each on its
+//   own stream): after a row's SYNC A, rank 0 writes this card's frontier
+//   columns into the exchange buffer of every peer card (peer-mapped
+//   memory), fences system-wide and bumps its generation flag on every
+//   peer with st.release.sys; it then spins (ld.acquire.sys) on its own
+//   buffer's flags of every peer, bounded by a %globaltimer deadline, and
+//   copies the peers' columns into every local CTA's buf[w&1] before SYNC
+//   B. The lcr reduction between leaders crosses cards the same way. Each
+//   exchange event e of a walk uses buffer slot e&1 and target generation
+//   gen_base + e + 1 (the host advances gen_base past every launch): a card
+//   writes slot e&1 again at event e+2 only after it has seen the peer's
+//   flag of event e+1, which the peer raises after reading event e. A
+//   missed deadline writes {1, event} to the card's error word and every
+//   CTA of the cluster leaves at the same barrier; the wrapper reads the
+//   words back with the result and raises. Clusters that spin must be
+//   co-resident: the wrapper checks cudaOccupancyMaxActiveClusters and
+//   splits a walk set into waves that fit (the host synchronises between
+//   waves).
+//   Bound: bytes. With top = the highest start row of a live walk (rows
+//   above it are empty by definition), the launch must read each shard's
+//   parent rows 1..top and present rows 0..top of its block (top * Npad^2
+//   and (top + 1) * Npad bytes over the row), lc (4 Npad), offs (4 K) and
+//   the one-hots (K Npad), and write the masks (K W Npad): ~150 KB for one
+//   leader at row 58 of W = 64, Npad = 50, under 0.05 us of HBM time. The
+//   latency floor is `top` dependent row steps (each a parent load that
+//   waits on the row above, and a cluster barrier); that floor, not the
+//   bytes, is what the kernel is made of.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -320,6 +384,241 @@ __global__ void reach_shard_step_kernel(const uint8_t* __restrict__ parent,
   if (keep && w > *c) *c = w;
 }
 
+namespace cg = cooperative_groups;
+
+constexpr int kSentinel = -(1 << 30);
+
+// One card's view of the exchange with the other cards of its auth row
+// ("peer" route). G == 1 on the "cluster" route: no exchange at all, and
+// the pointers are null. A card's buffer holds, for each of `nslots` walk
+// slots: flags uint32 [nslots][G] (the generation each card raised last),
+// lcr int32 [nslots][2][G] and frontier uint8 [nslots][2][Npad] (the
+// values of an exchange event, by event parity).
+struct PeerExchange {
+  uint8_t* const* bufs;  // [G] every card's exchange buffer, this card's included
+  const int32_t* owner;  // [a] the card (launch) that holds each shard of the row
+  int32_t* err;          // [2] this card's error word: {code, event}
+  int G, g, nslots;
+  uint32_t gen_base;
+  long long timeout_ns;
+};
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void store_release_sys(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t load_acquire_sys(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.sys.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t* x_flags(uint8_t* buf, const PeerExchange& x, int slot) {
+  return (uint32_t*)buf + (size_t)slot * x.G;
+}
+
+__device__ __forceinline__ int32_t* x_lcr(uint8_t* buf, const PeerExchange& x, int slot,
+                                          int par) {
+  return (int32_t*)(buf + 4 * (size_t)x.nslots * x.G) + ((size_t)slot * 2 + par) * x.G;
+}
+
+__device__ __forceinline__ uint8_t* x_front(uint8_t* buf, const PeerExchange& x, int slot,
+                                            int par, int Npad) {
+  return buf + 12 * (size_t)x.nslots * x.G + ((size_t)slot * 2 + par) * Npad;
+}
+
+// Thread 0 of rank 0: raise this card's flag on every peer to `gen` (after
+// the stores to the peers, fenced system-wide), then wait for every peer's
+// flag on this card's buffer. 0, or 1 when the deadline passes first.
+__device__ int signal_and_wait(const PeerExchange& x, int slot, uint32_t gen) {
+  for (int h = 0; h < x.G; h++) {
+    if (h != x.g) store_release_sys(x_flags(x.bufs[h], x, slot) + x.g, gen);
+  }
+  const uint32_t* mine = x_flags(x.bufs[x.g], x, slot);
+  const uint64_t t0 = global_ns();
+  for (int h = 0; h < x.G; h++) {
+    if (h == x.g) continue;
+    while ((int32_t)(load_acquire_sys(mine + h) - gen) < 0) {
+      if ((long long)(global_ns() - t0) > x.timeout_ns) return 1;
+    }
+  }
+  return 0;
+}
+
+// Every thread of rank 0, after SYNC A of a row (event ev): this card's
+// columns of the row's frontier `row` to every peer, then the peers'
+// columns into `row` of every CTA of the cluster. Returns 0 or 1 (deadline).
+__device__ int exchange_row(cg::cluster_group& cluster, const PeerExchange& x, uint8_t* row,
+                            int Npad, int m, int slot, uint32_t ev) {
+  __shared__ int s_rc;
+  const int par = ev & 1;
+  const int nr = (int)cluster.num_blocks();
+  for (int h = 0; h < x.G; h++) {
+    if (h == x.g) continue;
+    uint8_t* dst = x_front(x.bufs[h], x, slot, par, Npad);
+    for (int i = threadIdx.x; i < Npad; i += blockDim.x) {
+      if (x.owner[i / m] == x.g) dst[i] = row[i];
+    }
+  }
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0) s_rc = signal_and_wait(x, slot, x.gen_base + ev + 1);
+  __syncthreads();
+  const int rc = s_rc;
+  if (!rc) {
+    const uint8_t* src = x_front(x.bufs[x.g], x, slot, par, Npad);
+    for (int i = threadIdx.x; i < Npad; i += blockDim.x) {
+      if (x.owner[i / m] == x.g) continue;
+      const uint8_t v = __ldcg(src + i);
+      for (int r = 0; r < nr; r++) cluster.map_shared_rank(row, r)[i] = v;
+    }
+  }
+  return rc;
+}
+
+// The barrier after a row's stores: SYNC A, the exchange across cards on
+// rank 0 (G > 1), SYNC B. Returns the status, the same in every CTA.
+__device__ int row_barrier(cg::cluster_group& cluster, const PeerExchange& x, uint8_t* row,
+                           int Npad, int m, int slot, uint32_t& ev, int* s_status) {
+  cluster.sync();
+  if (x.G == 1) return 0;
+  if (cluster.block_rank() == 0) {
+    const int rc = exchange_row(cluster, x, row, Npad, m, slot, ev);
+    if (threadIdx.x == 0) {
+      for (int r = 0; r < (int)cluster.num_blocks(); r++) *cluster.map_shared_rank(s_status, r) = rc;
+      if (rc) {
+        x.err[0] = 1;
+        x.err[1] = (int)ev;
+      }
+    }
+  }
+  ev++;
+  cluster.sync();
+  return *s_status;
+}
+
+// The max of every CTA's lcr candidate `cand` over the cluster, then over
+// the cards (G > 1, an exchange event). Sets *rc to the status.
+__device__ int reduce_lcr(cg::cluster_group& cluster, const PeerExchange& x, int* cand,
+                          int slot, uint32_t& ev, int* s_status, int* s_glob, int* rc) {
+  cluster.sync();  // every CTA's atomicMax into its own candidate is done
+  int best = kSentinel;
+  const int nr = (int)cluster.num_blocks();
+  for (int r = 0; r < nr; r++) best = max(best, *cluster.map_shared_rank(cand, r));
+  *rc = 0;
+  if (x.G == 1) return best;
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    const int par = ev & 1;
+    for (int h = 0; h < x.G; h++) {
+      if (h != x.g) x_lcr(x.bufs[h], x, slot, par)[x.g] = best;
+    }
+    __threadfence_system();
+    const int status = signal_and_wait(x, slot, x.gen_base + ev + 1);
+    int glob = best;
+    if (!status) {
+      const int32_t* src = x_lcr(x.bufs[x.g], x, slot, par);
+      for (int h = 0; h < x.G; h++) {
+        if (h != x.g) glob = max(glob, __ldcg(src + h));
+      }
+    } else {
+      x.err[0] = 1;
+      x.err[1] = (int)ev;
+    }
+    for (int r = 0; r < nr; r++) {
+      *cluster.map_shared_rank(s_glob, r) = glob;
+      *cluster.map_shared_rank(s_status, r) = status;
+    }
+  }
+  ev++;
+  cluster.sync();
+  *rc = *s_status;
+  return *s_glob;
+}
+
+// parent [a_l, W, Npad, m], present [a_l, W, m], lc [a_l, m] (chain mode),
+// masks [a_l, K, W, m]: the blocks of this card's a_l shards, rank r holding
+// shard slots[r] of the row (slots null: rank r holds shard r). offs [K],
+// onehots [K, Npad]. Chain mode: one cluster walks the K leaders in order.
+// Many mode: cluster c walks k0 + c.
+__global__ void sharded_walk_kernel(const uint8_t* __restrict__ parent,
+                                    const uint8_t* __restrict__ present,
+                                    const int32_t* __restrict__ lc_in,
+                                    const int32_t* __restrict__ offs,
+                                    const uint8_t* __restrict__ onehots,
+                                    bool* __restrict__ masks, const int32_t* __restrict__ slots,
+                                    int W, int Npad, int m, int K, int k0, int gc_depth,
+                                    int lcr_rel, int chain, PeerExchange x) {
+  extern __shared__ uint8_t s_front[];  // [2][Npad], the frontier rows of parity 0 and 1
+  __shared__ int s_cand[2];             // this CTA's lcr candidate, by live-leader parity
+  __shared__ int s_status, s_glob;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nr = (int)cluster.num_blocks();
+  const int c = blockIdx.x / nr;  // this cluster's walk slot
+  const int s = slots ? slots[rank] : rank;
+  const int p = threadIdx.x;
+  const bool live = p < m;
+  const uint8_t* par = parent + (size_t)rank * W * Npad * m;
+  const uint8_t* pre = present + (size_t)rank * W * m;
+  int lc = (chain && live) ? lc_in[(size_t)rank * m + p] : 0;
+  int lcr = lcr_rel;
+  uint32_t ev = 0;  // exchange events of this walk slot
+  int n_live = 0;   // live leaders walked so far
+  if (p == 0) s_status = 0;
+  cluster.sync();  // every CTA of the cluster runs before the first remote store
+  const int k_first = chain ? 0 : k0 + c;
+  const int k_end = chain ? K : k_first + 1;
+  for (int k = k_first; k < k_end; k++) {
+    bool* out = masks + ((size_t)rank * K + k) * W * m;
+    const uint8_t* oh = onehots + (size_t)k * Npad;
+    int any = 0;
+    for (int i = p; i < Npad; i += blockDim.x) any |= oh[i];
+    int* cand = s_cand + (n_live & 1);
+    if (p == 0) *cand = kSentinel;
+    any = __syncthreads_or(any);
+    const int start_off = offs[k];
+    const bool start_bit = live && oh[(size_t)s * m + p] != 0;
+    const int top = any ? min(start_off, W - 1) : -1;
+    if (live) {
+      for (int w = W - 1; w > top; w--) out[(size_t)w * m + p] = false;
+    }
+    if (!any) continue;  // a padding slot reaches nothing and changes nothing
+    int committed = kSentinel;
+    for (int w = top; w >= 0; w--) {
+      bool here = false;
+      if (live) {
+        here = reach_step(par, s_front + ((w + 1) & 1) * Npad, w, W, Npad, m, p, start_off,
+                          start_bit);
+        here = here && pre[(size_t)w * m + p] != 0 && (!chain || w > lc);  // uncommitted
+        const bool keep = here && (!chain || w + gc_depth >= lcr);
+        out[(size_t)w * m + p] = keep;
+        if (keep && w > committed) committed = w;
+      }
+      if (w == 0) break;  // no row below
+      uint8_t* row = s_front + (w & 1) * Npad;
+      if (live) {
+        for (int r = 0; r < nr; r++) cluster.map_shared_rank(row, r)[(size_t)s * m + p] = here;
+      }
+      if (row_barrier(cluster, x, row, Npad, m, c, ev, &s_status)) return;
+    }
+    if (!chain) continue;
+    if (live && committed > kSentinel) atomicMax(cand, committed);
+    int rc;
+    const int best = reduce_lcr(cluster, x, cand, c, ev, &s_status, &s_glob, &rc);
+    if (rc) return;
+    if (committed > lc) lc = committed;
+    if (best > lcr) lcr = best;
+    n_live++;
+  }
+  cluster.sync();  // no CTA leaves while another may still read its shared memory
+}
+
 }  // namespace
 
 extern "C" int dag_window_place_batch(void* parent, void* present, const void* offs,
@@ -403,6 +702,88 @@ extern "C" int dag_window_reach_shard_step(const void* parent, const void* prese
       (const int32_t*)lcr, (uint8_t*)frontier_out, (bool*)masks, (int32_t*)committed, W, N,
       M, w, gc_depth);
   return (int)cudaGetLastError();
+}
+
+// One card's launch of sharded_walk: nk clusters of `a` CTAs (chain mode:
+// nk = 1), one thread per column, 2 * Npad bytes of shared memory. G == 1
+// (the "cluster" route) passes null bufs, owner and err.
+extern "C" int dag_window_sharded_walk(const void* parent, const void* present, const void* lc,
+                                       const void* offs, const void* onehots, void* masks,
+                                       const void* slots, const void* bufs, const void* owner,
+                                       void* err, int W, int Npad, int m, int K, int k0, int nk,
+                                       int a, int gc_depth, int lcr_rel, int chain, int G,
+                                       int g, int gen_base, int timeout_ms, void* stream) {
+  if (a > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sharded_walk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nk * a));
+  cfg.blockDim = dim3((unsigned)(((m + 31) / 32) * 32));
+  cfg.dynamicSmemBytes = (size_t)2 * Npad;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)a;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const PeerExchange x{(uint8_t* const*)bufs, (const int32_t*)owner, (int32_t*)err,
+                       G, g, nk, (uint32_t)gen_base, (long long)timeout_ms * 1000000LL};
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, sharded_walk_kernel, (const uint8_t*)parent, (const uint8_t*)present,
+      (const int32_t*)lc, (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks,
+      (const int32_t*)slots, W, Npad, m, K, k0, gc_depth, lcr_rel, chain, x);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `a` CTAs of sharded_walk (m columns, Npad frontier
+// bytes) the current card holds at once; a negative cudaError_t on failure.
+extern "C" int dag_window_sharded_walk_max_clusters(int a, int m, int Npad) {
+  if (a > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sharded_walk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return -(int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a);
+  cfg.blockDim = dim3((unsigned)(((m + 31) / 32) * 32));
+  cfg.dynamicSmemBytes = (size_t)2 * Npad;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)a;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, sharded_walk_kernel, &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return n;
+}
+
+// Map card `peer`'s memory into card `dev`'s address space (an ordered
+// pair); an already mapped pair is success.
+extern "C" int dag_window_enable_peer(int dev, int peer) {
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(cur);
+  return (int)(e != cudaSuccess ? e : back);
 }
 
 extern "C" const char* dag_window_error_string(int err) {

@@ -9,9 +9,11 @@ the kernels `reach_mask` (B1), `roll_window` (B4), `place_batch` (B3) and
 causal reads (`narwhal_tpu/consensus/dag.py` `_reach_k`); `leader_support`
 (B5) and `consensus_commit`, which with B6 make the consensus step of
 `__graft_entry__.py` (B7, `consensus_step`); and the committee-axis
-sharded walk of `--dag-shards` (`reach_shard_step`, composed into
+sharded walk of `--dag-shards` (`sharded_walk`, a walk set in one launch
+per card, and `reach_shard_step`, one row step on one shard, composed into
 `chain_commit_sharded`, `reach_many_sharded` and `consensus_step_sharded`
-over a `mesh.DeviceMesh`), behind `GpuBullshark(mesh=...)`.
+over a `mesh.DeviceMesh` on the route of its topology), behind
+`GpuBullshark(mesh=...)`.
 
 The window is dense tensors, exactly the JAX layout:
   present[W, N]    uint8 - certificate exists at (round offset, authority)
@@ -32,6 +34,8 @@ the window shape as an argument, so they build once per process.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -40,6 +44,7 @@ from ..consensus.state import ConsensusState
 from ..stores import ConsensusStore
 from ..types import Certificate, ConsensusOutput, Round, SequenceNumber
 from . import HostCopy, kernel_registry, resolve_device
+from . import mesh as mesh_mod
 
 _SENTINEL = -(2**30)
 _MAX_N = 1024  # chain_commit: one thread per authority column in one CTA
@@ -158,6 +163,30 @@ def reach_shard_step_plain(parent, present, lc, frontier, offs, onehots, lcr, ma
     masks[:, w] = keep
     committed.copy_(torch.where(keep & (committed < w), w, committed))
     return here.to(torch.uint8)
+
+
+def sharded_walk_plain(parent, present, lc, offs, onehots, gc_depth: int = 0,
+                       lcr_rel: int = _SENTINEL, chain: bool = True):
+    """A whole walk set over the committee axis cut into `a` column blocks
+    of m columns (Npad = a * m, the axis padded with absent slots): parent
+    [a, W, Npad, m] uint8 (block i = parent[..., i*m:(i+1)*m]), present
+    [a, W, m] uint8, lc [a, m] int32, offs [K] int32, onehots [K, Npad]
+    uint8. Chain mode: `chain_commit_plain` over the K leaders (gc_depth,
+    lcr_rel and lc as there); many mode (`chain=False`, lc unused):
+    `reach_many_plain` with `present` as the uncommitted mask. Returns the
+    masks in the same blocks, [a, K, W, m] bool."""
+    a, W, npad, m = parent.shape
+    K = offs.shape[0]
+    full_parent = parent.permute(1, 2, 0, 3).reshape(W, npad, a * m)
+    full_present = present.permute(1, 0, 2).reshape(W, a * m)
+    if K == 0:
+        masks = torch.zeros((0, W, a * m), dtype=torch.bool, device=parent.device)
+    elif chain:
+        masks = chain_commit_plain(full_parent, full_present, gc_depth, lc.reshape(a * m),
+                                   lcr_rel, offs, onehots)
+    else:
+        masks = reach_many_plain(full_parent, full_present, offs, onehots)
+    return masks.reshape(K, W, a, m).permute(2, 0, 1, 3).contiguous()
 
 
 def roll_window_plain(parent, present, shift: int):
@@ -451,6 +480,176 @@ def reach_shard_step(parent, present, lc, frontier, offs, onehots, lcr, masks, c
     return out
 
 
+_WALK_TIMEOUT_MS = 5000  # the peer route's bound on each wait for the other cards
+_MAX_CLUSTERS: dict[tuple, int] = {}  # (card, a, m, Npad) -> co-resident clusters
+
+
+def sharded_walk(parent, present, lc, offs, onehots, gc_depth: int = 0,
+                 lcr_rel: int = _SENTINEL, chain: bool = True, exchange=None, launch=None,
+                 timeout_ms: int = _WALK_TIMEOUT_MS):
+    """`sharded_walk_plain` on CPU tensors; on CUDA tensors the
+    `dag_window.cu` kernel, a whole walk set in one launch per card.
+
+    Without `exchange` (the "cluster" route) the operands are those of
+    `sharded_walk_plain`, every block on one card, and the result its
+    masks [a, K, W, m]: one launch, a thread-block cluster of a CTAs (a <=
+    16) per walk set (chain mode) or per walk (many mode).
+
+    With `exchange` (a `mesh.WalkExchange` on the "peer" route) parent,
+    present and lc are lists, one entry per group of the exchange on the
+    group's device: the blocks of its slots, [a_g, W, Npad, m] and so on;
+    offs and onehots are lists of the whole arrays on each group's device.
+    Every group's launch is issued on its own stream before any is waited
+    on; the launches exchange frontier blocks and lcr candidates through
+    the peer-mapped buffers. Returns one masks tensor [a_g, K, W, m] per
+    group. A wait that outlasts `timeout_ms` makes the kernel stop and the
+    call raise RuntimeError. `launch` (default every group) names the
+    groups to launch: a test launches fewer to see a missing peer raise."""
+    if exchange is None:
+        if not _on_cuda("sharded_walk", parent):
+            return sharded_walk_plain(parent, present, lc, offs, onehots, gc_depth, lcr_rel,
+                                      chain)
+        dev = parent.device
+        a, W, npad, m = parent.shape
+        K = offs.shape[0]
+        if a * m != npad:
+            raise ValueError(f"sharded_walk: {a} blocks of {m} columns do not cover {npad}")
+        _check_walk(parent, present, lc, offs, onehots, a, W, npad, m, K, chain, dev)
+        masks = torch.empty((a, K, W, m), dtype=torch.bool, device=dev)
+        if K:
+            _launch_walk(parent, present, lc, offs, onehots, masks, None, None, None, None,
+                         W, npad, m, K, 0, 1 if chain else K, a, gc_depth, lcr_rel, chain,
+                         1, 0, 0, 0, torch.cuda.current_stream(dev))
+        return masks
+    if exchange.route != "peer":
+        raise ValueError(f"sharded_walk: an exchange of the {exchange.route} route")
+    if not _on_cuda("sharded_walk", parent[0]):
+        if launch is not None:
+            raise ValueError("sharded_walk: the plain version launches nothing")
+        return _sharded_walk_groups_plain(exchange, parent, present, lc, offs, onehots,
+                                          gc_depth, lcr_rel, chain)
+    return _sharded_walk_peer(exchange, parent, present, lc, offs, onehots, gc_depth,
+                              lcr_rel, chain, launch, timeout_ms)
+
+
+def _check_walk(parent, present, lc, offs, onehots, a, W, npad, m, K, chain, dev) -> None:
+    if a > mesh_mod.MAX_CLUSTER or m > _MAX_N:
+        raise ValueError(f"sharded_walk: {a} shards of {m} columns on {dev} (at most "
+                         f"{mesh_mod.MAX_CLUSTER} of {_MAX_N})")
+    _check("parent", parent, torch.uint8, (a, W, npad, m), dev)
+    _check("present", present, torch.uint8, (a, W, m), dev)
+    if chain:
+        _check("lc", lc, torch.int32, (a, m), dev)
+    _check("offs", offs, torch.int32, (K,), dev)
+    _check("onehots", onehots, torch.uint8, (K, npad), dev)
+
+
+def _launch_walk(parent, present, lc, offs, onehots, masks, slots, table, owner, err, W,
+                 npad, m, K, k0, nk, a, gc_depth, lcr_rel, chain, G, g, gen, timeout_ms,
+                 stream) -> None:
+    """One card's launch (under its device); counts it."""
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(parent.device):
+        fn = kernel_registry.function("dag_window", "dag_window_sharded_walk", 10, 14)
+        rc = fn(
+            parent.data_ptr(), present.data_ptr(), ptr(lc), offs.data_ptr(),
+            onehots.data_ptr(), masks.data_ptr(), ptr(slots), ptr(table), ptr(owner),
+            ptr(err), W, npad, m, K, k0, nk, a, int(gc_depth), int(lcr_rel), int(chain), G,
+            g, gen - 2**32 if gen >= 2**31 else gen, int(timeout_ms), stream.cuda_stream,
+        )
+    kernel_registry.check("dag_window", "sharded_walk", rc)
+    kernel_registry.count_launch("sharded_walk")
+
+
+def _max_clusters(dev, a: int, m: int, npad: int) -> int:
+    """How many clusters of `a` sharded_walk CTAs the card holds at once."""
+    key = (dev, a, m, npad)
+    if key not in _MAX_CLUSTERS:
+        fn = kernel_registry.library("dag_window").dag_window_sharded_walk_max_clusters
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        with torch.cuda.device(dev):
+            n = fn(a, m, npad)
+        if n < 0:
+            kernel_registry.check("dag_window", "sharded_walk occupancy", -n)
+        _MAX_CLUSTERS[key] = n
+    return _MAX_CLUSTERS[key]
+
+
+def _sharded_walk_groups_plain(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel,
+                               chain):
+    """The peer form on CPU tensors: the groups' blocks back in slot order,
+    `sharded_walk_plain`, and its masks cut into the groups again."""
+    order = [s for slots in ex.groups for s in slots]
+    back = torch.tensor([order.index(s) for s in range(len(order))])
+    cat = (lambda ts: torch.cat(list(ts))[back])
+    masks = sharded_walk_plain(cat(parent), cat(present), None if lc is None else cat(lc),
+                               offs[0], onehots[0], gc_depth, lcr_rel, chain)
+    return [masks[torch.tensor(slots)] for slots in ex.groups]
+
+
+def _sharded_walk_peer(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel, chain,
+                       launch, timeout_ms):
+    """The peer form on the card: every group's launch on its own stream,
+    in waves of walks that fit on the cards at once (many mode), each wave
+    waited on and its error words read before the next."""
+    G = len(ex.groups)
+    K = offs[0].shape[0]
+    _a, W, npad, m = parent[0].shape
+    if sum(len(s) for s in ex.groups) * m != npad:
+        raise ValueError(f"sharded_walk: {len(ex.row)} blocks of {m} columns do not cover {npad}")
+    for g, (slots, dev) in enumerate(zip(ex.groups, ex.devices)):
+        _check_walk(parent[g], present[g], None if lc is None else lc[g], offs[g], onehots[g],
+                    len(slots), W, npad, m, K, chain, dev)
+    masks = [torch.empty((len(s), K, W, m), dtype=torch.bool, device=d)
+             for s, d in zip(ex.groups, ex.devices)]
+    if K == 0:
+        return masks
+    launch = list(range(G)) if launch is None else list(launch)
+    # Spinning clusters must be co-resident: the walks a wave may hold on
+    # every card, shared among the launches that land on the same card.
+    sharing = {d: sum(ex.devices[g] == d for g in launch) for d in ex.devices}
+    fit = min(_max_clusters(ex.devices[g], len(ex.groups[g]), m, npad)
+              // sharing[ex.devices[g]] for g in launch)
+    if fit < 1:
+        raise RuntimeError(f"sharded_walk: the peer launches do not fit on their cards at once "
+                           f"({sharing} launches a card)")
+    wave = 1 if chain else min(K, fit)
+    st = ex.shared(wave, npad)
+    span = K * W + 1 if chain else W  # exchange events a launch may use
+    for k0 in range(0, 1 if chain else K, wave):
+        nk = 1 if chain else min(wave, K - k0)
+        launched, failure = [], None
+        for g in launch:
+            dev, stream = ex.devices[g], st["streams"][g]
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                st["errs"][g].zero_()
+            try:
+                _launch_walk(parent[g], present[g], None if lc is None else lc[g], offs[g],
+                             onehots[g], masks[g], st["slots"][g], st["tables"][g],
+                             st["owner"][g], st["errs"][g], W, npad, m, K, k0, nk,
+                             len(ex.groups[g]), gc_depth, lcr_rel, chain, G, g, ex.gen,
+                             timeout_ms, stream)
+            except RuntimeError as e:
+                failure = e
+                break
+            launched.append(g)
+        ex.gen = (ex.gen + span) % 2**32
+        for g in launched:
+            st["streams"][g].synchronize()
+        if failure is not None:
+            raise failure
+        for g in launched:
+            code, event = st["errs"][g].tolist()
+            if code:
+                raise RuntimeError(
+                    f"sharded_walk: group {g} on {ex.devices[g]} waited more than "
+                    f"{timeout_ms} ms for its peers at exchange event {event}")
+    for g in launched:
+        torch.cuda.current_stream(ex.devices[g]).wait_stream(st["streams"][g])
+    return masks
+
+
 def consensus_step(parent, uncommitted, stakes, offs, onehots, leaders, last_committed):
     """The per-validator consensus step of `__graft_entry__.py:229` (B7) on
     one device: B reach walks (`reach_many`), each leader's support
@@ -468,9 +667,12 @@ def consensus_step(parent, uncommitted, stakes, offs, onehots, leaders, last_com
 # ---------------------------------------------------------------------------
 # The committee-axis sharded walk: JAX's chain_commit and reach_mask under
 # in-specs P(None, None, "auth"), P(None, "auth"), P("auth"). Each shard of
-# an auth row of the mesh holds a block of the link columns; the host steps
-# every shard one row at a time and all-gathers the frontier blocks between
-# rows (`.to(device)` over the row's devices), the exchange XLA inserts.
+# an auth row of the mesh holds a block of the link columns. On the
+# "cluster" and "peer" routes (`mesh.walk_route`) a whole walk set is one
+# `sharded_walk` launch per card, the frontier blocks exchanged on the
+# device; on "rowstep" the host steps every shard one row at a time
+# (`reach_shard_step`) and all-gathers the frontier blocks between rows
+# (`.to(device)` over the row's devices), the exchange XLA inserts.
 # ---------------------------------------------------------------------------
 
 
@@ -479,7 +681,7 @@ class _Shards:
     committee axis is padded to a multiple of the row's length with absent
     slots (no parent links, not present, zero stake), which reach nothing
     and relay nothing; `cols(t)` cuts a host array's last axis into the
-    blocks and uploads each to its device."""
+    blocks and uploads each to its device, `blocks(t)` stacks them first."""
 
     def __init__(self, devices, n: int):
         self.devices = tuple(devices)
@@ -502,8 +704,20 @@ class _Shards:
             for i, dev in enumerate(self.devices)
         ]
 
+    def blocks(self, arr) -> np.ndarray:
+        """The blocks of the (padded) last axis stacked first: [a, ..., m]."""
+        arr = np.asarray(arr)
+        split = arr.reshape(*arr.shape[:-1], len(self.devices), self.m)
+        return np.ascontiguousarray(np.moveaxis(split, -2, 0))
+
     def replicate(self, arr) -> list[torch.Tensor]:
-        return [torch.from_numpy(np.ascontiguousarray(arr)).to(dev) for dev in self.devices]
+        """`arr` on every shard's device, uploaded once per distinct device."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        ups: dict = {}
+        for dev in self.devices:
+            if dev not in ups:
+                ups[dev] = host.to(dev)
+        return [ups[dev] for dev in self.devices]
 
     def gather(self, blocks, dev, dim: int = -1) -> torch.Tensor:
         """The blocks joined along `dim` on `dev` (an all-gather's share)."""
@@ -531,22 +745,88 @@ class _Shards:
         return committed
 
 
+def _group_blocks(ex, shards: _Shards, blocked: np.ndarray) -> list[torch.Tensor]:
+    """`blocked` [a, ...] as one tensor per group of `ex`, [a_g, ...] on the
+    group's device: one upload per distinct device, each group a slice."""
+    ups = {}
+    for dev in dict.fromkeys(ex.devices):
+        slots = [s for s, d in enumerate(shards.devices) if d == dev]
+        part = blocked if len(slots) == len(blocked) else blocked[slots]
+        ups[dev] = (torch.from_numpy(np.ascontiguousarray(part)).to(dev), slots)
+    out = []
+    for slots, dev in zip(ex.groups, ex.devices):
+        t, order = ups[dev]
+        i = order.index(slots[0])
+        out.append(t[i:i + len(slots)])
+    return out
+
+
+def _walk_row(ex, shards: _Shards, parent, present, lc, offs, onehots, gc_depth: int,
+              lcr_rel: int, chain: bool):
+    """The walk set of one auth row through `sharded_walk` on ex.route
+    ("cluster" or "peer"): each operand uploaded once per card as one
+    [a_g, ...] block tensor. Returns, per slot of the row, (masks [K, W, m],
+    parent [W, Npad, m], present [W, m]) on the slot's device."""
+    pg = _group_blocks(ex, shards, shards.blocks(shards.pad(parent, (1, 2))))
+    qg = _group_blocks(ex, shards, shards.blocks(shards.pad(present, (1,))))
+    lg = (None if lc is None else
+          _group_blocks(ex, shards, shards.blocks(shards.pad(np.asarray(lc, np.int32), (0,)))))
+    offs_r = shards.replicate(np.asarray(offs, np.int32))
+    onehots_r = shards.replicate(shards.pad(np.asarray(onehots, np.uint8), (1,)))
+    og = [offs_r[g[0]] for g in ex.groups]
+    hg = [onehots_r[g[0]] for g in ex.groups]
+    K, W = og[0].shape[0], qg[0].shape[1]
+    if K == 0:
+        masks = [torch.zeros((len(s), 0, W, shards.m), dtype=torch.bool, device=d)
+                 for s, d in zip(ex.groups, ex.devices)]
+    elif ex.route == "cluster":
+        masks = [sharded_walk(pg[0], qg[0], None if lg is None else lg[0], og[0], hg[0],
+                              gc_depth, lcr_rel, chain)]
+    else:
+        masks = sharded_walk(pg, qg, lg, og, hg, gc_depth, lcr_rel, chain, exchange=ex)
+    return list(zip(_slot_views(ex, masks), _slot_views(ex, pg), _slot_views(ex, qg)))
+
+
+def _slot_views(ex, per_group) -> list[torch.Tensor]:
+    """Per-group tensors [a_g, ...] as one view per slot of the row."""
+    out = [None] * len(ex.row)
+    for g, slots in enumerate(ex.groups):
+        for j, s in enumerate(slots):
+            out[s] = per_group[g][j]
+    return out
+
+
 def chain_commit_sharded(mesh, parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs,
-                         onehots):
+                         onehots, route: str | None = None):
     """`chain_commit` (B2) with the committee axis sharded over the mesh's
     `auth` axis: each shard holds parent [W, N, N/a] (the link columns),
-    present [W, N/a] and lc [N/a] and steps every leader's walk one row at
-    a time (`reach_shard_step`); between leaders the shards fold their
-    committed rounds into lc and the max of their lcr candidates becomes
-    the next leader's lcr. A `data` axis is replicated in JAX; here the
-    first data row computes (the others would compute the same).
+    present [W, N/a] and lc [N/a]; every leader's walk runs with the lc
+    and lcr updates between leaders. On the "cluster" and "peer" routes
+    that is one `sharded_walk` launch per card for the whole chain; on
+    "rowstep" a `reach_shard_step` per shard per row, with the lc folds and
+    the lcr max between leaders on the host's devices. A `data` axis is
+    replicated in JAX; here the first data row computes (the others would
+    compute the same). `route` forces a route (the mesh's own by default).
 
     Operands are host arrays (numpy or CPU tensors), the full window, as
     the JAX dispatch takes numpy operands and places them by its in-specs;
     N need not divide the axis (absent slots pad it). Returns masks
     [K, W, N] bool on the mesh's first device, equal to `chain_commit`'s."""
     W, N = np.asarray(present).shape
-    shards = _Shards(mesh.rows("auth")[0], N)
+    ex = mesh.walk(0, route)
+    shards = _Shards(ex.row, N)
+    if ex.route == "rowstep":
+        return _chain_commit_rowstep(shards, parent, present, gc_depth, lc_rel, lcr_rel, offs,
+                                     onehots)
+    walked = _walk_row(ex, shards, parent, present, lc_rel, offs, onehots, gc_depth,
+                       int(lcr_rel), chain=True)
+    return shards.gather([w[0] for w in walked], shards.devices[0])[..., :N]
+
+
+def _chain_commit_rowstep(shards: _Shards, parent, present, gc_depth: int, lc_rel,
+                          lcr_rel: int, offs, onehots):
+    """chain_commit_sharded on the "rowstep" route: the host row loop."""
+    W = np.asarray(present).shape[0]
     offs = np.asarray(offs, np.int32)
     onehots = np.asarray(onehots, np.uint8)
     K = offs.shape[0]
@@ -569,23 +849,30 @@ def chain_commit_sharded(mesh, parent, present, gc_depth: int, lc_rel, lcr_rel: 
         cand = torch.stack([c.amax().to(first) for c in committed]).amax()
         lcr = torch.maximum(lcr_s[0][0].to(first), cand).reshape(1)
         lcr_s = [lcr.to(dev) for dev in shards.devices]
-    return shards.gather(masks_s, first)[..., :N]
+    return shards.gather(masks_s, first)[..., :shards.n]
 
 
-def reach_many_sharded(mesh, parent, uncommitted, offs, onehots):
+def reach_many_sharded(mesh, parent, uncommitted, offs, onehots, route: str | None = None):
     """`reach_many` (B6) with the committee axis sharded over the mesh's
-    `auth` axis (the first data row): the K walks advance together, one
-    `reach_shard_step` a row on every shard, with no lc, gc filter or
-    update between walks. Operands are host arrays; returns masks
-    [K, W, N] bool on the mesh's first device, equal to `reach_many`'s."""
-    shards = _Shards(mesh.rows("auth")[0], np.asarray(uncommitted).shape[1])
-    masks_s = _reach_blocks(shards, parent, uncommitted, offs, onehots)[0]
+    `auth` axis (the first data row), with no lc, gc filter or update
+    between walks: one cluster per walk of one `sharded_walk` launch per
+    card ("cluster", "peer"), or the K walks advancing together one
+    `reach_shard_step` a row on every shard ("rowstep"). Operands are host
+    arrays; returns masks [K, W, N] bool on the mesh's first device, equal
+    to `reach_many`'s."""
+    ex = mesh.walk(0, route)
+    shards = _Shards(ex.row, np.asarray(uncommitted).shape[1])
+    masks_s = _reach_blocks(ex, shards, parent, uncommitted, offs, onehots)[0]
     return shards.gather(masks_s, shards.devices[0])[..., :shards.n]
 
 
-def _reach_blocks(shards: _Shards, parent, uncommitted, offs, onehots):
+def _reach_blocks(ex, shards: _Shards, parent, uncommitted, offs, onehots):
     """The sharded reach walks on one auth row: (the masks blocks
     [K, W, m], the parent blocks, the uncommitted blocks) of each shard."""
+    if ex.route != "rowstep":
+        walked = _walk_row(ex, shards, parent, uncommitted, None, offs, onehots, 0, _SENTINEL,
+                           chain=False)
+        return tuple([w[i] for w in walked] for i in range(3))
     W = np.asarray(uncommitted).shape[0]
     offs = np.asarray(offs, np.int32)
     K = offs.shape[0]
@@ -603,17 +890,18 @@ def _reach_blocks(shards: _Shards, parent, uncommitted, offs, onehots):
 
 
 def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, leaders,
-                           last_committed):
+                           last_committed, route: str | None = None):
     """`consensus_step` (B7) over a `data x auth` mesh, the layout of
     `__graft_entry__.py:248`: the B walks split over the data rows, and on
     each row the committee axis over its auth shards. A row runs its walks
-    with `reach_shard_step` (as `reach_many_sharded`), each walk's support
-    on the shard that holds its leader's column (`leader_support` on the
-    shard's parent columns and the all-gathered uncommitted rows), and
-    `consensus_commit` on every shard's block; new_last is the max over
-    the data rows. Operands are host arrays; B must divide by the data
-    axis. Returns (committed [B, W, N] bool, support [B] int32, new_last
-    [N] int32) on the mesh's first device, equal to `consensus_step`'s."""
+    as `reach_many_sharded` does (on the row's route, or `route`), each
+    walk's support on the shard that holds its leader's column
+    (`leader_support` on the shard's parent columns and the all-gathered
+    uncommitted rows), and `consensus_commit` on every shard's block;
+    new_last is the max over the data rows. Operands are host arrays; B
+    must divide by the data axis. Returns (committed [B, W, N] bool,
+    support [B] int32, new_last [N] int32) on the mesh's first device,
+    equal to `consensus_step`'s."""
     rows = mesh.rows("auth")
     W, N = np.asarray(uncommitted).shape
     offs = np.asarray(offs, np.int32)
@@ -627,10 +915,11 @@ def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, lea
     bd = B // len(rows)
     first = rows[0][0]
     committed, support, new_last = [], [], []
-    for r, devs in enumerate(rows):
-        shards = _Shards(devs, N)
+    for r in range(len(rows)):
+        ex = mesh.walk(r, route)
+        shards = _Shards(ex.row, N)
         b = slice(r * bd, (r + 1) * bd)
-        masks_s, parent_s, unc_s = _reach_blocks(shards, parent, uncommitted, offs[b],
+        masks_s, parent_s, unc_s = _reach_blocks(ex, shards, parent, uncommitted, offs[b],
                                                  onehots[b])
         stakes_s = shards.replicate(shards.pad(np.asarray(stakes, np.int32), (0,)))
         sup = torch.zeros((bd,), dtype=torch.int32, device=first)
@@ -644,7 +933,8 @@ def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, lea
                 torch.from_numpy(offs[b][mine]).to(dev),
                 torch.from_numpy(leaders[b][mine] - i * shards.m).to(dev))
             sup[torch.from_numpy(mine).to(first)] = part.to(first)
-        last_s = shards.cols(shards.pad(np.asarray(last_committed, np.int32), (0,)))
+        last_s = _slot_views(ex, _group_blocks(ex, shards, shards.blocks(
+            shards.pad(np.asarray(last_committed, np.int32), (0,)))))
         blocks, lasts = [], []
         for i, dev in enumerate(shards.devices):
             c, nl = consensus_commit(masks_s[i], sup.to(dev), stakes_s[i], last_s[i])

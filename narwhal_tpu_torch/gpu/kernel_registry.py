@@ -69,6 +69,9 @@ KERNELS: dict[str, tuple[str, str]] = {
     "reach_shard_step": (
         "dag_window",
         "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit (auth-sharded, node.py:296-330)"),
+    "sharded_walk": (
+        "dag_window",
+        "narwhal_tpu/tpu/dag_kernels.py:497-519 the sharded chain_commit (shard_map, auth)"),
 }
 
 _LOCK = threading.Lock()

@@ -5,17 +5,142 @@ Counterpart of `jax.sharding.Mesh` as the JAX package builds it for
 run (`__graft_entry__.py`, a `data x auth` grid). JAX runs such a mesh from
 one process; so does the port: a mesh is an explicit grid of
 `torch.device`s in one process, and a device may appear more than once
-(`["cpu"] * k` in the tests, `[cuda:0] * k` on one card). The sharded
-functions in `dag_kernels` launch on every device of a row in turn and move
-the exchanged blocks with `.to(device)`.
+(`["cpu"] * k` in the tests, `[cuda:0] * k` on one card).
+
+The sharded walk of an auth row takes one of three routes, chosen from the
+row's topology when the mesh is built (`walk_route`, kept in
+`DeviceMesh.routes`) and never on a failure:
+  "cluster"  every shard on one card: one `sharded_walk` launch, a
+             thread-block cluster of a CTA per shard;
+  "peer"     the row spans cards that all have peer access to one
+             another: one launch per card, exchanging frontier blocks
+             through peer-mapped buffers (`WalkExchange`, kept on the mesh
+             so that they outlive every launch);
+  "rowstep"  the row spans cards without peer access: the host steps every
+             shard one row at a time (`reach_shard_step`) and moves the
+             frontier blocks with `.to(device)`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..config import ConfigError
 from . import named_device
+
+
+MAX_CLUSTER = 16  # sharded_walk: CTAs a cluster (8 portable, 16 non-portable)
+ROUTES = ("cluster", "peer", "rowstep")
+
+
+def walk_route(devices) -> str:
+    """The sharded walk's route over one auth row of devices, from the
+    topology alone: "cluster" when every shard is on one device, "peer"
+    when the row spans CUDA cards that all have peer access to one another
+    (`torch.cuda.can_device_access_peer` on every ordered pair), else
+    "rowstep". Raises ConfigError when a cluster route would put more
+    shards on one device than a cluster holds (MAX_CLUSTER)."""
+    devs = tuple(devices)
+    distinct = list(dict.fromkeys(devs))
+    if len(distinct) == 1:
+        route = "cluster"
+    elif all(d.type == "cuda" for d in distinct) and all(
+        torch.cuda.can_device_access_peer(a, b) for a in distinct for b in distinct if a != b
+    ):
+        route = "peer"
+    else:
+        return "rowstep"
+    most = max(devs.count(d) for d in distinct)
+    if most > MAX_CLUSTER:
+        raise ConfigError(
+            f"the {route} route puts {most} shards of an auth row on one device: a "
+            f"thread-block cluster holds at most {MAX_CLUSTER}"
+        )
+    return route
+
+
+class WalkExchange:
+    """One auth row's shards as the sharded walk launches them on `route`.
+
+    `groups` holds one list of slots (shard indices of the row) per launch:
+    every slot in one group on "cluster"; on "peer" one group per card, or,
+    on one card repeated (a forced route that tests the exchange without a
+    second card), one group per slot, each with its own launch, stream and
+    exchange buffer; one group per slot on "rowstep". `devices[g]` is group
+    g's device. On "peer" on the card it also keeps what the launches
+    share: each group's exchange buffer, pointer table, error word, slot
+    and owner tables and stream, and the generation counter `gen` that
+    every launch advances (see csrc/dag_window.cu, sharded_walk)."""
+
+    def __init__(self, devices, route: str):
+        row = tuple(devices)
+        distinct = list(dict.fromkeys(row))
+        if route == "cluster":
+            if len(distinct) != 1:
+                raise ConfigError(f"the cluster route needs every shard on one device, got "
+                                  f"{[str(d) for d in row]}")
+            walk_route(row)
+            groups = [list(range(len(row)))]
+        elif route == "peer":
+            if len(distinct) == 1:
+                groups = [[i] for i in range(len(row))]
+            elif walk_route(row) != "peer":
+                raise ConfigError(f"the peer route needs peer access between every pair of "
+                                  f"{[str(d) for d in distinct]}")
+            else:
+                groups = [[i for i, d in enumerate(row) if d == u] for u in distinct]
+        elif route == "rowstep":
+            groups = [[i] for i in range(len(row))]
+        else:
+            raise ConfigError(f"unknown walk route {route!r} (one of {ROUTES})")
+        self.route = route
+        self.row = row
+        self.groups = groups
+        self.devices = [row[g[0]] for g in groups]
+        self.gen = 0
+        self._shared = None
+
+    def shared(self, nslots: int, npad: int) -> dict:
+        """The peer launches' shared state, sized for `nslots` walk slots of
+        `npad` frontier bytes (grown, zeroed and `gen` reset when too small;
+        the caller synchronises every launch before it returns, so no launch
+        is in flight then). Maps each ordered pair of distinct cards at the
+        first call."""
+        from . import kernel_registry
+
+        st = self._shared
+        if st is not None and st["nslots"] >= nslots and st["npad"] >= npad:
+            return st
+        G = len(self.groups)
+        if st is None:
+            enable = kernel_registry.library("dag_window").dag_window_enable_peer
+            enable.argtypes, enable.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+            cards = list(dict.fromkeys(self.devices))
+            for a in cards:
+                for b in cards:
+                    if a != b:
+                        kernel_registry.check("dag_window", "enable_peer",
+                                              enable(a.index, b.index))
+        nbytes = 12 * nslots * G + 2 * nslots * npad
+        bufs = [torch.zeros((nbytes,), dtype=torch.uint8, device=d) for d in self.devices]
+        ptrs = [b.data_ptr() for b in bufs]
+        owner = [0] * len(self.row)
+        for g, slots in enumerate(self.groups):
+            for s in slots:
+                owner[s] = g
+        self._shared = st = {
+            "nslots": nslots, "npad": npad, "bufs": bufs,
+            "tables": [torch.tensor(ptrs, dtype=torch.int64, device=d) for d in self.devices],
+            "owner": [torch.tensor(owner, dtype=torch.int32, device=d) for d in self.devices],
+            "slots": [torch.tensor(s, dtype=torch.int32, device=d)
+                      for s, d in zip(self.groups, self.devices)],
+            "errs": [torch.zeros((2,), dtype=torch.int32, device=d) for d in self.devices],
+            "streams": [torch.cuda.Stream(device=d) for d in self.devices],
+        }
+        self.gen = 0
+        return st
 
 
 class DeviceMesh:
@@ -36,6 +161,9 @@ class DeviceMesh:
         self.devices = grid[0] if len(self.axes) == 1 else grid
         lengths = (len(grid[0]),) if len(self.axes) == 1 else (len(grid), len(grid[0]))
         self.shape = dict(zip(self.axes, lengths))
+        # The sharded walk's route of each auth row, from the topology alone.
+        self.routes = [walk_route(r) for r in self.rows("auth")] if "auth" in self.shape else []
+        self._walks: dict[tuple[int, str], WalkExchange] = {}
 
     def rows(self, axis: str) -> list[tuple[torch.device, ...]]:
         """The devices along `axis`, one tuple for each index of the other
@@ -47,6 +175,17 @@ class DeviceMesh:
         if self.axes.index(axis) == 1:
             return list(self.devices)
         return [tuple(row[j] for row in self.devices) for j in range(len(self.devices[0]))]
+
+    def walk(self, row: int = 0, route: str | None = None) -> WalkExchange:
+        """Auth row `row`'s shards as the sharded walk launches them: on the
+        row's own route, or on `route` where a caller forces one (tests and
+        chip_smoke.py run "peer" on one card repeated). Kept on the mesh, so
+        the peer route's exchange buffers outlive every launch."""
+        route = route or self.routes[row]
+        ex = self._walks.get((row, route))
+        if ex is None:
+            ex = self._walks[(row, route)] = WalkExchange(self.rows("auth")[row], route)
+        return ex
 
 
 def auth_mesh(shards: int, devices=None, data: int = 1) -> DeviceMesh:

@@ -358,14 +358,17 @@ def test_reach_shard_step_kernel_matches_plain(auth, k):
 
 
 def test_sharded_compositions_match_unsharded_kernels():
-    """Over [cuda:0, cuda:0]: chain_commit_sharded equals chain_commit on a
-    healed-partition chain, reach_many_sharded equals reach_many, and
-    consensus_step_sharded (2 x 2) equals consensus_step, launching
-    reach_shard_step and neither unsharded walk."""
-    _need_card("reach_shard_step", "csrc/dag_window.cu")
+    """Over [cuda:0, cuda:0], on each route: chain_commit_sharded equals
+    chain_commit on a healed-partition chain, reach_many_sharded equals
+    reach_many, and consensus_step_sharded (2 x 2) equals consensus_step,
+    launching neither unsharded walk: sharded_walk and no reach_shard_step
+    on "cluster" (the mesh's own route) and "peer" (forced), the reverse on
+    "rowstep" (forced)."""
+    _need_card("sharded_walk, reach_shard_step", "csrc/dag_window.cu")
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     mesh = auth_mesh(2, devices=["cuda:0", "cuda:0"])
+    assert mesh.routes == ["cluster"]
     rng = np.random.default_rng(7)
     parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
         rng, 64, 50, 50, 4, 3)
@@ -373,16 +376,183 @@ def test_sharded_compositions_match_unsharded_kernels():
     want = td.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
     rin = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
     want_r = td.reach_many(*(torch.from_numpy(a).cuda() for a in rin))
-    kernel_registry.reset_launch_counts()
-    got = td.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots)
-    got_r = td.reach_many_sharded(mesh, *rin)
-    counts = kernel_registry.launch_counts()
-    assert torch.equal(got, want) and torch.equal(got_r, want_r)
-    assert counts["reach_shard_step"] > 0
-    assert counts["chain_commit"] == counts["reach_many"] == 0
     host = chip_smoke.support_inputs(rng, 64, 50, 64, 0.3)
     flat = td.consensus_step(*(torch.from_numpy(a).cuda() for a in host))
-    meshed = td.consensus_step_sharded(
-        auth_mesh(2, devices=["cuda:0"] * 4, data=2), *host)
-    for a, b in zip(flat, meshed):
-        assert torch.equal(a, b)
+    grid = auth_mesh(2, devices=["cuda:0"] * 4, data=2)
+    for route in ("cluster", "peer", "rowstep"):
+        kernel_registry.reset_launch_counts()
+        got = td.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots,
+                                      route=route)
+        got_r = td.reach_many_sharded(mesh, *rin, route=route)
+        meshed = td.consensus_step_sharded(grid, *host, route=route)
+        counts = kernel_registry.launch_counts()
+        assert torch.equal(got, want) and torch.equal(got_r, want_r)
+        for a, b in zip(flat, meshed):
+            assert torch.equal(a, b)
+        walk, step = counts["sharded_walk"], counts["reach_shard_step"]
+        assert (walk > 0 and step == 0) if route != "rowstep" else (step > 0 and walk == 0)
+        assert counts["chain_commit"] == counts["reach_many"] == 0
+    assert got.device == torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("route", ["cluster", "peer"])
+@pytest.mark.parametrize("auth", [2, 4])
+def test_sharded_walk_kernel_matches_plain(route, auth):
+    """sharded_walk over `auth` shards of the card (N = 50 padded to 52
+    over 4) on `route` ("peer" forced: a launch, a stream and an exchange
+    buffer per shard), bit-equal to its plain version and to B2 / B6: chain
+    mode at K = 1, 2, 4 on healed-partition chains (a padding slot at
+    K = 4), many mode at K = 64 on the sparse read window."""
+    _need_card("sharded_walk", "csrc/dag_window.cu")
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    mesh = auth_mesh(auth, devices=["cuda:0"] * auth)
+
+    def walk(ops, gc_depth, lcr, chain):
+        if route == "cluster":
+            return td.sharded_walk(*ops, gc_depth, lcr, chain)
+        return chip_smoke.walk_peer(mesh, ops, gc_depth, lcr, chain)
+
+    rng = np.random.default_rng(auth)
+    for K, live in ((1, 1), (2, 2), (4, 3)):
+        parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
+            rng, 64, 50, 50, K, live)
+        blocks = chip_smoke.walk_blocks(auth, parent, present, lc, onehots)
+        ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
+        kernel_registry.reset_launch_counts()
+        got = walk(ops, 50, lcr, True)
+        assert kernel_registry.launch_counts()["sharded_walk"] == (
+            1 if route == "cluster" else auth)
+        assert torch.equal(got, td.sharded_walk_plain(*ops, 50, lcr, True))
+        t = [torch.from_numpy(a).cuda() for a in (parent, present, lc, offs, onehots)]
+        want = td.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
+        assert torch.equal(chip_smoke.unblock(got, 50), want) and bool(want.any())
+    rin = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
+    pb, qb, _lb, oh = chip_smoke.walk_blocks(auth, rin[0], rin[1], None, rin[3])
+    ops = [torch.from_numpy(pb).cuda(), torch.from_numpy(qb).cuda(), None,
+           torch.from_numpy(rin[2]).cuda(), torch.from_numpy(oh).cuda()]
+    got = walk(ops, 0, -(2**30), False)
+    assert torch.equal(got, td.sharded_walk_plain(*ops, 0, -(2**30), False))
+    want = td.reach_many(*(torch.from_numpy(a).cuda() for a in rin))
+    assert torch.equal(chip_smoke.unblock(got, 50), want)
+
+
+def test_sharded_walk_missing_peer_raises_within_deadline():
+    """Only one of the two launches of a forced peer route is issued, with a
+    100 ms deadline: the launched one gives up at its deadline and the call
+    raises RuntimeError (no hang); the exchange then works again."""
+    _need_card("sharded_walk", "csrc/dag_window.cu")
+    import time
+
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    mesh = auth_mesh(2, devices=["cuda:0", "cuda:0"])
+    parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
+        np.random.default_rng(3), 64, 50, 50, 1, 1)
+    blocks = chip_smoke.walk_blocks(2, parent, present, lc, onehots)
+    ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
+    want = chip_smoke.walk_peer(mesh, ops, 50, lcr, True)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="waited more than 100 ms"):
+        chip_smoke.walk_peer(mesh, ops, 50, lcr, True, launch=[0], timeout_ms=100)
+    assert time.perf_counter() - t0 < 1.1
+    assert torch.equal(chip_smoke.walk_peer(mesh, ops, 50, lcr, True), want)
+
+
+def _cards(k: int) -> int:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < k:
+        pytest.skip(f"the sharded walk across cards needs {k} or more cards, found {n}")
+    return n
+
+
+@pytest.mark.parametrize("layout", ["two cards", "every card", "two cards twice"])
+def test_sharded_walk_across_cards(layout, capsys):
+    """An auth row over distinct cards: its route from the topology ("peer"
+    where every pair has peer access, else "rowstep"), the compositions
+    equal to chain_commit / reach_many / consensus_step on cuda:0 on that
+    route and on "rowstep" forced, one sharded_walk launch per card per
+    chain; on "peer" a missing peer raises within its deadline. Prints the
+    route and the host wall of each composition."""
+    _need_card("sharded_walk", "csrc/dag_window.cu")
+    import time
+
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    n = _cards(2)
+    devs = {"two cards": ["cuda:0", "cuda:1"],
+            "every card": [f"cuda:{i}" for i in range(n)],
+            "two cards twice": ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]}[layout]
+    mesh = auth_mesh(len(devs), devices=devs)
+    route = mesh.routes[0]
+    access = all(torch.cuda.can_device_access_peer(a, b)
+                 for a in range(n) for b in range(n) if a != b)
+    assert route == ("peer" if access else "rowstep")
+    rng = np.random.default_rng(11)
+    parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
+        rng, 64, 50, 50, 4, 3)
+    t = [torch.from_numpy(a).cuda() for a in (parent, present, lc, offs, onehots)]
+    want = td.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
+    rin = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
+    want_r = td.reach_many(*(torch.from_numpy(a).cuda() for a in rin))
+    walls = {}
+    for r in dict.fromkeys((route, "rowstep")):
+        kernel_registry.reset_launch_counts()
+        got = td.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots, route=r)
+        counts = kernel_registry.launch_counts()
+        assert torch.equal(got.to("cuda:0"), want)
+        if r == "peer":
+            assert counts["sharded_walk"] == len(mesh.walk(0, r).groups)
+        assert torch.equal(td.reach_many_sharded(mesh, *rin, route=r).to("cuda:0"), want_r)
+        for name, fn in (("chain_commit_sharded K=4", lambda: td.chain_commit_sharded(
+                mesh, parent, present, 50, lc, lcr, offs, onehots, route=r)),
+                         ("reach_many_sharded K=64", lambda: td.reach_many_sharded(
+                             mesh, *rin, route=r))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            walls[f"{name} {r}"] = (time.perf_counter() - t0) / 10 * 1e3
+    host = chip_smoke.support_inputs(rng, 64, 50, 8, 0.3)
+    flat = td.consensus_step(*(torch.from_numpy(a).cuda() for a in host))
+    grid = (auth_mesh(2, devices=devs, data=len(devs) // 2) if len(devs) % 2 == 0
+            else auth_mesh(len(devs), devices=devs))
+    for a, b in zip(flat, td.consensus_step_sharded(grid, *host)):
+        assert torch.equal(a, b.to("cuda:0"))
+    if route == "peer":
+        blocks = chip_smoke.walk_blocks(len(devs), parent, present, lc, onehots)
+        ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
+        assert torch.equal(chip_smoke.unblock(chip_smoke.walk_peer(mesh, ops, 50, lcr, True),
+                                              50), want)
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="waited more than 100 ms"):
+            chip_smoke.walk_peer(mesh, ops, 50, lcr, True, launch=[0], timeout_ms=100)
+        walls["missing peer raised after"] = (time.perf_counter() - t0) * 1e3
+        assert walls["missing peer raised after"] < 1100
+    with capsys.disabled():
+        print(f"\n[{layout}] {devs}: route {route}; ms a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
+
+
+def test_meshed_engine_across_cards(capsys):
+    """The dag_shards path (GpuBullshark(mesh=auth_mesh(2)) over cuda:0 and
+    cuda:1) and the consensus step over a 2 x 2 mesh of four cards, as
+    chip_smoke.py's phases run them: the meshed engine's commits equal the
+    host Bullshark's and the unmeshed card engine's, one sharded_walk launch
+    per card per commit event on the "peer" route; its certificates/s and
+    the unmeshed engine's from the same run are printed."""
+    _need_card("sharded_walk", "csrc/dag_window.cu")
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+
+    n = _cards(2)
+    dev = torch.device("cuda", 0)
+    f = CommitteeFixture(size=50)
+    with capsys.disabled():
+        ctx = chip_smoke.phase_engine(dev, f)
+        shards = chip_smoke.phase_dag_shards(dev, f, ctx)
+        assert shards["devices"] == ["cuda:0", "cuda:1"]
+        if n >= 4:
+            step = chip_smoke.phase_consensus_step(dev, f)
+            print(f"consensus step over 4 cards: {step['meshed_s_by_route']}")
