@@ -105,8 +105,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             B7 on the card: B = 64 walks on an N = 50, W = 64 window
             through consensus_step (reach_many, leader_support,
             consensus_commit), then over a 2 x 2 data x auth mesh (four
-            cards, or the card four times: the mesh's route, then the
-            other routes forced, "rowstep" included): every output equal;
+            cards, or the card four times: the mesh's route, the path's
+            launches read just after it; then the other routes forced,
+            "rowstep" included, each counted apart): every output equal;
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
@@ -114,7 +115,8 @@ Launch counts are set to 0 just before each of the ten paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS; the sharded walk's kernel by the mesh's route, which the
 script prints). Then one JSON line with every kernel's numbers (launches
-summed over the paths and per path), and as the last line
+summed over the paths and per path; the consensus_step phase's forced
+routes apart, under "forced_route_launches"), and as the last line
 {"ok": true, "device": {...}}.
 
 The script needs a CUDA card: without one it exits 2 before printing any
@@ -144,10 +146,6 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 # integer multiply-adds per second.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# An estimate of one L2 hit on an H100 (~260 cycles, as Hopper
-# microbenchmarks report; NVIDIA publishes no figure), used only for the
-# sharded walk's latency floor: each row waits on one load of the row above.
-L2_HIT_S = 150e-9
 
 N = 50  # the reference's largest published committee (bench-0-50-1-True-100000-512)
 GC_DEPTH = 50  # the reference default (config.py Parameters.gc_depth)
@@ -1166,6 +1164,12 @@ def unblock(masks, n: int):
     return masks.permute(1, 2, 0, 3).reshape(k, w, a * m)[..., :n]
 
 
+def walk_routes(device) -> tuple:
+    """The walk routes a device can be forced onto: all three on the card;
+    on the CPU (a rehearsal) the peer exchange has no form."""
+    return ("cluster", "peer", "rowstep") if device.type == "cuda" else ("cluster", "rowstep")
+
+
 def walk_peer(mesh, ops, gc_depth: int, lcr: int, chain: bool, **kw):
     """sharded_walk on the "peer" route over the mesh's first auth row (on
     one card repeated, forced: each slot its own launch, stream and
@@ -1210,7 +1214,8 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     rng = np.random.default_rng(19)
-    out, err, extra = None, 0, {"walk_routes": ["cluster", "peer"]}
+    routes = walk_routes(device)
+    out, err, extra = None, 0, {"walk_routes": [r for r in routes if r != "rowstep"]}
 
     def same(what, got, want):
         nonlocal err
@@ -1231,9 +1236,10 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
             same(f"chain auth={auth} K={K} cluster against plain", km,
                  dk.sharded_walk_plain(*ops, gc_depth, lcr, True))
             same(f"chain auth={auth} K={K} cluster against chain_commit", unblock(km, n), want)
-            same(f"chain auth={auth} K={K} peer against cluster",
-                 walk_peer(mesh, ops, gc_depth, lcr, True), km)
-            for route in ("cluster", "peer", "rowstep"):
+            if "peer" in routes:
+                same(f"chain auth={auth} K={K} peer against cluster",
+                     walk_peer(mesh, ops, gc_depth, lcr, True), km)
+            for route in routes:
                 same(f"chain_commit_sharded auth={auth} K={K} {route}",
                      dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr, offs,
                                              onehots, route=route), want)
@@ -1241,19 +1247,26 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
                 args = (*ops, gc_depth, lcr, True)
                 ms = time_ms(lambda: dk.sharded_walk(*args), device, reps=50)
                 plain_ms = time_ms(lambda: dk.sharded_walk_plain(*args), device, reps=3)
-                extra["peer_ms"] = time_ms(
-                    lambda: walk_peer(mesh, ops, gc_depth, lcr, True), device, reps=20)
+                if "peer" in routes:
+                    extra["peer_ms"] = time_ms(
+                        lambda: walk_peer(mesh, ops, gc_depth, lcr, True), device, reps=20)
                 extra["chain_commit_ms_same_inputs"] = time_ms(
                     lambda: dk.chain_commit(ct[0], ct[1], gc_depth, ct[2], lcr, ct[3], ct[4]),
                     device, reps=50)
-                for route in ("cluster", "peer", "rowstep"):
+                for route in routes:
                     extra[f"chain_commit_sharded_ms_{route}"] = time_ms(
                         lambda: dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc,
                                                         lcr, offs, onehots, route=route),
                         device, reps=5 if route == "rowstep" else 20)
                 top = int(offs.max())
                 b, by = bound_ms(walk_bytes(w, n, offs, onehots, K))
-                extra["latency_floor_ms"] = top * L2_HIT_S * 1e3
+                # The time a row costs, measured: the slope between this walk
+                # and one from row 2 of the same window (rows are sequential).
+                low = [*ops[:3], torch.full_like(ops[3], 2), ops[4]]
+                low_ms = time_ms(lambda: dk.sharded_walk(*low, gc_depth, lcr, True), device,
+                                 reps=50)
+                extra["row_ms"] = (ms - low_ms) / (top - 2)
+                extra["rows_ms"] = extra["row_ms"] * top
                 out = {"name": "sharded_walk", "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": b, "bound_by": by, "library_ms": None,
                        "shape": f"W={w} N={n} auth=2 ({pb.shape[-1]} columns a shard) K=1 "
@@ -1268,9 +1281,10 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
             same(f"many auth={auth} W={ww} cluster against plain", km,
                  dk.sharded_walk_plain(*ops, 0, -(2**30), False))
             same(f"many auth={auth} W={ww} cluster against reach_many", unblock(km, n), want)
-            same(f"many auth={auth} W={ww} peer against cluster",
-                 walk_peer(mesh, ops, 0, -(2**30), False), km)
-            for route in ("cluster", "peer", "rowstep"):
+            if "peer" in routes:
+                same(f"many auth={auth} W={ww} peer against cluster",
+                     walk_peer(mesh, ops, 0, -(2**30), False), km)
+            for route in routes:
                 same(f"reach_many_sharded auth={auth} W={ww} {route}",
                      dk.reach_many_sharded(mesh, *rin, route=route), want)
             if auth == 2 and ww == w:
@@ -1281,24 +1295,62 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
                 extra["reach_many_ms_same_inputs"] = time_ms(
                     lambda: dk.reach_many(*(torch.from_numpy(a).to(device) for a in rin)),
                     device, reps=20)
-                for route in ("cluster", "peer", "rowstep"):
+                for route in routes:
                     extra[f"reach_many_sharded_ms_{route}"] = time_ms(
                         lambda: dk.reach_many_sharded(mesh, *rin, route=route), device,
                         reps=2 if route == "rowstep" else 10)
         log(f"sharded_walk auth={auth} (N={n} padded to {-(-n // auth) * auth}): == plain, "
-            f"== chain_commit (K 1, 2, 4) and == reach_many (K 64, W {w} and {2 * w}) on the "
-            f"cluster and peer routes; the compositions == B2 / B6 on cluster, peer, rowstep")
-    log(f"sharded_walk: chain K=1 {out['ms']:.4f} ms (cluster), {extra['peer_ms']:.4f} ms "
-        f"(peer, two launches on the card); B2 {extra['chain_commit_ms_same_inputs']:.4f} ms; "
+            f"== chain_commit (K 1, 2, 4) and == reach_many (K 64, W {w} and {2 * w}) on "
+            f"{extra['walk_routes']}; the compositions == B2 / B6 on {list(routes)}")
+    per_route = (lambda what: " / ".join(f"{extra[f'{what}_ms_{r}']:.4f}" for r in routes))
+    log(f"sharded_walk: chain K=1 {out['ms']:.4f} ms (cluster), peer (a launch a shard on the "
+        f"card) {extra.get('peer_ms', float('nan')):.4f} ms; "
+        f"B2 {extra['chain_commit_ms_same_inputs']:.4f} ms; "
         f"many K=64 {extra['many_ms_k64']:.4f} ms (B6 {extra['reach_many_ms_same_inputs']:.4f}); "
-        f"bound {out['bound_ms']:.7f} ms ({out['bound_by']}), latency floor (estimate) "
-        f"{extra['latency_floor_ms']:.4f} ms; chain_commit_sharded cluster / peer / rowstep "
-        f"{extra['chain_commit_sharded_ms_cluster']:.4f} / "
-        f"{extra['chain_commit_sharded_ms_peer']:.4f} / "
-        f"{extra['chain_commit_sharded_ms_rowstep']:.4f} ms")
+        f"bound {out['bound_ms']:.7f} ms ({out['bound_by']}); measured {extra['row_ms']:.5f} ms "
+        f"a row, {extra['rows_ms']:.4f} ms for its {top} sequential rows; {'/'.join(routes)}: "
+        f"chain_commit_sharded {per_route('chain_commit_sharded')} ms, reach_many_sharded "
+        f"{per_route('reach_many_sharded')} ms")
     out["max_abs_err"] = err
     out["extra"] = extra
     return out
+
+
+def check_peer_reuse(device, n: int = 50, w: int = 64, devices=None) -> list:
+    """One peer exchange over 4 shards of the card (forced), or over
+    `devices` (cards with peer access, the row's own route), reused by calls
+    that change mode and walk count, each on fresh inputs: many mode at
+    K = 64 (the buffers laid out for 64 walk slots), chain mode (one slot),
+    many at K = 64, many at K = 5, chain again. Each result must equal B6 /
+    B2: a launch with fewer walks than the buffers were laid out for must
+    find every flag where the earlier launches left it, not on bytes that
+    held another call's lcr or frontier. Returns the (mode, K) sequence."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu.mesh import auth_mesh
+
+    devices = devices or [device] * 4
+    mesh = auth_mesh(len(devices), devices=devices)
+    rng = np.random.default_rng(23)
+    seq = [("many", 64), ("chain", 4), ("many", 64), ("many", 5), ("chain", 2)]
+    for mode, K in seq:
+        if mode == "many":
+            rin = reach_many_inputs(rng, w, n, K, K - 2)
+            want = dk.reach_many(*(torch.from_numpy(a).to(device) for a in rin))
+            got = dk.reach_many_sharded(mesh, *rin, route="peer").to(device)
+        else:
+            parent, present, lc, lcr, offs, onehots = healed_partition_chain(
+                rng, w, n, GC_DEPTH, K, K - 1)
+            t = [torch.from_numpy(a).to(device) for a in (parent, present, lc, offs, onehots)]
+            want = dk.chain_commit(t[0], t[1], GC_DEPTH, t[2], lcr, t[3], t[4])
+            got = dk.chain_commit_sharded(mesh, parent, present, GC_DEPTH, lc, lcr, offs,
+                                          onehots, route="peer").to(device)
+        if not (bool(want.any()) and torch.equal(got, want)):
+            raise AssertionError(f"sharded_walk: the reused peer exchange differs at {mode} "
+                                 f"K={K}")
+    log(f"sharded_walk: one peer exchange over {[str(d) for d in devices]} reused by {seq}: "
+        f"each == B6 / B2")
+    return seq
 
 
 def check_walk_deadline(device, n: int = 50, w: int = 64, timeout_ms: int = 100):
@@ -1347,6 +1399,7 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_sharded_walk(device, n, w),
     ]
     if device.type == "cuda":
+        check_peer_reuse(device, n, w)
         check_walk_deadline(device, n, w)
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1608,8 +1661,9 @@ def phase_consensus_step(device, f, w=W, b=64):
     """B7 on the card: B = 64 walks on an N = 50, W = 64 window through
     consensus_step (reach_many, leader_support, consensus_commit), then the
     same inputs over a 2 x 2 data x auth mesh (consensus_step_sharded) on
-    the mesh's own route, and on the card once more on the "peer" route
-    forced: every output equal, some walks at the quorum and some below."""
+    the mesh's own route (the path's launches are read just after it), then
+    on each other route the topology allows, forced and counted apart:
+    every output equal, some walks at the quorum and some below."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
     from narwhal_tpu_torch.gpu import kernel_registry
@@ -1626,14 +1680,23 @@ def phase_consensus_step(device, f, w=W, b=64):
     t1 = time.perf_counter()
     meshed = [x.cpu() for x in dk.consensus_step_sharded(mesh, *host)]
     t2 = time.perf_counter()
+    launches = kernel_registry.launch_counts()  # the main path: the mesh's own route
+    require_launches("consensus_step", launches, device, route)
     runs, walls = [(route, meshed)], {route: t2 - t1}
-    # The other routes this topology allows, forced: every walk kernel runs.
+    # The other routes this topology allows, forced, each counted on its own
+    # (not the main path's launches): every walk kernel runs.
     others = {"cluster": ("peer", "rowstep"), "peer": ("rowstep",), "rowstep": ()}[route]
+    others = [r for r in others if r in walk_routes(device)]
+    forced = {}
     for r in others:
+        kernel_registry.reset_launch_counts()
         t3 = time.perf_counter()
         runs.append((r, [x.cpu() for x in dk.consensus_step_sharded(mesh, *host, route=r)]))
         walls[r] = time.perf_counter() - t3
-    launches = kernel_registry.launch_counts()
+        forced[r] = kernel_registry.launch_counts()
+        if device.type == "cuda" and forced[r][WALK_KERNEL[r]] <= 0:
+            raise AssertionError(f"consensus_step: {WALK_KERNEL[r]} never launched on the "
+                                 f"forced {r} route")
     for r, out in runs:
         for name, a, c in zip(("committed", "support", "new_last"), flat, out):
             if not torch.equal(a, c):
@@ -1646,15 +1709,14 @@ def phase_consensus_step(device, f, w=W, b=64):
     at = int((flat[1] >= quorum).sum())
     if not 0 < at < b:
         raise AssertionError(f"consensus_step: {at} of {b} walks at the quorum")
-    for r, _out in runs:
-        require_launches("consensus_step", launches, device, r)
     log(f"consensus_step: W={w} N={n} B={b}, {at} walks at quorum {quorum}, "
         f"{int(flat[0].sum())} certificates committed; unmeshed {t1 - t0:.4f} s, over a "
         f"2 x 2 mesh ({route}) {t2 - t1:.4f} s; forced routes "
         f"{ {r: round(s, 6) for r, s in walls.items() if r != route} }; outputs equal (and "
-        f"equal to the plain composition); launches {launches}")
-    return {"launches": launches, "unmeshed_s": t1 - t0, "meshed_s": t2 - t1,
-            "route": route, "meshed_s_by_route": walls}
+        f"equal to the plain composition); launches {launches}; on the forced routes "
+        f"{ {r: {k: c for k, c in v.items() if c} for r, v in forced.items()} }")
+    return {"launches": launches, "forced_launches": forced, "unmeshed_s": t1 - t0,
+            "meshed_s": t2 - t1, "route": route, "meshed_s_by_route": walls}
 
 
 def phase_dryrun(device):
@@ -2450,6 +2512,8 @@ def main(argv=None) -> int:
             "replaces": replaces.split(" ")[0],
             "launches": sum(path[kname] for path in by_path.values()),
             "launches_by_path": {p: c[kname] for p, c in by_path.items()},
+            "forced_route_launches": {r: c[kname]
+                                      for r, c in csctx["forced_launches"].items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -148,7 +148,11 @@
 //   peer with st.release.sys; it then spins (ld.acquire.sys) on its own
 //   buffer's flags of every peer, bounded by a %globaltimer deadline, and
 //   copies the peers' columns into every local CTA's buf[w&1] before SYNC
-//   B. The lcr reduction between leaders crosses cards the same way. Each
+//   B. The lcr reduction between leaders crosses cards the same way. The
+//   buffer's layout is fixed by the number of walk slots it was allocated
+//   for (`nslots`, not a launch's walk count): a buffer reused by a later
+//   launch with fewer walks, or in the other mode, keeps every flag, lcr
+//   and frontier byte where it was, so no stale value lands on a flag. Each
 //   exchange event e of a walk uses buffer slot e&1 and target generation
 //   gen_base + e + 1 (the host advances gen_base past every launch): a card
 //   writes slot e&1 again at event e+2 only after it has seen the peer's
@@ -706,13 +710,15 @@ extern "C" int dag_window_reach_shard_step(const void* parent, const void* prese
 
 // One card's launch of sharded_walk: nk clusters of `a` CTAs (chain mode:
 // nk = 1), one thread per column, 2 * Npad bytes of shared memory. G == 1
-// (the "cluster" route) passes null bufs, owner and err.
+// (the "cluster" route) passes null bufs, owner and err; G > 1 passes the
+// walk slots (nslots >= nk) every card's exchange buffer was laid out for.
 extern "C" int dag_window_sharded_walk(const void* parent, const void* present, const void* lc,
                                        const void* offs, const void* onehots, void* masks,
                                        const void* slots, const void* bufs, const void* owner,
                                        void* err, int W, int Npad, int m, int K, int k0, int nk,
-                                       int a, int gc_depth, int lcr_rel, int chain, int G,
-                                       int g, int gen_base, int timeout_ms, void* stream) {
+                                       int nslots, int a, int gc_depth, int lcr_rel, int chain,
+                                       int G, int g, int gen_base, int timeout_ms,
+                                       void* stream) {
   if (a > 8) {
     const cudaError_t e = cudaFuncSetAttribute(
         sharded_walk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -731,7 +737,7 @@ extern "C" int dag_window_sharded_walk(const void* parent, const void* present, 
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const PeerExchange x{(uint8_t* const*)bufs, (const int32_t*)owner, (int32_t*)err,
-                       G, g, nk, (uint32_t)gen_base, (long long)timeout_ms * 1000000LL};
+                       G, g, nslots, (uint32_t)gen_base, (long long)timeout_ms * 1000000LL};
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, sharded_walk_kernel, (const uint8_t*)parent, (const uint8_t*)present,
       (const int32_t*)lc, (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks,

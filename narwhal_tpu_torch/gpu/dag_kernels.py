@@ -495,10 +495,11 @@ def sharded_walk(parent, present, lc, offs, onehots, gc_depth: int = 0,
     masks [a, K, W, m]: one launch, a thread-block cluster of a CTAs (a <=
     16) per walk set (chain mode) or per walk (many mode).
 
-    With `exchange` (a `mesh.WalkExchange` on the "peer" route) parent,
-    present and lc are lists, one entry per group of the exchange on the
-    group's device: the blocks of its slots, [a_g, W, Npad, m] and so on;
-    offs and onehots are lists of the whole arrays on each group's device.
+    With `exchange` (a `mesh.WalkExchange` on the "peer" route; card
+    tensors only, the exchange has no plain form) parent, present and lc
+    are lists, one entry per group of the exchange on the group's device:
+    the blocks of its slots, [a_g, W, Npad, m] and so on; offs and onehots
+    are lists of the whole arrays on each group's device.
     Every group's launch is issued on its own stream before any is waited
     on; the launches exchange frontier blocks and lcr candidates through
     the peer-mapped buffers. Returns one masks tensor [a_g, K, W, m] per
@@ -518,16 +519,13 @@ def sharded_walk(parent, present, lc, offs, onehots, gc_depth: int = 0,
         masks = torch.empty((a, K, W, m), dtype=torch.bool, device=dev)
         if K:
             _launch_walk(parent, present, lc, offs, onehots, masks, None, None, None, None,
-                         W, npad, m, K, 0, 1 if chain else K, a, gc_depth, lcr_rel, chain,
+                         W, npad, m, K, 0, 1 if chain else K, 0, a, gc_depth, lcr_rel, chain,
                          1, 0, 0, 0, torch.cuda.current_stream(dev))
         return masks
     if exchange.route != "peer":
         raise ValueError(f"sharded_walk: an exchange of the {exchange.route} route")
     if not _on_cuda("sharded_walk", parent[0]):
-        if launch is not None:
-            raise ValueError("sharded_walk: the plain version launches nothing")
-        return _sharded_walk_groups_plain(exchange, parent, present, lc, offs, onehots,
-                                          gc_depth, lcr_rel, chain)
+        raise ValueError("sharded_walk: the peer form runs on the card only")
     return _sharded_walk_peer(exchange, parent, present, lc, offs, onehots, gc_depth,
                               lcr_rel, chain, launch, timeout_ms)
 
@@ -545,17 +543,19 @@ def _check_walk(parent, present, lc, offs, onehots, a, W, npad, m, K, chain, dev
 
 
 def _launch_walk(parent, present, lc, offs, onehots, masks, slots, table, owner, err, W,
-                 npad, m, K, k0, nk, a, gc_depth, lcr_rel, chain, G, g, gen, timeout_ms,
-                 stream) -> None:
-    """One card's launch (under its device); counts it."""
+                 npad, m, K, k0, nk, nslots, a, gc_depth, lcr_rel, chain, G, g, gen,
+                 timeout_ms, stream) -> None:
+    """One card's launch (under its device); counts it. `nslots` is the
+    walk slots the exchange buffers are laid out for (G > 1)."""
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(parent.device):
-        fn = kernel_registry.function("dag_window", "dag_window_sharded_walk", 10, 14)
+        fn = kernel_registry.function("dag_window", "dag_window_sharded_walk", 10, 15)
         rc = fn(
             parent.data_ptr(), present.data_ptr(), ptr(lc), offs.data_ptr(),
             onehots.data_ptr(), masks.data_ptr(), ptr(slots), ptr(table), ptr(owner),
-            ptr(err), W, npad, m, K, k0, nk, a, int(gc_depth), int(lcr_rel), int(chain), G,
-            g, gen - 2**32 if gen >= 2**31 else gen, int(timeout_ms), stream.cuda_stream,
+            ptr(err), W, npad, m, K, k0, nk, nslots, a, int(gc_depth), int(lcr_rel),
+            int(chain), G, g, gen - 2**32 if gen >= 2**31 else gen, int(timeout_ms),
+            stream.cuda_stream,
         )
     kernel_registry.check("dag_window", "sharded_walk", rc)
     kernel_registry.count_launch("sharded_walk")
@@ -573,18 +573,6 @@ def _max_clusters(dev, a: int, m: int, npad: int) -> int:
             kernel_registry.check("dag_window", "sharded_walk occupancy", -n)
         _MAX_CLUSTERS[key] = n
     return _MAX_CLUSTERS[key]
-
-
-def _sharded_walk_groups_plain(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel,
-                               chain):
-    """The peer form on CPU tensors: the groups' blocks back in slot order,
-    `sharded_walk_plain`, and its masks cut into the groups again."""
-    order = [s for slots in ex.groups for s in slots]
-    back = torch.tensor([order.index(s) for s in range(len(order))])
-    cat = (lambda ts: torch.cat(list(ts))[back])
-    masks = sharded_walk_plain(cat(parent), cat(present), None if lc is None else cat(lc),
-                               offs[0], onehots[0], gc_depth, lcr_rel, chain)
-    return [masks[torch.tensor(slots)] for slots in ex.groups]
 
 
 def _sharded_walk_peer(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel, chain,
@@ -628,8 +616,8 @@ def _sharded_walk_peer(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel
                 _launch_walk(parent[g], present[g], None if lc is None else lc[g], offs[g],
                              onehots[g], masks[g], st["slots"][g], st["tables"][g],
                              st["owner"][g], st["errs"][g], W, npad, m, K, k0, nk,
-                             len(ex.groups[g]), gc_depth, lcr_rel, chain, G, g, ex.gen,
-                             timeout_ms, stream)
+                             st["nslots"], len(ex.groups[g]), gc_depth, lcr_rel, chain, G, g,
+                             ex.gen, timeout_ms, stream)
             except RuntimeError as e:
                 failure = e
                 break

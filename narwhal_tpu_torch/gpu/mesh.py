@@ -41,7 +41,8 @@ def walk_route(devices) -> str:
     when the row spans CUDA cards that all have peer access to one another
     (`torch.cuda.can_device_access_peer` on every ordered pair), else
     "rowstep". Raises ConfigError when a cluster route would put more
-    shards on one device than a cluster holds (MAX_CLUSTER)."""
+    shards on one card than a cluster holds (MAX_CLUSTER); a CPU device,
+    where the plain version walks, takes any number."""
     devs = tuple(devices)
     distinct = list(dict.fromkeys(devs))
     if len(distinct) == 1:
@@ -52,6 +53,8 @@ def walk_route(devices) -> str:
         route = "peer"
     else:
         return "rowstep"
+    if distinct[0].type != "cuda":
+        return route  # one CPU device: the plain version, no cluster
     most = max(devs.count(d) for d in distinct)
     if most > MAX_CLUSTER:
         raise ConfigError(
@@ -84,6 +87,9 @@ class WalkExchange:
             walk_route(row)
             groups = [list(range(len(row)))]
         elif route == "peer":
+            if any(d.type != "cuda" for d in distinct):
+                raise ConfigError(f"the peer route runs on cards only, got "
+                                  f"{[str(d) for d in distinct]}")
             if len(distinct) == 1:
                 groups = [[i] for i in range(len(row))]
             elif walk_route(row) != "peer":
@@ -106,8 +112,11 @@ class WalkExchange:
         """The peer launches' shared state, sized for `nslots` walk slots of
         `npad` frontier bytes (grown, zeroed and `gen` reset when too small;
         the caller synchronises every launch before it returns, so no launch
-        is in flight then). Maps each ordered pair of distinct cards at the
-        first call."""
+        is in flight then). Every launch passes the kernel st["nslots"], the
+        layout the buffers were made with, whatever its own walk count, so a
+        later launch with fewer walks or in the other mode finds each flag
+        where the earlier ones left it. Maps each ordered pair of distinct
+        cards at the first call."""
         from . import kernel_registry
 
         st = self._shared

@@ -459,6 +459,15 @@ def test_sharded_walk_missing_peer_raises_within_deadline():
     assert torch.equal(chip_smoke.walk_peer(mesh, ops, 50, lcr, True), want)
 
 
+def test_peer_exchange_reused_across_modes_and_walk_counts():
+    """One forced peer exchange on the card reused by calls that change mode
+    and walk count, each on fresh inputs (chip_smoke.check_peer_reuse):
+    every result equals B6 / B2."""
+    _need_card("sharded_walk", "csrc/dag_window.cu")
+    seq = chip_smoke.check_peer_reuse(torch.device("cuda", 0))
+    assert seq[0] == ("many", 64) and ("chain", 2) in seq  # a large layout, then fewer walks
+
+
 def _cards(k: int) -> int:
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < k:
@@ -472,7 +481,8 @@ def test_sharded_walk_across_cards(layout, capsys):
     where every pair has peer access, else "rowstep"), the compositions
     equal to chain_commit / reach_many / consensus_step on cuda:0 on that
     route and on "rowstep" forced, one sharded_walk launch per card per
-    chain; on "peer" a missing peer raises within its deadline. Prints the
+    chain; on "peer" one exchange reused across modes and walk counts
+    stays exact, and a missing peer raises within its deadline. Prints the
     route and the host wall of each composition."""
     _need_card("sharded_walk", "csrc/dag_window.cu")
     import time
@@ -522,6 +532,7 @@ def test_sharded_walk_across_cards(layout, capsys):
     for a, b in zip(flat, td.consensus_step_sharded(grid, *host)):
         assert torch.equal(a, b.to("cuda:0"))
     if route == "peer":
+        chip_smoke.check_peer_reuse(torch.device("cuda", 0), devices=devs)
         blocks = chip_smoke.walk_blocks(len(devs), parent, present, lc, onehots)
         ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
         assert torch.equal(chip_smoke.unblock(chip_smoke.walk_peer(mesh, ops, 50, lcr, True),

@@ -8,11 +8,13 @@ selection, and its compositions on every route, on the CPU.
   (many mode), on the same numpy inputs: bit-exact;
 - `mesh.walk_route` with `torch.cuda.can_device_access_peer` and the
   device count monkeypatched: a repeated card is "cluster", distinct cards
-  with access "peer", without it "rowstep", and more shards on one device
-  than a cluster holds is a ConfigError;
+  with access "peer", without it "rowstep", and more shards on one card
+  than a cluster holds is a ConfigError (a CPU mesh takes any number);
 - `chain_commit_sharded`, `reach_many_sharded` and
-  `consensus_step_sharded` forced onto each route over `["cpu"] * k`
-  meshes, against the unsharded plain versions: exact.
+  `consensus_step_sharded` forced onto the "cluster" and "rowstep" routes
+  over `["cpu"] * k` meshes, against the unsharded plain versions: exact;
+  "peer" forced on CPU devices is a ConfigError (the peer exchange has no
+  plain form: it runs on the card only).
 
 The kernel itself runs only on the card: tests/test_torch_cuda.py and
 chip_smoke.py hold it to this plain version there.
@@ -131,8 +133,6 @@ def test_cluster_size_above_the_limit_raises(cards):
     with pytest.raises(ConfigError):
         auth_mesh(k + 1, devices=["cuda:0"] * (k + 1))
     with pytest.raises(ConfigError):
-        auth_mesh(k + 1, devices=["cpu"] * (k + 1))
-    with pytest.raises(ConfigError):
         auth_mesh(2 * k + 2, devices=["cuda:0", "cuda:1"] * (k + 1))
     with pytest.raises(ConfigError):
         auth_mesh(2, devices=["cpu"] * 2).walk(0, "ring")
@@ -144,41 +144,62 @@ def test_cluster_size_above_the_limit_raises(cards):
 @pytest.mark.parametrize("route", ["cluster", "peer", "rowstep"])
 @pytest.mark.parametrize("auth,n", [(2, 4), (4, 7)])
 def test_sharded_compositions_on_each_route(route, auth, n):
+    """Each composition forced onto `route` over a CPU mesh equals the
+    unsharded plain version; "peer", the card's exchange, has no plain form
+    and is refused on CPU devices."""
     mesh = auth_mesh(auth, devices=["cpu"] * auth)
+    grid = auth_mesh(auth, devices=["cpu"] * (2 * auth), data=2)
     parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
         np.random.default_rng(auth + n), W, n, GC, 4, 3)
+    rin = chip_smoke.reach_many_inputs(np.random.default_rng(n), W, n, 8, 6)
+    step = chip_smoke.support_inputs(np.random.default_rng(n), W, n, 8, 0.5)
+    if route == "peer":
+        for call in (lambda: td.chain_commit_sharded(mesh, parent, present, GC, lc, lcr, offs,
+                                                     onehots, route=route),
+                     lambda: td.reach_many_sharded(mesh, *rin, route=route),
+                     lambda: td.consensus_step_sharded(grid, *step, route=route)):
+            with pytest.raises(ConfigError, match="cards only"):
+                call()
+        return
     want = td.chain_commit_plain(*_t(parent, present), GC, *_t(lc), lcr, *_t(offs, onehots))
     got = td.chain_commit_sharded(mesh, parent, present, GC, lc, lcr, offs, onehots,
                                   route=route)
     assert torch.equal(got, want) and bool(want.any())
-    rin = chip_smoke.reach_many_inputs(np.random.default_rng(n), W, n, 8, 6)
     want = td.reach_many_plain(*_t(*rin))
     assert torch.equal(td.reach_many_sharded(mesh, *rin, route=route), want)
     assert tuple(td.reach_many_sharded(mesh, rin[0], rin[1], rin[2][:0], rin[3][:0],
                                        route=route).shape) == (0, W, n)
-    step = chip_smoke.support_inputs(np.random.default_rng(n), W, n, 8, 0.5)
     flat = td.consensus_step(*_t(*step))
-    grid = auth_mesh(auth, devices=["cpu"] * (2 * auth), data=2)
     for a, b in zip(td.consensus_step_sharded(grid, *step, route=route), flat):
         assert torch.equal(a, b)
 
 
-def test_peer_form_on_cpu_tensors_reorders_interleaved_groups(cards):
-    """The peer form's plain path with cards that hold non-adjacent shards:
-    the groups' blocks go back in slot order, and the masks come back cut
-    into the groups."""
+def test_cpu_mesh_takes_any_shard_count():
+    """More shards on one CPU device than a cluster holds: the "cluster"
+    route, walked by the plain version (no cluster limit off the card), as
+    the JAX package takes any auth count."""
+    k = tmesh.MAX_CLUSTER + 1
+    mesh = auth_mesh(k, devices=["cpu"] * k)
+    assert mesh.routes == ["cluster"]
+    parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
+        np.random.default_rng(17), W, 7, GC, 2, 2)
+    want = td.chain_commit_plain(*_t(parent, present), GC, *_t(lc), lcr, *_t(offs, onehots))
+    assert torch.equal(td.chain_commit_sharded(mesh, parent, present, GC, lc, lcr, offs,
+                                               onehots), want) and bool(want.any())
+    rin = chip_smoke.reach_many_inputs(np.random.default_rng(17), W, 7, 8, 6)
+    assert torch.equal(td.reach_many_sharded(mesh, *rin), td.reach_many_plain(*_t(*rin)))
+
+
+def test_peer_form_refuses_cpu_tensors(cards):
+    """sharded_walk with a peer exchange takes card tensors only: on CPU
+    tensors it raises rather than walk a plain stand-in."""
     cards(2, lambda a, b: True)
     ex = WalkExchange([torch.device("cuda", i % 2) for i in range(4)], "peer")
     assert ex.groups == [[0, 2], [1, 3]]
     parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
         np.random.default_rng(5), W, 4, GC, 2, 2)
     pb, qb, lb, oh = _t(*chip_smoke.walk_blocks(4, parent, present, lc, onehots))
-    whole = td.sharded_walk(pb, qb, lb, *_t(offs), oh, GC, lcr, True)
     cut = (lambda t: [t[g] for g in ex.groups])
-    parts = td.sharded_walk(cut(pb), cut(qb), cut(lb), [torch.from_numpy(offs)] * 2, [oh] * 2,
-                            GC, lcr, True, exchange=ex)
-    for slots, got in zip(ex.groups, parts):
-        assert torch.equal(got, whole[slots])
-    with pytest.raises(ValueError):  # the plain version launches nothing
+    with pytest.raises(ValueError, match="card only"):
         td.sharded_walk(cut(pb), cut(qb), cut(lb), [torch.from_numpy(offs)] * 2, [oh] * 2,
-                        GC, lcr, True, exchange=ex, launch=[0])
+                        GC, lcr, True, exchange=ex)
