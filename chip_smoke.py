@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             verifier at B = 2048: verify_decompress on the item bucket's A
             and R sets, verify_straus and verify_verdict on its output,
             msm_window on the msm item and group buckets' A (64 lanes) and
-            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards;
+            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards; A2
+            and A3 -> A6 again at B = 16, 512, 1024 (a shard's rows) and
+            8192 (two tiles of shared memory) on both buckets;
             leader_support at B = 64 (rows 0 and W - 1 among the offsets),
             consensus_commit on B6's K = 64 masks with a support vector
             around the quorum, reach_shard_step on one shard of 2 and of 4
@@ -32,7 +34,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             (rowstep included) against B2 / B6; then a missing peer (one of
             two peer launches issued, a 100 ms deadline) must raise), with
             kernel / plain / library times from CUDA events (median of
-            repeats). Verdicts, masks and validity bit-equal;
+            repeats; for msm_accumulate and msm_window also
+            torch.profiler's device time by launch and ptxas's figures).
+            Verdicts, masks and validity bit-equal;
             verify_decompress's coordinates equal mod p; msm_accumulate's,
             msm_window's and the reduce's window lanes and verify_straus's
             accumulators equal as affine points (canonical x and y), and
@@ -217,6 +221,38 @@ def time_ms(fn, device, reps: int, groups: int = 5) -> float:
     return statistics.median(samples)
 
 
+def device_breakdown(fn, device, reps: int = 20) -> tuple[float | None, dict]:
+    """Device time of one call of `fn` from torch.profiler, for a call that
+    launches each of its kernels once: by kernel name the mean duration of
+    its captured launches (the profiler drops some now and then), and their
+    sum, in ms. A capture without any kernel is taken again, up to three
+    times. (None, {}) off the card or without a capture."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None, {}
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per: dict[str, float] = {}
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0)
+            if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                name = evt.key.split("(")[0].replace("void ", "").strip()
+                per[name] = per.get(name, 0.0) + dev_us / evt.count / 1e3
+        if per:
+            return sum(per.values()), per
+    log("  device_breakdown: the profiler captured no kernel three times; no device time")
+    return None, {}
+
+
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -252,6 +288,33 @@ def phase_build() -> dict:
     for stem, wall in sorted(walls.items()):
         log(f"build {stem}.cu: {wall:.2f} s")
     return walls
+
+
+def ptxas_report(stem: str) -> dict:
+    """ptxas's figures for each kernel of `stem`'s build (nvcc -Xptxas -v):
+    name<template args> -> "N registers, S bytes spill stores, M bytes smem"."""
+    import re
+
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    out, name = {}, None
+    for line in kernel_registry.build_logs().get(stem, "").splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            base, rest = m.group(2)[:n], m.group(2)[n:]
+            targs = rest.split("EEv")[0] + "E" if rest.startswith("I") else ""
+            args = re.findall(r"L[ib](\d+)E", targs)
+            name = base + (f"<{', '.join(args)}>" if args else "")
+            out[name] = ""
+        elif name and "spill stores" in line:
+            out[name] = line.split(",")[1].strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = f"{regs} registers, {out[name]}" + (f", {smem.group(1)} bytes smem"
+                                                             if smem else "")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -537,18 +600,69 @@ def check_msm_accumulate(device, f, bucket: int, n_keys: int, plain_reps: int):
         log(f"  msm_accumulate {shape} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b:.6f} ms ({by}: {points} points decompressed, {cnt['mul']:.0f} mul + "
             f"{cnt['sq']} sq), {100 * b / ms:.2f} % of bound")
+        dev_ms, per_launch = device_breakdown(lambda: ed25519.msm_accumulate(*t), device)
+        log(f"  msm_accumulate {shape} shape: profiler device time {dev_ms} ms a call: "
+            f"{per_launch}")
         if shape == "group":
             row = {"name": "msm_accumulate", "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b, "bound_by": by, "library_ms": None,
                    "shape": f"B={bucket} group lane ({group_rows} doubled rows of "
                             f"{group_rows // (2 * f.committee.size())} proofs, N="
                             f"{f.committee.size()})",
-                   "rows_per_s_kernel": bucket / ms * 1e3}
+                   "rows_per_s_kernel": bucket / ms * 1e3,
+                   "extra": {"device_ms": dev_ms, "device_ms_by_launch": per_launch,
+                             "ptxas": ptxas_report("ed25519_msm")}}
         else:
-            row["extra"] = {"ms_item_shape": ms, "plain_ms_item_shape": plain_ms,
-                            "bound_ms_item_shape": b}
+            row["extra"].update({"ms_item_shape": ms, "plain_ms_item_shape": plain_ms,
+                                 "bound_ms_item_shape": b, "device_ms_item_shape": dev_ms})
     row["max_abs_err"] = err
     return row
+
+
+def check_msm_shapes(device, bucket_sizes=(16, 512, 1024, 8192), n_keys: int = 300):
+    """A2 and A3 -> A6 at the other bucket shapes the kernels meet (the
+    smallest bucket, the sharded verifier's per-shard 1024 rows, the largest
+    bucket, whose A2 rows take two tiles of shared memory): on the group lane
+    (compact proofs of the N = 50 committee, or of 4 signers where 2 x 50
+    rows do not fit; the R slot all zero) and the item bucket (invalid
+    encodings among its rows). A2's lanes and A6's equal to their plain
+    versions as affine points, A6's to A2's, validity bit for bit. Returns
+    the largest affine difference (0 when equal)."""
+    import torch
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+    from narwhal_tpu_torch.gpu import ed25519
+
+    err = 0
+    for bucket in bucket_sizes:
+        f = CommitteeFixture(size=50 if bucket >= 100 else 4)
+        keys = min(n_keys, max(4, bucket // 4))
+        item, _sum, invalid = msm_item_bucket(29, keys, bucket)
+        for shape, host in (("group", msm_group_bucket(f, bucket)[0]), ("item", item)):
+            t = [torch.from_numpy(a).to(device) for a in host]
+            va, vr, valid = ed25519.msm_accumulate(*t)
+            pva, pvr, pvalid = ed25519.msm_accumulate_plain(*t)
+            _same_bits(f"msm_accumulate B={bucket} {shape} valid", valid, pvalid)
+            err = max(err, _same_points(f"msm_accumulate B={bucket} {shape} V_a", va, pva),
+                      _same_points(f"msm_accumulate B={bucket} {shape} V_r", vr, pvr))
+            want = invalid if shape == "item" else set()
+            got = set(np.flatnonzero(~valid.cpu().numpy()).tolist())
+            if got != want:
+                raise AssertionError(f"msm_accumulate B={bucket} {shape}: invalid rows {got}")
+            pa, a_ok = ed25519.verify_decompress(t[0], t[1])
+            pr, r_ok = ed25519.verify_decompress(t[2], t[3])
+            _same_bits(f"A3 -> A6 B={bucket} {shape} valid", a_ok & r_ok, valid)
+            for pts, digits, mono, lanes in ((pa, t[4], va, "A"), (pr, t[5], vr, "R")):
+                v = ed25519.msm_window(pts, digits)
+                err = max(err, _same_points(f"msm_window B={bucket} {shape} {lanes}", v,
+                                            ed25519.msm_window_plain(pts, digits)))
+                _same_points(f"A3 -> A6 B={bucket} {shape} {lanes} against msm_accumulate",
+                             v, mono)
+            log(f"msm shapes: B={bucket} {shape}: A2 and A3 -> A6 (64 and 32 lanes) equal to "
+                f"plain and to each other as affine points, valid bit-equal "
+                f"({len(want)} invalid rows)")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return err
 
 
 def _mod_p(v: np.ndarray) -> list:
@@ -704,11 +818,17 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
     # A6's other shape on the path: the R set's 32 lanes (the item bucket).
     r_live = int(t[5].any(1).sum())
     pr, _ = ed25519.verify_decompress(t[2], t[3])
+    dev_ms, per_launch = device_breakdown(lambda: ed25519.msm_window(g_pts, group_t[4]), device)
+    dev_r, per_r = device_breakdown(lambda: ed25519.msm_window(pr, t[5]), device)
     rows[3]["extra"] = {
         "ms_r_lanes": time_ms(lambda: ed25519.msm_window(pr, t[5]), device, reps=5),
         "bound_ms_r_lanes": bound_ms(pts_bytes + bucket * 32 + 4 * 20 * 32 * 4,
                                      ed25519.msm_window_ops(r_live, 32, bucket) * 100)[0],
+        "device_ms": dev_ms, "device_ms_by_launch": per_launch,
+        "device_ms_r_lanes": dev_r, "device_ms_by_launch_r_lanes": per_r,
     }
+    log(f"  msm_window profiler device time {dev_ms} ms a call (64 lanes): {per_launch}; "
+        f"{dev_r} ms (32 lanes): {per_r}")
     # The staged item path on one card beside A1 (both on the same bucket).
     def staged_item():
         ap, av = ed25519.verify_decompress(a_y, a_sign)
@@ -1398,6 +1518,10 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_reach_shard_step(device, n, w),
         check_sharded_walk(device, n, w),
     ]
+    shapes_err = check_msm_shapes(device) if device.type == "cuda" else 0
+    for r in rows:
+        if r["name"] in ("msm_accumulate", "msm_window"):
+            r["max_abs_err"] = max(r["max_abs_err"], shapes_err)
     if device.type == "cuda":
         check_peer_reuse(device, n, w)
         check_walk_deadline(device, n, w)

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Per-launch device times of the window-lane kernels on one NVIDIA card.
+
+    python3 msm_breakdown.py [--package DIR] [--bucket B ...]
+
+For each bucket (default the verifier's 2048 rows and a shard's 1024): A2
+`msm_accumulate` on the group-lane and item buckets of `chip_smoke.py`, A6
+`msm_window` on their A (64 lanes) and R (32 lanes) sets and A3
+`verify_decompress` on their A set. Each is first held against its plain
+version (lanes as affine points, validity bit for bit), then timed: the
+CUDA-event median through the wrapper, and torch.profiler's device time of
+one call split by the kernels it launches. It prints nvcc's ptxas figures
+(registers, spills, shared memory) of the two sources first.
+
+`--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
+chain kernel then records %globaltimer at four points of each CTA) and
+prints, for A2 and A6 at each bucket, the median over CTAs of the time to
+stage the points (A2: decompress them), to build the tables and to run
+the chains, and the last CTA's end, from the kernel's start.
+
+`--package DIR` imports `narwhal_tpu_torch` from DIR (for example an unpacked
+`git archive` of another commit) instead of from this checkout, so two
+versions of the kernels can be compared in one call on one card; the
+buckets, checks and timing are this script's and `chip_smoke.py`'s either
+way. It needs a card and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--package", default=None, help="directory holding narwhal_tpu_torch/")
+    ap.add_argument("--bucket", type=int, nargs="+", default=[2048, 1024])
+    ap.add_argument("--phases", action="store_true", help="time the chain kernel's phases")
+    args = ap.parse_args(argv)
+    import importlib.util
+
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
+    sys.path.insert(1, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("msm_breakdown: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    # this checkout's chip_smoke.py, whichever package is imported
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+    from narwhal_tpu_torch.gpu import ed25519, kernel_registry
+
+    dev = torch.device("cuda")
+    print(f"package {os.path.dirname(ed25519.__file__)}", flush=True)
+    print(chip_smoke.card_line(), flush=True)
+    walls = kernel_registry.build(["ed25519_msm", "ed25519_staged"])
+    print("build walls " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    for stem in ("ed25519_msm", "ed25519_staged"):
+        for kernel, figures in chip_smoke.ptxas_report(stem).items():
+            print(f"ptxas {kernel}: {figures}", flush=True)
+
+    def timed(name, fn):
+        ms = chip_smoke.time_ms(fn, dev, reps=5)
+        dev_ms, per = chip_smoke.device_breakdown(fn, dev)
+        split = ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+        device = "not captured" if dev_ms is None else f"{dev_ms:.4f} ms ({split})"
+        print(f"{name}: events {ms:.4f} ms, device {device}", flush=True)
+
+    f = CommitteeFixture(size=50)
+    for bucket in args.bucket:
+        buckets = {"group": chip_smoke.msm_group_bucket(f, bucket)[0],
+                   "item": chip_smoke.msm_item_bucket(23, 300, bucket)[0]}
+        for shape, host in buckets.items():
+            t = [torch.from_numpy(a).to(dev) for a in host]
+            va, vr, valid = ed25519.msm_accumulate(*t)
+            pva, pvr, pvalid = ed25519.msm_accumulate_plain(*t)
+            chip_smoke._same_bits("A2 valid", valid, pvalid)
+            chip_smoke._same_points("A2 V_a", va, pva)
+            chip_smoke._same_points("A2 V_r", vr, pvr)
+            timed(f"A2 msm_accumulate {shape} B={bucket}", lambda: ed25519.msm_accumulate(*t))
+            pa, _ = ed25519.verify_decompress(t[0], t[1])
+            pr, _ = ed25519.verify_decompress(t[2], t[3])
+            for lanes, pts, dig, mono in ((64, pa, t[4], va), (32, pr, t[5], vr)):
+                v = ed25519.msm_window(pts, dig)
+                chip_smoke._same_points("A6", v, ed25519.msm_window_plain(pts, dig))
+                chip_smoke._same_points("A6 against A2", v, mono)
+                timed(f"A6 msm_window {shape} B={bucket} {lanes} lanes",
+                      lambda: ed25519.msm_window(pts, dig))
+            timed(f"A3 verify_decompress {shape} B={bucket}",
+                  lambda: ed25519.verify_decompress(t[0], t[1]))
+            if args.phases:
+                phases(ed25519, kernel_registry, dev, t, pa, pr, f"{shape} B={bucket}")
+    torch.cuda.synchronize()
+    return 0
+
+
+_PHASE_LIB = []
+
+
+def phases(ed25519, kernel_registry, dev, t, pa, pr, tag) -> None:
+    """The chain kernel's phases (a build with -DMSM_PHASE_TIMES), launched
+    with the wrappers' arguments: A2 on the bucket t, A6 on its A and R
+    sets pa and pr."""
+    import ctypes
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    if not _PHASE_LIB:
+        out = kernel_registry.BUILD_DIR / "ed25519_msm-phases.so"
+        subprocess.run([kernel_registry.nvcc(), *kernel_registry.NVCC_FLAGS, "-DMSM_PHASE_TIMES",
+                        "-o", str(out), str(kernel_registry.CSRC / "ed25519_msm.cu")],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(out))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.ed25519_msm_window.argtypes = [P] * 5 + [I] * 5 + [P]
+        lib.ed25519_msm_accumulate.argtypes = [P] * 11 + [I] * 4 + [P]
+        lib.ed25519_msm_phase_times.argtypes = [P]
+        _PHASE_LIB.append(lib)
+    lib = _PHASE_LIB[0]
+    consts = ed25519._const("KERNEL_CONSTS", dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    B = t[0].shape[0]
+    runs = []
+    for name, lanes in (("A2", (64, 32)), ("A6 64 lanes", (64, 0)), ("A6 32 lanes", (32, 0))):
+        plan = ed25519.msm_plan("msm_window", B, *lanes)
+        geo = (plan["ctas"], plan["tile"], plan["smem"])
+        sums = torch.empty((plan["ctas"] * sum(lanes) * 40,), dtype=torch.int32, device=dev)
+        v = torch.empty((2, 4, 20, 64), dtype=torch.int32, device=dev)
+        valid = torch.empty((B,), dtype=torch.bool, device=dev)
+        if name == "A2":
+            ptrs = [x.data_ptr() for x in (*t, consts, sums, v[0], v[1], valid)]
+            call = lambda: lib.ed25519_msm_accumulate(*ptrs, B, *geo, stream)  # noqa: E731
+        else:
+            pts, dig = (pa, t[4]) if lanes[0] == 64 else (pr, t[5])
+            ptrs = [x.data_ptr() for x in (pts, dig, consts, sums, v[0])]
+            call = lambda: lib.ed25519_msm_window(*ptrs, B, lanes[0], *geo, stream)  # noqa: E731
+        for _ in range(3):
+            if call() != 0:
+                raise RuntimeError(f"{name}: the phase-timed launch failed")
+            torch.cuda.synchronize()
+        stamps = np.zeros((128, 4), np.uint64)
+        if lib.ed25519_msm_phase_times(stamps.ctypes.data) != 0:
+            raise RuntimeError("reading the phase times failed")
+        ts = stamps[:plan["ctas"]].astype(np.int64)
+        rel = (ts - ts[:, 0].min()) / 1e3
+        runs.append(f"{name}: stage {np.median(rel[:, 1] - rel[:, 0]):.1f} us, tables "
+                    f"{np.median(rel[:, 2] - rel[:, 1]):.1f}, chains "
+                    f"{np.median(rel[:, 3] - rel[:, 2]):.1f}, last CTA done {rel[:, 3].max():.1f}")
+    print(f"phases {tag}: " + "; ".join(runs), flush=True)
+
+
+if __name__ == "__main__":
+    t0 = time.time()
+    rc = main()
+    print(f"msm_breakdown: {time.time() - t0:.1f} s", flush=True)
+    sys.exit(rc)

@@ -7,7 +7,8 @@
 //
 // Field elements mod p = 2^255 - 19 are ref10's layout: 10 signed int32 limbs
 // alternating 26 and 25 bits (limb i at bit ceil(25.5 i)); one product is 100
-// native 32x32->64 multiply-adds into int64 columns. Points use the JAX
+// native 32x32->64 multiply-adds into int64 columns, a squaring 55 (each
+// cross product formed once and doubled). Points use the JAX
 // module's formulas (narwhal_tpu/tpu/ed25519.py): extended (X, Y, Z, T),
 // cached (Y+X, Y-X, Z, 2d*T) and cached affine (Z == 1).
 //
@@ -23,7 +24,8 @@
 //   fe_mul inputs: |f_i|, |g_i| <= 1.65*2^26 (even), 1.65*2^25 (odd).  Then
 //               19*g_j <= 31.35*2^26 < 2^31 and 2*f_i (odd i) <= 1.65*2^26 fit
 //               int32; one product <= 1.65*2^26 * 31.35*2^26 < 2^57.7, a
-//               column of 10 products < 2^61.1 < 2^63: no int64 overflow.
+//               column of 10 products < 2^61.1 < 2^63: no int64 overflow
+//               (fe_sq's own factors are checked at fe_sq).
 //   Rule kept by every caller below: an operand of fe_mul / fe_sq is a signed
 //               sum of at most 3 tight values (3 * 1.1*2^25 = 1.65*2^26).
 //               fe_add / fe_sub / fe_neg do not carry; the one place that
@@ -106,6 +108,25 @@ HD void fe_neg(fe& r, const fe& a) {
   for (int i = 0; i < 10; i++) r.v[i] = -a.v[i];
 }
 
+// acc += a * b, int32 x int32 -> int64. On the card as one low/high pair of
+// 32-bit multiply-adds joined by the carry flag (mad.lo.cc.u32, madc.hi.s32:
+// the product's low word is the same signed or unsigned, its high word the
+// signed high half): the C++ form is the same sum, but nvcc compiles it in
+// some kernels as a 64 x 64 multiply of sign-extended operands (three
+// multiplies and a shift a term, ~1,280 cycles a product for one warp on
+// the H100 against ~710 this way).
+HD void fe_mac(i64& acc, i32 a, i32 b) {
+#ifdef __CUDA_ARCH__
+  unsigned lo = (unsigned)(unsigned long long)acc;
+  unsigned hi = (unsigned)((unsigned long long)acc >> 32);
+  asm("mad.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.s32 %1, %2, %3, %1;"
+      : "+r"(lo), "+r"(hi) : "r"(a), "r"(b));
+  acc = (i64)(((unsigned long long)hi << 32) | lo);
+#else
+  acc += (i64)a * (i64)b;
+#endif
+}
+
 // h = f * g: limb i of f times limb j of g lands in column i+j, doubled when
 // both are odd (ceil(25.5 i) + ceil(25.5 j) = ceil(25.5 (i+j)) + 1) and times
 // 19 when i+j >= 10 (2^255 = 19 mod p).  r may alias f or g: every read
@@ -125,14 +146,43 @@ HD void fe_mul(fe& r, const fe& f, const fe& g) {
 #pragma unroll
     for (int j = 0; j < 10; j++) {
       const i32 fi = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
-      if (i + j < 10) h[i + j] += (i64)fi * (i64)g.v[j];
-      else h[i + j - 10] += (i64)fi * (i64)g19[j];
+      if (i + j < 10) fe_mac(h[i + j], fi, g.v[j]);
+      else fe_mac(h[i + j - 10], fi, g19[j]);
     }
   }
   fe_reduce64(h, r);
 }
 
-HD void fe_sq(fe& r, const fe& f) { fe_mul(r, f, f); }
+// h = f^2 with ref10's 55 products: each f_i f_j (i < j) is formed once and
+// doubled, so every column is the same int64 sum fe_mul(r, f, f) forms and
+// the carry chain gives the same limbs. Factors: 2 for i < j (on f_i: 2 *
+// 1.65*2^26 < 2^31), 2 more when both are odd and 19 past column 9 (on
+// f_j: an odd limb takes at most 38, 38 * 1.65*2^25 < 2^31; an even limb
+// only 19). One product <= 3.3*2^26 * 31.35*2^26 < 2^59, a column of at
+// most 6 < 2^61.6: fe_mul's bound holds.
+HD void fe_sq(fe& r, const fe& f) {
+  i32 f2[10], f19[10], f38[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    f2[i] = 2 * f.v[i];
+    f19[i] = 19 * f.v[i];
+    f38[i] = (i & 1) ? 38 * f.v[i] : 0;  // odd limbs only: 38 * even could overflow
+  }
+  i64 h[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      const bool odd = (i & 1) && (j & 1), wrap = i + j >= 10;
+      const i32 left = i < j ? f2[i] : f.v[i];
+      const i32 right = odd ? (wrap ? f38[j] : f2[j]) : (wrap ? f19[j] : f.v[j]);
+      fe_mac(h[(i + j) % 10], left, right);
+    }
+  }
+  fe_reduce64(h, r);
+}
 
 // Canonical limbs of a (value in [0, p), limb i in [0, 2^26) or [0, 2^25)).
 HD void fe_canonical(fe& r, const fe& a) {

@@ -18,11 +18,9 @@
 //       `msm_window_kernel`: one point set already decompressed by A3
 //       (int32 [4, 20, B], the JAX stage layout) and one digit set int8
 //       [B, W] (W = 64 for A or 32 for R, the two widths it is built for)
-//       -> V int32 [4, 20, W]. Its table
-//       launch reads the points instead of y and sign; the chain and tree
-//       launches are A2's, over one lane set of W. A3 -> A6 (A) and A3 -> A6
-//       (R) give A2's V_a and V_r point for point (the same point operations
-//       in the same order), invalid rows included.
+//       -> V int32 [4, 20, W]. It is A2's kernel over one lane set that
+//       reads points instead of decompressing them, so A3 -> A6 (A) and
+//       A3 -> A6 (R) give A2's V_a and V_r as points, invalid rows included.
 //   The shard reduce ed25519_msm_shard_reduce, the port's counterpart of the
 //       cross-device reduce that XLA inserts after A6 on a mesh
 //       (narwhal_tpu/tpu/verifier.py:96-102, out_specs=None): n lane sets
@@ -31,52 +29,72 @@
 //       a few microseconds, bound by its launch.
 // Their plain versions are `msm_window_plain` and `msm_shard_reduce_plain`.
 //
-// Three launches on one stream, each a thread per independent piece of work:
-//   1. msm_table_kernel, one thread per point (2B: A then R): decompress,
-//      negate, and the 16-entry cached table (identity, P, 2P .. 15P), written
-//      to a global scratch table [2B][16] of gc (2.5 KB a point, 10 MB at
-//      B = 2048, which stays in the 50 MB L2);
-//   2. msm_chain_kernel, one thread per (window lane, chain): lane l < 64 is
-//      window l of the A points, lane 64 + w window w of the R points; chain c
-//      of C sums the points j = c, c + C, c + 2C, ... in that order with the
-//      8-multiply cached add, starting from the identity; threads j < B also
-//      AND the two validity bits of row j;
-//   3. msm_reduce_kernel, one block per lane: a tree over the C chain sums in
-//      shared memory (round r adds chain t + C/2^(r+1) into chain t), then the
-//      lane's four coordinates canonicalised to radix 2^13.
-// C is the wrapper's `chains` = min(128, B), a power of two dividing B: the
-// JAX kernel's `chunk`. With it the chains hold the same points in the same
-// order and the tree pairs them as the JAX fixed-width reduction does, so the
-// kernel performs the plain version's point operations in the plain version's
-// order: its V equals the plain V coordinate by coordinate mod p, even where
-// an invalid encoding put a point off the curve (where the addition law is
-// not associative and another order would give another sum).
+// The order of the point additions is the JAX kernel's. Off the curve (an
+// invalid encoding) the addition law is not associative, so another grouping
+// would give another lane:
+//   - table entry i of a point P is entry i - 1 plus P (i = 2 .. 15), entry
+//     1 the cached -P; digit d selects entry d;
+//   - chain c of C = min(128, B) (the wrapper's `chains`, the JAX `chunk`)
+//     adds the points c, c + C, c + 2C, ... of each lane in that order;
+//   - the tree over the C chain sums adds chain t + C/2^(r+1) into chain t
+//     in round r.
+// A digit 0 selects the cached identity (1, 1, 1, 0), with which the JAX
+// kernel's cached add returns (4XZ, 4YZ, 4Z^2, 4XY): the same projective
+// point, and every later addition is homogeneous. So the kernel skips such
+// an add when all eight lanes of a warp have a digit 0 (zero rows, the
+// group lane's all-zero R slot, which also builds no table), and adds the
+// identity entry when only some have. Its V is the plain version's V as
+// projective points: chip_smoke.py and tests/test_torch_cuda.py compare the
+// lanes as affine points (canonical x = X/Z, y = Y/Z), and valid bit for bit.
 //
-// Zero digits select the cached identity (1, 1, 1, 0), so zero rows (the
-// verifier's padding) and the group lane's all-zero R slot are inert; they
-// are still decompressed and accumulated, as in the JAX kernel.
+// Two launches per call on one stream, for Hopper:
+//   - msm_chains_kernel, one CTA per chain c, 4 threads per window lane (A2:
+//     96 lanes, 384 threads; A6: 4W). The CTA's rows are j = c + s C, s < S
+//     = B / C, taken in tiles of `tile` rows (all S at B <= 2048; A2 32 and
+//     A6 64 above it, so a tile fits the 227 KB of shared memory), the lane
+//     sums carried in registers from tile to tile. Per tile: the rows'
+//     digits into shared memory; the points, negated, into shared memory
+//     (A2: a thread per point decompresses it and writes the row's
+//     validity; A6: a thread per coordinate reads it); the 15 cached
+//     multiples of every point with a nonzero digit, in shared memory (a
+//     quad of threads per point); then each lane adds its digit's entry of
+//     each row into its sum. The chain sums go to a global scratch (C x
+//     lanes x 160 bytes: 1.9 MB for A2 at C = 128, in L2).
+//   - msm_tree_kernel, one CTA per lane: that lane's C chain sums in shared
+//     memory, the tree's rounds a quad per addition with a barrier between
+//     them, then the lane's canonical limbs. (A tree across the chains'
+//     CTAs on atomic tickets, tried first, paid a global write, a fence, an
+//     atomic and a read every round: ~30 us for the 7 rounds at C = 128,
+//     against ~15 for this launch; PERF.md, PR 7.)
+// A quad (4 threads of a warp) does one point addition: thread l holds
+// coordinate l of the point (X, Y, Z, T) and field l of a cached point
+// (Y-X, Y+X, Z, 2dT), and the add's two rounds of four independent
+// products (a, b, d, c, then X3, Y3, Z3, T3) are one product per thread,
+// the operands exchanged with __shfl_xor_sync. A cached add is 2 products
+// deep instead of 8; a table step (add, then cache: 2dT) 2 to 3 instead of
+// 9, as the cache of one entry overlaps the next add's first product; a
+// tree round (the complete add) 3.
 //
-// What bounds it on the H100: integer multiplies. A row (one A and one R
-// point) costs 2 decompressions (255 squarings + 20 products each), 2 tables
-// (127 products each), 96 cached adds (8 products each) and its share of the
-// tree, 9 (C - 1) 96 / B products (ed25519.msm_field_muls_per_signature):
-// ~1.4e5 32-bit multiply-adds at 100 per product and 55 per squaring, against
-// 132 SMs x 64 INT32 lanes. Its bytes (~180 a row in, 33 KB out) never bound
-// it. This first version is one thread per point or per (lane, chain) and
-// leaves the card far from full; bucket methods and wgmma are later work.
+// What bounds it on the H100: integer multiplies (ed25519.msm_field_ops counts
+// them, at 100 32-bit multiply-adds a product and 55 a squaring), far from
+// the card's rate because the work is a few long dependent chains per CTA:
+// A2's decompression (255 squarings + 20 products, one thread per point:
+// over half of A2's time), a table (29-43 products deep), a chain (2 per
+// row) and the tree (3 a round). Its bytes (~180 a row in, 33 KB out)
+// never bound it. Splitting a squaring's ten columns over threads, for the
+// decompression, is the next lever (msm_breakdown.py --phases times each
+// phase).
 //
 // Bounds: every operand keeps the rule of ed25519_field.cuh (a sum of at most
-// 3 tight values). Table entries are pt_cache outputs: Y+X and Y-X are 2
-// tight, Z and 2d*T are products (tight); the identity entry is tight. The
-// chain accumulator starts at the identity and every pt_add_cached output is
-// four products, so it stays tight; inside the add, Y1 -/+ X1 and 2*Z1 are 2
-// tight and D -/+ C, B -/+ A are 2 tight. The tree's pt_add takes two such
-// accumulators, and its operands are again sums of at most 2 tight values.
-// decompress and the table chain are A1's code, whose operands were checked
-// there. fe_to13 canonicalises before it repacks, so the output limbs are
-// exact. A6's points and the shard reduce's lane sets enter through
-// fe_from13_loose, whose outputs are tight, so A6's table and the reduce's
-// pt_add see the operands that A2's do.
+// 3 tight values). What a quad thread holds between operations is a product
+// output (tight): a coordinate of the sum or of a table step, a round-1
+// product, a cached field (the cache multiplies every field, by one or by
+// 2d). Its round-1 operand is Y -/+ X, 2Z or T of tight coordinates, its
+// round-2 operands b -/+ a, d -/+ c of tight products: 2 tight at most; in
+// the tree's complete add the addend's Y2 -/+ X2 of tight sums. The
+// identity and the staged points are tight too: decompress outputs (A1's
+// code, checked there) and their negations, or fe_from13_loose outputs (A6).
+// fe_to13 canonicalises before it repacks, so the output limbs are exact.
 
 #include "ed25519_field.cuh"
 
@@ -88,80 +106,72 @@ constexpr int kWa = 64;        // window lanes of the A scalars (256-bit z k)
 constexpr int kWr = 32;        // window lanes of the R scalars (128-bit z)
 constexpr int kMaxLanes = 64;  // the most window lanes one lane set has
 constexpr int kMaxChains = 128;
+constexpr int kEntries = 15;   // cached multiples P .. 15P a point keeps (0P is implicit)
+constexpr int kSmemLimit = 232448;  // shared bytes a CTA may use on the H100
 
-// The 16 cached multiples (identity, P, 2P .. 15P) of neg = -P to tab[0..15].
-HD void msm_table_of(const ge& neg, const Consts& k, gc* tab) {
-  fe_one(tab[0].YpX);
-  fe_one(tab[0].YmX);
-  fe_one(tab[0].Z);
-  fe_zero(tab[0].T2d);
-  pt_cache(tab[1], neg, k);
-  ge cur = neg;
-  for (int i = 2; i < 16; i++) {
-    pt_add_cached(cur, cur, tab[1]);
-    pt_cache(tab[i], cur, k);
+// Dynamic shared bytes of a CTA whose tiles hold `tile` rows of each lane set
+// (widths wa and wr; wr = 0 for one set). Per row and set: the table
+// (kEntries x 4 fields x 10 limbs), the staged point (4 x 10 limbs) and a
+// flags word; per row the digits of every lane (wa + wr bytes).
+HD int msm_smem_bytes(int tile, int wa, int wr) {
+  const int sets = wr > 0 ? 2 : 1;
+  return tile * (sets * ((kEntries * 4 + 4) * 10 * 4 + 4) + wa + wr);
+}
+
+// Round 1 of a cached add in quad thread l, whose coordinate is m and whose
+// xor-1 partner's is o (X <-> Y, Z <-> T): the left factor Y - X, Y + X, 2Z
+// or T; times field l of the cached point it is a, b, d or c.
+HD void quad_round1(fe& s, const fe& m, const fe& o, int l) {
+  const i32 km = l == 0 ? -1 : l == 2 ? 2 : 1;
+  const i32 ko = l < 2 ? 1 : 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) s.v[i] = km * m.v[i] + ko * o.v[i];
+}
+
+// Round 2 in thread l from its round-1 product p and those of threads l ^ 1,
+// l ^ 2, l ^ 3 (v1, v2, v3): with e = b - a, f = d - c, g = d + c, h = b + a,
+// thread 0 forms X3 = e f, thread 1 Y3 = g h, thread 2 Z3 = f g, thread 3
+// T3 = e h. Thread 0 holds a (v1 = b, v2 = d, v3 = c), 1 b (a, c, d), 2 d
+// (c, a, b), 3 c (d, b, a), so the factors are
+//   0: (v1 - p) (v2 - v3)   1: (p + v1) (v2 + v3)
+//   2: (p - v1) (p + v1)    3: (v2 - v3) (v2 + v3).
+HD void quad_round2(fe& m1, fe& m2, const fe& p, const fe& v1, const fe& v2, const fe& v3,
+                    int l) {
+  const i32 s1x = l == 0 ? -1 : 1;
+  const i32 s1y = l >= 2 ? -1 : 1;
+  const i32 s2y = l == 0 ? -1 : 1;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const i32 x1 = l == 3 ? v2.v[i] : p.v[i];
+    const i32 y1 = l == 3 ? v3.v[i] : v1.v[i];
+    const i32 x2 = l == 2 ? p.v[i] : v2.v[i];
+    const i32 y2 = l == 2 ? v1.v[i] : v3.v[i];
+    m1.v[i] = s1x * x1 + s1y * y1;
+    m2.v[i] = x2 + s2y * y2;
   }
 }
 
-// A2's stage 1 for point p of 2B (A rows, then R rows): decompress, negate,
-// and the table. Returns the point's validity.
-template <typename L, typename S>
-HD bool msm_point_table(const L* y13, S sign, const Consts& k, gc* tab) {
-  fe y;
-  fe_from13(y, y13);
-  ge P;
-  const bool valid = decompress(P, y, (i32)sign, k);
-  ge neg;
-  pt_neg(neg, P);
-  msm_table_of(neg, k, tab);
-  return valid;
+// Field l of the cached form (Y - X, Y + X, Z, 2dT) of a point whose
+// coordinate l is m (o: the xor-1 partner's): the left factor; the right one
+// is 2d in thread 3 and one elsewhere, so every thread multiplies (a warp
+// pays for thread 3's product anyway) and every cached field is tight.
+HD void quad_cache_factor(fe& s, const fe& m, const fe& o, int l) {
+  const i32 km = l == 0 ? -1 : 1;
+  const i32 ko = l < 2 ? 1 : 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) s.v[i] = km * m.v[i] + ko * o.v[i];
 }
 
-// A6's stage 1 for point j of B: the point as A3 wrote it ([4, 20, B]),
-// negated, and its table.
-HD void msm_window_table(const i32* pts, int B, int j, const Consts& k, gc* tab) {
-  ge P, neg;
-  pt_load13(P, pts, B, j);
-  pt_neg(neg, P);
-  msm_table_of(neg, k, tab);
+// Coordinate l of the identity (0, 1, 1, 0) and field l of the cached
+// identity (1, 1, 1, 0).
+HD void quad_identity(fe& r, int l) {
+  fe_zero(r);
+  r.v[0] = (l == 1 || l == 2) ? 1 : 0;
 }
 
-// Stage 2 for window w of a W-lane set and chain c: the chain's sum over
-// points c, c + C, ... < B of its digit's entry of table ([B][16]).
-template <typename D>
-HD void msm_chain_sum(ge& acc, const gc* table, const D* digits, int W, int w, int B, int C,
-                      int c) {
-  pt_identity(acc);
-  for (int j = c; j < B; j += C) {
-    const int d = ((i32)digits[(size_t)j * W + w]) & 15;
-    pt_add_cached(acc, acc, table[(size_t)j * 16 + d]);
-  }
-}
-
-// Stage 2 for (lane, chain c) of a launch over two lane sets: lanes
-// [0, wa) are the windows of digits_a over table rows [0, B), lanes
-// [wa, wa + wr) those of digits_r over rows [B, 2B). A2 has wa = 64,
-// wr = 32; A6 one set, wa = W, wr = 0. The set is chosen before the one
-// loop, so the chain's point additions are inlined once.
-template <typename D>
-HD void msm_lane_chain(ge& acc, const gc* table, const D* digits_a, const D* digits_r,
-                       int wa, int wr, int B, int C, int lane, int c) {
-  const bool is_a = lane < wa;
-  msm_chain_sum(acc, table + (is_a ? (size_t)0 : (size_t)B * 16), is_a ? digits_a : digits_r,
-                is_a ? wa : wr, is_a ? lane : lane - wa, B, C, c);
-}
-
-// Stage 3, one tree round: chain t absorbs chain t + off (t < off).
-HD void msm_reduce_step(ge* s, int t, int off, const Consts& k) {
-  pt_add(s[t], s[t], s[t + off], k);
-}
-
-// Stage 3, the lane's output: coordinate `coord` (0..3 = X, Y, Z, T) of v,
-// canonical, into v_a [4, 20, wa] (lane < wa) or v_r [4, 20, wr].
-HD void msm_write_lane(const ge& v, int lane, int coord, int wa, int wr, i32* v_a, i32* v_r) {
-  const fe& f = coord == 0 ? v.X : coord == 1 ? v.Y : coord == 2 ? v.Z : v.T;
-  if (lane < wa) fe_to13(f, v_a + (size_t)coord * 20 * wa + lane, wa);
-  else fe_to13(f, v_r + (size_t)coord * 20 * wr + (lane - wa), wr);
+HD void quad_cached_identity(fe& r, int l) {
+  fe_zero(r);
+  r.v[0] = l < 3 ? 1 : 0;
 }
 
 // The cross-shard reduce for window w: lane set 0 plus sets 1 .. n-1 of
@@ -180,73 +190,246 @@ HD void msm_shard_sum(ge& acc, const i32* lanes, int n, int W, int w, const Cons
 #ifdef __CUDACC__
 using namespace ed25519_msm;
 
-constexpr int kThreads = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-msm_table_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_sign,
-                 const int16_t* __restrict__ r_y, const int8_t* __restrict__ r_sign,
-                 const int32_t* __restrict__ consts13, gc* __restrict__ table,
-                 uint8_t* __restrict__ pvalid, int B) {
-  __shared__ Consts s_k;
-  for (int i = threadIdx.x; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
-  __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= 2 * B) return;
-  const Consts k = s_k;
-  const bool v = p < B
-      ? msm_point_table(a_y + (size_t)p * 20, a_sign[p], k, table + (size_t)p * 16)
-      : msm_point_table(r_y + (size_t)(p - B) * 20, r_sign[p - B], k,
-                        table + (size_t)p * 16);
-  pvalid[p] = v ? 1 : 0;
+// Built with -DMSM_PHASE_TIMES (msm_breakdown.py --phases), thread 0 of each
+// chain CTA records %globaltimer at the start, after the staged points,
+// after the tables and after every warp's chains of its last tile, and the
+// library exports them. A build without it has no trace of this.
+#ifdef MSM_PHASE_TIMES
+__device__ unsigned long long g_phase[kMaxChains][4];
+#define MSM_PHASE(i)                                              \
+  if (threadIdx.x == 0) {                                         \
+    unsigned long long t_;                                        \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));        \
+    g_phase[blockIdx.x][i] = t_;                                  \
+  }
+extern "C" int ed25519_msm_phase_times(void* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+}
+#define MSM_PHASE_ALL(i) \
+  __syncthreads();       \
+  MSM_PHASE(i)
+#else
+#define MSM_PHASE(i)
+#define MSM_PHASE_ALL(i)
+#endif
+
+__device__ __forceinline__ void fe_shfl_xor(fe& r, const fe& a, int m) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = __shfl_xor_sync(kFull, a.v[i], m);
 }
 
-__global__ void __launch_bounds__(kThreads)
-msm_window_table_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ consts13,
-                        gc* __restrict__ table, int B) {
-  __shared__ Consts s_k;
-  for (int i = threadIdx.x; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
-  __syncthreads();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= B) return;
-  const Consts k = s_k;
-  msm_window_table(pts, B, j, k, table + (size_t)j * 16);
+// Round 2 of an addition in a quad, from this thread's round-1 product p:
+// m <- its coordinate of the sum.
+__device__ __forceinline__ void quad_finish(fe& m, const fe& p, int l) {
+  fe v1, v2, v3, m1, m2;
+  fe_shfl_xor(v1, p, 1);
+  fe_shfl_xor(v2, p, 2);
+  fe_shfl_xor(v3, p, 3);
+  quad_round2(m1, m2, p, v1, v2, v3, l);
+  fe_mul(m, m1, m2);
 }
 
-// The lane counts are template arguments, so A2's launches (<64, 32>) keep
-// their compile-time index arithmetic; A6 instantiates <64, 0> and <32, 0>.
-// valid may be null (A6 has no validity to combine).
+// m <- m + q in a quad: m is this thread's coordinate of the sum, q its field
+// of the cached addend. Every thread of the warp must call it.
+__device__ __forceinline__ void quad_add_cached(fe& m, const fe& q, int l) {
+  fe o, s, p;
+  fe_shfl_xor(o, m, 1);
+  quad_round1(s, m, o, l);
+  fe_mul(p, s, q);
+  quad_finish(m, p, l);
+}
+
+// c <- field l of the cached form of the point whose coordinate l is m (o:
+// the xor-1 partner's coordinate).
+__device__ __forceinline__ void quad_cache(fe& c, const fe& m, const fe& o, int l,
+                                           const Consts& k) {
+  fe s, one;
+  quad_cache_factor(s, m, o, l);
+  fe_one(one);
+  fe_mul(c, s, l == 3 ? k.d2 : one);
+}
+
+// m <- m + q, the complete addition (pt_add) in a quad, q given by this
+// thread's coordinate qm of it and its xor-1 partner's qo. The addend's
+// factors Y2 - X2, Y2 + X2, Z2, T2 need no product; the sum's Y1 - X1,
+// Y1 + X1, 2 Z1, 2d T1 take one, which runs while q's loads are in flight.
+__device__ __forceinline__ void quad_add(fe& m, const fe& qm, const fe& qo, int l,
+                                         const Consts& k) {
+  fe o, s, one, q, p;
+  fe_shfl_xor(o, m, 1);
+  quad_round1(s, m, o, l);
+  fe_one(one);
+  fe_mul(s, s, l == 3 ? k.d2 : one);
+  quad_cache_factor(q, qm, qo, l);
+  fe_mul(p, s, q);  // a, b, d = 2 Z1 Z2, c = 2d T1 T2: pt_add's products
+  quad_finish(m, p, l);
+}
+
+// Every chain of one call: blockIdx.x = c, 4 (WA + WR) threads. Lane set 0
+// (WA lanes) is A2's A set or A6's set, lane set 1 (WR lanes) A2's R set.
+// kDecompress: rows are y limbs and signs (A2), else points (A6). Writes
+// chain c's lane sums to partial [C][WA + WR][4][10] for msm_tree_kernel.
+template <int WA, int WR, bool kDecompress>
+__global__ void __launch_bounds__(4 * (WA + WR), 1)
+msm_chains_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_sign,
+                  const int16_t* __restrict__ r_y, const int8_t* __restrict__ r_sign,
+                  const int32_t* __restrict__ pts, const int8_t* __restrict__ digits_a,
+                  const int8_t* __restrict__ digits_r, const int32_t* __restrict__ consts13,
+                  int32_t* __restrict__ partial, bool* __restrict__ valid, int B, int C,
+                  int tile) {
+  constexpr int kSets = WR > 0 ? 2 : 1;
+  constexpr int kLanes = WA + WR;
+  constexpr int kThreads = 4 * kLanes;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Consts s_k;
+  fe* tab = reinterpret_cast<fe*>(smem);             // [kSets][tile][kEntries][4]
+  fe* stage = tab + (size_t)kSets * tile * kEntries * 4;  // [kSets][tile][4]
+  int* flags = reinterpret_cast<int*>(stage + (size_t)kSets * tile * 4);  // [kSets][tile]
+  int8_t* dig = reinterpret_cast<int8_t*>(flags + kSets * tile);  // [tile][kLanes]
+
+  const int tid = threadIdx.x, l = tid & 3, lane = tid >> 2;
+  const int c = blockIdx.x, S = B / C;
+  const int set = lane < WA ? 0 : 1;
+  const fe* my_tab = tab + (size_t)set * tile * kEntries * 4;
+  for (int i = tid; i < 3; i += kThreads) load_consts(i, consts13, s_k);
+  fe acc;  // this thread's coordinate of its lane's chain sum
+  quad_identity(acc, l);
+  MSM_PHASE(0)
+
+  for (int s0 = 0; s0 < S; s0 += tile) {
+    const int rows = S - s0 < tile ? S - s0 : tile;  // the last tile may be short
+    __syncthreads();  // the constants are loaded; the last tile's tables are read
+    for (int i = tid; i < rows * kLanes; i += kThreads) {
+      const int p = i / kLanes, w = i % kLanes;
+      const size_t j = (size_t)c + (size_t)(s0 + p) * C;
+      dig[i] = w < WA ? digits_a[j * WA + w] : digits_r[j * WR + (w - WA)];
+    }
+    __syncthreads();
+    const Consts& k = s_k;
+    // The points, negated (-X, Y, Z, -T), and the flags: bit 0 a nonzero
+    // digit in the row's lane set, bit 1 (A2) the point decompressed.
+    if constexpr (kDecompress) {
+      for (int i = tid; i < kSets * rows; i += kThreads) {
+        const int s = i / rows, p = i % rows;
+        const size_t j = (size_t)c + (size_t)(s0 + p) * C;
+        fe y;
+        fe_from13(y, (s == 0 ? a_y : r_y) + j * 20);
+        ge P;
+        const bool ok = decompress(P, y, (i32)(s == 0 ? a_sign : r_sign)[j], k);
+        fe* st = stage + ((size_t)s * tile + p) * 4;
+        fe_neg(st[0], P.X);
+        st[1] = P.Y;
+        st[2] = P.Z;
+        fe_neg(st[3], P.T);
+        int live = 0;
+        const int w0 = s == 0 ? 0 : WA, w1 = s == 0 ? WA : kLanes;
+        for (int w = w0; w < w1; w++) live |= dig[p * kLanes + w] & 15;
+        flags[s * tile + p] = (live != 0 ? 1 : 0) | (ok ? 2 : 0);
+      }
+    } else {
+      for (int i = tid; i < rows * 4; i += kThreads) {
+        const int p = i >> 2, coord = i & 3;
+        const size_t j = (size_t)c + (size_t)(s0 + p) * C;
+        fe x;
+        fe_from13_loose(x, pts + (size_t)coord * 20 * B + j, B);
+        if (coord == 0 || coord == 3) fe_neg(x, x);
+        stage[i] = x;
+      }
+      for (int p = tid; p < rows; p += kThreads) {
+        int live = 0;
+        for (int w = 0; w < WA; w++) live |= dig[p * kLanes + w] & 15;
+        flags[p] = live != 0 ? 1 : 0;
+      }
+    }
+    __syncthreads();
+    MSM_PHASE(1)
+    if constexpr (kDecompress) {
+      for (int p = tid; p < rows; p += kThreads)
+        valid[(size_t)c + (size_t)(s0 + p) * C] = (flags[p] & flags[tile + p] & 2) != 0;
+    }
+    // Tables: a quad per (set, row) with a nonzero digit; a warp whose rows
+    // are all zero builds nothing. Quads past the last job run job 0's
+    // arithmetic (their warp's shuffles need them) and store nothing.
+    for (int base = 0; base < kSets * rows; base += kLanes) {
+      const int job = base + lane;
+      const bool active = job < kSets * rows;
+      const int jj = active ? (job / rows) * tile + job % rows : 0;  // [set][tile] index
+      if (!__any_sync(kFull, active && (flags[jj] & 1))) continue;
+      // Entry e + 1 = entry e + P: each step's cache of entry e and the
+      // round-1 product of the next add depend only on entry e, so they are
+      // formed together and overlap.
+      fe cur = stage[(size_t)jj * 4 + l];
+      fe o, q1, qe, s, p;
+      fe_shfl_xor(o, cur, 1);
+      quad_cache(q1, cur, o, l, k);
+      fe* t = tab + (size_t)jj * kEntries * 4;
+      if (active) t[l] = q1;
+      quad_round1(s, cur, o, l);
+      fe_mul(p, s, q1);
+      for (int e = 1; e < kEntries; e++) {
+        quad_finish(cur, p, l);
+        fe_shfl_xor(o, cur, 1);
+        quad_cache(qe, cur, o, l, k);
+        quad_round1(s, cur, o, l);
+        fe_mul(p, s, q1);  // the next add's; unused after entry 15
+        if (active) t[e * 4 + l] = qe;
+      }
+    }
+    __syncthreads();
+    MSM_PHASE(2)
+    // Chains: each lane adds its digit's entry of each row, in row order.
+    for (int p = 0; p < rows; p++) {
+      const int d = dig[p * kLanes + lane] & 15;
+      if (!__any_sync(kFull, d != 0)) continue;
+      fe q;
+      if (d != 0) q = my_tab[((size_t)p * kEntries + d - 1) * 4 + l];
+      else quad_cached_identity(q, l);
+      quad_add_cached(acc, q, l);
+    }
+  }
+
+  MSM_PHASE_ALL(3)
+  int32_t* slot = partial + (((size_t)c * kLanes + lane) * 4 + l) * 10;
+#pragma unroll
+  for (int i = 0; i < 10; i++) slot[i] = acc.v[i];
+}
+
+// The tree over the C chain sums of one lane (blockIdx.x, of WA + WR), in
+// shared memory: round r adds chain t + off into chain t for t < off = C >>
+// (r + 1), a quad per addition (pt_add), then the lane's canonical limbs.
 template <int WA, int WR>
-__global__ void __launch_bounds__(kThreads)
-msm_chain_kernel(const gc* __restrict__ table, const int8_t* __restrict__ digits_a,
-                 const int8_t* __restrict__ digits_r, const uint8_t* __restrict__ pvalid,
-                 ge* __restrict__ partial, bool* __restrict__ valid, int B, int C) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (valid != nullptr && t < B) valid[t] = pvalid[t] && pvalid[B + t];
-  constexpr int lanes = WA + WR;
-  if (t >= lanes * C) return;
-  const int lane = t % lanes, c = t / lanes;
-  ge acc;
-  msm_lane_chain(acc, table, digits_a, digits_r, WA, WR, B, C, lane, c);
-  partial[(size_t)lane * C + c] = acc;
-}
-
-template <int WA, int WR>
-__global__ void __launch_bounds__(kMaxChains / 2)
-msm_reduce_kernel(const ge* __restrict__ partial, const int32_t* __restrict__ consts13,
-                  int32_t* __restrict__ v_a, int32_t* __restrict__ v_r, int C) {
+__global__ void __launch_bounds__(2 * kMaxChains)
+msm_tree_kernel(const int32_t* __restrict__ partial, const int32_t* __restrict__ consts13,
+                int32_t* __restrict__ v_a, int32_t* __restrict__ v_r, int C) {
+  constexpr int kLanes = WA + WR;
   __shared__ Consts s_k;
-  __shared__ ge s[kMaxChains];
-  const int lane = blockIdx.x, t = threadIdx.x;
-  for (int i = t; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
-  for (int i = t; i < C; i += blockDim.x) s[i] = partial[(size_t)lane * C + i];
+  __shared__ fe s[kMaxChains][4];
+  const int w = blockIdx.x, tid = threadIdx.x, l = tid & 3, quad = tid >> 2;
+  for (int i = tid; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
+  for (int i = tid; i < C * 4; i += blockDim.x) {
+    const int32_t* src = partial + (((size_t)(i >> 2) * kLanes + w) * 4 + (i & 3)) * 10;
+#pragma unroll
+    for (int j = 0; j < 10; j++) s[i >> 2][i & 3].v[j] = src[j];
+  }
   __syncthreads();
-  const Consts k = s_k;
-  for (int off = C / 2; off > 0; off >>= 1) {
-    if (t < off) msm_reduce_step(s, t, off, k);
+  const Consts& k = s_k;
+  for (int off = C >> 1; off >= 1; off >>= 1) {
+    // A warp takes part while its first quad has a node; quads past the
+    // round's nodes add chains no round writes (their shuffles need them)
+    // and store nothing.
+    if ((quad & ~7) < off) {
+      fe m = s[quad][l];
+      quad_add(m, s[quad + off][l], s[quad + off][l ^ 1], l, k);  // pt_add(s[t], s[t + off])
+      if (quad < off) s[quad][l] = m;
+    }
     __syncthreads();
   }
-  for (int coord = t; coord < 4; coord += blockDim.x)
-    msm_write_lane(s[0], lane, coord, WA, WR, v_a, v_r);
+  if (quad == 0) {
+    if (w < WA) fe_to13(s[0][l], v_a + (size_t)l * 20 * WA + w, WA);
+    else fe_to13(s[0][l], v_r + (size_t)l * 20 * WR + (w - WA), WR);
+  }
 }
 
 __global__ void __launch_bounds__(kMaxLanes)
@@ -263,62 +446,62 @@ msm_shard_reduce_kernel(const int32_t* __restrict__ lanes, const int32_t* __rest
   pt_store13(acc, v, W, w);
 }
 
-static bool chains_ok(int B, int chains) {
-  return chains >= 1 && chains <= kMaxChains && !(chains & (chains - 1)) && B % chains == 0;
+// The launch plan the wrapper computed (ed25519.msm_plan): chains a power of
+// two dividing B, at most 128; a tile of 1 .. B / chains rows; the dynamic
+// shared bytes that tile needs, within the card's limit.
+static bool plan_ok(int B, int chains, int tile, int smem, int wa, int wr) {
+  if (chains < 1 || chains > kMaxChains || (chains & (chains - 1)) || B % chains) return false;
+  if (tile < 1 || tile > B / chains) return false;
+  return smem == msm_smem_bytes(tile, wa, wr) && smem <= kSmemLimit;
 }
 
-// The chain and tree launches over a table already built: lanes WA + WR.
-template <int WA, int WR>
-static int msm_lanes(const gc* table, const int8_t* digits_a, const int8_t* digits_r,
-                     const uint8_t* pvalid, ge* partial, bool* valid, int32_t* v_a,
-                     int32_t* v_r, const int32_t* consts13, int B, int chains, int work,
-                     cudaStream_t s) {
-  msm_chain_kernel<WA, WR><<<(work + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      table, digits_a, digits_r, pvalid, partial, valid, B, chains);
-  const cudaError_t err = cudaGetLastError();
+// The chains, then the tree, on one stream.
+template <int WA, int WR, bool kDecompress>
+static int launch_lanes(const int16_t* a_y, const int8_t* a_sign, const int16_t* r_y,
+                        const int8_t* r_sign, const int32_t* pts, const int8_t* digits_a,
+                        const int8_t* digits_r, const int32_t* consts13, int32_t* partial,
+                        int32_t* v_a, int32_t* v_r, bool* valid, int B, int chains, int tile,
+                        int smem, cudaStream_t s) {
+  if (!plan_ok(B, chains, tile, smem, WA, WR)) return (int)cudaErrorInvalidValue;
+  auto kernel = msm_chains_kernel<WA, WR, kDecompress>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = chains / 2 > 0 ? chains / 2 : 1;
-  msm_reduce_kernel<WA, WR><<<WA + WR, threads, 0, s>>>(partial, consts13, v_a, v_r, chains);
+  kernel<<<chains, 4 * (WA + WR), smem, s>>>(a_y, a_sign, r_y, r_sign, pts, digits_a, digits_r,
+                                              consts13, partial, valid, B, chains, tile);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  msm_tree_kernel<WA, WR><<<WA + WR, 2 * kMaxChains, 0, s>>>(partial, consts13, v_a, v_r,
+                                                             chains);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ed25519_msm_accumulate(const void* a_y, const void* a_sign, const void* r_y,
                                       const void* r_sign, const void* ak_digits,
                                       const void* z_digits, const void* consts13,
-                                      void* table, void* pvalid, void* partial, void* v_a,
-                                      void* v_r, void* valid, int B, int chains,
-                                      void* stream) {
-  if (!chains_ok(B, chains)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int points = 2 * B;
-  msm_table_kernel<<<(points + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (const int16_t*)a_y, (const int8_t*)a_sign, (const int16_t*)r_y,
-      (const int8_t*)r_sign, (const int32_t*)consts13, (gc*)table, (uint8_t*)pvalid, B);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int work = (kWa + kWr) * chains > B ? (kWa + kWr) * chains : B;
-  return msm_lanes<kWa, kWr>((const gc*)table, (const int8_t*)ak_digits,
-                             (const int8_t*)z_digits, (const uint8_t*)pvalid, (ge*)partial,
-                             (bool*)valid, (int32_t*)v_a, (int32_t*)v_r,
-                             (const int32_t*)consts13, B, chains, work, s);
+                                      void* partial, void* v_a, void* v_r, void* valid, int B,
+                                      int chains, int tile, int smem, void* stream) {
+  return launch_lanes<kWa, kWr, true>(
+      (const int16_t*)a_y, (const int8_t*)a_sign, (const int16_t*)r_y, (const int8_t*)r_sign,
+      nullptr, (const int8_t*)ak_digits, (const int8_t*)z_digits, (const int32_t*)consts13,
+      (int32_t*)partial, (int32_t*)v_a, (int32_t*)v_r, (bool*)valid, B, chains, tile, smem,
+      (cudaStream_t)stream);
 }
 
 extern "C" int ed25519_msm_window(const void* pts, const void* digits, const void* consts13,
-                                  void* table, void* partial, void* v, int B, int W,
-                                  int chains, void* stream) {
-  if (!chains_ok(B, chains) || (W != kWa && W != kWr)) return (int)cudaErrorInvalidValue;
+                                  void* partial, void* v, int B, int W, int chains, int tile,
+                                  int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  msm_window_table_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (const int32_t*)pts, (const int32_t*)consts13, (gc*)table, B);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const gc* t = (const gc*)table;
   const int8_t* d = (const int8_t*)digits;
   if (W == kWa)
-    return msm_lanes<kWa, 0>(t, d, nullptr, nullptr, (ge*)partial, nullptr, (int32_t*)v,
-                             nullptr, (const int32_t*)consts13, B, chains, kWa * chains, s);
-  return msm_lanes<kWr, 0>(t, d, nullptr, nullptr, (ge*)partial, nullptr, (int32_t*)v,
-                           nullptr, (const int32_t*)consts13, B, chains, kWr * chains, s);
+    return launch_lanes<kWa, 0, false>(nullptr, nullptr, nullptr, nullptr, (const int32_t*)pts,
+                                       d, nullptr, (const int32_t*)consts13, (int32_t*)partial,
+                                       (int32_t*)v, nullptr, nullptr, B, chains, tile, smem, s);
+  if (W == kWr)
+    return launch_lanes<kWr, 0, false>(nullptr, nullptr, nullptr, nullptr, (const int32_t*)pts,
+                                       d, nullptr, (const int32_t*)consts13, (int32_t*)partial,
+                                       (int32_t*)v, nullptr, nullptr, B, chains, tile, smem, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ed25519_msm_shard_reduce(const void* lanes, const void* consts13, void* v, int n,

@@ -21,9 +21,10 @@ Two implementations of each function:
 - the CUDA kernels `csrc/ed25519_verify.cu` (A1: the same verdicts with one
   signature per thread), `csrc/ed25519_staged.cu` (A3-A5: A1 split at the
   JAX stage boundaries, one row per thread) and `csrc/ed25519_msm.cu` (A2
-  and A6: the same window-lane sums, canonical, from one thread per point
-  and per (lane, chain); the shard reduce) work in radix 2^25.5 (10 limbs,
-  64-bit column sums); their shared field layer and its bound argument are
+  and A6: the same window-lane sums, canonical, from one CTA per chain with
+  four threads per point addition, `msm_plan`; the shard reduce) work in
+  radix 2^25.5 (10 limbs, 64-bit column sums); their shared field layer
+  and its bound argument are
   `csrc/ed25519_field.cuh`. Stage outputs keep the JAX layout, int32
   [4, NLIMB, B] radix 2^13 (canonical from a kernel, loose from a plain
   version), so either can feed the next stage.
@@ -752,6 +753,46 @@ def _check_chains(kernel: str, B: int) -> int:
     return C
 
 
+# The launch geometry of `csrc/ed25519_msm.cu` (the kernel checks that the
+# shared bytes it is given are `msm_smem_bytes` of the tile it is given).
+MSM_ENTRIES = 15  # cached multiples P .. 15P a point keeps in shared memory
+MSM_SMEM_LIMIT = 232448  # shared bytes a CTA may use on the H100 (227 KB)
+MSM_STATIC_SMEM = 1024  # kept free for the kernel's static shared memory
+
+
+def msm_smem_bytes(tile: int, wa: int, wr: int = 0) -> int:
+    """Dynamic shared bytes of a CTA whose tiles hold `tile` rows of each lane
+    set (widths wa and wr): per row and set the table (15 entries x 4 fields
+    x 10 int32 limbs), the staged point (4 x 10) and a flags word; per row
+    the digits of every lane (one byte each)."""
+    sets = 2 if wr else 1
+    return tile * (sets * ((MSM_ENTRIES * 4 + 4) * 10 * 4 + 4) + wa + wr)
+
+
+def msm_plan(kernel: str, B: int, wa: int, wr: int = 0) -> dict:
+    """The launch of a window accumulate over B rows and lane sets of wa and
+    wr lanes: one CTA per chain (`ctas` = min(128, B)), 4 threads per lane,
+    and CTA c's rows c, c + C, c + 2C, ... (`rows_per_chain` of them) taken
+    in `tiles` tiles of at most `tile` rows: all of them when their shared
+    memory (`smem` bytes) fits the card beside the static part, else
+    halved (rounding up) until it does."""
+    C = _check_chains(kernel, B)
+    S = B // C
+    tile = S
+    while tile > 1 and msm_smem_bytes(tile, wa, wr) + MSM_STATIC_SMEM > MSM_SMEM_LIMIT:
+        tile = (tile + 1) // 2
+    return {"ctas": C, "threads": 4 * (wa + wr), "rows_per_chain": S, "tile": tile,
+            "tiles": -(-S // tile), "smem": msm_smem_bytes(tile, wa, wr)}
+
+
+def msm_plan_rows(plan: dict, c: int) -> list[list[int]]:
+    """The rows CTA c of `plan` adds, tile by tile, in the order it adds them
+    (the kernel's row j = c + (s0 + p) C for tile start s0 and row p < the
+    tile's rows; the last tile may be short)."""
+    C, tile, S = plan["ctas"], plan["tile"], plan["rows_per_chain"]
+    return [[c + (s0 + p) * C for p in range(min(tile, S - s0))] for s0 in range(0, S, tile)]
+
+
 def _check_msm_inputs(a_y, a_sign, r_y, r_sign, ak_digits, z_digits) -> int:
     B = a_y.shape[0] if a_y.dim() == 2 else -1
     _check_inputs("msm_accumulate", {
@@ -772,30 +813,31 @@ def msm_accumulate(a_y, a_sign, r_y, r_sign, ak_digits, z_digits):
 
     On CPU tensors: the plain version (loose limbs). On CUDA tensors: the
     kernels of `csrc/ed25519_msm.cu` (int16 limbs, int8 signs and digits,
-    the host layout), launched on the current stream, whose V lanes are
-    canonical limbs of the same values mod p; a failed build or launch
-    raises."""
+    the host layout; `msm_plan`'s geometry, a chain launch and a tree
+    launch on the current stream), whose V lanes are canonical limbs of the
+    same projective points (equal as affine points; validity bit-equal); a
+    failed build or launch raises."""
     dev = a_y.device
     if dev.type == "cpu":
         return msm_accumulate_plain(a_y, a_sign, r_y, r_sign, ak_digits, z_digits)
     if dev.type != "cuda":
         raise ValueError(f"msm_accumulate: unsupported device {dev}")
     B = _check_msm_inputs(a_y, a_sign, r_y, r_sign, ak_digits, z_digits)
-    C = _check_chains("msm_accumulate", B)
+    plan = msm_plan("msm_accumulate", B, MSM_WA, MSM_WR)
     v_a = torch.empty((4, NLIMB, MSM_WA), dtype=torch.int32, device=dev)
     v_r = torch.empty((4, NLIMB, MSM_WR), dtype=torch.int32, device=dev)
     valid = torch.empty((B,), dtype=torch.bool, device=dev)
-    # Scratch: the cached tables (2B points x 16 entries x 4 coords x 10
-    # limbs), each point's validity, and the chain sums (96 lanes x C
-    # chains x 4 coords x 10 limbs).
-    table = torch.empty((2 * B * 16 * 40,), dtype=torch.int32, device=dev)
-    pvalid = torch.empty((2 * B,), dtype=torch.uint8, device=dev)
-    partial = torch.empty(((MSM_WA + MSM_WR) * C * 40,), dtype=torch.int32, device=dev)
     _launch("ed25519_msm", "ed25519_msm_accumulate", "msm_accumulate", dev, (
         a_y, a_sign, r_y, r_sign, ak_digits, z_digits, _const("KERNEL_CONSTS", dev),
-        table, pvalid, partial, v_a, v_r, valid,
-    ), (B, C))
+        _msm_chain_sums(plan, MSM_WA + MSM_WR, dev), v_a, v_r, valid,
+    ), (B, plan["ctas"], plan["tile"], plan["smem"]))
     return v_a, v_r, valid
+
+
+def _msm_chain_sums(plan: dict, lanes: int, dev) -> torch.Tensor:
+    """Scratch for the chain sums the tree reads: C chains x lanes x 4
+    coordinates x 10 limbs."""
+    return torch.empty((plan["ctas"] * lanes * 40,), dtype=torch.int32, device=dev)
 
 
 def msm_window_plain(pts, digits, chunk=MSM_CHUNK):
@@ -811,9 +853,10 @@ def msm_window_plain(pts, digits, chunk=MSM_CHUNK):
 
 def msm_window(pts, digits):
     """A6: `msm_window_plain`'s signature and results (the kernel's lanes
-    canonical, the same points). On CUDA tensors the kernels of
+    canonical, the same projective points). On CUDA tensors the kernels of
     `csrc/ed25519_msm.cu` (int32 points, int8 digits of the A scalars' 64
-    or the R scalars' 32 lanes), with A2's min(128, B) chains."""
+    or the R scalars' 32 lanes), A2's kernels over one lane set:
+    `msm_plan`'s geometry, A2's min(128, B) chains."""
     dev = pts.device
     if dev.type == "cpu":
         return msm_window_plain(pts, digits)
@@ -827,15 +870,11 @@ def msm_window(pts, digits):
         "pts": _points_spec(pts, B),
         "digits": (digits, torch.int8, (B, W)),
     }, dev)
-    C = _check_chains("msm_window", B)
+    plan = msm_plan("msm_window", B, W)
     v = torch.empty((4, NLIMB, W), dtype=torch.int32, device=dev)
-    # Scratch: the cached tables (B points x 16 entries x 4 coords x 10
-    # limbs) and the chain sums (W lanes x C chains x 4 coords x 10 limbs).
-    table = torch.empty((B * 16 * 40,), dtype=torch.int32, device=dev)
-    partial = torch.empty((W * C * 40,), dtype=torch.int32, device=dev)
     _launch("ed25519_msm", "ed25519_msm_window", "msm_window", dev, (
-        pts, digits, _const("KERNEL_CONSTS", dev), table, partial, v,
-    ), (B, W, C))
+        pts, digits, _const("KERNEL_CONSTS", dev), _msm_chain_sums(plan, W, dev), v,
+    ), (B, W, plan["ctas"], plan["tile"], plan["smem"]))
     return v
 
 
@@ -891,8 +930,9 @@ def msm_field_ops(points: int, a_live: int, r_live: int, batch: int, chunk: int 
     8-mul cached add per window lane of its slot (64 for A, 32 for R); and
     for each lane of a slot with a live point, the chain tree's C - 1
     nine-mul adds. Zero rows (padding, the group lane's all-zero R slot)
-    select the identity: the kernel runs them, the data does not need
-    them, so they are not counted."""
+    select the identity: the data does not need them (the kernel skips a
+    point's table and a warp's adds when all their digits are zero), so
+    they are not counted."""
     c = min(chunk, batch)
     sq = 255 * points
     mul = 20 * points + 127 * (a_live + r_live) + 8 * (MSM_WA * a_live + MSM_WR * r_live)

@@ -120,7 +120,8 @@ def build(stems=None) -> dict[str, float]:
             out = _target(stem)
             if out.exists():
                 _WALLS[stem] = 0.0
-                _LOGS[stem] = "(reused an earlier build)"
+                saved = out.with_suffix(".log")  # the build's ptxas report, kept beside it
+                _LOGS[stem] = saved.read_text() if saved.exists() else "(reused an earlier build)"
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
@@ -138,6 +139,7 @@ def build(stems=None) -> dict[str, float]:
             if proc.returncode != 0:
                 failed.append(f"{stem}.cu (rc={proc.returncode}):\n{log}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -78,19 +78,23 @@ def test_verify_batch_kernel_matches_plain_full_bucket():
     assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
 
 
-@pytest.mark.parametrize("bucket", [64, 2048])
+MSM_BUCKETS = [16, 64, 512, 1024, 2048, 8192]  # smallest .. largest; 1024 a shard's
+
+
+@pytest.mark.parametrize("bucket", MSM_BUCKETS)
 def test_msm_accumulate_kernel_matches_plain(bucket):
     """A2 in the group-lane shape (compact proofs as doubled rows, zero
     padding, the R slot all zero) and the item shape (real R and z digits, a
     torsion row, an invalid encoding): validity bit-equal, every window lane
-    equal as an affine point, the epilogue verdict equal."""
+    equal as an affine point, the epilogue verdict equal. At 8192 rows the
+    kernel takes its rows in two tiles of shared memory."""
     _need_card("msm_accumulate", "csrc/ed25519_msm.cu")
     from narwhal_tpu_torch.fixtures import CommitteeFixture
     from narwhal_tpu_torch.gpu.verifier import msm_epilogue_check
 
-    f = CommitteeFixture(size=4 if bucket == 64 else 50)
+    f = CommitteeFixture(size=4 if bucket <= 64 else 50)
     group = chip_smoke.msm_group_bucket(f, bucket)
-    item = chip_smoke.msm_item_bucket(3, 40, bucket)
+    item = chip_smoke.msm_item_bucket(3, 40 if bucket >= 64 else 4, bucket)
     for arrays, sum_s, want_ok in ((group[0], group[1], True), (item[0], item[1], False)):
         t = [torch.from_numpy(a).cuda() for a in arrays]
         kernel_registry.reset_launch_counts()
@@ -144,16 +148,19 @@ def test_staged_kernels_match_plain_and_verify_batch(staged_bucket):
     assert 0 < int(strict.sum()) < int(cof.sum()) < 2048  # torsion rows: cofactored only
 
 
+@pytest.mark.parametrize("bucket", [16, 512, 1024, 2048, 8192])
 @pytest.mark.parametrize("shape", ["item", "group"])
-def test_msm_window_kernel_matches_plain_and_msm_accumulate(shape):
-    """A6 over the A (64 lanes) and R (32 lanes) sets of the msm buckets at
-    B = 2048, equal to its plain version as affine points; A3 -> A6 equal
-    to A2 (lanes as points, validity bit for bit)."""
+def test_msm_window_kernel_matches_plain_and_msm_accumulate(shape, bucket):
+    """A6 over the A (64 lanes) and R (32 lanes) sets of the msm buckets,
+    equal to its plain version as affine points; A3 -> A6 equal to A2
+    (lanes as points, validity bit for bit)."""
     _need_card("msm_window", "csrc/ed25519_msm.cu")
     from narwhal_tpu_torch.fixtures import CommitteeFixture
 
-    host = (chip_smoke.msm_item_bucket(3, 40, 2048)[0] if shape == "item"
-            else chip_smoke.msm_group_bucket(CommitteeFixture(size=50), 2048)[0])
+    host = (chip_smoke.msm_item_bucket(3, 40 if bucket >= 64 else 4, bucket)[0]
+            if shape == "item"
+            else chip_smoke.msm_group_bucket(CommitteeFixture(size=50 if bucket > 64 else 4),
+                                             bucket)[0])
     t = [torch.from_numpy(a).cuda() for a in host]
     va, vr, valid = tk.msm_accumulate(*t)
     pa, a_valid = tk.verify_decompress(t[0], t[1])

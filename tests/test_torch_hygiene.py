@@ -1,7 +1,8 @@
 """Hygiene of the PyTorch port: it stands alone, and it never falls back to
 the CPU on its own.
 
-- No module of `narwhal_tpu_torch/` and not `chip_smoke.py` imports `jax` or
+- No module of `narwhal_tpu_torch/`, not `chip_smoke.py` and not
+  `msm_breakdown.py` imports `jax` or
   anything of `narwhal_tpu` (an AST scan, so a lazy import inside a
   function counts too).
 - Entry points resolve a missing `device` to CUDA and raise when CUDA is
@@ -35,7 +36,7 @@ def _imports(path: Path) -> set[str]:
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "msm_breakdown.py"]
     assert len(files) > 15
     return files
 
