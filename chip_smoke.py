@@ -245,7 +245,8 @@ def device_breakdown(fn, device, reps: int = 20) -> tuple[float | None, dict]:
             if dev_us is None:
                 dev_us = getattr(evt, "self_cuda_time_total", 0)
             if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-                name = evt.key.split("(")[0].replace("void ", "").strip()
+                name = evt.key.replace("(anonymous namespace)::", "").split("(")[0]
+                name = name.replace("void ", "").strip()
                 per[name] = per.get(name, 0.0) + dev_us / evt.count / 1e3
         if per:
             return sum(per.values()), per
@@ -299,10 +300,15 @@ def ptxas_report(stem: str) -> dict:
 
     out, name = {}, None
     for line in kernel_registry.build_logs().get(stem, "").splitlines():
-        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '_Z(\w+)'", line)
         if m:
-            n = int(m.group(1))
-            base, rest = m.group(2)[:n], m.group(2)[n:]
+            sym = m.group(1)
+            if sym.startswith("N"):  # a namespace (anonymous or named) before the name
+                k = re.match(r"N(\d+)", sym)
+                sym = sym[k.end() + int(k.group(1)):]
+            k = re.match(r"(\d+)", sym)
+            n = int(k.group(1))
+            base, rest = sym[k.end():k.end() + n], sym[k.end() + n:]
             targs = rest.split("EEv")[0] + "E" if rest.startswith("I") else ""
             args = re.findall(r"L[ib](\d+)E", targs)
             name = base + (f"<{', '.join(args)}>" if args else "")
@@ -665,6 +671,35 @@ def check_msm_shapes(device, bucket_sizes=(16, 512, 1024, 8192), n_keys: int = 3
     return err
 
 
+def decompress_rows(rng: np.random.Generator, b: int, pool: int = 32):
+    """A3 inputs, y limbs [b, 20] int16 and signs [b] int8: the edge
+    encodings first (y = 0, 1, p - 1, p and p + 3 and 2^255 - 1 (not
+    canonical), each with both signs), then by turns the y of a multiple of
+    the base point (a pool of `pool`) with its x's sign bit or the other
+    one, and a random 255-bit y (about half are not on the curve)."""
+    from narwhal_tpu_torch.gpu import ed25519
+    from narwhal_tpu_torch.gpu import ed25519_ref as ref
+
+    points = [ref.affine(ref.point_mul(int(rng.integers(1, 2**62)) * 977 + i, ref.G))
+              for i in range(pool)]
+    ys, signs = [], []
+    for y in (0, 1, ref.P - 1, ref.P, ref.P + 3, (1 << 255) - 1):
+        ys += [y, y]
+        signs += [0, 1]
+    i = 0
+    while len(ys) < b:
+        if i % 2 == 0:
+            x, y = points[(i // 2) % pool]
+            ys.append(y)
+            signs.append((x & 1) ^ ((i // 2) % 5 == 4))
+        else:
+            ys.append(int.from_bytes(rng.bytes(32), "little") & ((1 << 255) - 1))
+            signs.append(int(rng.integers(0, 2)))
+        i += 1
+    rows = np.stack([ed25519.int_to_limbs(y) for y in ys[:b]]).astype(np.int16)
+    return rows, np.asarray(signs[:b], np.int8)
+
+
 def _mod_p(v: np.ndarray) -> list:
     """Every coordinate of V [4, NLIMB, n] as its value mod p."""
     from narwhal_tpu_torch.gpu import ed25519
@@ -718,6 +753,19 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
         if _mod_p(pt.cpu().numpy()) != _mod_p(p_pt.cpu().numpy()):
             raise AssertionError(f"verify_decompress {name}: coordinates differ mod p")
     n_invalid = int((~a_valid).sum() + (~r_valid).sum())
+    dec_rows = {}
+    for b in (1, 7, 1024, 2048, 8192):
+        rows, signs = decompress_rows(np.random.default_rng(b), b)
+        y, sg = torch.from_numpy(rows).to(device), torch.from_numpy(signs).to(device)
+        pt, valid = ed25519.verify_decompress(y, sg)
+        p_pt, p_valid = ed25519.verify_decompress_plain(y, sg)
+        _same_bits(f"verify_decompress B={b} valid", valid, p_valid)
+        if _mod_p(pt.cpu().numpy()) != _mod_p(p_pt.cpu().numpy()):
+            raise AssertionError(f"verify_decompress B={b}: coordinates differ mod p")
+        dec_rows[b] = (y, sg)
+    log("verify_decompress: B in (1, 7, 1024, 2048, 8192), the edge encodings (y = 0, 1, "
+        "p - 1, p, p + 3, 2^255 - 1, both signs), points with either sign, random y: valid "
+        "bit-equal, coordinates equal mod p")
     acc = ed25519.verify_straus(a_pt, kd, sd)
     errs["verify_straus"] = _same_points("verify_straus", acc,
                                          ed25519.verify_straus_plain(a_pt, kd, sd))
@@ -838,6 +886,23 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
     rows[0]["extra"] = {"staged_item_ms": time_ms(staged_item, device, reps=5),
                         "verify_batch_ms": time_ms(lambda: ed25519.verify_batch(*item_t),
                                                    device, reps=5)}
+    # A3's device time at the bucket, and at a shard's 1024 rows (the sharded
+    # path's launches) on decompress_rows' inputs.
+    rows[0]["extra"]["device_ms"] = device_breakdown(
+        lambda: ed25519.verify_decompress(a_y, a_sign), device)[0]
+    y1, s1 = dec_rows[1024]
+    rows[0]["extra"].update({
+        "ms_b1024": time_ms(lambda: ed25519.verify_decompress(y1, s1), device, reps=5),
+        "device_ms_b1024": device_breakdown(lambda: ed25519.verify_decompress(y1, s1),
+                                            device)[0],
+        "plain_ms_b1024": time_ms(lambda: ed25519.verify_decompress_plain(y1, s1), device,
+                                  reps=1, groups=plain_reps),
+        "bound_ms_b1024": bound_ms(1024 * (2 * 20 + 1) + 4 * 20 * 4 * 1024 + 1024,
+                                   ops_of("verify_decompress", 1024))[0],
+    })
+    log(f"  verify_decompress: B={bucket} events {rows[0]['ms']:.4f} ms, device "
+        f"{rows[0]['extra']['device_ms']} ms; B=1024 events "
+        f"{rows[0]['extra']['ms_b1024']:.4f} ms, device {rows[0]['extra']['device_ms_b1024']} ms")
     log(f"  staged item path (A3 x2, A4, A5) {rows[0]['extra']['staged_item_ms']:.4f} ms "
         f"beside verify_batch {rows[0]['extra']['verify_batch_ms']:.4f} ms at B={bucket}")
     return rows
@@ -974,6 +1039,46 @@ def healed_partition_chain(rng: np.random.Generator, w: int, n: int, gc_depth: i
     return parent, present, lc, int(lc.max()), offs, onehots
 
 
+def chain_inputs(rng: np.random.Generator, w: int, n: int, rows, density: float = 0.7):
+    """A random window and one commit event's chain, as numpy inputs of
+    chain_commit: (parent, present, lc_rel, lcr_rel, offs, onehots). The
+    leaders sit at `rows` (oldest first; None is a padding slot), each at a
+    random authority whose certificate is present and not yet committed; lc
+    is random over the lower half of the window (so some reached
+    certificates are committed already) and lcr its max."""
+    parent = (rng.random((w, n, n)) < density).astype(np.uint8)
+    present = (rng.random((w, n)) < 0.9).astype(np.uint8)
+    lc = rng.integers(-3, max(w // 2, 1), n).astype(np.int32)
+    offs = np.zeros(len(rows), np.int32)
+    onehots = np.zeros((len(rows), n), np.uint8)
+    for k, row in enumerate(rows):
+        if row is None:
+            continue
+        col = int(rng.integers(0, n))
+        offs[k] = row
+        onehots[k, col] = 1
+        present[row, col] = 1
+        lc[col] = min(lc[col], row - 1)  # a leader is not committed yet
+    return parent, present, lc, int(lc.max()), offs, onehots
+
+
+# B2's shapes beyond the main path's healed chains: (W, N, gc_depth, leader
+# rows): the committee at a 32-bit word edge (64, 65), a wide committee
+# (200), the widest the kernel takes (1024) at a short window, leaders on
+# the top row and on row 1, a padding slot between live ones, and a window
+# of 512 rows at N = 50, whose tables outgrow shared memory (the wide walk).
+CHAIN_SHAPES = (
+    (64, 64, GC_DEPTH, (40, None, 58)),
+    (64, 65, GC_DEPTH, (40, None, 58)),
+    (64, 200, GC_DEPTH, (50, 58)),
+    (8, 1024, 2, (3, None, 7)),
+    (64, 50, GC_DEPTH, (63,)),
+    (64, 50, GC_DEPTH, (1,)),
+    (128, 50, GC_DEPTH, (1, 120, None, 127)),
+    (512, 50, GC_DEPTH, (200, None, 505)),
+)
+
+
 def gc_filter_effects(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs, onehots):
     """Walk the chain as chain_commit does, with the plain reach_mask on CPU
     tensors, and count the reached, uncommitted certificates that the gc
@@ -1007,48 +1112,93 @@ def gc_filter_effects(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs
 
 
 def check_chain_commit(device, n: int, w: int, gc_depth: int = GC_DEPTH):
+    """B2 against its plain version, bit for bit: the healed-partition
+    chains (K = 1, 2, 4 with a padded slot, where the gc filter provably
+    bites) at W = w and the grown 2w, N = n, at 8w (past shared memory)
+    and at W = w, N = 4n (the wide walk: the partition leaves present,
+    uncommitted columns unreached, so their scans run long), and every shape of
+    CHAIN_SHAPES (committees of 64, 65, 200 and 1024, leaders on the top
+    row and on row 1). Timed at the main path's shape (W = w, K = 1, leader
+    row w - 6): CUDA events, torch.profiler's device time, the row time
+    (the slope to a walk from row 2 of the same window), plain, bound."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
     rng = np.random.default_rng(13)
     out, err = None, 0
-    for K, live in ((1, 1), (2, 2), (4, 3)):
-        parent, present, lc, lcr, offs, onehots = healed_partition_chain(
-            rng, w, n, gc_depth, K, live)
+    # the main path's window, the grown one, and two the wide walk serves:
+    # a window past shared memory and a wider committee
+    for ww, nn in ((w, n), (2 * w, n), (8 * w, n), (w, 4 * n)):
+        for K, live in ((1, 1), (2, 2), (4, 3)):
+            parent, present, lc, lcr, offs, onehots = healed_partition_chain(
+                rng, ww, nn, gc_depth, K, live)
+            t = [torch.from_numpy(a).to(device) for a in (parent, present, lc, offs, onehots)]
+            km = dk.chain_commit(t[0], t[1], gc_depth, t[2], lcr, t[3], t[4])
+            pm = dk.chain_commit_plain(t[0], t[1], gc_depth, t[2], lcr, t[3], t[4])
+            err = max(err, int((km.int() - pm.int()).abs().max()))
+            if not torch.equal(km, pm):
+                raise AssertionError(f"chain_commit W={ww} N={nn} K={K}: kernel != plain")
+            if int(km.sum()) == 0:
+                raise AssertionError(f"chain_commit W={ww} N={nn} K={K}: empty commit masks")
+            hp, hq, hlc, ho, hh = (torch.from_numpy(a)
+                                   for a in (parent, present, lc, offs, onehots))
+            counts, masks = gc_filter_effects(hp, hq, gc_depth, hlc, lcr, ho, hh)
+            if not torch.equal(masks, pm.cpu()):
+                raise AssertionError(f"chain_commit W={ww} N={nn} K={K}: the filter walk != plain")
+            need = ("dropped", "by_own_round") + (("by_advanced_lcr",) if live > 1 else ())
+            if any(counts[c] == 0 for c in need):
+                raise AssertionError(f"chain_commit W={ww} N={nn} K={K}: the gc filter does "
+                                     f"not bite: {counts}")
+            log(f"chain_commit W={ww} N={nn} K={K} ({live} leaders): gc filter drops "
+                f"{counts['dropped']}, {counts['by_advanced_lcr']} of them by the advanced "
+                f"lcr; the own-round rule would drop {counts['by_own_round']} more")
+            if ww != w or nn != n or K != 1:
+                continue
+            args = (t[0], t[1], gc_depth, t[2], lcr, t[3], t[4])
+            ms = time_ms(lambda: dk.chain_commit(*args), device, reps=50)
+            plain_ms = time_ms(lambda: dk.chain_commit_plain(*args), device, reps=3)
+            dev_ms, _ = device_breakdown(lambda: dk.chain_commit(*args), device)
+            # Rows above the newest leader are never read: parent rows
+            # 1..max(offs), present rows 0..max(offs), lc, offs, one-hots in;
+            # the K masks out.
+            top = int(offs.max())
+            nbytes = top * n * n + (top + 1) * n + 4 * n + 4 * K + K * n + K * w * n
+            b, by = bound_ms(nbytes)
+            # The time a row costs, measured: the slope between this walk and
+            # one from row 2 of the same window (rows are sequential).
+            low = (*args[:5], torch.full_like(t[3], 2), t[4])
+            low_ms = time_ms(lambda: dk.chain_commit(*low), device, reps=50)
+            low_dev, _ = device_breakdown(lambda: dk.chain_commit(*low), device)
+            # The device slope is the row time; the events slope is reported
+            # too, but at ~20 us of device time it is within the wrapper's
+            # host noise.
+            extra = {"row_ms_events": (ms - low_ms) / (top - 2), "device_ms": dev_ms,
+                     "row_ms": None}
+            if dev_ms is not None and low_dev is not None:
+                extra["row_ms"] = (dev_ms - low_dev) / (top - 2)
+            out = {"name": "chain_commit", "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "shape": f"W={w} N={n} K={K} leader row {top}", "extra": extra}
+            log(f"  chain_commit W={w} N={n} K=1 row {top}: events {ms:.4f} ms, device "
+                f"{dev_ms} ms, a row {extra['row_ms']} ms (device slope), "
+                f"{extra['row_ms_events']} ms (events slope)")
+    for i, (ww, nn, gc, rows) in enumerate(CHAIN_SHAPES):
+        host = chain_inputs(np.random.default_rng(100 + i), ww, nn, rows)
+        parent, present, lc, lcr, offs, onehots = host
         t = [torch.from_numpy(a).to(device) for a in (parent, present, lc, offs, onehots)]
-        km = dk.chain_commit(t[0], t[1], gc_depth, t[2], lcr, t[3], t[4])
-        pm = dk.chain_commit_plain(t[0], t[1], gc_depth, t[2], lcr, t[3], t[4])
+        km = dk.chain_commit(t[0], t[1], gc, t[2], lcr, t[3], t[4])
+        pm = dk.chain_commit_plain(t[0], t[1], gc, t[2], lcr, t[3], t[4])
         err = max(err, int((km.int() - pm.int()).abs().max()))
         if not torch.equal(km, pm):
-            raise AssertionError(f"chain_commit K={K}: kernel != plain")
+            raise AssertionError(f"chain_commit W={ww} N={nn} leaders {rows}: kernel != plain")
         if int(km.sum()) == 0:
-            raise AssertionError(f"chain_commit K={K}: empty commit masks")
-        hp, hq, hlc, ho, hh = (torch.from_numpy(a) for a in (parent, present, lc, offs, onehots))
-        counts, masks = gc_filter_effects(hp, hq, gc_depth, hlc, lcr, ho, hh)
-        if not torch.equal(masks, pm.cpu()):
-            raise AssertionError(f"chain_commit K={K}: the filter walk != plain")
-        need = ("dropped", "by_own_round") + (("by_advanced_lcr",) if live > 1 else ())
-        if any(counts[c] == 0 for c in need):
-            raise AssertionError(f"chain_commit K={K}: the gc filter does not bite: {counts}")
-        log(f"chain_commit K={K} ({live} leaders): gc filter drops {counts['dropped']}, "
-            f"{counts['by_advanced_lcr']} of them by the advanced lcr; the own-round "
-            f"rule would drop {counts['by_own_round']} more")
-        if K != 1:
-            continue
-        args = (t[0], t[1], gc_depth, t[2], lcr, t[3], t[4])
-        ms = time_ms(lambda: dk.chain_commit(*args), device, reps=50)
-        plain_ms = time_ms(lambda: dk.chain_commit_plain(*args), device, reps=3)
-        # Rows above the newest leader are never read: parent rows
-        # 1..max(offs), present rows 0..max(offs), lc, offs, one-hots in;
-        # the K masks out.
-        top = int(offs.max())
-        nbytes = top * n * n + (top + 1) * n + 4 * n + 4 * K + K * n + K * w * n
-        b, by = bound_ms(nbytes)
-        out = {"name": "chain_commit", "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b, "bound_by": by, "library_ms": None,
-               "shape": f"W={w} N={n} K={K} leader row {top}"}
+            raise AssertionError(f"chain_commit W={ww} N={nn} leaders {rows}: empty masks")
+        log(f"chain_commit W={ww} N={nn} gc={gc} leader rows {rows}: kernel == plain "
+            f"({int(km.sum())} kept)")
     out["max_abs_err"] = err
-    log("chain_commit: K in (1, 2, 4 with a padded slot), healed partition: kernel == plain")
+    log(f"chain_commit: K in (1, 2, 4 with a padded slot), healed partition, W = {w}, {2 * w} "
+        f"and {8 * w} at N = {n} and W = {w} at N = {4 * n}, and {len(CHAIN_SHAPES)} more "
+        f"shapes: kernel == plain")
     return out
 
 

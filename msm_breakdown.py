@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Per-launch device times of the window-lane kernels on one NVIDIA card.
+"""Per-launch device times of the window-lane kernels, A3 and B2 on one
+NVIDIA card.
 
     python3 msm_breakdown.py [--package DIR] [--bucket B ...]
 
 For each bucket (default the verifier's 2048 rows and a shard's 1024): A2
 `msm_accumulate` on the group-lane and item buckets of `chip_smoke.py`, A6
 `msm_window` on their A (64 lanes) and R (32 lanes) sets and A3
-`verify_decompress` on their A set. Each is first held against its plain
-version (lanes as affine points, validity bit for bit), then timed: the
-CUDA-event median through the wrapper, and torch.profiler's device time of
-one call split by the kernels it launches. It prints nvcc's ptxas figures
-(registers, spills, shared memory) of the two sources first.
+`verify_decompress` on their A set and on `chip_smoke.decompress_rows`
+(the edge encodings). Then B2 `chain_commit`
+at the main path's shape (W = 64, N = 50, K = 1, the healed-partition chain
+of `chip_smoke.check_chain_commit`, leader row 58), from row 2 of the same
+window (the slope of the two is the time a row costs), with the leader
+repeated four times, and at the shapes the wide walk serves (`WIDE_SHAPES`:
+N = 65, 200, 1024 and a 512-row window at N = 50; `HEALED_WIDE`: its
+slowest case, columns left unreached by a partition). Each is first held
+against its plain version (lanes as affine points, coordinates mod p,
+validity and masks bit for bit), then timed: the CUDA-event median through
+the wrapper, and torch.profiler's device time of one call split by the
+kernels it launches. It prints nvcc's ptxas figures (registers, spills,
+shared memory) of the three sources first.
 
 `--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
 chain kernel then records %globaltimer at four points of each CTA) and
@@ -61,9 +70,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"package {os.path.dirname(ed25519.__file__)}", flush=True)
     print(chip_smoke.card_line(), flush=True)
-    walls = kernel_registry.build(["ed25519_msm", "ed25519_staged"])
+    walls = kernel_registry.build(["ed25519_msm", "ed25519_staged", "dag_window"])
     print("build walls " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
-    for stem in ("ed25519_msm", "ed25519_staged"):
+    for stem in ("ed25519_msm", "ed25519_staged", "dag_window"):
         for kernel, figures in chip_smoke.ptxas_report(stem).items():
             print(f"ptxas {kernel}: {figures}", flush=True)
 
@@ -98,8 +107,79 @@ def main(argv=None) -> int:
                   lambda: ed25519.verify_decompress(t[0], t[1]))
             if args.phases:
                 phases(ed25519, kernel_registry, dev, t, pa, pr, f"{shape} B={bucket}")
+        decompress(chip_smoke, ed25519, dev, bucket, timed)
+    walk(chip_smoke, dev, timed)
     torch.cuda.synchronize()
     return 0
+
+
+def decompress(chip_smoke, ed25519, dev, bucket, timed) -> None:
+    """A3 through its wrapper on decompress_rows, held against its plain
+    version first."""
+    import numpy as np
+    import torch
+
+    rows, signs = chip_smoke.decompress_rows(np.random.default_rng(bucket), bucket)
+    y, sg = torch.from_numpy(rows).to(dev), torch.from_numpy(signs).to(dev)
+    pts, valid = ed25519.verify_decompress(y, sg)
+    p_pts, p_valid = ed25519.verify_decompress_plain(y, sg)
+    chip_smoke._same_bits("A3 valid", valid, p_valid)
+    if chip_smoke._mod_p(pts.cpu().numpy()) != chip_smoke._mod_p(p_pts.cpu().numpy()):
+        raise AssertionError("A3: coordinates differ mod p")
+    timed(f"A3 verify_decompress decompress_rows B={bucket}",
+          lambda: ed25519.verify_decompress(y, sg))
+
+
+# B2's shapes off the main path, which the wide walk serves: (W, N, leader
+# row) for committees of 65, 200 and 1024 and a window of 512 rows at N = 50
+# (its tables outgrow shared memory).
+WIDE_SHAPES = ((64, 65, 58), (64, 200, 58), (64, 1024, 58), (512, 50, 506))
+# and (W, N) of healed-partition chains of two leaders, where the first
+# leader's walk leaves half the committee's present, uncommitted columns
+# unreached: each scans the whole frontier, the wide walk's slowest case.
+HEALED_WIDE = ((64, 200), (64, 1024))
+
+
+def walk(chip_smoke, dev, timed) -> None:
+    """B2 at the main path's shape: from row 58, from row 2, and the leader
+    four times over (three more walks of 58 rows that find nothing new);
+    then at WIDE_SHAPES on chip_smoke.chain_inputs (one leader) and on the
+    HEALED_WIDE chains."""
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    host = chip_smoke.healed_partition_chain(np.random.default_rng(13), 64, 50,
+                                             chip_smoke.GC_DEPTH, 1, 1)
+    parent, present, lc, lcr, offs, onehots = host
+    t = [torch.from_numpy(a).to(dev) for a in (parent, present, lc, offs, onehots)]
+    gc = chip_smoke.GC_DEPTH
+    cases = {"row 58": (t[3], t[4]),
+             "row 2": (torch.full_like(t[3], 2), t[4]),
+             "row 58 x4": (t[3].repeat(4), t[4].repeat(4, 1))}
+    for name, (o, h) in cases.items():
+        got = dk.chain_commit(t[0], t[1], gc, t[2], lcr, o, h)
+        chip_smoke._same_bits(f"B2 {name}", got,
+                              dk.chain_commit_plain(t[0], t[1], gc, t[2], lcr, o, h))
+        timed(f"B2 chain_commit W=64 N=50 {name}",
+              lambda: dk.chain_commit(t[0], t[1], gc, t[2], lcr, o, h))
+    for w, n, row in WIDE_SHAPES:
+        parent, present, lc, lcr, offs, onehots = chip_smoke.chain_inputs(
+            np.random.default_rng(w + n), w, n, (row,))
+        t = [torch.from_numpy(a).to(dev) for a in (parent, present, lc, offs, onehots)]
+        args = (t[0], t[1], gc, t[2], lcr, t[3], t[4])
+        chip_smoke._same_bits(f"B2 W={w} N={n}", dk.chain_commit(*args),
+                              dk.chain_commit_plain(*args))
+        timed(f"B2 chain_commit W={w} N={n} row {row}", lambda: dk.chain_commit(*args))
+    for w, n in HEALED_WIDE:
+        parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
+            np.random.default_rng(w + n), w, n, gc, 2, 2)
+        t = [torch.from_numpy(a).to(dev) for a in (parent, present, lc, offs, onehots)]
+        args = (t[0], t[1], gc, t[2], lcr, t[3], t[4])
+        chip_smoke._same_bits(f"B2 W={w} N={n} healed", dk.chain_commit(*args),
+                              dk.chain_commit_plain(*args))
+        timed(f"B2 chain_commit W={w} N={n} healed K=2 rows {offs.tolist()}",
+              lambda: dk.chain_commit(*args))
 
 
 _PHASE_LIB = []

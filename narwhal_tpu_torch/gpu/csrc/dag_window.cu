@@ -27,12 +27,8 @@
 //   W = 64, N = 50 (160 KB).
 //
 // chain_commit replaces narwhal_tpu/tpu/dag_kernels.py:128 `chain_commit` (B2),
-//   with `reach_mask` (:48, B1) as the device function `reach_step` inside it.
-//   One CTA runs the whole scan over the K chain leaders, oldest first; thread
-//   p owns authority column p (N <= 1024). For each leader it walks rows
-//   W-1 .. 0: the row above's reach set ("frontier") sits in shared memory and
-//   thread p ORs parent[w+1, a, p] over the a with frontier[a] set, which is
-//   the JAX kernel's `links^T @ frontier > 0`. Semantics kept exactly:
+//   with `reach_mask` (:48, B1) inside it, as a walk over packed bits
+//   (dag_walk_bits.cuh). Semantics kept exactly:
 //     - the start row is seeded by the leader's one-hot, rows above it are
 //       empty, a zero one-hot slot reaches nothing (a no-op);
 //     - uncommitted = present & (row > lc[p]) is re-derived per leader from
@@ -40,31 +36,53 @@
 //     - keep = reach & (row + gc_depth >= lcr) with the lcr from BEFORE this
 //       leader's update;
 //     - committed_round[p] = max row with keep, else the sentinel -(2^30);
-//       lc[p] = max(lc[p], committed_round[p]), lcr = max(lcr, max_p ...).
+//       lc[p] = max(lc[p], committed_round[p]), lcr = max(lcr, max_p ...);
+//     - every byte of the [K, W, N] masks is written.
+//   N <= 64 and the window's tables fit in shared memory (W = 64, N = 50:
+//   47 KB; W = 256 at N = 50 on the H100's 227 KB): one CTA of 512
+//   threads packs parent rows 1..top and present rows 0..top (top = the
+//   highest start row of a live leader; rows above it are never read) into
+//   bit strings with 16-byte loads, one bit a byte, and its warps transpose
+//   the parent rows into a column table (32 x 32 bit blocks, five shuffle
+//   rounds each): the parents of column p of row w as two words over the
+//   row's certificates. Then warp 0 walks the leaders in order with no CTA
+//   barrier and no cross-lane reduction: lane l decides columns l and
+//   l + 32 of a row by ANDing their column words with the row above's
+//   reach set (two words in every lane), a ballot makes the row's set,
+//   ANDed with its uncommitted words (present bits and a ballot of
+//   w > lc[p]); the gc test is one compare a row, committed rounds are each
+//   column's first kept row from the top. The other warps expand the
+//   previous leader's kept words into mask bytes (one barrier a leader).
+//   Other shapes (N <= 1024, any W) run chain_commit_wide_kernel
+//   (walk_bits::wide_walk): a thread per column and one barrier a row, the
+//   row above's frontier as packed words in shared memory, and column p
+//   reached when one of the frontier's set bits is its parent, the parent
+//   bytes of eight set bits loaded together (coalesced over the warp's
+//   columns) until one is found.
 //   Bound: bytes. Rows above the newest leader are empty by definition, so
 //   the least traffic is parent rows 1..max(offs) and present rows
 //   0..max(offs) read once, lc, offs and the one-hots read, and the K masks
 //   written: ~150 KB with the leader at row 58 of W = 64, N = 50, K = 1,
-//   well under a microsecond of HBM time. The kernel is latency-bound by its
-//   sequential row steps (two block barriers each), which is why it is one
-//   CTA and not many.
+//   well under a microsecond of HBM time. What is left is the latency of
+//   the packing loads, the walk's dependent row steps (a few warp
+//   reductions each) and the launch.
 //
 // reach_many   replaces narwhal_tpu/consensus/dag.py:262 `_reach_k` (B6), the
 //   jitted vmap of reach_mask over K read starts that serves the Dag
 //   service's coalesced read_causal: masks[k] = reach_mask(parent,
 //   uncommitted, offs[k], onehots[k]) for k < K. One CTA per walk (K CTAs,
 //   the walks are independent), thread p owns authority column p (N <= 1024),
-//   and each row step is the same `reach_step` device function as
-//   chain_commit's, with the same two barriers per row; the frontier sits
-//   in shared memory. `uncommitted` is what the caller passes (the service
+//   and each row step is the `reach_step` device function (the row step
+//   of B2 before its packed-bit form), with two barriers per row; the
+//   frontier sits in shared memory. `uncommitted` is what the caller passes (the service
 //   passes `present`): no lc or gc filter. A padding slot (zero one-hot)
 //   reaches nothing and writes an all-zero mask. W is an argument, so the
 //   window may grow (64, 128, 256, ...) without a rebuild. Bound: bytes,
 //   as for chain_commit: parent rows 1..max(offs) and uncommitted rows
 //   0..max(offs) read once, offs and the one-hots read, and the K masks
-//   written (K * W * N bytes). It inherits chain_commit's latency: W serial
-//   row steps with a dependent-load loop each, and the walk goes on below
-//   an empty frontier.
+//   written (K * W * N bytes). Its latency: W serial row steps with a
+//   dependent-load loop each, and the walk goes on below an empty frontier
+//   (B2's packed-bit walk would serve it too).
 //
 // leader_support replaces narwhal_tpu/tpu/dag_kernels.py:119 `leader_support`
 //   (B5), batched over B walks as __graft_entry__.py:235 vmaps it: out[b] =
@@ -173,9 +191,13 @@
 //   waits on the row above, and a cluster barrier); that floor, not the
 //   bytes, is what the kernel is made of.
 
+#include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
+
+#include "dag_walk_bits.cuh"
 
 namespace {
 
@@ -239,51 +261,122 @@ __device__ __forceinline__ bool reach_step(const uint8_t* __restrict__ parent,
   return reached;
 }
 
-__global__ void chain_commit_kernel(const uint8_t* __restrict__ parent,
-                                    const uint8_t* __restrict__ present,
-                                    const int32_t* __restrict__ lc_rel,
-                                    const int32_t* __restrict__ offs,
-                                    const uint8_t* __restrict__ onehots,
-                                    bool* __restrict__ masks, int W, int N, int K,
-                                    int gc_depth, int lcr_rel) {
-  extern __shared__ uint8_t frontier[];  // [N]
-  __shared__ int s_lcr, s_lcr_next;
-  const int p = threadIdx.x;
-  const bool live = p < N;
-  int lc = live ? lc_rel[p] : 0;
-  if (p == 0) {
-    s_lcr = lcr_rel;
-    s_lcr_next = lcr_rel;
+// chain_commit_kernel's dynamic shared memory, in 32-bit words: the parent
+// string of rows 1..W-1 from byte par_lo and the present string of rows
+// 0..W-1 (two slack words each), the column table [W][N][2], the present
+// rows [W][2], lc [64] and the keep rows [2][W][2].
+struct WalkLayout {
+  long long par_lo, par_words, pre_words, ct_words, total;
+  __host__ __device__ WalkLayout(int W, int N) {
+    par_lo = ((long long)N * N) & ~31LL;
+    par_words = ((long long)W * N * N - par_lo + 31) / 32 + 2;
+    pre_words = ((long long)W * N + 31) / 32 + 2;
+    ct_words = 2LL * W * N;
+    total = par_words + pre_words + ct_words + 2LL * W + 64 + 4LL * W;
+  }
+};
+
+constexpr int kWalkThreads = 512;  // up to 128 registers a thread for the walking warp
+
+// Words [0, n) of the bit string of src bytes [lo, hi), then two zero
+// words, by every thread of the CTA. Where src + lo is 16-byte aligned (the
+// walk's strings start at multiples of 32 bytes of a tensor torch aligns),
+// a thread issues the 16-byte loads of four words before it packs them.
+__device__ void pack_range(uint32_t* dst, const uint8_t* __restrict__ src, long long lo,
+                           long long hi) {
+  const long long n = hi > lo ? (hi - lo + 31) / 32 : 0;
+  const long long full = hi > lo ? (hi - lo) / 32 : 0;  // words of 32 bytes below hi
+  const int nt = blockDim.x;
+  long long i0 = threadIdx.x;
+  if ((((uintptr_t)(src + lo)) & 15) == 0) {
+    const uint4* v = (const uint4*)(src + lo);
+    constexpr int U = 4;
+    for (; i0 + (long long)(U - 1) * nt < full; i0 += (long long)U * nt) {
+      uint4 x[U][2];
+#pragma unroll
+      for (int u = 0; u < U; u++) {
+        x[u][0] = __ldg(v + 2 * (i0 + u * nt));
+        x[u][1] = __ldg(v + 2 * (i0 + u * nt) + 1);
+      }
+#pragma unroll
+      for (int u = 0; u < U; u++) {
+        const uint32_t q[8] = {x[u][0].x, x[u][0].y, x[u][0].z, x[u][0].w,
+                               x[u][1].x, x[u][1].y, x[u][1].z, x[u][1].w};
+        uint32_t w = 0;
+#pragma unroll
+        for (int k = 0; k < 8; k++) w |= walk_bits::nz_nibble(q[k]) << (4 * k);
+        dst[i0 + u * nt] = w;
+      }
+    }
+  }
+  for (long long i = i0; i < n + 2; i += nt) {
+    dst[i] = i < n ? walk_bits::pack_word(src, lo, hi, i) : 0u;
+  }
+}
+
+// B2 for N <= 64 with the window's strings in shared memory (see the head of
+// this file): pack, transpose, then warp 0 walks the leaders while the
+// other warps write the previous leader's masks.
+__global__ void __launch_bounds__(kWalkThreads)
+chain_commit_kernel(const uint8_t* __restrict__ parent, const uint8_t* __restrict__ present,
+                    const int32_t* __restrict__ lc_rel, const int32_t* __restrict__ offs,
+                    const uint8_t* __restrict__ onehots, bool* __restrict__ masks, int W, int N,
+                    int K, int gc_depth, int lcr_rel) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int s_top;
+  const WalkLayout lay(W, N);
+  uint32_t* s_par = smem;
+  uint32_t* s_pre = s_par + lay.par_words;
+  uint32_t* s_ct = s_pre + lay.pre_words;
+  uint32_t* s_prw = s_ct + lay.ct_words;  // [W][2]
+  int* s_lc = (int*)(s_prw + 2 * W);
+  uint32_t* s_keep = (uint32_t*)(s_lc + 64);  // [2][W][2], by leader parity
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5;
+  const walk_bits::WarpLanes lanes{tid & 31};
+  if (tid == 0) s_top = -1;
+  for (int p = tid; p < 64; p += nt) s_lc[p] = p < N ? lc_rel[p] : 0;
+  __syncthreads();
+  for (int i = tid; i < K * N; i += nt) {  // the highest start row of a live leader
+    if (onehots[i]) atomicMax(&s_top, min(offs[i / N], W - 1));
   }
   __syncthreads();
-  for (int k = 0; k < K; k++) {
-    const int start_off = offs[k];
-    const bool start_bit = live && onehots[(size_t)k * N + p] != 0;
-    const int lcr = s_lcr;
-    int committed = -(1 << 30);
-    if (live) frontier[p] = 0;
-    __syncthreads();
-    for (int w = W - 1; w >= 0; w--) {
-      bool here = false;
-      if (live) {
-        here = reach_step(parent, frontier, w, W, N, N, p, start_off, start_bit);
-        here = here && present[(size_t)w * N + p] != 0 && w > lc;  // uncommitted
-        const bool keep = here && (w + gc_depth >= lcr);
-        masks[((size_t)k * W + w) * N + p] = keep;
-        if (keep && w > committed) committed = w;
+  const int top = s_top;  // rows above it are never read
+  pack_range(s_par, parent, lay.par_lo, top >= 1 ? (long long)(top + 1) * N * N : lay.par_lo);
+  pack_range(s_pre, present, 0, (long long)(top + 1) * N);
+  __syncthreads();
+  walk_bits::column_table(lanes, s_par, (int)lay.par_lo, s_pre, N, top, s_ct, s_prw, warp,
+                          nt >> 5);
+  __syncthreads();
+  const walk_bits::Tables t{s_ct, s_prw, N};
+  int lcr = lcr_rel;  // warp 0's
+  for (int k = 0; k <= K; k++) {
+    if (warp == 0 && k < K) {
+      walk_bits::walk_leader(lanes, t, onehots + (size_t)k * N, offs[k], W, gc_depth, s_lc, lcr,
+                             s_keep + (size_t)(k & 1) * 2 * W);
+    } else if (k > 0) {  // leader k - 1's masks from its keep rows, every byte
+      const uint32_t* kp = s_keep + (size_t)((k - 1) & 1) * 2 * W;
+      bool* out = masks + (size_t)(k - 1) * W * N;
+      const int t0 = k == K ? tid : tid - 32, tn = k == K ? nt : nt - 32;
+      for (int i = t0; i < W * N; i += tn) {
+        const int w = i / N, p = i - w * N;
+        out[i] = (kp[2 * w + (p >> 5)] >> (p & 31)) & 1u;
       }
-      __syncthreads();  // every column has read the row above
-      if (live) frontier[p] = here;
-      __syncthreads();  // the row is complete before the next step reads it
     }
-    if (live) {
-      if (committed > lc) lc = committed;
-      atomicMax(&s_lcr_next, committed);
-    }
-    __syncthreads();
-    if (p == 0) s_lcr = max(s_lcr, s_lcr_next);
     __syncthreads();
   }
+}
+
+// B2 for N > 64, or a window whose strings do not fit in shared memory:
+// walk_bits::wide_walk on a CTA of 32 * ceil(N / 32) threads.
+__global__ void __launch_bounds__(1024)
+chain_commit_wide_kernel(const uint8_t* __restrict__ parent, const uint8_t* __restrict__ present,
+                         const int32_t* __restrict__ lc_rel, const int32_t* __restrict__ offs,
+                         const uint8_t* __restrict__ onehots, bool* __restrict__ masks, int W,
+                         int N, int K, int gc_depth, int lcr_rel) {
+  extern __shared__ uint32_t sm[];
+  __shared__ int s_cand[2];
+  walk_bits::wide_walk(walk_bits::CtaThreads{(int)threadIdx.x, (int)blockDim.x}, parent, present,
+                       lc_rel, offs, onehots, masks, W, N, K, gc_depth, lcr_rel, sm, s_cand);
 }
 
 __global__ void reach_many_kernel(const uint8_t* __restrict__ parent,
@@ -648,15 +741,50 @@ extern "C" int dag_window_roll_window(const void* parent, const void* present,
   return (int)cudaGetLastError();
 }
 
+// chain_commit_kernel's shared-memory limits per card: the opt-in maximum,
+// read once, and the largest dynamic size set on the kernel so far, so a
+// launch calls cudaFuncSetAttribute only when it needs more than that.
+constexpr int kMaxCards = 64;
+static std::atomic<int> g_walk_optin[kMaxCards];
+static std::atomic<int> g_walk_smem[kMaxCards];
+static std::mutex g_walk_smem_lock;
+
 extern "C" int dag_window_chain_commit(const void* parent, const void* present,
                                        const void* lc_rel, const void* offs,
                                        const void* onehots, void* masks, int W, int N,
                                        int K, int gc_depth, int lcr_rel, void* stream) {
-  const int threads = ((N + 31) / 32) * 32;
-  chain_commit_kernel<<<1, threads, (size_t)N, (cudaStream_t)stream>>>(
-      (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)lc_rel,
-      (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks, W, N, K, gc_depth,
-      lcr_rel);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  int optin = g_walk_optin[dev].load(std::memory_order_relaxed);
+  if (optin == 0) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return (int)e;
+    g_walk_optin[dev].store(optin, std::memory_order_relaxed);
+  }
+  const size_t bytes = (size_t)WalkLayout(W, N).total * 4;
+  if (N <= 64 && bytes <= (size_t)optin) {
+    if (bytes > 48 * 1024 && (int)bytes > g_walk_smem[dev].load(std::memory_order_acquire)) {
+      std::lock_guard<std::mutex> hold(g_walk_smem_lock);  // the size set only grows
+      if ((int)bytes > g_walk_smem[dev].load(std::memory_order_relaxed)) {
+        e = cudaFuncSetAttribute(chain_commit_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (e != cudaSuccess) return (int)e;
+        g_walk_smem[dev].store((int)bytes, std::memory_order_release);
+      }
+    }
+    chain_commit_kernel<<<1, kWalkThreads, bytes, (cudaStream_t)stream>>>(
+        (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)lc_rel,
+        (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks, W, N, K, gc_depth,
+        lcr_rel);
+  } else {
+    const int nw = (N + 31) / 32;
+    chain_commit_wide_kernel<<<1, 32 * nw, (size_t)2 * nw * 4, (cudaStream_t)stream>>>(
+        (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)lc_rel,
+        (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks, W, N, K, gc_depth,
+        lcr_rel);
+  }
   return (int)cudaGetLastError();
 }
 

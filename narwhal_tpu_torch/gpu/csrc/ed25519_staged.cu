@@ -1,6 +1,7 @@
-// The staged per-item ed25519 verify, three kernels for Hopper (sm_90a), one
-// row per thread: the stages that the mesh-sharded verifier runs on every
-// shard in place of A1's single launch.
+// The staged per-item ed25519 verify, three kernels for Hopper (sm_90a): the
+// stages that the mesh-sharded verifier runs on every shard in place of A1's
+// single launch. A3 runs a group of ten lanes a row (ed25519_lanes.cuh), A4
+// and A5 a thread a row.
 //
 // Replaces (narwhal_tpu/tpu/ed25519.py):
 //   A3 :485 `verify_decompress_kernel`  y int16 [B, 20], sign int8 [B]
@@ -22,10 +23,10 @@
 // decompression's arithmetic on that y, as in the plain version, because A6
 // sums invalid rows into V as A2 does.
 //
-// The arithmetic is A1's: A3 is `decompress` (ed25519_field.cuh), A4 the
-// walk and A5 the epilogue of ed25519_straus.cuh, so A3 -> A4 -> A5 gives
-// A1's verdicts bit for bit (chip_smoke.py and tests/test_torch_cuda.py
-// check it).
+// The arithmetic is A1's: A3 is `decompress` (ed25519_field.cuh) split over
+// ten lanes, which gives the same canonical limbs, A4 the walk and A5 the
+// epilogue of ed25519_straus.cuh, so A3 -> A4 -> A5 gives A1's verdicts bit
+// for bit (chip_smoke.py and tests/test_torch_cuda.py check it).
 //
 // What bounds it on the H100: integer multiplies, as A1. Per row A3 is
 // 255 squarings + 20 products (it runs twice, for A and R), A4 1024 + 2111,
@@ -33,26 +34,19 @@
 // multiply-adds each. The boundary traffic A1 does not pay, 320 bytes a
 // point written and read back per stage, is ~1 MB per 2048-row bucket and
 // point set: noise beside ~0.6 G multiply-adds. A4 keeps A1's per-thread
-// 16-entry table (2.5 KB, local memory) and 32 threads a block; A3 and A5
-// hold no table and run 64 a block.
+// 16-entry table (2.5 KB, local memory) and 32 threads a block; A5 holds no
+// table and runs 64 a block. A3 is one dependent chain of 275 operations a
+// row; one thread a row left the card nearly empty (32 CTAs at B = 2048) and
+// every operation's products serial, so ten lanes split each operation by
+// column, a CTA is one warp (3 rows: 342 CTAs at a shard's 1024 rows, 683
+// at 2048).
 
+#include "ed25519_lanes.cuh"
 #include "ed25519_straus.cuh"
 
 namespace ed25519_staged {
 
 using namespace ed25519_straus;
-
-// A3 for row b.
-template <typename L, typename S>
-HD void decompress_row(const L* y, const S* sign, const Consts& k, i32* pts, bool* valid,
-                       int B, int b) {
-  fe yf;
-  fe_from13(yf, y + (size_t)b * 20);
-  ge P;
-  const bool v = decompress(P, yf, (i32)sign[b], k);
-  pt_store13(P, pts, B, b);
-  valid[b] = v;
-}
 
 // A4 for row b; tab is the thread's table.
 template <typename D>
@@ -86,19 +80,23 @@ HD void verdict_row(const i32* acc_pt, const i32* r_pt, const L* r_y, const S* r
 using namespace ed25519_staged;
 
 constexpr int kThreads = 64;
+constexpr int kLaneRows = 3;      // A3: one warp, three groups of ten lanes
 constexpr int kStrausThreads = 32;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32)
 decompress_kernel(const int16_t* __restrict__ y, const int8_t* __restrict__ sign,
                   const int32_t* __restrict__ consts13, int32_t* __restrict__ pts,
                   bool* __restrict__ valid, int B) {
   __shared__ Consts s_k;
   for (int t = threadIdx.x; t < 3; t += blockDim.x) load_consts(t, consts13, s_k);
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const int g = threadIdx.x / ed25519_lanes::kLanes, q = threadIdx.x - g * ed25519_lanes::kLanes;
+  const int row = blockIdx.x * kLaneRows + g;
+  const bool live = g < kLaneRows && row < B;  // lanes 30 and 31 and groups past B run along
   const Consts k = s_k;
-  decompress_row(y, sign, k, pts, valid, B, b);
+  const ed25519_lanes::Lanes10Shfl x{g * ed25519_lanes::kLanes};
+  ed25519_lanes::decompress_lanes_row(y, sign, k, pts, valid, B, live ? row : B - 1,
+                                      ed25519_lanes::lane_of(q), x, live);
 }
 
 __global__ void __launch_bounds__(kStrausThreads)
@@ -134,7 +132,7 @@ verdict_kernel(const int32_t* __restrict__ acc_pt, const int32_t* __restrict__ r
 extern "C" int ed25519_verify_decompress(const void* y, const void* sign,
                                          const void* consts13, void* pts, void* valid,
                                          int B, void* stream) {
-  decompress_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+  decompress_kernel<<<(B + kLaneRows - 1) / kLaneRows, 32, 0, (cudaStream_t)stream>>>(
       (const int16_t*)y, (const int8_t*)sign, (const int32_t*)consts13, (int32_t*)pts,
       (bool*)valid, B);
   return (int)cudaGetLastError();

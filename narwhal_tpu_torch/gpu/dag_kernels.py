@@ -23,9 +23,10 @@ The window is dense tensors, exactly the JAX layout:
 Each kernel has a plain PyTorch version (`*_plain`) in this module and a
 hand-written CUDA kernel in `csrc/dag_window.cu`; the public function runs
 the plain version on CPU tensors and launches the kernel on CUDA tensors
-(or raises). `reach_mask` runs on the card as the device function
-`reach_step` inside `chain_commit` and `reach_many`, so the public
-`reach_mask` here is the plain version.
+(or raises). `reach_mask` runs on the card inside `chain_commit` (a walk
+over packed bits, `csrc/dag_walk_bits.cuh`) and as the device function
+`reach_step` inside `reach_many`, `sharded_walk` and `reach_shard_step`, so
+the public `reach_mask` here is the plain version.
 
 The JAX engine's background prewarm threads are not ported: they existed to
 compile each new window shape ahead of need, and the CUDA kernels here take
@@ -47,7 +48,7 @@ from . import HostCopy, kernel_registry, resolve_device
 from . import mesh as mesh_mod
 
 _SENTINEL = -(2**30)
-_MAX_N = 1024  # chain_commit: one thread per authority column in one CTA
+_MAX_N = 1024  # the walks' kernels: at most one thread per authority column in one CTA
 
 
 # ---------------------------------------------------------------------------
@@ -317,8 +318,10 @@ def place_batch(parent, present, offs, idxs, rows, valid):
 
 
 def chain_commit(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs, onehots):
-    """`chain_commit_plain` on CPU tensors; on CUDA tensors the one-CTA
-    `dag_window.cu` kernel (reach_mask inside it as a device function)."""
+    """`chain_commit_plain` on CPU tensors; on CUDA tensors one launch of a
+    one-CTA `dag_window.cu` kernel: the packed-bit walk of one warp (N <= 64
+    with the window's tables in shared memory), else a thread per column
+    and one barrier a row (any W, N <= 1024)."""
     if not _on_cuda("chain_commit", parent):
         return chain_commit_plain(parent, present, gc_depth, lc_rel, lcr_rel, offs, onehots)
     W, N = present.shape

@@ -20,7 +20,7 @@ Two implementations of each function:
   oracle `ed25519_ref`;
 - the CUDA kernels `csrc/ed25519_verify.cu` (A1: the same verdicts with one
   signature per thread), `csrc/ed25519_staged.cu` (A3-A5: A1 split at the
-  JAX stage boundaries, one row per thread) and `csrc/ed25519_msm.cu` (A2
+  JAX stage boundaries; A3 ten lanes a row, A4 and A5 one row per thread) and `csrc/ed25519_msm.cu` (A2
   and A6: the same window-lane sums, canonical, from one CTA per chain with
   four threads per point addition, `msm_plan`; the shard reduce) work in
   radix 2^25.5 (10 limbs, 64-bit column sums); their shared field layer
@@ -586,8 +586,8 @@ def _points_spec(t, B: int) -> tuple:
 def verify_decompress(y_rows, signs):
     """A3: decompress one point set; `verify_decompress_plain`'s signature and
     results (points canonical from the kernel). On CPU tensors the plain
-    version; on CUDA tensors the kernel of `csrc/ed25519_staged.cu` (int16
-    limbs, int8 signs)."""
+    version; on CUDA tensors the kernel of `csrc/ed25519_staged.cu`, ten
+    lanes a row (`csrc/ed25519_lanes.cuh`; int16 limbs, int8 signs)."""
     dev = y_rows.device
     if dev.type == "cpu":
         return verify_decompress_plain(y_rows, signs)

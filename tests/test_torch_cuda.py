@@ -122,13 +122,28 @@ def staged_bucket():
     return t, tk.verify_decompress(t[0], t[1]), tk.verify_decompress(t[2], t[3])
 
 
-def test_verify_decompress_kernel_matches_plain(staged_bucket):
+@pytest.mark.parametrize("B", [0, 1, 7, 1024, 2048, 8192])
+def test_verify_decompress_kernel_matches_plain(staged_bucket, B):
+    """B = 0: the item bucket's A and R sets (corrupt R encodings among
+    them); else chip_smoke.decompress_rows at B rows (the edge encodings,
+    y = 0, y = p - 1 and non-canonical y with both signs, points with either
+    sign, random y). Coordinates equal mod p, validity bit for bit, one
+    launch a call."""
     t, a, r = staged_bucket
-    for (pts, valid), y, sign in ((a, t[0], t[1]), (r, t[2], t[3])):
+    if B == 0:
+        cases = ((a, t[0], t[1]), (r, t[2], t[3]))
+        assert not bool(r[1].all())  # the corrupt R encodings are flagged
+    else:
+        rows, signs = chip_smoke.decompress_rows(np.random.default_rng(B), B)
+        y, sign = torch.from_numpy(rows).cuda(), torch.from_numpy(signs).cuda()
+        kernel_registry.reset_launch_counts()
+        cases = ((tk.verify_decompress(y, sign), y, sign),)
+        assert kernel_registry.launch_counts()["verify_decompress"] == 1
+    for (pts, valid), y, sign in cases:
         p_pts, p_valid = tk.verify_decompress_plain(y, sign)
         assert torch.equal(valid, p_valid)
         assert chip_smoke._mod_p(pts.cpu().numpy()) == chip_smoke._mod_p(p_pts.cpu().numpy())
-    assert not bool(r[1].all())  # the corrupt R encodings are flagged
+        assert B in (1, 7) or 0 < int(valid.sum()) < valid.numel()
 
 
 def test_staged_kernels_match_plain_and_verify_batch(staged_bucket):
@@ -241,23 +256,45 @@ def test_place_batch_kernel_matches_plain():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("K", [1, 2, 4])
-def test_chain_commit_kernel_matches_plain(K):
-    """At the main path's shapes (W = 64, N = 50, gc_depth = 50), on a
-    chain after a healed partition where the gc filter drops certificates
-    and the newest leader's filter depends on the lcr that its earlier
-    leaders advanced (with K = 4 the last slot is padding)."""
+CHAIN_CASES = ([("healed", w, K) for w in (64, 128, 512) for K in (1, 2, 4)]
+               + [("healed200", 64, K) for K in (1, 2, 4)]
+               + [("list", i, 0) for i in range(len(chip_smoke.CHAIN_SHAPES))])
+
+
+@pytest.mark.parametrize("kind,w,K", CHAIN_CASES)
+def test_chain_commit_kernel_matches_plain(kind, w, K):
+    """At the main path's shapes (W = 64 and the grown 128, N = 50,
+    gc_depth = 50), on a chain after a healed partition where the gc filter
+    drops certificates and the newest leader's filter depends on the lcr
+    that its earlier leaders advanced (with K = 4 the last slot is padding),
+    the same chains at two shapes of the wide walk (W = 512, N = 50 and
+    W = 64, N = 200, where the partition leaves columns unreached); and at
+    every shape of chip_smoke.CHAIN_SHAPES (`w` its index there): N at a
+    word edge (64, 65), 200 and 1024 (W = 8), leaders on the top row and on
+    row 1, a 512-row window. One launch a call."""
     _need_card("chain_commit", "csrc/dag_window.cu")
-    live = 3 if K == 4 else K
-    host = chip_smoke.healed_partition_chain(np.random.default_rng(5 + K), 64, 50, 50, K, live)
+    if kind.startswith("healed"):
+        live = 3 if K == 4 else K
+        seed = 5 + K + (0 if w == 64 else 100) + (1000 if kind == "healed200" else 0)
+        n = 200 if kind == "healed200" else 50
+        host = chip_smoke.healed_partition_chain(np.random.default_rng(seed), w, n, 50, K, live)
+        gc = 50
+    else:
+        w_, n, gc, rows = chip_smoke.CHAIN_SHAPES[w]
+        host = chip_smoke.chain_inputs(np.random.default_rng(w), w_, n, rows)
     parent, present, lc, lcr, offs, onehots = (
         torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in host)
-    counts, want = chip_smoke.gc_filter_effects(parent, present, 50, lc, lcr, offs, onehots)
-    assert counts["dropped"] > 0 and counts["by_own_round"] > 0
-    assert live == 1 or counts["by_advanced_lcr"] > 0
+    if kind.startswith("healed"):
+        counts, want = chip_smoke.gc_filter_effects(parent, present, gc, lc, lcr, offs, onehots)
+        assert counts["dropped"] > 0 and counts["by_own_round"] > 0
+        assert live == 1 or counts["by_advanced_lcr"] > 0
+    else:
+        want = td.chain_commit_plain(parent, present, gc, lc, lcr, offs, onehots)
     t = [x.cuda() for x in (parent, present, lc, offs, onehots)]
-    a = td.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
-    b = td.chain_commit_plain(t[0], t[1], 50, t[2], lcr, t[3], t[4])
+    kernel_registry.reset_launch_counts()
+    a = td.chain_commit(t[0], t[1], gc, t[2], lcr, t[3], t[4])
+    assert kernel_registry.launch_counts()["chain_commit"] == 1
+    b = td.chain_commit_plain(t[0], t[1], gc, t[2], lcr, t[3], t[4])
     assert torch.equal(a, b) and torch.equal(a.cpu(), want) and bool(a.any())
 
 

@@ -1,0 +1,476 @@
+"""The redesigned B2 and A3 kernels' own arithmetic, compiled for the host.
+
+The kernels' device code is written as host-and-device functions
+(`csrc/dag_walk_bits.cuh`, `csrc/ed25519_lanes.cuh`) with the warp's or the
+CTA's collectives behind a small interface, so g++ builds the same code for
+the CPU and runs it on threads, one a lane (each test skips only when g++ is
+missing):
+
+- A3, the ten-lane decompression (`decompress_lanes_row`: ten threads for
+  the ten lanes of a group), over chip_smoke's A3 rows (the edge encodings
+  y = 0, 1, p - 1 and the non-canonical p, p + 3 and 2^255 - 1 with both
+  signs, points with either sign, random y), held mod p against
+  `verify_decompress_plain` and the JAX `verify_decompress_kernel` run
+  eagerly, and limb for limb against the one-thread `decompress`;
+- B2, the packed-bit walk: the bit packing (every byte value at every
+  position), the row reads at every bit offset, the walk of a warp
+  (`column_table`, `walk_leader`: 32 threads for the 32 lanes) over the
+  packed strings, and the wide walk (`wide_walk`, N > 64 or a window past
+  shared memory: 32 * ceil(N / 32) threads for the CTA), held bit for bit
+  against the JAX `chain_commit` and `chain_commit_plain` at chip_smoke's
+  B2 shapes, at small W.
+
+The kernels themselves run on the card in tests/test_torch_cuda.py and
+chip_smoke.py.
+"""
+
+import shutil
+import subprocess
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from narwhal_tpu.tpu import dag_kernels as jd
+from narwhal_tpu.tpu import ed25519 as jk
+from narwhal_tpu_torch.gpu import dag_kernels as td
+from narwhal_tpu_torch.gpu import ed25519 as tk
+
+CSRC = Path(td.__file__).resolve().parent / "csrc"
+
+LANES_MAIN = r"""
+#include <barrier>
+#include <cstdio>
+#include <thread>
+#include <vector>
+#include "ed25519_lanes.cuh"
+using namespace ed25519_lanes;
+
+// The group's shuffle over ten threads, one a lane.
+struct Group {
+  std::barrier<> bar{kLanes};
+  i64 slot[kLanes];
+};
+struct ThreadShfl {
+  int q;
+  Group* g;
+  i64 x(i64 v, int src) const {
+    g->slot[q] = v;
+    g->bar.arrive_and_wait();
+    const i64 r = g->slot[src];
+    g->bar.arrive_and_wait();
+    return r;
+  }
+  i32 shfl(i32 v, int src) const { return (i32)x(v, src); }
+  i64 shfl(i64 v, int src) const { return x(v, src); }
+};
+
+// in: B, y int16 [B, 20], sign int8 [B], consts int32 [3, 20]
+// out: points int32 [4, 20, B], valid uint8 [B]; every row held limb for
+// limb to the one-thread `decompress`.
+int main(int argc, char** argv) {
+  FILE* in = std::fopen(argv[1], "rb");
+  int B = 0;
+  if (std::fread(&B, 4, 1, in) != 1) return 2;
+  std::vector<int16_t> y((size_t)B * 20);
+  std::vector<int8_t> sign(B);
+  std::vector<int32_t> c13(60);
+  if (std::fread(y.data(), 2, y.size(), in) != y.size() ||
+      std::fread(sign.data(), 1, sign.size(), in) != sign.size() ||
+      std::fread(c13.data(), 4, 60, in) != 60) return 2;
+  std::fclose(in);
+  Consts k;
+  for (int t = 0; t < 3; t++) load_consts(t, c13.data(), k);
+  std::vector<int32_t> pts((size_t)4 * 20 * B, -1);
+  bool* valid = new bool[B];
+  Group grp;
+  std::vector<std::thread> lanes;
+  for (int q = 0; q < kLanes; q++) {
+    lanes.emplace_back([&, q] {
+      for (int b = 0; b < B; b++) {
+        decompress_lanes_row(y.data(), sign.data(), k, pts.data(), valid, B, b, lane_of(q),
+                             ThreadShfl{q, &grp});
+      }
+    });
+  }
+  for (auto& th : lanes) th.join();
+  for (int b = 0; b < B; b++) {
+    fe yf;
+    fe_from13(yf, y.data() + (size_t)b * 20);
+    ge P;
+    const bool v = decompress(P, yf, (i32)sign[b], k);
+    std::vector<int32_t> one(80);
+    pt_store13(P, one.data(), 1, 0);
+    for (int i = 0; i < 80; i++) {
+      if (one[i] != pts[(size_t)i * B + b]) return 3;
+    }
+    if (v != valid[b]) return 4;
+  }
+  std::FILE* out = std::fopen(argv[2], "wb");
+  std::fwrite(pts.data(), 4, pts.size(), out);
+  for (int b = 0; b < B; b++) std::fputc(valid[b] ? 1 : 0, out);
+  std::fclose(out);
+  delete[] valid;
+  return 0;
+}
+"""
+
+WALK_MAIN = r"""
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cstdio>
+#include <string>
+#include <thread>
+#include <vector>
+#include "dag_walk_bits.cuh"
+using namespace walk_bits;
+
+// The warp's collectives over 32 threads, one a lane.
+struct Shared {
+  std::barrier<> bar{32};
+  uint32_t slot[32];
+};
+struct ThreadLanes {
+  int lane;
+  Shared* sh;
+  uint32_t ballot(bool b) const {
+    sh->slot[lane] = b ? 1u : 0u;
+    sh->bar.arrive_and_wait();
+    uint32_t r = 0;
+    for (int l = 0; l < 32; l++) r |= sh->slot[l] << l;
+    sh->bar.arrive_and_wait();
+    return r;
+  }
+  uint32_t shfl_xor(uint32_t v, int m) const {
+    sh->slot[lane] = v;
+    sh->bar.arrive_and_wait();
+    const uint32_t r = sh->slot[lane ^ m];
+    sh->bar.arrive_and_wait();
+    return r;
+  }
+  void sync() const { sh->bar.arrive_and_wait(); }
+};
+
+// The CTA's collectives over nt threads, a Shared per warp for the ballots.
+struct Cta {
+  explicit Cta(int n) : bar(n), slot(n), warps(n / 32) {}
+  std::barrier<> bar;
+  std::vector<uint32_t> slot;
+  std::vector<Shared> warps;
+};
+struct ThreadCta {
+  int tid, nt;
+  Cta* c;
+  uint32_t ballot(bool b) const { return ThreadLanes{tid & 31, &c->warps[tid >> 5]}.ballot(b); }
+  void sync() const { c->bar.arrive_and_wait(); }
+  bool sync_or(bool b) const {
+    c->slot[tid] = b ? 1u : 0u;
+    sync();
+    bool r = false;
+    for (int i = 0; i < nt; i++) r = r || c->slot[i] != 0;
+    sync();
+    return r;
+  }
+  void atomic_max(int* a, int v) const {
+    std::atomic_ref<int> r(*a);
+    int cur = r.load();
+    while (v > cur && !r.compare_exchange_weak(cur, v)) {}
+  }
+};
+
+template <class T> bool get(std::FILE* f, std::vector<T>& v) {
+  return std::fread(v.data(), sizeof(T), v.size(), f) == v.size();
+}
+
+// mode "walk": in W N K gc lcr, parent, present, lc int32 [N], offs int32 [K],
+// onehots [K, N]; out masks uint8 [K, W, N] (as chain_commit_kernel).
+// mode "wide": the same, as chain_commit_wide_kernel.
+// mode "pack": in n, bytes [n]; out the string of the bytes, then for every
+// bit offset o < 32 n - 64 and width 64 the two words row_bits reads.
+int main(int argc, char** argv) {
+  std::FILE* in = std::fopen(argv[2], "rb");
+  std::FILE* out = std::fopen(argv[3], "wb");
+  if (std::string(argv[1]) == "pack") {
+    long long n = 0;
+    if (std::fread(&n, 8, 1, in) != 1) return 2;
+    std::vector<uint8_t> bytes(n);
+    if (!get(in, bytes)) return 2;
+    const long long nw = (n + 31) / 32;
+    std::vector<uint32_t> s(nw + 2, 0);
+    for (long long i = 0; i < nw; i++) s[i] = pack_word(bytes.data(), 0, n, i);
+    std::fwrite(s.data(), 4, nw, out);
+    for (long long o = 0; o + 64 <= 32 * nw; o++) {
+      uint32_t w[2];
+      row_bits(s.data(), o, 64, w[0], w[1]);
+      std::fwrite(w, 4, 2, out);
+    }
+    return 0;
+  }
+  int hdr[5];
+  if (std::fread(hdr, 4, 5, in) != 5) return 2;
+  const int W = hdr[0], N = hdr[1], K = hdr[2], gc = hdr[3], lcr0 = hdr[4];
+  std::vector<uint8_t> parent((size_t)W * N * N), present((size_t)W * N), onehots((size_t)K * N);
+  std::vector<int32_t> lc_in(N), offs(K);
+  if (!get(in, parent) || !get(in, present) || !get(in, lc_in) || !get(in, offs) || !get(in, onehots)) return 2;
+  if (std::string(argv[1]) == "wide") {
+    const int NW = (N + 31) / 32, nt = 32 * NW;
+    std::vector<uint32_t> sm((size_t)2 * NW, 0xFFFFFFFFu);
+    int cand[2] = {0, 0};
+    bool* masks = new bool[(size_t)K * W * N];
+    Cta cta(nt);
+    std::vector<std::thread> threads;
+    for (int p = 0; p < nt; p++) {
+      threads.emplace_back([&, p] {
+        wide_walk(ThreadCta{p, nt, &cta}, parent.data(), present.data(), lc_in.data(),
+                  offs.data(), onehots.data(), masks, W, N, K, gc, lcr0, sm.data(), cand);
+      });
+    }
+    for (auto& th : threads) th.join();
+    for (size_t i = 0; i < (size_t)K * W * N; i++) std::fputc(masks[i] ? 1 : 0, out);
+    delete[] masks;
+    return 0;
+  }
+  // the kernel's prologue: top, then the strings of parent rows 1..top and
+  // present rows 0..top, two zero words of slack each, then (on the lanes)
+  // the column table
+  int top = -1;
+  for (int k = 0; k < K; k++) {
+    for (int p = 0; p < N; p++) {
+      if (onehots[(size_t)k * N + p]) top = std::max(top, std::min(offs[k], W - 1));
+    }
+  }
+  const long long par_lo = ((long long)N * N) & ~31LL;
+  const long long phi = top >= 1 ? (long long)(top + 1) * N * N : par_lo;
+  const long long qhi = (long long)(top + 1) * N;
+  std::vector<uint32_t> par((phi - par_lo + 31) / 32 + 2, 0), pre((qhi + 31) / 32 + 2, 0);
+  for (size_t i = 0; i + 2 < par.size(); i++) par[i] = pack_word(parent.data(), par_lo, phi, i);
+  for (size_t i = 0; i + 2 < pre.size(); i++) pre[i] = pack_word(present.data(), 0, qhi, i);
+  std::vector<uint32_t> ct((size_t)W * N * 2, 0), prw((size_t)W * 2, 0);
+  const Tables t{ct.data(), prw.data(), N};
+  std::vector<int> lc(64, 0);
+  for (int p = 0; p < N; p++) lc[p] = lc_in[p];
+  std::vector<uint32_t> keep((size_t)K * W * 2, 0xFFFFFFFFu);
+  Shared sh;
+  std::vector<std::thread> lanes;
+  for (int l = 0; l < 32; l++) {
+    lanes.emplace_back([&, l] {
+      const ThreadLanes x{l, &sh};
+      column_table(x, par.data(), (int)par_lo, pre.data(), N, top, ct.data(), prw.data(), 0, 1);
+      x.sync();
+      int lcr = lcr0;
+      for (int k = 0; k < K; k++) {
+        walk_leader(x, t, onehots.data() + (size_t)k * N, offs[k], W, gc,
+                    lc.data(), lcr, keep.data() + (size_t)k * W * 2);
+      }
+    });
+  }
+  for (auto& th : lanes) th.join();
+  std::vector<uint8_t> masks((size_t)K * W * N);
+  for (int k = 0; k < K; k++) {
+    for (int i = 0; i < W * N; i++) {
+      const int w = i / N, p = i - w * N;
+      masks[(size_t)k * W * N + i] = (keep[((size_t)k * W + w) * 2 + (p >> 5)] >> (p & 31)) & 1u;
+    }
+  }
+  std::fwrite(masks.data(), 1, masks.size(), out);
+  return 0;
+}
+"""
+
+
+def _build(tmp_path_factory, name: str, source: str, std: str) -> Path:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the host build of the kernels' code needs it")
+    d = tmp_path_factory.mktemp(name)
+    src = d / f"{name}.cpp"
+    src.write_text(source)
+    exe = d / name
+    subprocess.run([gxx, f"-std={std}", "-O2", "-pthread", "-Wno-unknown-pragmas",
+                    "-I", str(CSRC), "-o", str(exe), str(src)], check=True, timeout=300)
+    return exe
+
+
+@pytest.fixture(scope="module")
+def lanes_exe(tmp_path_factory):
+    return _build(tmp_path_factory, "lanes_main", LANES_MAIN, "c++20")
+
+
+@pytest.fixture(scope="module")
+def walk_exe(tmp_path_factory):
+    return _build(tmp_path_factory, "walk_main", WALK_MAIN, "c++20")
+
+
+def _run(exe: Path, args, payload: bytes, tmp_path: Path) -> bytes:
+    src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
+    src.write_bytes(payload)
+    proc = subprocess.run([str(exe), *args, str(src), str(dst)], timeout=300)
+    assert proc.returncode == 0, f"{exe.name} exited {proc.returncode}"
+    return dst.read_bytes()
+
+
+# -- A3: the ten-lane decompression --------------------------------------------
+
+
+def _decompress(exe: Path, rows, signs, tmp_path: Path):
+    B = rows.shape[0]
+    payload = (np.int32(B).tobytes() + rows.astype(np.int16).tobytes()
+               + signs.astype(np.int8).tobytes()
+               + np.ascontiguousarray(tk._KERNEL_CONSTS, np.int32).tobytes())
+    out = _run(exe, [], payload, tmp_path)
+    pts = np.frombuffer(out[: 4 * 20 * B * 4], np.int32).reshape(4, 20, B)
+    valid = np.frombuffer(out[4 * 20 * B * 4:], np.uint8).astype(bool)
+    return pts, valid
+
+
+@pytest.mark.parametrize("seed,b", [(1, 7), (2, 36), (5, 12), (6, 24)])
+def test_lanes_decompress_matches_plain(lanes_exe, tmp_path, seed, b):
+    """The ten-lane form (the kernel's): ten threads for the ten lanes of a
+    group, on chip_smoke's A3 rows (the edge encodings, multiples of the
+    base point with either sign, random y); held mod p against the plain
+    version and limb for limb against the one-thread decompress (in the
+    harness)."""
+    rows, signs = chip_smoke.decompress_rows(np.random.default_rng(seed), b)
+    pts, valid = _decompress(lanes_exe, rows, signs, tmp_path)
+    p_pts, p_valid = tk.verify_decompress_plain(torch.from_numpy(rows), torch.from_numpy(signs))
+    assert valid.tolist() == p_valid.tolist()
+    assert chip_smoke._mod_p(pts) == chip_smoke._mod_p(p_pts.numpy())
+    assert b < 24 or 0 < int(valid.sum()) < len(valid)  # both outcomes present
+    assert (pts >= 0).all() and (pts < 2**13).all()  # every lane's limbs stored, canonical
+
+
+def test_lanes_decompress_matches_jax_eager(lanes_exe, tmp_path):
+    """The ten-lane form against the JAX stage run op by op
+    (`jax.disable_jit()`, as tests/test_torch_staged.py runs it) on the edge
+    rows and two random."""
+    rows, signs = chip_smoke.decompress_rows(np.random.default_rng(8), 14)
+    with jax.disable_jit():
+        jpts, jvalid = jk.verify_decompress_kernel(jnp.asarray(rows), jnp.asarray(signs))
+    pts, valid = _decompress(lanes_exe, rows, signs, tmp_path)
+    assert np.asarray(jvalid).tolist() == valid.tolist()
+    assert chip_smoke._mod_p(pts) == chip_smoke._mod_p(np.asarray(jpts))
+
+
+# -- B2: the packed-bit walk ---------------------------------------------------
+
+
+def test_pack_and_row_bits(walk_exe, tmp_path):
+    """Every byte value at every position of a word packs to its nonzero
+    bit; the row read at every bit offset equals the bits of the bytes."""
+    rng = np.random.default_rng(7)
+    vals = np.arange(256, dtype=np.uint8)
+    body = np.concatenate([np.roll(vals, s) for s in range(32)] +
+                          [(rng.random(333) < 0.5) * rng.integers(1, 256, 333)]).astype(np.uint8)
+    n = body.size
+    out = _run(walk_exe, ["pack"], np.int64(n).tobytes() + body.tobytes(), tmp_path)
+    nw = (n + 31) // 32
+    words = np.frombuffer(out[: 4 * nw], np.uint32)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    assert np.array_equal(bits[:n], (body != 0).astype(np.uint8))
+    assert not bits[n:].any()
+    reads = np.frombuffer(out[4 * nw:], np.uint32).reshape(-1, 2)
+    got = np.unpackbits(reads.view(np.uint8), bitorder="little").reshape(len(reads), 64)
+    for o in range(len(reads)):
+        assert np.array_equal(got[o], bits[o:o + 64]), o
+
+
+def _walk(exe: Path, parent, present, gc, lc, lcr, offs, onehots, tmp_path, mode="walk"):
+    W, N = present.shape
+    K = offs.shape[0]
+    payload = (np.asarray([W, N, K, gc, lcr], np.int32).tobytes() + parent.tobytes()
+               + present.tobytes() + lc.astype(np.int32).tobytes()
+               + offs.astype(np.int32).tobytes() + onehots.tobytes())
+    out = _run(exe, [mode], payload, tmp_path)
+    return np.frombuffer(out, np.uint8).reshape(K, W, N).astype(bool)
+
+
+def _references(parent, present, gc, lc, lcr, offs, onehots):
+    want = np.asarray(jd.chain_commit(parent, present, np.int32(gc), lc, np.int32(lcr),
+                                      offs, onehots))
+    t = [torch.from_numpy(a) for a in (parent, present, lc, offs, onehots)]
+    plain = td.chain_commit_plain(t[0], t[1], gc, t[2], lcr, t[3], t[4]).numpy()
+    assert np.array_equal(plain, want)
+    return want
+
+
+# chip_smoke's B2 shapes at small W (the leader rows scaled into the window)
+# and the healed-partition chains of the main path.
+def _small_cases():
+    cases = []
+    for w, n, gc, rows in chip_smoke.CHAIN_SHAPES:
+        ws = min(w, 16)
+
+        def scaled(r):  # row 1 and the top row stay where they are
+            if r is None or r <= 1:
+                return r
+            return ws - 1 if r == w - 1 else min(max(r * ws // w, 2), ws - 2)
+
+        cases.append((ws, n, min(gc, 6), tuple(scaled(r) for r in rows)))
+    cases += [(16, 32, 6, (9, 15)), (16, 7, 6, (3, 15))]
+    return cases
+
+
+@pytest.mark.parametrize("w,n,gc,rows", [c for c in _small_cases() if c[1] <= 64])
+def test_warp_walk_matches_jax(walk_exe, tmp_path, w, n, gc, rows):
+    """The warp form (N <= 64): pack, walk, expand, bit for bit."""
+    host = chip_smoke.chain_inputs(np.random.default_rng(w * 1000 + n), w, n, rows)
+    parent, present, lc, lcr, offs, onehots = host
+    want = _references(parent, present, gc, lc, lcr, offs, onehots)
+    got = _walk(walk_exe, parent, present, gc, lc, lcr, offs, onehots, tmp_path)
+    assert np.array_equal(got, want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("K,live", [(1, 1), (2, 2), (4, 3)])
+def test_warp_walk_healed_chain_matches_jax(walk_exe, tmp_path, K, live):
+    """The main path's shape (W 64, N 50, gc 50) on the healed-partition
+    chains, where the gc filter drops certificates and the newest leader's
+    filter depends on the lcr its earlier leaders advanced."""
+    host = chip_smoke.healed_partition_chain(np.random.default_rng(50 + K), 64, 50,
+                                             chip_smoke.GC_DEPTH, K, live)
+    parent, present, lc, lcr, offs, onehots = host
+    want = _references(parent, present, chip_smoke.GC_DEPTH, lc, lcr, offs, onehots)
+    got = _walk(walk_exe, parent, present, chip_smoke.GC_DEPTH, lc, lcr, offs, onehots, tmp_path)
+    assert np.array_equal(got, want) and want[:live].any()
+
+
+# the list at density 0.7, and sparse links, where a reached column's first
+# parent often lies past the first batch of the frontier's set bits
+WIDE_CASES = ([(*c, 0.7) for c in _small_cases()]
+              + [(16, 65, 6, (9, None, 15), 0.05), (16, 200, 6, (9, None, 15), 0.02),
+                 (16, 200, 6, (9, None, 15), 0.3)])
+
+
+@pytest.mark.parametrize("w,n,gc,rows,density", WIDE_CASES)
+def test_wide_walk_matches_jax(walk_exe, tmp_path, w, n, gc, rows, density):
+    """The wide walk (`wide_walk`, a CTA of 32 * ceil(N / 32) threads) at
+    every shape of the list: it serves N > 64, and N <= 64 when the
+    window's strings outgrow shared memory."""
+    host = chip_smoke.chain_inputs(np.random.default_rng(w * 1000 + n + int(100 * density)),
+                                   w, n, rows, density)
+    parent, present, lc, lcr, offs, onehots = host
+    want = _references(parent, present, gc, lc, lcr, offs, onehots)
+    got = _walk(walk_exe, parent, present, gc, lc, lcr, offs, onehots, tmp_path, mode="wide")
+    assert np.array_equal(got, want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("w,n,K,live", [(16, 50, 2, 2), (64, 50, 4, 3), (16, 200, 1, 1),
+                                        (16, 200, 4, 3), (16, 1024, 2, 2)])
+def test_wide_walk_healed_chain_matches_jax(walk_exe, tmp_path, w, n, K, live):
+    """The wide walk on the healed-partition chains: the earlier leaders
+    reach one half of the committee only, so the other half's present,
+    uncommitted columns scan the whole frontier, batch after batch, and
+    find no parent."""
+    gc = min(chip_smoke.GC_DEPTH, w // 2)
+    host = chip_smoke.healed_partition_chain(np.random.default_rng(70 + K + n), w, n, gc, K, live)
+    parent, present, lc, lcr, offs, onehots = host
+    want = _references(parent, present, gc, lc, lcr, offs, onehots)
+    got = _walk(walk_exe, parent, present, gc, lc, lcr, offs, onehots, tmp_path, mode="wide")
+    assert np.array_equal(got, want) and want[:live].any()
+
