@@ -21,7 +21,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             msm_window on the msm item and group buckets' A (64 lanes) and
             R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards; A2
             and A3 -> A6 again at B = 16, 512, 1024 (a shard's rows) and
-            8192 (two tiles of shared memory) on both buckets;
+            8192 (two tiles of shared memory) on both buckets; A1, A4 and
+            A3 -> A4 -> A5 again at B = 1, 7, 1024 and 8192 (verify_rows:
+            torsion, forged, zero and random-limb rows);
             leader_support at B = 64 (rows 0 and W - 1 among the offsets),
             consensus_commit on B6's K = 64 masks with a support vector
             around the quorum, reach_shard_step on one shard of 2 and of 4
@@ -405,6 +407,51 @@ def signature_bucket(seed: int, n_keys: int, bucket: int):
             z[n_zero:] = nprng.integers(0, 2, (n_junk,))
         extra.append(np.ascontiguousarray(np.concatenate([a, z])))
     return extra, checked, m
+
+
+def verify_rows(seed: int, n_keys: int, b: int):
+    """A1's six host arrays at B = b: `signature_bucket`'s bucket of b rows
+    when b >= 1024, else the first b of eight rows of its 128-row bucket
+    (at most 16 keys): the last checked row (a torsion-defect item), rows
+    1-3 (corrupt R, corrupt S, a wrong message), a zero row, a random-limb
+    row, row 0 (a valid signature) and a padding row."""
+    if b >= 1024:
+        return signature_bucket(seed, n_keys, b)[0]
+    arrays, _checked, m = signature_bucket(seed, min(n_keys, 16), 128)
+    pick = [m - 1, 1, 2, 3, 126, 127, 0, 124][:b]
+    return [np.ascontiguousarray(a[pick]) for a in arrays]
+
+
+VERIFY_SIZES = (1, 7, 1024, 8192)  # beside the bucket's 2048
+
+
+def check_verify_sizes(device, n_keys: int, sizes=VERIFY_SIZES) -> dict:
+    """A1 and A4 at B in `sizes` on `verify_rows`: A1's verdicts
+    bit-equal to verify_batch_plain, A4's accumulators equal to
+    verify_straus_plain as affine points, and A3 -> A4 -> A5 bit-equal to
+    A1. Returns each kernel's largest difference."""
+    import torch
+    from narwhal_tpu_torch.gpu import ed25519
+
+    errs = {"verify_batch": 0, "verify_straus": 0}
+    for b in sizes:
+        t = [torch.from_numpy(a).to(device) for a in verify_rows(7, n_keys, b)]
+        strict, cof = ed25519.verify_batch(*t)
+        p_strict, p_cof = ed25519.verify_batch_plain(*t)
+        _same_bits(f"verify_batch B={b} strict", strict, p_strict)
+        _same_bits(f"verify_batch B={b} cofactored", cof, p_cof)
+        a_pt, a_valid = ed25519.verify_decompress(t[0], t[1])
+        r_pt, r_valid = ed25519.verify_decompress(t[2], t[3])
+        acc = ed25519.verify_straus(a_pt, t[4], t[5])
+        errs["verify_straus"] = max(errs["verify_straus"], _same_points(
+            f"verify_straus B={b}", acc, ed25519.verify_straus_plain(a_pt, t[4], t[5])))
+        s_strict, s_cof = ed25519.verify_verdict(acc, r_pt, t[2], t[3], a_valid, r_valid)
+        _same_bits(f"A3 -> A4 -> A5 B={b} strict against verify_batch", s_strict, strict)
+        _same_bits(f"A3 -> A4 -> A5 B={b} cofactored against verify_batch", s_cof, cof)
+        log(f"verify_batch, verify_straus: B={b}, A1 == plain ({int(strict.sum())} strict, "
+            f"{int(cof.sum())} cofactored valid), A4 == plain as affine points, "
+            f"A3 -> A4 -> A5 == A1")
+    return errs
 
 
 def check_verify_batch(device, bucket: int, n_keys: int, n_ref: int, plain_reps: int):
@@ -1669,9 +1716,12 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_sharded_walk(device, n, w),
     ]
     shapes_err = check_msm_shapes(device) if device.type == "cuda" else 0
+    sizes_err = check_verify_sizes(device, n_keys, VERIFY_SIZES if device.type == "cuda"
+                                   else VERIFY_SIZES[:2])
     for r in rows:
         if r["name"] in ("msm_accumulate", "msm_window"):
             r["max_abs_err"] = max(r["max_abs_err"], shapes_err)
+        r["max_abs_err"] = max(r["max_abs_err"], sizes_err.get(r["name"], 0))
     if device.type == "cuda":
         check_peer_reuse(device, n, w)
         check_walk_deadline(device, n, w)

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""Per-launch device times of the window-lane kernels, A3 and B2 on one
-NVIDIA card.
+"""Per-launch device times of the window-lane kernels, A1, A3, A4 and B2 on
+one NVIDIA card.
 
-    python3 msm_breakdown.py [--package DIR] [--bucket B ...]
+    python3 msm_breakdown.py [--package DIR] [--bucket B ...] [--phases]
 
 For each bucket (default the verifier's 2048 rows and a shard's 1024): A2
 `msm_accumulate` on the group-lane and item buckets of `chip_smoke.py`, A6
 `msm_window` on their A (64 lanes) and R (32 lanes) sets and A3
 `verify_decompress` on their A set and on `chip_smoke.decompress_rows`
-(the edge encodings). Then B2 `chain_commit`
+(the edge encodings); A1 `verify_batch` on `chip_smoke.signature_bucket`
+(forged, torsion, zero and random-limb rows) and A4 `verify_straus` on its
+A set decompressed by A3. Then B2 `chain_commit`
 at the main path's shape (W = 64, N = 50, K = 1, the healed-partition chain
 of `chip_smoke.check_chain_commit`, leader row 58), from row 2 of the same
 window (the slope of the two is the time a row costs), with the leader
 repeated four times, and at the shapes the wide walk serves (`WIDE_SHAPES`:
 N = 65, 200, 1024 and a 512-row window at N = 50; `HEALED_WIDE`: its
 slowest case, columns left unreached by a partition). Each is first held
-against its plain version (lanes as affine points, coordinates mod p,
-validity and masks bit for bit), then timed: the CUDA-event median through
-the wrapper, and torch.profiler's device time of one call split by the
-kernels it launches. It prints nvcc's ptxas figures (registers, spills,
-shared memory) of the three sources first.
+against its plain version (lanes and accumulators as affine points,
+coordinates mod p, validity, verdicts and masks bit for bit), then timed:
+the CUDA-event median through the wrapper, and torch.profiler's device
+time of one call split by the kernels it launches. It prints nvcc's ptxas
+figures (registers, spills, shared memory) of the four sources first.
 
 `--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
 chain kernel then records %globaltimer at four points of each CTA) and
@@ -70,9 +72,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"package {os.path.dirname(ed25519.__file__)}", flush=True)
     print(chip_smoke.card_line(), flush=True)
-    walls = kernel_registry.build(["ed25519_msm", "ed25519_staged", "dag_window"])
+    stems = ["ed25519_msm", "ed25519_staged", "ed25519_verify", "dag_window"]
+    walls = kernel_registry.build(stems)
     print("build walls " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
-    for stem in ("ed25519_msm", "ed25519_staged", "dag_window"):
+    for stem in stems:
         for kernel, figures in chip_smoke.ptxas_report(stem).items():
             print(f"ptxas {kernel}: {figures}", flush=True)
 
@@ -108,6 +111,7 @@ def main(argv=None) -> int:
             if args.phases:
                 phases(ed25519, kernel_registry, dev, t, pa, pr, f"{shape} B={bucket}")
         decompress(chip_smoke, ed25519, dev, bucket, timed)
+        straus(chip_smoke, ed25519, dev, bucket, timed)
     walk(chip_smoke, dev, timed)
     torch.cuda.synchronize()
     return 0
@@ -128,6 +132,23 @@ def decompress(chip_smoke, ed25519, dev, bucket, timed) -> None:
         raise AssertionError("A3: coordinates differ mod p")
     timed(f"A3 verify_decompress decompress_rows B={bucket}",
           lambda: ed25519.verify_decompress(y, sg))
+
+
+def straus(chip_smoke, ed25519, dev, bucket, timed) -> None:
+    """A1 on signature_bucket's rows and A4 on their A set, held against
+    their plain versions first."""
+    import torch
+
+    t = [torch.from_numpy(a).to(dev) for a in chip_smoke.signature_bucket(7, 300, bucket)[0]]
+    strict, cof = ed25519.verify_batch(*t)
+    p_strict, p_cof = ed25519.verify_batch_plain(*t)
+    chip_smoke._same_bits("A1 strict", strict, p_strict)
+    chip_smoke._same_bits("A1 cofactored", cof, p_cof)
+    timed(f"A1 verify_batch B={bucket}", lambda: ed25519.verify_batch(*t))
+    a_pt, _ = ed25519.verify_decompress(t[0], t[1])
+    acc = ed25519.verify_straus(a_pt, t[4], t[5])
+    chip_smoke._same_points("A4", acc, ed25519.verify_straus_plain(a_pt, t[4], t[5]))
+    timed(f"A4 verify_straus B={bucket}", lambda: ed25519.verify_straus(a_pt, t[4], t[5]))
 
 
 # B2's shapes off the main path, which the wide walk serves: (W, N, leader

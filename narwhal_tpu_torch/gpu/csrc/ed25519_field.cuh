@@ -160,7 +160,7 @@ HD void fe_mul(fe& r, const fe& f, const fe& g) {
 // f_j: an odd limb takes at most 38, 38 * 1.65*2^25 < 2^31; an even limb
 // only 19). One product <= 3.3*2^26 * 31.35*2^26 < 2^59, a column of at
 // most 6 < 2^61.6: fe_mul's bound holds.
-HD void fe_sq(fe& r, const fe& f) {
+HD void fe_sq_cols(i64 h[10], const fe& f) {
   i32 f2[10], f19[10], f38[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -168,7 +168,6 @@ HD void fe_sq(fe& r, const fe& f) {
     f19[i] = 19 * f.v[i];
     f38[i] = (i & 1) ? 38 * f.v[i] : 0;  // odd limbs only: 38 * even could overflow
   }
-  i64 h[10];
 #pragma unroll
   for (int k = 0; k < 10; k++) h[k] = 0;
 #pragma unroll
@@ -181,6 +180,21 @@ HD void fe_sq(fe& r, const fe& f) {
       fe_mac(h[(i + j) % 10], left, right);
     }
   }
+}
+
+HD void fe_sq(fe& r, const fe& f) {
+  i64 h[10];
+  fe_sq_cols(h, f);
+  fe_reduce64(h, r);
+}
+
+// h = 2^sh f^2 (sh 0 or 1), tight: the columns shifted before the carry
+// chain, as ref10's fe_sq2. A doubled column < 2^62.6 < 2^63.
+HD void fe_sq_shl(fe& r, const fe& f, int sh) {
+  i64 h[10];
+  fe_sq_cols(h, f);
+#pragma unroll
+  for (int k = 0; k < 10; k++) h[k] = (i64)((uint64_t)h[k] << sh);
   fe_reduce64(h, r);
 }
 

@@ -70,8 +70,8 @@
 // coordinate l of the point (X, Y, Z, T) and field l of a cached point
 // (Y-X, Y+X, Z, 2dT), and the add's two rounds of four independent
 // products (a, b, d, c, then X3, Y3, Z3, T3) are one product per thread,
-// the operands exchanged with __shfl_xor_sync. A cached add is 2 products
-// deep instead of 8; a table step (add, then cache: 2dT) 2 to 3 instead of
+// the operands exchanged with __shfl_xor_sync (ed25519_quad.cuh, shared
+// with A1 and A4). A cached add is 2 products deep instead of 8; a table step (add, then cache: 2dT) 2 to 3 instead of
 // 9, as the cache of one entry overlaps the next add's first product; a
 // tree round (the complete add) 3.
 //
@@ -85,22 +85,18 @@
 // decompression, is the next lever (msm_breakdown.py --phases times each
 // phase).
 //
-// Bounds: every operand keeps the rule of ed25519_field.cuh (a sum of at most
-// 3 tight values). What a quad thread holds between operations is a product
-// output (tight): a coordinate of the sum or of a table step, a round-1
-// product, a cached field (the cache multiplies every field, by one or by
-// 2d). Its round-1 operand is Y -/+ X, 2Z or T of tight coordinates, its
-// round-2 operands b -/+ a, d -/+ c of tight products: 2 tight at most; in
-// the tree's complete add the addend's Y2 -/+ X2 of tight sums. The
-// identity and the staged points are tight too: decompress outputs (A1's
-// code, checked there) and their negations, or fe_from13_loose outputs (A6).
-// fe_to13 canonicalises before it repacks, so the output limbs are exact.
+// Bounds: the quad operations keep the rule of ed25519_field.cuh (a sum of at
+// most 3 tight values; the argument is ed25519_quad.cuh's). The staged points
+// are tight: decompress outputs and their negations (A2), or fe_from13_loose
+// outputs (A6). fe_to13 canonicalises before it repacks, so the output limbs
+// are exact.
 
-#include "ed25519_field.cuh"
+#include "ed25519_quad.cuh"
 
 namespace ed25519_msm {
 
 using namespace ed25519_field;
+using namespace ed25519_quad;
 
 constexpr int kWa = 64;        // window lanes of the A scalars (256-bit z k)
 constexpr int kWr = 32;        // window lanes of the R scalars (128-bit z)
@@ -116,62 +112,6 @@ constexpr int kSmemLimit = 232448;  // shared bytes a CTA may use on the H100
 HD int msm_smem_bytes(int tile, int wa, int wr) {
   const int sets = wr > 0 ? 2 : 1;
   return tile * (sets * ((kEntries * 4 + 4) * 10 * 4 + 4) + wa + wr);
-}
-
-// Round 1 of a cached add in quad thread l, whose coordinate is m and whose
-// xor-1 partner's is o (X <-> Y, Z <-> T): the left factor Y - X, Y + X, 2Z
-// or T; times field l of the cached point it is a, b, d or c.
-HD void quad_round1(fe& s, const fe& m, const fe& o, int l) {
-  const i32 km = l == 0 ? -1 : l == 2 ? 2 : 1;
-  const i32 ko = l < 2 ? 1 : 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) s.v[i] = km * m.v[i] + ko * o.v[i];
-}
-
-// Round 2 in thread l from its round-1 product p and those of threads l ^ 1,
-// l ^ 2, l ^ 3 (v1, v2, v3): with e = b - a, f = d - c, g = d + c, h = b + a,
-// thread 0 forms X3 = e f, thread 1 Y3 = g h, thread 2 Z3 = f g, thread 3
-// T3 = e h. Thread 0 holds a (v1 = b, v2 = d, v3 = c), 1 b (a, c, d), 2 d
-// (c, a, b), 3 c (d, b, a), so the factors are
-//   0: (v1 - p) (v2 - v3)   1: (p + v1) (v2 + v3)
-//   2: (p - v1) (p + v1)    3: (v2 - v3) (v2 + v3).
-HD void quad_round2(fe& m1, fe& m2, const fe& p, const fe& v1, const fe& v2, const fe& v3,
-                    int l) {
-  const i32 s1x = l == 0 ? -1 : 1;
-  const i32 s1y = l >= 2 ? -1 : 1;
-  const i32 s2y = l == 0 ? -1 : 1;
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    const i32 x1 = l == 3 ? v2.v[i] : p.v[i];
-    const i32 y1 = l == 3 ? v3.v[i] : v1.v[i];
-    const i32 x2 = l == 2 ? p.v[i] : v2.v[i];
-    const i32 y2 = l == 2 ? v1.v[i] : v3.v[i];
-    m1.v[i] = s1x * x1 + s1y * y1;
-    m2.v[i] = x2 + s2y * y2;
-  }
-}
-
-// Field l of the cached form (Y - X, Y + X, Z, 2dT) of a point whose
-// coordinate l is m (o: the xor-1 partner's): the left factor; the right one
-// is 2d in thread 3 and one elsewhere, so every thread multiplies (a warp
-// pays for thread 3's product anyway) and every cached field is tight.
-HD void quad_cache_factor(fe& s, const fe& m, const fe& o, int l) {
-  const i32 km = l == 0 ? -1 : 1;
-  const i32 ko = l < 2 ? 1 : 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) s.v[i] = km * m.v[i] + ko * o.v[i];
-}
-
-// Coordinate l of the identity (0, 1, 1, 0) and field l of the cached
-// identity (1, 1, 1, 0).
-HD void quad_identity(fe& r, int l) {
-  fe_zero(r);
-  r.v[0] = (l == 1 || l == 2) ? 1 : 0;
-}
-
-HD void quad_cached_identity(fe& r, int l) {
-  fe_zero(r);
-  r.v[0] = l < 3 ? 1 : 0;
 }
 
 // The cross-shard reduce for window w: lane set 0 plus sets 1 .. n-1 of
@@ -215,58 +155,6 @@ extern "C" int ed25519_msm_phase_times(void* out) {
 #define MSM_PHASE_ALL(i)
 #endif
 
-__device__ __forceinline__ void fe_shfl_xor(fe& r, const fe& a, int m) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) r.v[i] = __shfl_xor_sync(kFull, a.v[i], m);
-}
-
-// Round 2 of an addition in a quad, from this thread's round-1 product p:
-// m <- its coordinate of the sum.
-__device__ __forceinline__ void quad_finish(fe& m, const fe& p, int l) {
-  fe v1, v2, v3, m1, m2;
-  fe_shfl_xor(v1, p, 1);
-  fe_shfl_xor(v2, p, 2);
-  fe_shfl_xor(v3, p, 3);
-  quad_round2(m1, m2, p, v1, v2, v3, l);
-  fe_mul(m, m1, m2);
-}
-
-// m <- m + q in a quad: m is this thread's coordinate of the sum, q its field
-// of the cached addend. Every thread of the warp must call it.
-__device__ __forceinline__ void quad_add_cached(fe& m, const fe& q, int l) {
-  fe o, s, p;
-  fe_shfl_xor(o, m, 1);
-  quad_round1(s, m, o, l);
-  fe_mul(p, s, q);
-  quad_finish(m, p, l);
-}
-
-// c <- field l of the cached form of the point whose coordinate l is m (o:
-// the xor-1 partner's coordinate).
-__device__ __forceinline__ void quad_cache(fe& c, const fe& m, const fe& o, int l,
-                                           const Consts& k) {
-  fe s, one;
-  quad_cache_factor(s, m, o, l);
-  fe_one(one);
-  fe_mul(c, s, l == 3 ? k.d2 : one);
-}
-
-// m <- m + q, the complete addition (pt_add) in a quad, q given by this
-// thread's coordinate qm of it and its xor-1 partner's qo. The addend's
-// factors Y2 - X2, Y2 + X2, Z2, T2 need no product; the sum's Y1 - X1,
-// Y1 + X1, 2 Z1, 2d T1 take one, which runs while q's loads are in flight.
-__device__ __forceinline__ void quad_add(fe& m, const fe& qm, const fe& qo, int l,
-                                         const Consts& k) {
-  fe o, s, one, q, p;
-  fe_shfl_xor(o, m, 1);
-  quad_round1(s, m, o, l);
-  fe_one(one);
-  fe_mul(s, s, l == 3 ? k.d2 : one);
-  quad_cache_factor(q, qm, qo, l);
-  fe_mul(p, s, q);  // a, b, d = 2 Z1 Z2, c = 2d T1 T2: pt_add's products
-  quad_finish(m, p, l);
-}
-
 // Every chain of one call: blockIdx.x = c, 4 (WA + WR) threads. Lane set 0
 // (WA lanes) is A2's A set or A6's set, lane set 1 (WR lanes) A2's R set.
 // kDecompress: rows are y limbs and signs (A2), else points (A6). Writes
@@ -291,6 +179,7 @@ msm_chains_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_
 
   const int tid = threadIdx.x, l = tid & 3, lane = tid >> 2;
   const int c = blockIdx.x, S = B / C;
+  const QuadShfl x{};
   const int set = lane < WA ? 0 : 1;
   const fe* my_tab = tab + (size_t)set * tile * kEntries * 4;
   for (int i = tid; i < 3; i += kThreads) load_consts(i, consts13, s_k);
@@ -362,15 +251,15 @@ msm_chains_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_
       // formed together and overlap.
       fe cur = stage[(size_t)jj * 4 + l];
       fe o, q1, qe, s, p;
-      fe_shfl_xor(o, cur, 1);
+      fe_shfl_xor(o, cur, 1, x);
       quad_cache(q1, cur, o, l, k);
       fe* t = tab + (size_t)jj * kEntries * 4;
       if (active) t[l] = q1;
       quad_round1(s, cur, o, l);
       fe_mul(p, s, q1);
       for (int e = 1; e < kEntries; e++) {
-        quad_finish(cur, p, l);
-        fe_shfl_xor(o, cur, 1);
+        quad_finish(cur, p, l, x);
+        fe_shfl_xor(o, cur, 1, x);
         quad_cache(qe, cur, o, l, k);
         quad_round1(s, cur, o, l);
         fe_mul(p, s, q1);  // the next add's; unused after entry 15
@@ -386,7 +275,7 @@ msm_chains_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_
       fe q;
       if (d != 0) q = my_tab[((size_t)p * kEntries + d - 1) * 4 + l];
       else quad_cached_identity(q, l);
-      quad_add_cached(acc, q, l);
+      quad_add_cached(acc, q, l, x);
     }
   }
 
@@ -407,6 +296,7 @@ msm_tree_kernel(const int32_t* __restrict__ partial, const int32_t* __restrict__
   __shared__ Consts s_k;
   __shared__ fe s[kMaxChains][4];
   const int w = blockIdx.x, tid = threadIdx.x, l = tid & 3, quad = tid >> 2;
+  const QuadShfl x{};
   for (int i = tid; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
   for (int i = tid; i < C * 4; i += blockDim.x) {
     const int32_t* src = partial + (((size_t)(i >> 2) * kLanes + w) * 4 + (i & 3)) * 10;
@@ -421,7 +311,7 @@ msm_tree_kernel(const int32_t* __restrict__ partial, const int32_t* __restrict__
     // and store nothing.
     if ((quad & ~7) < off) {
       fe m = s[quad][l];
-      quad_add(m, s[quad + off][l], s[quad + off][l ^ 1], l, k);  // pt_add(s[t], s[t + off])
+      quad_add(m, s[quad + off][l], s[quad + off][l ^ 1], l, k, x);  // pt_add(s[t], s[t + off])
       if (quad < off) s[quad][l] = m;
     }
     __syncthreads();

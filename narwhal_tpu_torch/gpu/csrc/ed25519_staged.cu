@@ -1,7 +1,8 @@
 // The staged per-item ed25519 verify, three kernels for Hopper (sm_90a): the
 // stages that the mesh-sharded verifier runs on every shard in place of A1's
 // single launch. A3 runs a group of ten lanes a row (ed25519_lanes.cuh), A4
-// and A5 a thread a row.
+// a quad of four threads a row (ed25519_straus.cuh, ed25519_quad.cuh), A5 a
+// thread a row.
 //
 // Replaces (narwhal_tpu/tpu/ed25519.py):
 //   A3 :485 `verify_decompress_kernel`  y int16 [B, 20], sign int8 [B]
@@ -14,7 +15,7 @@
 // `verify_straus_plain` and `verify_verdict_plain` in ../ed25519.py.
 //
 // Stage boundaries keep the JAX layout: int32 [4, 20, B], radix 2^13,
-// limb-major, the batch last. A thread converts its point on load
+// limb-major, the batch last. A thread converts a coordinate on load
 // (fe_from13_loose, which also takes the plain versions' loose limbs) and on
 // store (fe_to13, canonical limbs), so a kernel and its plain version can
 // stand in for each other, a warp's loads and stores are coalesced over B,
@@ -24,22 +25,27 @@
 // sums invalid rows into V as A2 does.
 //
 // The arithmetic is A1's: A3 is `decompress` (ed25519_field.cuh) split over
-// ten lanes, which gives the same canonical limbs, A4 the walk and A5 the
-// epilogue of ed25519_straus.cuh, so A3 -> A4 -> A5 gives A1's verdicts bit
-// for bit (chip_smoke.py and tests/test_torch_cuda.py check it).
+// ten lanes, which gives the same canonical limbs, A4 the quad walk and A5
+// the one-thread epilogue of ed25519_straus.cuh, so A3 -> A4 -> A5 gives
+// A1's verdicts bit for bit (chip_smoke.py and tests/test_torch_cuda.py
+// check it).
 //
 // What bounds it on the H100: integer multiplies, as A1. Per row A3 is
 // 255 squarings + 20 products (it runs twice, for A and R), A4 1024 + 2111,
 // A5 266 + 34 (ed25519.staged_field_ops), at 55 and 100 32-bit
 // multiply-adds each. The boundary traffic A1 does not pay, 320 bytes a
 // point written and read back per stage, is ~1 MB per 2048-row bucket and
-// point set: noise beside ~0.6 G multiply-adds. A4 keeps A1's per-thread
-// 16-entry table (2.5 KB, local memory) and 32 threads a block; A5 holds no
-// table and runs 64 a block. A3 is one dependent chain of 275 operations a
-// row; one thread a row left the card nearly empty (32 CTAs at B = 2048) and
-// every operation's products serial, so ten lanes split each operation by
-// column, a CTA is one warp (3 rows: 342 CTAs at a shard's 1024 rows, 683
-// at 2048).
+// point set: noise beside ~0.6 G multiply-adds. Each stage is a dependent
+// chain a row, and a bucket is few rows for the card (2048, or a shard's
+// 1024), so each splits its row over threads:
+//   - A3: one thread a row left 32 CTAs at B = 2048 and every operation's
+//     products serial; ten lanes split each operation by column, a CTA is
+//     one warp (3 rows: 342 CTAs at a shard's 1024 rows, 683 at 2048);
+//   - A4: one thread a row ran 47 dependent products a window on 64 warps
+//     at B = 2048, its table in local memory; a quad a row runs 12 product
+//     rounds a window on 256 warps, the table in shared memory (20 KB a
+//     warp of 8 rows), kQuadCta threads a CTA (ed25519_straus.cuh);
+//   - A5 holds no table and runs 64 threads a block, a thread a row.
 
 #include "ed25519_lanes.cuh"
 #include "ed25519_straus.cuh"
@@ -47,16 +53,6 @@
 namespace ed25519_staged {
 
 using namespace ed25519_straus;
-
-// A4 for row b; tab is the thread's table.
-template <typename D>
-HD void straus_row(const i32* a_pt, const D* k_digits, const D* s_digits, const ga* bt,
-                   const Consts& k, gc* tab, i32* acc_pt, int B, int b) {
-  ge A, acc;
-  pt_load13(A, a_pt, B, b);
-  straus_walk(acc, A, k_digits + (size_t)b * 64, s_digits + (size_t)b * 64, bt, k, tab);
-  pt_store13(acc, acc_pt, B, b);
-}
 
 // A5 for row b.
 template <typename L, typename S>
@@ -81,7 +77,6 @@ using namespace ed25519_staged;
 
 constexpr int kThreads = 64;
 constexpr int kLaneRows = 3;      // A3: one warp, three groups of ten lanes
-constexpr int kStrausThreads = 32;
 
 __global__ void __launch_bounds__(32)
 decompress_kernel(const int16_t* __restrict__ y, const int8_t* __restrict__ sign,
@@ -99,19 +94,26 @@ decompress_kernel(const int16_t* __restrict__ y, const int8_t* __restrict__ sign
                                       ed25519_lanes::lane_of(q), x, live);
 }
 
-__global__ void __launch_bounds__(kStrausThreads)
+// A4: a quad a row, kQuadCta / 4 rows a CTA, their -A tables in dynamic
+// shared memory (kQuadCta * 640 bytes). Quads past B run on a copy of row
+// B - 1 (their warp's shuffles need them) and store nothing; a warp with no
+// row of the batch returns at once.
+__global__ void __launch_bounds__(kQuadCta)
 straus_kernel(const int32_t* __restrict__ a_pt, const int8_t* __restrict__ k_digits,
               const int8_t* __restrict__ s_digits, const int32_t* __restrict__ bt13,
               const int32_t* __restrict__ consts13, int32_t* __restrict__ acc_pt, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ga s_bt[16];
   __shared__ Consts s_k;
   for (int t = threadIdx.x; t < 19; t += blockDim.x) load_tables(t, bt13, consts13, s_bt, s_k);
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Consts k = s_k;
-  gc tab[16];
-  straus_row(a_pt, k_digits, s_digits, s_bt, k, tab, acc_pt, B, b);
+  const int l = threadIdx.x & 3, q = threadIdx.x >> 2;
+  const int row0 = blockIdx.x * (kQuadCta / 4);
+  if (row0 + (q & ~7) >= B) return;
+  const int row = row0 + q;
+  fe* tab = reinterpret_cast<fe*>(smem) + (size_t)q * kTabFields;
+  straus_quad_row(a_pt, k_digits, s_digits, kWindows, s_bt, s_k, tab, acc_pt, B,
+                  row < B ? row : B - 1, l, QuadShfl{}, row < B);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -142,7 +144,7 @@ extern "C" int ed25519_verify_straus(const void* a_pt, const void* k_digits,
                                      const void* s_digits, const void* bt13,
                                      const void* consts13, void* acc_pt, int B,
                                      void* stream) {
-  straus_kernel<<<(B + kStrausThreads - 1) / kStrausThreads, kStrausThreads, 0,
+  straus_kernel<<<(B + kQuadCta / 4 - 1) / (kQuadCta / 4), kQuadCta, kQuadSmemBytes,
                   (cudaStream_t)stream>>>(
       (const int32_t*)a_pt, (const int8_t*)k_digits, (const int8_t*)s_digits,
       (const int32_t*)bt13, (const int32_t*)consts13, (int32_t*)acc_pt, B);

@@ -1,4 +1,5 @@
-// Batched ed25519 verification, one signature per thread, for Hopper (sm_90a).
+// Batched ed25519 verification, a quad of threads per signature, for Hopper
+// (sm_90a).
 //
 // Replaces: narwhal_tpu/tpu/ed25519.py:395 `verify_batch_kernel` (TPU kernel
 // A1). Same inputs (the JAX host layout: int16 radix-2^13 limbs [B, 20], int8
@@ -13,80 +14,57 @@
 // field squarings and ~2200 field multiplications (ed25519.field_muls_per_
 // signature), each 55 or 100 32x32->64-bit products here: ~3.2e5 products,
 // against 64 INT32 lanes per SM. The bytes are ~210 per signature, so memory
-// is never the limit. Design, for correctness first:
-//   - one thread owns one signature end to end; the accumulator point lives in
-//     registers, so no state crosses threads and no synchronisation is needed
-//     after the table load;
+// is never the limit. But a signature is one dependent chain, and a bucket
+// of 2048 is few of them for the card, so the design cuts the chain's depth:
 //   - radix 2^25.5 (ref10's layout: 10 signed limbs alternating 26 and 25 bits,
 //     limb i at bit ceil(25.5 i)) so one field product is 100 native
 //     32x32->64 multiply-adds into int64 columns instead of the TPU kernel's
 //     400 13-bit products;
-//   - the 16-entry cached -A table (16 x 4 x 10 int32 = 2.5 KB per thread) is
-//     indexed by a data-dependent digit, so it lives in local memory (L1/L2);
-//     the spill is accepted in this version;
+//   - a quad of four threads per signature (ed25519_quad.cuh): threads 0 and
+//     1 decompress A and R at once (2 and 3 run along on copies), the quad
+//     then runs the Straus walk, 12 product rounds a window against 47
+//     dependent products on one thread, and the verdict's cofactored half;
+//     every thread runs the strict half's inversion in step;
+//   - the 16-entry cached -A table of each signature (2.5 KB) lives in
+//     shared memory, each thread owning one field of every entry, so the
+//     data-dependent reads stay on chip and no barrier guards them;
 //   - the fixed-base table _BT and the curve constants arrive in the JAX
 //     radix-2^13 layout and are repacked once per block into shared memory, so
 //     lanes of a warp reading different digits hit shared memory, not the
 //     serialising constant cache;
-//   - a batch of 2048 is only 64 warps: at one signature per thread the card
-//     is far from full (see PERF.md). Splitting a signature over several lanes
-//     is the next step for speed, not for this version.
+//   - a batch of 2048 is 256 warps of 8 signatures, kQuadCta threads a CTA.
 //
-// The field and point layer, with its bound argument, is ed25519_field.cuh;
-// the walk and the epilogue, shared with A4 and A5, are ed25519_straus.cuh.
+// The field and point layer, with its bound argument, is ed25519_field.cuh,
+// the quad operations ed25519_quad.cuh; the walk and the verdict, shared
+// with A4 and A5, are ed25519_straus.cuh.
 
 #include "ed25519_straus.cuh"
 
-namespace ed25519_verify {
-
+#ifdef __CUDACC__
 using namespace ed25519_straus;
 
-// The whole per-signature check.  tab: this thread's 16-entry -A table
-// (local memory); bt: the fixed-base table; k: the curve constants. The walk
-// and the epilogue are ed25519_straus.cuh's, shared with A4 and A5.
-template <typename L, typename S, typename D>
-HD void verify_one(const L* a_y, S a_sign, const L* r_y, S r_sign,
-                   const D* k_digits, const D* s_digits, const ga* bt,
-                   const Consts& k, gc* tab, bool& strict, bool& cof) {
-  fe ay, ry;
-  fe_from13(ay, a_y);
-  fe_from13(ry, r_y);
-  const i32 as = (i32)a_sign, rs = (i32)r_sign;
-
-  ge A, acc, R;
-  const bool valid = decompress(A, ay, as, k);
-  straus_walk(acc, A, k_digits, s_digits, bt, k, tab);
-  const bool r_valid = decompress(R, ry, rs, k);
-  straus_verdict(acc, R, ry, rs, valid, r_valid, k, strict, cof);
-}
-
-}  // namespace ed25519_verify
-
-#ifdef __CUDACC__
-using namespace ed25519_verify;
-
-constexpr int kThreads = 32;
-
-__global__ void __launch_bounds__(kThreads)
+// A quad a signature, kQuadCta / 4 signatures a CTA, their -A tables in
+// dynamic shared memory. Quads past B run on a copy of row B - 1 (their
+// warp's shuffles need them) and store nothing; a warp with no row of the
+// batch returns at once.
+__global__ void __launch_bounds__(kQuadCta)
 verify_kernel(const int16_t* __restrict__ a_y, const int8_t* __restrict__ a_sign,
               const int16_t* __restrict__ r_y, const int8_t* __restrict__ r_sign,
               const int8_t* __restrict__ k_digits, const int8_t* __restrict__ s_digits,
               const int32_t* __restrict__ bt13, const int32_t* __restrict__ consts13,
               bool* __restrict__ out_strict, bool* __restrict__ out_cof, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ga s_bt[16];
   __shared__ Consts s_k;
   for (int t = threadIdx.x; t < 19; t += blockDim.x) load_tables(t, bt13, consts13, s_bt, s_k);
   __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Consts k = s_k;
-  gc tab[16];
-  bool strict, cof;
-  verify_one(a_y + (size_t)b * 20, a_sign[b], r_y + (size_t)b * 20, r_sign[b],
-             k_digits + (size_t)b * 64, s_digits + (size_t)b * 64, s_bt, k, tab,
-             strict, cof);
-  out_strict[b] = strict;
-  out_cof[b] = cof;
+  const int l = threadIdx.x & 3, q = threadIdx.x >> 2;
+  const int row0 = blockIdx.x * (kQuadCta / 4);
+  if (row0 + (q & ~7) >= B) return;
+  const int row = row0 + q;
+  fe* tab = reinterpret_cast<fe*>(smem) + (size_t)q * kTabFields;
+  verify_quad_row(a_y, a_sign, r_y, r_sign, k_digits, s_digits, s_bt, s_k, tab, out_strict,
+                  out_cof, row < B ? row : B - 1, l, QuadShfl{}, row < B);
 }
 
 extern "C" int ed25519_verify_batch(const void* a_y, const void* a_sign, const void* r_y,
@@ -94,8 +72,8 @@ extern "C" int ed25519_verify_batch(const void* a_y, const void* a_sign, const v
                                     const void* s_digits, const void* bt13,
                                     const void* consts13, void* out_strict, void* out_cof,
                                     int B, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  verify_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  verify_kernel<<<(B + kQuadCta / 4 - 1) / (kQuadCta / 4), kQuadCta, kQuadSmemBytes,
+                  (cudaStream_t)stream>>>(
       (const int16_t*)a_y, (const int8_t*)a_sign, (const int16_t*)r_y,
       (const int8_t*)r_sign, (const int8_t*)k_digits, (const int8_t*)s_digits,
       (const int32_t*)bt13, (const int32_t*)consts13, (bool*)out_strict,

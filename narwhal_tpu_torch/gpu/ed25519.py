@@ -18,9 +18,11 @@ Two implementations of each function:
   int32 bound argument is the JAX module docstring's). The CPU tests hold
   it against the JAX functions evaluated eagerly and against the bigint
   oracle `ed25519_ref`;
-- the CUDA kernels `csrc/ed25519_verify.cu` (A1: the same verdicts with one
-  signature per thread), `csrc/ed25519_staged.cu` (A3-A5: A1 split at the
-  JAX stage boundaries; A3 ten lanes a row, A4 and A5 one row per thread) and `csrc/ed25519_msm.cu` (A2
+- the CUDA kernels `csrc/ed25519_verify.cu` (A1: the same verdicts with a
+  quad of four threads per signature), `csrc/ed25519_staged.cu` (A3-A5: A1
+  split at the JAX stage boundaries; A3 ten lanes a row, A4 a quad a row,
+  A5 one row per thread; the quad walk is `csrc/ed25519_straus.cuh`) and
+  `csrc/ed25519_msm.cu` (A2
   and A6: the same window-lane sums, canonical, from one CTA per chain with
   four threads per point addition, `msm_plan`; the shard reduce) work in
   radix 2^25.5 (10 limbs, 64-bit column sums); their shared field layer

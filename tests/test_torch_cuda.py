@@ -68,14 +68,31 @@ def test_verify_batch_kernel_matches_plain():
     assert v(items) == [i % 3 != 1 for i in range(40)]
 
 
-def test_verify_batch_kernel_matches_plain_full_bucket():
-    """A1 at the main path's 2048 bucket, bit-equal after the field layer
-    moved to csrc/ed25519_field.cuh."""
+VERIFY_SIZES = (1, 7, 1024, 2048, 8192)  # 2048 the main path's bucket, 1024 a shard's
+
+
+def _torsion_verdicts(strict, cof) -> None:
+    """verify_rows' torsion-defect rows pass only the cofactored rule."""
+    if strict.numel() < 1024:
+        assert not bool(strict[0]) and bool(cof[0])
+    else:
+        assert 0 < int(strict.sum()) < int(cof.sum()) < strict.numel()
+
+
+@pytest.mark.parametrize("B", VERIFY_SIZES)
+def test_verify_batch_kernel_matches_plain_full_bucket(B):
+    """A1 (a quad of threads a signature) on chip_smoke.verify_rows at B
+    rows (forged, torsion, zero and random-limb rows; B = 7 leaves quads of
+    a warp past the batch), bit-equal to its plain version, one launch a
+    call."""
     _need_card("verify_batch", "csrc/ed25519_verify.cu")
-    arrays, _checked, _m = chip_smoke.signature_bucket(7, 120, 2048)
-    t = [torch.from_numpy(a).cuda() for a in arrays]
-    got, plain = tk.verify_batch(*t), tk.verify_batch_plain(*t)
+    t = [torch.from_numpy(a).cuda() for a in chip_smoke.verify_rows(7, 120, B)]
+    kernel_registry.reset_launch_counts()
+    got = tk.verify_batch(*t)
+    assert kernel_registry.launch_counts()["verify_batch"] == 1
+    plain = tk.verify_batch_plain(*t)
     assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    _torsion_verdicts(*got)
 
 
 MSM_BUCKETS = [16, 64, 512, 1024, 2048, 8192]  # smallest .. largest; 1024 a shard's
@@ -146,10 +163,15 @@ def test_verify_decompress_kernel_matches_plain(staged_bucket, B):
         assert B in (1, 7) or 0 < int(valid.sum()) < valid.numel()
 
 
-def test_staged_kernels_match_plain_and_verify_batch(staged_bucket):
+@pytest.mark.parametrize("B", VERIFY_SIZES)
+def test_staged_kernels_match_plain_and_verify_batch(B):
     """A4 equal to its plain version as affine points, A5 bit-equal, and
-    A3 -> A4 -> A5 bit-equal to A1 on both lanes."""
-    t, (a_pt, a_valid), (r_pt, r_valid) = staged_bucket
+    A3 -> A4 -> A5 bit-equal to A1 on both lanes, on chip_smoke.verify_rows
+    at B rows."""
+    _need_card("verify_straus", "csrc/ed25519_staged.cu")
+    t = [torch.from_numpy(a).cuda() for a in chip_smoke.verify_rows(7, 120, B)]
+    a_pt, a_valid = tk.verify_decompress(t[0], t[1])
+    r_pt, r_valid = tk.verify_decompress(t[2], t[3])
     kernel_registry.reset_launch_counts()
     acc = tk.verify_straus(a_pt, t[4], t[5])
     strict, cof = tk.verify_verdict(acc, r_pt, t[2], t[3], a_valid, r_valid)
@@ -160,7 +182,7 @@ def test_staged_kernels_match_plain_and_verify_batch(staged_bucket):
     assert torch.equal(strict, p_strict) and torch.equal(cof, p_cof)
     m_strict, m_cof = tk.verify_batch(*t)
     assert torch.equal(strict, m_strict) and torch.equal(cof, m_cof)
-    assert 0 < int(strict.sum()) < int(cof.sum()) < 2048  # torsion rows: cofactored only
+    _torsion_verdicts(strict, cof)
 
 
 @pytest.mark.parametrize("bucket", [16, 512, 1024, 2048, 8192])
