@@ -15,11 +15,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             compact proofs of 50 signers as 2000 doubled rows plus 48 zero
             rows, and in the item shape with real R and z digits, a torsion
             row and an invalid encoding; reach_many at K = 64 with padding
-            slots, W = 64 and 128; the staged kernels of the sharded
+            slots, W = 64 and 128, the Dag service's dense window at W =
+            64 and 128 with K = 1, 8, 64, the consensus step's window with
+            its uncommitted mask, and N = 65, 200 and W = 512 (the wide
+            route; each shape's route logged); the staged kernels of the sharded
             verifier at B = 2048: verify_decompress on the item bucket's A
             and R sets, verify_straus and verify_verdict on its output,
             msm_window on the msm item and group buckets' A (64 lanes) and
-            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards; A2
+            R (32 lanes) sets, msm_shard_reduce over 2 and 4 shards (both
+            lane sets in one launch); A2
             and A3 -> A6 again at B = 16, 512, 1024 (a shard's rows) and
             8192 (two tiles of shared memory) on both buckets; A1, A4 and
             A3 -> A4 -> A5 again at B = 1, 7, 1024 and 8192 (verify_rows:
@@ -46,7 +50,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             decompress -> straus -> verdict bit-equal to verify_batch,
             decompress -> msm_window (A, R) equal to msm_accumulate (lanes
             as points, validity bit-equal), the reduced shards equal to its
-            V_a;
+            V_a and V_r;
   engine    GpuBullshark.process_batch_async on the card over a lossy
             unsigned N = 50 DAG of 200 rounds, built so the window both
             slides and grows and chains of up to 4 leaders commit at once;
@@ -774,14 +778,26 @@ def _same_bits(kernel: str, got, want) -> None:
         raise AssertionError(f"{kernel}: differs at rows {bad}")
 
 
+def shard_lane_sets(pa, pr, digits_a, digits_r, k: int):
+    """A6 over k equal shards of a bucket's decompressed A and R sets, as
+    the sharded verifier's msm bucket runs it: (parts_a, parts_r)."""
+    from narwhal_tpu_torch.gpu import ed25519
+
+    n = digits_a.shape[0] // k
+    cut = [slice(i * n, (i + 1) * n) for i in range(k)]
+    return ([ed25519.msm_window(pa[..., c].contiguous(), digits_a[c]) for c in cut],
+            [ed25519.msm_window(pr[..., c].contiguous(), digits_r[c]) for c in cut])
+
+
 def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
     """A3-A6 and the shard reduce against their plain versions on the same
     card tensors at B = `bucket`, and the compositions against the
     monoliths: A3 -> A4 -> A5 against A1 on the item bucket of
     `signature_bucket` (its forged, torsion, zero and random-limb rows), A3
     -> A6 (A and R sets) against A2 on the msm item and group buckets (the
-    group lane's R set all zero), the reduce over k = 2 and 4 shards of the
-    item bucket's A set. Validity and verdicts bit-equal, A3's coordinates
+    group lane's R set all zero), the reduce of both sets over k = 2 and 4
+    shards of the item bucket against A2's V_a and V_r (the invalid R row's
+    digits zeroed for V_r). Validity and verdicts bit-equal, A3's coordinates
     equal mod p, every other point equal as an affine point."""
     import torch
     from narwhal_tpu_torch.gpu import ed25519
@@ -848,22 +864,31 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
             f"points; A3 -> A6 == msm_accumulate (V_a, V_r as points, valid bit-equal, "
             f"{int((~m_valid).sum())} invalid)")
 
+    # A6' as the sharded msm bucket runs it: the item bucket cut into k
+    # shards, A6 over each shard's A and R sets, both sets reduced in one
+    # call. Against A2 with the invalid R row's digits zeroed as well: off
+    # the curve the shards' grouping of the additions gives another point.
     t = msm_t["item"]
     pa, _ = ed25519.verify_decompress(t[0], t[1])
-    whole = ed25519.msm_accumulate(*t)[0]
+    pr, r_ok = ed25519.verify_decompress(t[2], t[3])
+    z_on_curve = torch.where(r_ok[:, None], t[5], torch.zeros_like(t[5]))
+    whole_a, _, _ = ed25519.msm_accumulate(*t)
+    whole_r = ed25519.msm_accumulate(*t[:5], z_on_curve)[1]
     for k in (2, 4):
-        n = bucket // k
-        lanes = torch.stack([
-            ed25519.msm_window(pa[..., i * n:(i + 1) * n].contiguous(), t[4][i * n:(i + 1) * n])
-            for i in range(k)])
-        got = ed25519.msm_shard_reduce(lanes)
-        err = _same_points(f"msm_shard_reduce k={k}", got, ed25519.msm_shard_reduce_plain(lanes))
-        errs["msm_shard_reduce"] = max(errs["msm_shard_reduce"], err)
-        _same_points(f"msm_shard_reduce k={k} against msm_accumulate V_a", got, whole)
+        parts_a, parts_r = shard_lane_sets(pa, pr, t[4], t[5], k)
+        got_a, got_r = ed25519.msm_shard_reduce(parts_a, parts_r)
+        for lanes, got, parts in (("V_a", got_a, parts_a), ("V_r", got_r, parts_r)):
+            err = _same_points(f"msm_shard_reduce k={k} {lanes}", got,
+                               ed25519.msm_shard_reduce_plain(torch.stack(parts)))
+            errs["msm_shard_reduce"] = max(errs["msm_shard_reduce"], err)
+        _same_points(f"msm_shard_reduce k={k} against msm_accumulate V_a", got_a, whole_a)
+        on_curve = ed25519.msm_shard_reduce(*shard_lane_sets(pa, pr, t[4], z_on_curve, k))
+        _same_points(f"msm_shard_reduce k={k} against msm_accumulate V_r", on_curve[1], whole_r)
         if k == 2:
-            lanes2 = lanes
-    log(f"msm_shard_reduce: k in (2, 4) shards of the item bucket's A set: equal to plain "
-        f"as affine points, and to msm_accumulate's V_a")
+            sets2 = (parts_a, parts_r)
+    log(f"msm_shard_reduce: k in (2, 4) shards of the item bucket, the A and R sets in one "
+        f"launch: equal to plain as affine points (the invalid R row included), and to "
+        f"msm_accumulate's V_a and V_r (that row's digits zeroed)")
     if device.type == "cuda":
         torch.cuda.synchronize()
 
@@ -899,9 +924,10 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
         pts_bytes + bucket * 64 + 4 * 20 * 64 * 4,
         f"B={bucket} group lane A set, 64 lanes ({g_live} live rows)"),
         msm_shard_reduce=(
-        lambda: ed25519.msm_shard_reduce(lanes2),
-        lambda: ed25519.msm_shard_reduce_plain(lanes2),
-        (2 - 1) * 64 * 9 * 100, 3 * 4 * 20 * 64 * 4, "k=2 lane sets of 64 lanes"),
+        lambda: ed25519.msm_shard_reduce(*sets2),
+        lambda: [ed25519.msm_shard_reduce_plain(torch.stack(p)) for p in sets2],
+        (2 - 1) * 96 * 9 * 100, 3 * 4 * 20 * 96 * 4,
+        "k=2 shards, the A (64 lanes) and R (32 lanes) sets in one launch"),
     )
     rows = []
     for name, (kernel, plain, ops, nbytes, shape) in timed.items():
@@ -912,7 +938,6 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
                      "bound_ms": b, "bound_by": by, "library_ms": None, "shape": shape})
     # A6's other shape on the path: the R set's 32 lanes (the item bucket).
     r_live = int(t[5].any(1).sum())
-    pr, _ = ed25519.verify_decompress(t[2], t[3])
     dev_ms, per_launch = device_breakdown(lambda: ed25519.msm_window(g_pts, group_t[4]), device)
     dev_r, per_r = device_breakdown(lambda: ed25519.msm_window(pr, t[5]), device)
     rows[3]["extra"] = {
@@ -924,6 +949,10 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
     }
     log(f"  msm_window profiler device time {dev_ms} ms a call (64 lanes): {per_launch}; "
         f"{dev_r} ms (32 lanes): {per_r}")
+    rows[4]["extra"] = {"device_ms": device_breakdown(
+        lambda: ed25519.msm_shard_reduce(*sets2), device)[0]}
+    log(f"  msm_shard_reduce k=2, both sets: events {rows[4]['ms']:.4f} ms, device "
+        f"{rows[4]['extra']['device_ms']} ms")
     # The staged item path on one card beside A1 (both on the same bucket).
     def staged_item():
         ap, av = ed25519.verify_decompress(a_y, a_sign)
@@ -1249,15 +1278,17 @@ def check_chain_commit(device, n: int, w: int, gc_depth: int = GC_DEPTH):
     return out
 
 
-def reach_many_inputs(rng: np.random.Generator, w: int, n: int, k_slots: int, live: int):
-    """Inputs of one coalesced read dispatch, as numpy arrays: a sparse
-    random window (two parent links a certificate on average, 4 % at
-    N = 50, so walks branch and die out instead of saturating),
-    `uncommitted` (the service passes `present`) at 90 %, and
-    `live` distinct random starts over rows 0..w-1 (one at the top row),
-    each present and linking at least one parent, then `k_slots - live`
-    padding slots (offset 0, zero one-hot)."""
-    parent = (rng.random((w, n, n)) < 2.0 / n).astype(np.uint8)
+def reach_many_inputs(rng: np.random.Generator, w: int, n: int, k_slots: int, live: int,
+                      density: float | None = None):
+    """Inputs of one coalesced read dispatch, as numpy arrays: a random
+    window (by default sparse, two parent links a certificate on average, 4
+    % at N = 50, so walks branch and die out instead of saturating; the Dag
+    service's window links ~70 %), `uncommitted` (the service passes
+    `present`) at 90 %, and `live` distinct random starts over rows 0..w-1
+    (one at the top row), each present and linking at least one parent,
+    then `k_slots - live` padding slots (offset 0, zero one-hot)."""
+    density = 2.0 / n if density is None else density
+    parent = (rng.random((w, n, n)) < density).astype(np.uint8)
     present = (rng.random((w, n)) < 0.9).astype(np.uint8)
     offs = np.zeros(k_slots, np.int32)
     onehots = np.zeros((k_slots, n), np.uint8)
@@ -1270,43 +1301,90 @@ def reach_many_inputs(rng: np.random.Generator, w: int, n: int, k_slots: int, li
     return parent, present, offs, onehots
 
 
-def reach_many_bytes(w: int, n: int, offs) -> int:
-    """B6's least traffic: parent rows 1..max(offs) and uncommitted rows
-    0..max(offs) read once, offs and the one-hots read, the K masks
-    written."""
+def consensus_reach_inputs(rng: np.random.Generator, w: int, n: int, b: int):
+    """B6's operands in the consensus step: `support_inputs`' 30 % window
+    and B walks, with the uncommitted mask the step is given, present and
+    above each authority's last committed round (so not `present`)."""
+    parent, present, _stakes, offs, onehots, _leaders, last = support_inputs(rng, w, n, b, 0.3)
+    unc = (present & (np.arange(w)[:, None] > last[None, :])).astype(np.uint8)
+    assert not np.array_equal(unc, present)
+    return parent, unc, offs, onehots
+
+
+def reach_many_bytes(w: int, n: int, offs, onehots=None) -> int:
+    """B6's least traffic: parent rows 1..top and uncommitted rows 0..top
+    read once (top the highest start of a read with a one-hot), offs and
+    the one-hots read, the K masks written."""
     k = len(offs)
-    top = int(np.max(offs))
-    return top * n * n + (top + 1) * n + 4 * k + k * n + k * w * n
+    live = offs if onehots is None else offs[np.asarray(onehots).any(1)]
+    top = int(np.max(live)) if len(live) else -1
+    return max(top, 0) * n * n + (top + 1) * n + 4 * k + k * n + k * w * n
+
+
+# B6's shapes beside the kernels phase's (W 64, N 50, K 64 of which 56 live,
+# the sparse window): (label, W, N, K, live, link density; None: sparse).
+# The sparse window grown to 128 and read once; the Dag service's dense
+# window (70 % links) at its W 64 and grown 128 in its bursts of K 1, 8 and
+# 64 (padded to a power of two); the wide route: N 65 and 200 at W 64, and a
+# 512-row window at N 50 (past shared memory). The consensus step's shape
+# (consensus_reach_inputs, uncommitted != present) is checked beside them.
+REACH_SHAPES = (
+    ("sparse", 128, 50, 64, 61, None), ("sparse", 64, 50, 1, 1, None),
+    *(("service", w, 50, k, k - k // 8, 0.7) for w in (64, 128) for k in (1, 8, 64)),
+    ("wide", 64, 65, 64, 56, None), ("wide", 64, 200, 64, 56, None),
+    ("wide", 512, 50, 64, 56, None),
+)
 
 
 def check_reach_many(device, n: int, w: int):
+    """B6 against its plain version, bit for bit: the kernels phase's sparse
+    window (W = w, K = 64, 56 live), every shape of REACH_SHAPES and the
+    consensus step's (W = w, B = 64, 30 % links, its uncommitted mask), on
+    the route each takes (logged). Timed at the first: CUDA events,
+    torch.profiler's device time, plain, bound; the others by events."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
     rng = np.random.default_rng(14)
-    out, err = None, 0
-    for ww, K, live in ((w, 64, 56), (2 * w, 64, 61), (w, 1, 1)):
-        host = reach_many_inputs(rng, ww, n, K, live)
+    cases = [("sparse", w, n, 64, 56, None), *REACH_SHAPES, ("consensus", w, n, 64, 64, 0.3)]
+    out, err, extra = None, 0, {"route_by_shape": {}, "ms_by_shape": {}, "bound_ms_by_shape": {}}
+    for label, ww, nn, K, live, density in cases:
+        if label == "consensus":
+            host = consensus_reach_inputs(rng, ww, nn, K)
+        else:
+            host = reach_many_inputs(rng, ww, nn, K, live, density)
         t = [torch.from_numpy(a).to(device) for a in host]
         km = dk.reach_many(*t)
         pm = dk.reach_many_plain(*t)
         err = max(err, int((km.int() - pm.int()).abs().max()))
+        tag = f"{label} W={ww} N={nn} K={K}"
         if not torch.equal(km, pm):
-            raise AssertionError(f"reach_many W={ww} K={K}: kernel != plain")
+            raise AssertionError(f"reach_many {tag}: kernel != plain")
         hits = pm.flatten(1).sum(1)
-        if int(hits[live:].sum()) != 0 or int((hits[:live] > 1).sum()) < live // 2:
-            raise AssertionError(f"reach_many W={ww} K={K}: walks {hits.tolist()}")
-        log(f"reach_many W={ww} N={n} K={K} ({live} starts, {K - live} padding): "
+        if label == "consensus":
+            if int((hits > 1).sum()) < K // 4:
+                raise AssertionError(f"reach_many {tag}: walks {hits.tolist()}")
+        elif int(hits[live:].sum()) != 0 or int((hits[:live] > 1).sum()) < live // 2:
+            raise AssertionError(f"reach_many {tag}: walks {hits.tolist()}")
+        route = dk.reach_route(ww, nn, device) if device.type == "cuda" else "plain"
+        extra["route_by_shape"][tag] = route
+        log(f"reach_many {tag} ({live} starts, {K - live} padding, {route} route): "
             f"kernel == plain, {int(hits.sum())} certificates reached, padding rows empty")
-        if (ww, K) != (w, 64):
+        b, by = bound_ms(reach_many_bytes(ww, nn, host[2], host[3]))
+        if out is not None:
+            extra["ms_by_shape"][tag] = time_ms(lambda: dk.reach_many(*t), device, reps=20)
+            extra["bound_ms_by_shape"][tag] = b
             continue
         ms = time_ms(lambda: dk.reach_many(*t), device, reps=50)
         plain_ms = time_ms(lambda: dk.reach_many_plain(*t), device, reps=1, groups=3)
-        b, by = bound_ms(reach_many_bytes(ww, n, host[2]))
+        extra["device_ms"] = device_breakdown(lambda: dk.reach_many(*t), device)[0]
         out = {"name": "reach_many", "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b, "bound_by": by, "library_ms": None,
-               "shape": f"W={ww} N={n} K={K} ({live} starts, top row {int(host[2].max())})"}
+               "shape": f"W={ww} N={nn} K={K} ({live} starts, top row {int(host[2].max())})"}
     out["max_abs_err"] = err
+    out["extra"] = extra
+    log(f"  reach_many: device {extra['device_ms']} ms at "
+        f"{out['shape']}; events ms by shape {extra['ms_by_shape']}")
     return out
 
 

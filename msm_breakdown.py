@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Per-launch device times of the window-lane kernels, A1, A3, A4 and B2 on
-one NVIDIA card.
+"""Per-launch device times of the window-lane kernels, A1, A3, A4, B2, B6 and
+A6' on one NVIDIA card.
 
     python3 msm_breakdown.py [--package DIR] [--bucket B ...] [--phases]
+                             [--sections S ...]
 
 For each bucket (default the verifier's 2048 rows and a shard's 1024): A2
 `msm_accumulate` on the group-lane and item buckets of `chip_smoke.py`, A6
@@ -22,6 +23,23 @@ coordinates mod p, validity, verdicts and masks bit for bit), then timed:
 the CUDA-event median through the wrapper, and torch.profiler's device
 time of one call split by the kernels it launches. It prints nvcc's ptxas
 figures (registers, spills, shared memory) of the four sources first.
+
+Section `reach`: B6 `reach_many` at the kernels phase's shape of
+`chip_smoke.py` (W = 64, N = 50, K = 64 reads of which 56 live, the sparse
+window), at the Dag service's dense window (W = 64 and 128, K = 1, 8, 64),
+at the consensus step's window (its uncommitted mask) and at the wide
+route's shapes (N = 65 and 200 at W = 64, W = 512 at N = 50).
+Section `reduce`: A6' `msm_shard_reduce` as the sharded msm bucket calls
+it, over k = 2 and 4 shards of the item bucket's A and R sets (B = 2048):
+one call for both sets where the package takes both, else the stack and
+the launch of each set. Each held against its plain version first (masks
+bit for bit, lanes as affine points). Section `steps`: the host wall of
+two steps `chip_smoke.py` times once each, repeated: the unmeshed
+consensus step (B = 64 walks on its W = 64, N = 50 window, copies in and
+out) and the dry run (`entry()`'s walk, then `dryrun_multichip(4)` over
+this card four times); the median and quartiles over `STEP_REPS` runs.
+`--sections` picks among `lanes` (A2, A6, A3, A1, A4; the default runs
+every section), `walk` (B2), `reach`, `reduce` and `steps`.
 
 `--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
 chain kernel then records %globaltimer at four points of each CTA) and
@@ -51,6 +69,7 @@ def main(argv=None) -> int:
     ap.add_argument("--package", default=None, help="directory holding narwhal_tpu_torch/")
     ap.add_argument("--bucket", type=int, nargs="+", default=[2048, 1024])
     ap.add_argument("--phases", action="store_true", help="time the chain kernel's phases")
+    ap.add_argument("--sections", nargs="+", choices=SECTIONS, default=list(SECTIONS))
     args = ap.parse_args(argv)
     import importlib.util
 
@@ -72,7 +91,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"package {os.path.dirname(ed25519.__file__)}", flush=True)
     print(chip_smoke.card_line(), flush=True)
-    stems = ["ed25519_msm", "ed25519_staged", "ed25519_verify", "dag_window"]
+    stems = sorted({stem for sec in args.sections for stem in SECTIONS[sec]})
     walls = kernel_registry.build(stems)
     print("build walls " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
     for stem in stems:
@@ -87,7 +106,7 @@ def main(argv=None) -> int:
         print(f"{name}: events {ms:.4f} ms, device {device}", flush=True)
 
     f = CommitteeFixture(size=50)
-    for bucket in args.bucket:
+    for bucket in args.bucket if "lanes" in args.sections else ():
         buckets = {"group": chip_smoke.msm_group_bucket(f, bucket)[0],
                    "item": chip_smoke.msm_item_bucket(23, 300, bucket)[0]}
         for shape, host in buckets.items():
@@ -112,9 +131,23 @@ def main(argv=None) -> int:
                 phases(ed25519, kernel_registry, dev, t, pa, pr, f"{shape} B={bucket}")
         decompress(chip_smoke, ed25519, dev, bucket, timed)
         straus(chip_smoke, ed25519, dev, bucket, timed)
-    walk(chip_smoke, dev, timed)
+    if "walk" in args.sections:
+        walk(chip_smoke, dev, timed)
+    if "reach" in args.sections:
+        reach(chip_smoke, dev, timed)
+    if "reduce" in args.sections:
+        reduce(chip_smoke, ed25519, dev, timed)
+    if "steps" in args.sections:
+        steps(chip_smoke, dev)
     torch.cuda.synchronize()
     return 0
+
+
+# The sources each section builds.
+SECTIONS = {"lanes": ("ed25519_msm", "ed25519_staged", "ed25519_verify"),
+            "walk": ("dag_window",), "reach": ("dag_window",),
+            "reduce": ("ed25519_msm", "ed25519_staged"),
+            "steps": ("dag_window", "ed25519_msm", "ed25519_staged", "ed25519_verify")}
 
 
 def decompress(chip_smoke, ed25519, dev, bucket, timed) -> None:
@@ -201,6 +234,89 @@ def walk(chip_smoke, dev, timed) -> None:
                               dk.chain_commit_plain(*args))
         timed(f"B2 chain_commit W={w} N={n} healed K=2 rows {offs.tolist()}",
               lambda: dk.chain_commit(*args))
+
+
+def reach(chip_smoke, dev, timed) -> None:
+    """B6 through the wrapper at the kernels phase's shape,
+    chip_smoke.REACH_SHAPES and the consensus step's window."""
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    rng = np.random.default_rng(14)
+    cases = [("sparse", 64, 50, 64, 56, None), *chip_smoke.REACH_SHAPES,
+             ("consensus", 64, 50, 64, 64, 0.3)]
+    for label, w, n, K, live, density in cases:
+        if label == "consensus":
+            host = chip_smoke.consensus_reach_inputs(rng, w, n, K)
+        else:
+            host = chip_smoke.reach_many_inputs(rng, w, n, K, live, density)
+        t = [torch.from_numpy(a).to(dev) for a in host]
+        tag = f"B6 reach_many {label} W={w} N={n} K={K} ({live} live)"
+        plain = dk.reach_many_plain(*t)
+        chip_smoke._same_bits(tag, dk.reach_many(*t), plain)
+        timed(tag, lambda: dk.reach_many(*t))
+
+
+def reduce(chip_smoke, ed25519, dev, timed) -> None:
+    """A6' over k = 2 and 4 shards of the item bucket (B = 2048), both lane
+    sets, as the sharded msm bucket calls it: one call where the package's
+    msm_shard_reduce takes both sets, else a stack and a launch a set."""
+    import inspect
+
+    import torch
+
+    both = "parts_r" in inspect.signature(ed25519.msm_shard_reduce).parameters
+    t = [torch.from_numpy(a).to(dev) for a in chip_smoke.msm_item_bucket(23, 300, 2048)[0]]
+    pa, _ = ed25519.verify_decompress(t[0], t[1])
+    pr, _ = ed25519.verify_decompress(t[2], t[3])
+    for k in (2, 4):
+        parts_a, parts_r = chip_smoke.shard_lane_sets(pa, pr, t[4], t[5], k)
+        if both:
+            call = lambda: ed25519.msm_shard_reduce(parts_a, parts_r)  # noqa: E731
+        else:
+            call = lambda: (ed25519.msm_shard_reduce(torch.stack(parts_a)),  # noqa: E731
+                            ed25519.msm_shard_reduce(torch.stack(parts_r)))
+        for got, parts in zip(call(), (parts_a, parts_r)):
+            chip_smoke._same_points(f"A6' k={k}", got,
+                                    ed25519.msm_shard_reduce_plain(torch.stack(parts)))
+        timed(f"A6' msm_shard_reduce k={k} A and R sets "
+              + ("(one call)" if both else "(a stack and a launch a set)"), call)
+
+
+# Runs of each step in section `steps` (the dry run takes ~50 ms).
+STEP_REPS = {"consensus_step": 60, "dryrun": 20}
+
+
+def steps(chip_smoke, dev) -> None:
+    """The consensus step and the dry run as chip_smoke.py's phases run
+    them, each once untimed, then STEP_REPS runs timed on the host clock
+    (the step's outputs copied back, so the card has finished)."""
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch import entry as tentry
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    host = chip_smoke.support_inputs(np.random.default_rng(18), 64, 50, 64, 0.3)
+
+    def consensus_step():
+        return [x.cpu() for x in dk.consensus_step(*(torch.from_numpy(a).to(dev) for a in host))]
+
+    def dryrun():
+        fn, args = tentry.entry(device=dev)
+        fn(*args).cpu()
+        tentry.dryrun_multichip(4, devices=[dev] * 4)
+
+    for name, fn in (("consensus_step", consensus_step), ("dryrun", dryrun)):
+        fn()
+        walls = []
+        for _ in range(STEP_REPS[name]):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        q1, med, q3 = np.percentile(walls, [25, 50, 75])
+        print(f"step {name}: host wall median {med:.4f} ms, quartiles {q1:.4f}-{q3:.4f} "
+              f"over {len(walls)} runs", flush=True)
 
 
 _PHASE_LIB = []

@@ -1,9 +1,10 @@
 #pragma once
 
 // The packed-bit form of the commit walk (B2, chain_commit_kernel and
-// chain_commit_wide_kernel in dag_window.cu): byte tensors turned into bit
-// strings, rows read out of them, the walk of one leader by one warp over
-// packed rows, and the wide walk of a CTA.
+// chain_commit_wide_kernel in dag_window.cu) and of the batched reach walk
+// (B6, reach_many_kernel and reach_many_wide_kernel): byte tensors turned
+// into bit strings, rows read out of them, the walk of one leader (B2) or
+// one read (B6) by one warp over packed rows, and the wide walk of a CTA.
 //
 // Every function is WB_HD (host and device under nvcc, plain inline C++
 // otherwise), and the walks are thread code with the warp's or the CTA's
@@ -215,7 +216,14 @@ WB_HD void column_table(const L& x, const uint32_t* par, int par_lo, const uint3
 // cross-lane reduction: a row's dependent chain is an AND, a compare and a
 // vote. What a row reads that does not depend on the reach set (its column
 // words, its present bits, its lc ballots) is loaded one row ahead.
-template <class L>
+//
+// kChain false is reach_mask alone (B6's read): `t.pre` holds the caller's
+// uncommitted rows, there is no lc ballot, no gc test and no bookkeeping
+// (lc, gc_depth and lcr are not touched), and the walk stops at the first
+// row whose reach set is empty, writing zero words for the rows below it
+// (nothing under an empty row is reached; the set is a ballot, so the stop
+// is warp-uniform).
+template <bool kChain, class L>
 WB_HD void walk_leader(const L& x, const Tables& t, const uint8_t* oh, int s, int W,
                        int gc_depth, int* lc, int& lcr, uint32_t* keep) {
   const int N = t.N, l = x.lane;
@@ -228,22 +236,24 @@ WB_HD void walk_leader(const L& x, const Tables& t, const uint8_t* oh, int s, in
     keep[2 * w + 1] = 0;
   }
   const bool has0 = l < N, has1 = l + 32 < N;
-  const int lc0 = has0 ? lc[l] : 0, lc1 = has1 ? lc[l + 32] : 0;
+  const int lc0 = kChain && has0 ? lc[l] : 0, lc1 = kChain && has1 ? lc[l + 32] : 0;
   int top_kept = kSentinel;
   int c0 = kSentinel, c1 = kSentinel;  // this lane's columns' committed rows
   uint32_t f0 = 0, f1 = 0;             // the reach set of the row above
   uint32_t a0 = 0, a1 = 0, b0 = 0, b1 = 0;  // row w's column words (w + 1, l), (w + 1, l + 32)
-  uint32_t p0 = 0, p1 = 0, m0 = 0, m1 = 0;  // row w's present words and lc ballots
+  uint32_t p0 = 0, p1 = 0, m0 = ~0u, m1 = ~0u;  // row w's present words and lc ballots
   if (first >= 0) {
     p0 = t.pre[2 * first];
     p1 = t.pre[2 * first + 1];
-    m0 = x.ballot(first > lc0);
-    m1 = x.ballot(first > lc1);
+    if (kChain) {
+      m0 = x.ballot(first > lc0);
+      m1 = x.ballot(first > lc1);
+    }
   }
   for (int w = first; w >= 0; w--) {
     // row w - 1's reads, ahead of this row's dependent chain (used one row
     // later, so no load latency stands in the chain)
-    uint32_t na0 = 0, na1 = 0, nb0 = 0, nb1 = 0, np0 = 0, np1 = 0, nm0 = 0, nm1 = 0;
+    uint32_t na0 = 0, na1 = 0, nb0 = 0, nb1 = 0, np0 = 0, np1 = 0, nm0 = ~0u, nm1 = ~0u;
     if (w > 0) {
       // every lane loads (lanes past N read column 0 and drop it): no
       // divergence on the row's path
@@ -255,8 +265,10 @@ WB_HD void walk_leader(const L& x, const Tables& t, const uint8_t* oh, int s, in
       nb1 = has1 ? col[2 * pb + 1] : 0u;
       np0 = t.pre[2 * (w - 1)];
       np1 = t.pre[2 * (w - 1) + 1];
-      nm0 = x.ballot(w - 1 > lc0);
-      nm1 = x.ballot(w - 1 > lc1);
+      if (kChain) {
+        nm0 = x.ballot(w - 1 > lc0);
+        nm1 = x.ballot(w - 1 > lc1);
+      }
     }
     uint32_t r0 = o0, r1 = o1;
     if (w < first) {
@@ -265,13 +277,25 @@ WB_HD void walk_leader(const L& x, const Tables& t, const uint8_t* oh, int s, in
     }
     f0 = r0 & p0 & m0;  // reached, present and not committed before this leader
     f1 = r1 & p1 & m1;
-    const bool gc = w + gc_depth >= lcr;
-    const uint32_t k0 = gc ? f0 : 0u, k1 = gc ? f1 : 0u;
-    keep[2 * w] = k0;  // every lane stores the same words: no branch on the row's path
-    keep[2 * w + 1] = k1;
-    if (((k0 >> l) & 1u) && c0 == kSentinel) c0 = w;
-    if (((k1 >> l) & 1u) && c1 == kSentinel) c1 = w;
-    if ((k0 | k1) != 0 && top_kept == kSentinel) top_kept = w;
+    if (!kChain) {
+      keep[2 * w] = f0;
+      keep[2 * w + 1] = f1;
+      if ((f0 | f1) == 0) {
+        for (int j = l; j < w; j += 32) {
+          keep[2 * j] = 0;
+          keep[2 * j + 1] = 0;
+        }
+        break;
+      }
+    } else {
+      const bool gc = w + gc_depth >= lcr;
+      const uint32_t k0 = gc ? f0 : 0u, k1 = gc ? f1 : 0u;
+      keep[2 * w] = k0;  // every lane stores the same words: no branch on the row's path
+      keep[2 * w + 1] = k1;
+      if (((k0 >> l) & 1u) && c0 == kSentinel) c0 = w;
+      if (((k1 >> l) & 1u) && c1 == kSentinel) c1 = w;
+      if ((k0 | k1) != 0 && top_kept == kSentinel) top_kept = w;
+    }
     a0 = na0;
     a1 = na1;
     b0 = nb0;
@@ -281,12 +305,31 @@ WB_HD void walk_leader(const L& x, const Tables& t, const uint8_t* oh, int s, in
     m0 = nm0;
     m1 = nm1;
   }
-  // lc = max(lc, committed), lcr = max(lcr, max_p committed), committed[p]
-  // the highest kept row of column p, else the sentinel.
-  if (has0 && c0 > lc0) lc[l] = c0;
-  if (has1 && c1 > lc1) lc[l + 32] = c1;
-  if (top_kept > lcr) lcr = top_kept;
+  if (kChain) {
+    // lc = max(lc, committed), lcr = max(lcr, max_p committed), committed[p]
+    // the highest kept row of column p, else the sentinel.
+    if (has0 && c0 > lc0) lc[l] = c0;
+    if (has1 && c1 > lc1) lc[l + 32] = c1;
+    if (top_kept > lcr) lcr = top_kept;
+  }
   x.sync();
+}
+
+// B6's read by one warp over the CTA's column table: walked
+// (walk_leader<false>) into the warp's keep rows [W][2] and expanded into
+// its [W, N] mask bytes a row at a time, lane l writing columns l and l + 32
+// (every byte of the mask).
+template <class L>
+WB_HD void reach_read(const L& x, const Tables& t, int s, const uint8_t* onehot, bool* mask,
+                      int W, uint32_t* keep) {
+  const int N = t.N, l = x.lane;
+  int unused = 0;
+  walk_leader<false>(x, t, onehot, s, W, 0, nullptr, unused, keep);
+  for (int w = 0; w < W; w++) {
+    const uint32_t k0 = keep[2 * w], k1 = keep[2 * w + 1];
+    if (l < N) mask[(size_t)w * N + l] = (k0 >> l) & 1u;
+    if (l + 32 < N) mask[(size_t)w * N + l + 32] = (k1 >> l) & 1u;
+  }
 }
 
 // The byte at src, as a word (__ldg on the card), and the index of the
@@ -350,7 +393,10 @@ WB_HD bool has_parent(const uint8_t* col, long long N, const uint32_t* f, int nw
 // scan at the first batch); its present byte is loaded a row ahead. The gc
 // test is one compare a row, committed[p] the first kept row from the top.
 // sm is 2 * ceil(N / 32) shared words, cand two shared ints (the lcr
-// candidate, by leader parity).
+// candidate, by leader parity). B6's wide route runs it for one read (K 1)
+// with lc_rel null (every column's lc the sentinel), gc_depth 0 and lcr the
+// sentinel: every present column is uncommitted and every reached one kept,
+// which is reach_mask.
 template <class C>
 WB_HD void wide_walk(const C& x, const uint8_t* parent, const uint8_t* present,
                      const int32_t* lc_rel, const int32_t* offs, const uint8_t* onehots,
@@ -359,7 +405,7 @@ WB_HD void wide_walk(const C& x, const uint8_t* parent, const uint8_t* present,
   const int NW = (N + 31) >> 5;
   const int p = x.tid, lane = p & 31, warp = p >> 5;
   const bool col = p < N;
-  int lc = col ? lc_rel[p] : 0;
+  int lc = !col ? 0 : lc_rel ? lc_rel[p] : kSentinel;
   int lcr = lcr_rel;
   for (int k = 0; k < K; k++) {
     int* cand = s_cand + (k & 1);

@@ -70,19 +70,31 @@
 // reach_many   replaces narwhal_tpu/consensus/dag.py:262 `_reach_k` (B6), the
 //   jitted vmap of reach_mask over K read starts that serves the Dag
 //   service's coalesced read_causal: masks[k] = reach_mask(parent,
-//   uncommitted, offs[k], onehots[k]) for k < K. One CTA per walk (K CTAs,
-//   the walks are independent), thread p owns authority column p (N <= 1024),
-//   and each row step is the `reach_step` device function (the row step
-//   of B2 before its packed-bit form), with two barriers per row; the
-//   frontier sits in shared memory. `uncommitted` is what the caller passes (the service
-//   passes `present`): no lc or gc filter. A padding slot (zero one-hot)
-//   reaches nothing and writes an all-zero mask. W is an argument, so the
-//   window may grow (64, 128, 256, ...) without a rebuild. Bound: bytes,
-//   as for chain_commit: parent rows 1..max(offs) and uncommitted rows
-//   0..max(offs) read once, offs and the one-hots read, and the K masks
-//   written (K * W * N bytes). Its latency: W serial row steps with a
-//   dependent-load loop each, and the walk goes on below an empty frontier
-//   (B2's packed-bit walk would serve it too).
+//   uncommitted, offs[k], onehots[k]) for k < K. `uncommitted` is what the
+//   caller passes (the service passes `present`, the consensus step its
+//   own mask): no lc or gc filter between walks. A zero one-hot, or an
+//   offset outside [0, W), reaches nothing; every byte of the [K, W, N]
+//   masks is written. W is an argument, so the window may grow (64, 128,
+//   256, ...) without a rebuild.
+//   Bound: bytes, as for chain_commit: parent rows 1..top and uncommitted
+//   rows 0..top read once (top the highest live start), offs and the
+//   one-hots read, and the K masks written (K * W * N bytes): ~0.1 us of
+//   HBM time at W = 64, N = 50, K = 64. What is left is B2's latency: the
+//   packing loads and a dependent row step (an AND and a vote) a row.
+//   The K reads share one window, so on the packed route (N <= 64 and the
+//   tables fit in shared memory: W = 256 at N = 50) reach_many_kernel runs
+//   a CTA of 16 warps per group of 16 reads: it packs parent rows 1..top
+//   and uncommitted rows 0..top of its group (`top` over its live reads
+//   only; a group of padding reads packs nothing) and builds B2's column
+//   table once, then each warp walks its read with B2's row step
+//   (walk_leader<false>: ballots, no barrier, no lc ballot and no gc test,
+//   stopping at the first empty row) into its own keep rows and expands
+//   them into mask bytes. A read a warp was the fastest group on the H100
+//   (PERF.md: 16 against 32 and 64 reads a CTA at K = 64). Other shapes (N > 64, or a
+//   window past shared memory) run reach_many_wide_kernel: a CTA per read,
+//   B2's wide walk (`wide_walk`, a thread a column, one barrier a row, the
+//   parents of a batch of frontier bits loaded together) with K = 1, every
+//   lc the sentinel, gc_depth 0 and lcr the sentinel, which is reach_mask.
 //
 // leader_support replaces narwhal_tpu/tpu/dag_kernels.py:119 `leader_support`
 //   (B5), batched over B walks as __graft_entry__.py:235 vmaps it: out[b] =
@@ -158,7 +170,7 @@
 //   host round trip anywhere in the walk.
 //   Many mode (reach_many_sharded, consensus_step_sharded): one cluster per
 //   walk, K clusters in the grid, `present` is the caller's uncommitted, no
-//   lc and no gc filter (as reach_many_kernel).
+//   lc and no gc filter (as reach_many).
 //   Across cards ("peer" route, G > 1 launches, one per card, each on its
 //   own stream): after a row's SYNC A, rank 0 writes this card's frontier
 //   columns into the exchange buffer of every peer card (peer-mapped
@@ -261,22 +273,28 @@ __device__ __forceinline__ bool reach_step(const uint8_t* __restrict__ parent,
   return reached;
 }
 
-// chain_commit_kernel's dynamic shared memory, in 32-bit words: the parent
+// The packed walks' dynamic shared memory, in 32-bit words: the parent
 // string of rows 1..W-1 from byte par_lo and the present string of rows
 // 0..W-1 (two slack words each), the column table [W][N][2], the present
-// rows [W][2], lc [64] and the keep rows [2][W][2].
+// rows [W][2], then `tail` words of the kernel's own (chain_commit_kernel:
+// lc [64] and the keep rows [2][W][2]; reach_many_kernel: the keep rows
+// [W][2] of each warp).
 struct WalkLayout {
   long long par_lo, par_words, pre_words, ct_words, total;
-  __host__ __device__ WalkLayout(int W, int N) {
+  __host__ __device__ WalkLayout(int W, int N, long long tail) {
     par_lo = ((long long)N * N) & ~31LL;
     par_words = ((long long)W * N * N - par_lo + 31) / 32 + 2;
     pre_words = ((long long)W * N + 31) / 32 + 2;
     ct_words = 2LL * W * N;
-    total = par_words + pre_words + ct_words + 2LL * W + 64 + 4LL * W;
+    total = par_words + pre_words + ct_words + 2LL * W + tail;
   }
 };
 
 constexpr int kWalkThreads = 512;  // up to 128 registers a thread for the walking warp
+constexpr int kWalkWarps = kWalkThreads / 32;
+
+__host__ __device__ inline long long chain_tail(int W) { return 64 + 4LL * W; }
+__host__ __device__ inline long long reach_tail(int W) { return 2LL * kWalkWarps * W; }
 
 // Words [0, n) of the bit string of src bytes [lo, hi), then two zero
 // words, by every thread of the CTA. Where src + lo is 16-byte aligned (the
@@ -324,7 +342,7 @@ chain_commit_kernel(const uint8_t* __restrict__ parent, const uint8_t* __restric
                     int K, int gc_depth, int lcr_rel) {
   extern __shared__ uint32_t smem[];
   __shared__ int s_top;
-  const WalkLayout lay(W, N);
+  const WalkLayout lay(W, N, chain_tail(W));
   uint32_t* s_par = smem;
   uint32_t* s_pre = s_par + lay.par_words;
   uint32_t* s_ct = s_pre + lay.pre_words;
@@ -351,8 +369,8 @@ chain_commit_kernel(const uint8_t* __restrict__ parent, const uint8_t* __restric
   int lcr = lcr_rel;  // warp 0's
   for (int k = 0; k <= K; k++) {
     if (warp == 0 && k < K) {
-      walk_bits::walk_leader(lanes, t, onehots + (size_t)k * N, offs[k], W, gc_depth, s_lc, lcr,
-                             s_keep + (size_t)(k & 1) * 2 * W);
+      walk_bits::walk_leader<true>(lanes, t, onehots + (size_t)k * N, offs[k], W, gc_depth, s_lc,
+                                   lcr, s_keep + (size_t)(k & 1) * 2 * W);
     } else if (k > 0) {  // leader k - 1's masks from its keep rows, every byte
       const uint32_t* kp = s_keep + (size_t)((k - 1) & 1) * 2 * W;
       bool* out = masks + (size_t)(k - 1) * W * N;
@@ -379,31 +397,60 @@ chain_commit_wide_kernel(const uint8_t* __restrict__ parent, const uint8_t* __re
                        lc_rel, offs, onehots, masks, W, N, K, gc_depth, lcr_rel, sm, s_cand);
 }
 
-__global__ void reach_many_kernel(const uint8_t* __restrict__ parent,
-                                  const uint8_t* __restrict__ uncommitted,
-                                  const int32_t* __restrict__ offs,
-                                  const uint8_t* __restrict__ onehots,
-                                  bool* __restrict__ masks, int W, int N) {
-  extern __shared__ uint8_t frontier[];  // [N]
-  const int k = blockIdx.x;
-  const int p = threadIdx.x;
-  const bool live = p < N;
-  const int start_off = offs[k];
-  const bool start_bit = live && onehots[(size_t)k * N + p] != 0;
-  bool* out = masks + (size_t)k * W * N;
-  if (live) frontier[p] = 0;
+// B6 for N <= 64 with the window's tables in shared memory (see the head of
+// this file): the CTA of reads kWalkWarps * blockIdx.x .. + kWalkWarps packs
+// and transposes the window up to its highest live start, then warp i walks
+// read i of the group.
+__global__ void __launch_bounds__(kWalkThreads)
+reach_many_kernel(const uint8_t* __restrict__ parent, const uint8_t* __restrict__ uncommitted,
+                  const int32_t* __restrict__ offs, const uint8_t* __restrict__ onehots,
+                  bool* __restrict__ masks, int W, int N, int K) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int s_top;
+  const WalkLayout lay(W, N, reach_tail(W));
+  uint32_t* s_par = smem;
+  uint32_t* s_pre = s_par + lay.par_words;
+  uint32_t* s_ct = s_pre + lay.pre_words;
+  uint32_t* s_prw = s_ct + lay.ct_words;   // [W][2]
+  uint32_t* s_keep = s_prw + 2 * W;        // [warps][W][2]
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid >> 5, nwarps = nt >> 5;
+  const int k0 = blockIdx.x * kWalkWarps, kn = min(kWalkWarps, K - k0);
+  const walk_bits::WarpLanes lanes{tid & 31};
+  if (tid == 0) s_top = -1;
   __syncthreads();
-  for (int w = W - 1; w >= 0; w--) {
-    bool here = false;
-    if (live) {
-      here = reach_step(parent, frontier, w, W, N, N, p, start_off, start_bit);
-      here = here && uncommitted[(size_t)w * N + p] != 0;
-      out[(size_t)w * N + p] = here;
-    }
-    __syncthreads();  // every column has read the row above
-    if (live) frontier[p] = here;
-    __syncthreads();  // the row is complete before the next step reads it
+  for (int i = tid; i < kn * N; i += nt) {  // the highest start row of a live read
+    const int s = offs[k0 + i / N];
+    if (onehots[(size_t)k0 * N + i] && s >= 0 && s < W) atomicMax(&s_top, s);
   }
+  __syncthreads();
+  const int top = s_top;  // rows above it are never read; -1: nothing to pack
+  pack_range(s_par, parent, lay.par_lo, top >= 1 ? (long long)(top + 1) * N * N : lay.par_lo);
+  pack_range(s_pre, uncommitted, 0, (long long)(top + 1) * N);
+  __syncthreads();
+  walk_bits::column_table(lanes, s_par, (int)lay.par_lo, s_pre, N, top, s_ct, s_prw, warp,
+                          nwarps);
+  __syncthreads();
+  if (warp < kn) {
+    const int k = k0 + warp;
+    walk_bits::reach_read(lanes, walk_bits::Tables{s_ct, s_prw, N}, offs[k],
+                          onehots + (size_t)k * N, masks + (size_t)k * W * N, W,
+                          s_keep + (size_t)warp * 2 * W);
+  }
+}
+
+// B6 for N > 64, or a window whose tables do not fit in shared memory: the
+// wide walk of one read a CTA (32 * ceil(N / 32) threads).
+__global__ void __launch_bounds__(1024)
+reach_many_wide_kernel(const uint8_t* __restrict__ parent,
+                       const uint8_t* __restrict__ uncommitted,
+                       const int32_t* __restrict__ offs, const uint8_t* __restrict__ onehots,
+                       bool* __restrict__ masks, int W, int N) {
+  extern __shared__ uint32_t sm[];
+  __shared__ int s_cand[2];
+  const int k = blockIdx.x;
+  walk_bits::wide_walk(walk_bits::CtaThreads{(int)threadIdx.x, (int)blockDim.x}, parent,
+                       uncommitted, nullptr, offs + k, onehots + (size_t)k * N,
+                       masks + (size_t)k * W * N, W, N, 1, 0, walk_bits::kSentinel, sm, s_cand);
 }
 
 __global__ void leader_support_kernel(const uint8_t* __restrict__ parent,
@@ -741,39 +788,56 @@ extern "C" int dag_window_roll_window(const void* parent, const void* present,
   return (int)cudaGetLastError();
 }
 
-// chain_commit_kernel's shared-memory limits per card: the opt-in maximum,
-// read once, and the largest dynamic size set on the kernel so far, so a
-// launch calls cudaFuncSetAttribute only when it needs more than that.
+// The packed walks' shared-memory limits per card: the opt-in maximum, read
+// once, and the largest dynamic size set on each kernel so far, so a launch
+// calls cudaFuncSetAttribute only when it needs more than that.
 constexpr int kMaxCards = 64;
 static std::atomic<int> g_walk_optin[kMaxCards];
-static std::atomic<int> g_walk_smem[kMaxCards];
+static std::atomic<int> g_chain_smem[kMaxCards];
+static std::atomic<int> g_reach_smem[kMaxCards];
 static std::mutex g_walk_smem_lock;
+
+// The current card and its opt-in shared bytes per block.
+static cudaError_t walk_card(int& dev, int& optin) {
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxCards) return cudaErrorInvalidDevice;
+  optin = g_walk_optin[dev].load(std::memory_order_relaxed);
+  if (optin == 0) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    g_walk_optin[dev].store(optin, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory on card dev (the size
+// set on it, `set[dev]`, only grows).
+static cudaError_t walk_smem(const void* kernel, std::atomic<int>* set, int dev, size_t bytes) {
+  if (bytes <= 48 * 1024 || (int)bytes <= set[dev].load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  std::lock_guard<std::mutex> hold(g_walk_smem_lock);
+  if ((int)bytes > set[dev].load(std::memory_order_relaxed)) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+    set[dev].store((int)bytes, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
 
 extern "C" int dag_window_chain_commit(const void* parent, const void* present,
                                        const void* lc_rel, const void* offs,
                                        const void* onehots, void* masks, int W, int N,
                                        int K, int gc_depth, int lcr_rel, void* stream) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int dev = 0, optin = 0;
+  cudaError_t e = walk_card(dev, optin);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= kMaxCards) return (int)cudaErrorInvalidDevice;
-  int optin = g_walk_optin[dev].load(std::memory_order_relaxed);
-  if (optin == 0) {
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    g_walk_optin[dev].store(optin, std::memory_order_relaxed);
-  }
-  const size_t bytes = (size_t)WalkLayout(W, N).total * 4;
+  const size_t bytes = (size_t)WalkLayout(W, N, chain_tail(W)).total * 4;
   if (N <= 64 && bytes <= (size_t)optin) {
-    if (bytes > 48 * 1024 && (int)bytes > g_walk_smem[dev].load(std::memory_order_acquire)) {
-      std::lock_guard<std::mutex> hold(g_walk_smem_lock);  // the size set only grows
-      if ((int)bytes > g_walk_smem[dev].load(std::memory_order_relaxed)) {
-        e = cudaFuncSetAttribute(chain_commit_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-        if (e != cudaSuccess) return (int)e;
-        g_walk_smem[dev].store((int)bytes, std::memory_order_release);
-      }
-    }
+    e = walk_smem((const void*)chain_commit_kernel, g_chain_smem, dev, bytes);
+    if (e != cudaSuccess) return (int)e;
     chain_commit_kernel<<<1, kWalkThreads, bytes, (cudaStream_t)stream>>>(
         (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)lc_rel,
         (const int32_t*)offs, (const uint8_t*)onehots, (bool*)masks, W, N, K, gc_depth,
@@ -788,13 +852,42 @@ extern "C" int dag_window_chain_commit(const void* parent, const void* present,
   return (int)cudaGetLastError();
 }
 
+// B6's packed route: N <= 64 and the tables fit in `optin` shared bytes.
+static bool reach_packed(int W, int N, int optin) {
+  return N <= 64 && (size_t)WalkLayout(W, N, reach_tail(W)).total * 4 <= (size_t)optin;
+}
+
+// B6's route on the current card for a window of W rows and N columns: 1 the
+// packed reach_many_kernel, 0 the wide walk, or a negative cudaError_t.
+extern "C" int dag_window_reach_route(int W, int N) {
+  int dev = 0, optin = 0;
+  const cudaError_t e = walk_card(dev, optin);
+  if (e != cudaSuccess) return -(int)e;
+  return reach_packed(W, N, optin) ? 1 : 0;
+}
+
+// B6: ceil(K / 16) CTAs of 16 reads on the packed route, else K CTAs of one.
 extern "C" int dag_window_reach_many(const void* parent, const void* uncommitted,
                                      const void* offs, const void* onehots, void* masks,
                                      int W, int N, int K, void* stream) {
-  const int threads = ((N + 31) / 32) * 32;
-  reach_many_kernel<<<K, threads, (size_t)N, (cudaStream_t)stream>>>(
-      (const uint8_t*)parent, (const uint8_t*)uncommitted, (const int32_t*)offs,
-      (const uint8_t*)onehots, (bool*)masks, W, N);
+  int dev = 0, optin = 0;
+  cudaError_t e = walk_card(dev, optin);
+  if (e != cudaSuccess) return (int)e;
+  if (reach_packed(W, N, optin)) {
+    const size_t bytes = (size_t)WalkLayout(W, N, reach_tail(W)).total * 4;
+    e = walk_smem((const void*)reach_many_kernel, g_reach_smem, dev, bytes);
+    if (e != cudaSuccess) return (int)e;
+    reach_many_kernel<<<(K + kWalkWarps - 1) / kWalkWarps, kWalkThreads, bytes,
+                        (cudaStream_t)stream>>>((const uint8_t*)parent,
+                                                (const uint8_t*)uncommitted,
+                                                (const int32_t*)offs, (const uint8_t*)onehots,
+                                                (bool*)masks, W, N, K);
+  } else {
+    const int nw = (N + 31) / 32;
+    reach_many_wide_kernel<<<K, 32 * nw, (size_t)2 * nw * 4, (cudaStream_t)stream>>>(
+        (const uint8_t*)parent, (const uint8_t*)uncommitted, (const int32_t*)offs,
+        (const uint8_t*)onehots, (bool*)masks, W, N);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,12 +21,21 @@
 //       -> V int32 [4, 20, W]. It is A2's kernel over one lane set that
 //       reads points instead of decompressing them, so A3 -> A6 (A) and
 //       A3 -> A6 (R) give A2's V_a and V_r as points, invalid rows included.
-//   The shard reduce ed25519_msm_shard_reduce, the port's counterpart of the
+//   A6' ed25519_msm_shard_reduce, the port's counterpart of the
 //       cross-device reduce that XLA inserts after A6 on a mesh
-//       (narwhal_tpu/tpu/verifier.py:96-102, out_specs=None): n lane sets
-//       [n][4, 20, W], one per shard, summed lane by lane with the complete
-//       addition in shard order, one thread per lane. ~9 (n - 1) W products:
-//       a few microseconds, bound by its launch.
+//       (narwhal_tpu/tpu/verifier.py:96-102, out_specs=None): the n shards'
+//       lane sets of both A6 calls of a bucket, the A set (n x [4, 20, WA])
+//       and the R set (n x [4, 20, WR]), each lane summed with the complete
+//       addition in shard order, set 0 first (off the curve the addition
+//       law is not associative, so the order is part of the result).
+//       Bound: bytes, the 2n lane sets read once and two written (~0.06 us
+//       at n = 2), so its time is a launch and (n - 1) dependent additions.
+//       One launch for both sets: a CTA a set, a quad per lane
+//       (quad_shard_sum: each addition is quad_add, 3 product rounds deep
+//       instead of 9 dependent products, the next addend loaded during
+//       it), reading every shard's set in place through a table of 2n
+//       pointers passed in the launch's parameters (no stack of the sets,
+//       nothing uploaded).
 // Their plain versions are `msm_window_plain` and `msm_shard_reduce_plain`.
 //
 // The order of the point additions is the JAX kernel's. Off the curve (an
@@ -100,7 +109,6 @@ using namespace ed25519_quad;
 
 constexpr int kWa = 64;        // window lanes of the A scalars (256-bit z k)
 constexpr int kWr = 32;        // window lanes of the R scalars (128-bit z)
-constexpr int kMaxLanes = 64;  // the most window lanes one lane set has
 constexpr int kMaxChains = 128;
 constexpr int kEntries = 15;   // cached multiples P .. 15P a point keeps (0P is implicit)
 constexpr int kSmemLimit = 232448;  // shared bytes a CTA may use on the H100
@@ -114,14 +122,31 @@ HD int msm_smem_bytes(int tile, int wa, int wr) {
   return tile * (sets * ((kEntries * 4 + 4) * 10 * 4 + 4) + wa + wr);
 }
 
-// The cross-shard reduce for window w: lane set 0 plus sets 1 .. n-1 of
-// lanes ([n][4, 20, W]) in that order, with the complete addition.
-HD void msm_shard_sum(ge& acc, const i32* lanes, int n, int W, int w, const Consts& k) {
-  pt_load13(acc, lanes, W, w);
+constexpr int kMaxShards = 16;  // lane sets a reduce takes in its launch parameters
+
+// A6' for window lane w of one lane set (width W) in quad thread l: m <- its
+// coordinate l of parts[0]'s lane plus parts[1] .. parts[n - 1]'s, in that
+// order, with the complete addition (pt_add's values mod p). Each part is
+// a [4, 20, W] set of radix-2^13 limbs. A thread loads coordinate l of each
+// addend (its xor-1 partner's comes by shuffle), a step ahead: the next
+// addend's limbs are in flight during this addition. Every thread of the
+// warp calls it with the same n.
+template <class X>
+HD void quad_shard_sum(fe& m, const i32* const* parts, int n, int W, int w, int l,
+                       const Consts& k, const X& x) {
+  const size_t at = (size_t)l * 20 * W + w;
+  fe_from13_loose(m, parts[0] + at, W);
+  i32 raw[20];
+  for (int i = 0; i < 20 && n > 1; i++) raw[i] = parts[1][at + (size_t)i * W];
   for (int s = 1; s < n; s++) {
-    ge q;
-    pt_load13(q, lanes + (size_t)s * 4 * 20 * W, W, w);
-    pt_add(acc, acc, q, k);
+    fe qm, qo;
+    fe_from13_loose(qm, raw, 1);
+    if (s + 1 < n) {
+#pragma unroll
+      for (int i = 0; i < 20; i++) raw[i] = parts[s + 1][at + (size_t)i * W];
+    }
+    fe_shfl_xor(qo, qm, 1, x);
+    quad_add(m, qm, qo, l, k, x);
   }
 }
 
@@ -322,18 +347,29 @@ msm_tree_kernel(const int32_t* __restrict__ partial, const int32_t* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(kMaxLanes)
-msm_shard_reduce_kernel(const int32_t* __restrict__ lanes, const int32_t* __restrict__ consts13,
-                        int32_t* __restrict__ v, int n, int W) {
+// The shard sets of one reduce: a[s] and r[s] the A and R sets of shard s.
+struct ShardSets {
+  const i32* a[kMaxShards];
+  const i32* r[kMaxShards];
+};
+
+// A6' over both lane sets, CTA 0 the A set (kWa lanes) and CTA 1 the R set
+// (kWr lanes): two CTAs of 4 kWa threads rather than one of 4 (kWa + kWr),
+// so a thread keeps up to 255 registers. Quad q sums lane q; the warps of
+// CTA 1 past its kWr lanes leave (8 quads a warp, both widths multiples
+// of 8).
+__global__ void __launch_bounds__(4 * kWa)
+msm_shard_reduce_kernel(const ShardSets sets, const int32_t* __restrict__ consts13,
+                        int32_t* __restrict__ v_a, int32_t* __restrict__ v_r, int n) {
   __shared__ Consts s_k;
   for (int i = threadIdx.x; i < 3; i += blockDim.x) load_consts(i, consts13, s_k);
   __syncthreads();
-  const int w = threadIdx.x;
-  if (w >= W) return;
-  const Consts k = s_k;
-  ge acc;
-  msm_shard_sum(acc, lanes, n, W, w, k);
-  pt_store13(acc, v, W, w);
+  const bool is_a = blockIdx.x == 0;
+  const int W = is_a ? kWa : kWr, l = threadIdx.x & 3, q = threadIdx.x >> 2;
+  if (q >= W) return;  // warp-uniform
+  fe m;
+  quad_shard_sum(m, is_a ? sets.a : sets.r, n, W, q, l, s_k, QuadShfl{});
+  fe_to13(m, (is_a ? v_a : v_r) + (size_t)l * 20 * W + q, W);
 }
 
 // The launch plan the wrapper computed (ed25519.msm_plan): chains a power of
@@ -394,11 +430,19 @@ extern "C" int ed25519_msm_window(const void* pts, const void* digits, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int ed25519_msm_shard_reduce(const void* lanes, const void* consts13, void* v, int n,
-                                        int W, void* stream) {
-  if (n < 1 || W < 1 || W > kMaxLanes) return (int)cudaErrorInvalidValue;
-  msm_shard_reduce_kernel<<<1, kMaxLanes, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)lanes, (const int32_t*)consts13, (int32_t*)v, n, W);
+// table: host memory, the n A sets' device addresses ([4, 20, kWa] each)
+// then the n R sets' ([4, 20, kWr]).
+extern "C" int ed25519_msm_shard_reduce(const void* table, const void* consts13, void* v_a,
+                                        void* v_r, int n, void* stream) {
+  if (n < 1 || n > kMaxShards) return (int)cudaErrorInvalidValue;
+  ShardSets sets = {};
+  const uint64_t* t = (const uint64_t*)table;
+  for (int s = 0; s < n; s++) {
+    sets.a[s] = (const i32*)t[s];
+    sets.r[s] = (const i32*)t[n + s];
+  }
+  msm_shard_reduce_kernel<<<2, 4 * kWa, 0, (cudaStream_t)stream>>>(
+      sets, (const int32_t*)consts13, (int32_t*)v_a, (int32_t*)v_r, n);
   return (int)cudaGetLastError();
 }
 

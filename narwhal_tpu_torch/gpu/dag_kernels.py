@@ -23,10 +23,10 @@ The window is dense tensors, exactly the JAX layout:
 Each kernel has a plain PyTorch version (`*_plain`) in this module and a
 hand-written CUDA kernel in `csrc/dag_window.cu`; the public function runs
 the plain version on CPU tensors and launches the kernel on CUDA tensors
-(or raises). `reach_mask` runs on the card inside `chain_commit` (a walk
-over packed bits, `csrc/dag_walk_bits.cuh`) and as the device function
-`reach_step` inside `reach_many`, `sharded_walk` and `reach_shard_step`, so
-the public `reach_mask` here is the plain version.
+(or raises). `reach_mask` runs on the card inside `chain_commit` and
+`reach_many` (walks over packed bits, `csrc/dag_walk_bits.cuh`) and as the
+device function `reach_step` inside `sharded_walk` and `reach_shard_step`,
+so the public `reach_mask` here is the plain version.
 
 The JAX engine's background prewarm threads are not ported: they existed to
 compile each new window shape ahead of need, and the CUDA kernels here take
@@ -349,9 +349,11 @@ def chain_commit(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs, one
 
 
 def reach_many(parent, uncommitted, offs, onehots):
-    """`reach_many_plain` on CPU tensors; on CUDA tensors the
-    `dag_window.cu` kernel, one CTA per walk (reach_mask's row step is the
-    same device function as in `chain_commit`)."""
+    """`reach_many_plain` on CPU tensors; on CUDA tensors one launch of a
+    `dag_window.cu` kernel (`reach_route` says which): N <= 64 with the
+    window's tables in shared memory, a CTA per 16 reads packs the window
+    once and each of its 16 warps walks a read with B2's packed row step;
+    else a CTA per read runs B2's wide walk."""
     if not _on_cuda("reach_many", parent):
         return reach_many_plain(parent, uncommitted, offs, onehots)
     W, N = uncommitted.shape
@@ -375,6 +377,18 @@ def reach_many(parent, uncommitted, offs, onehots):
     kernel_registry.check("dag_window", "reach_many", rc)
     kernel_registry.count_launch("reach_many")
     return masks
+
+
+def reach_route(W: int, N: int, device) -> str:
+    """The route `reach_many` takes on `device`'s card for a window of W
+    rows and N columns: "packed" or "wide"."""
+    fn = kernel_registry.library("dag_window").dag_window_reach_route
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    with torch.cuda.device(device):
+        r = fn(W, N)
+    if r < 0:
+        kernel_registry.check("dag_window", "reach_many route", -r)
+    return "packed" if r == 1 else "wide"
 
 
 def leader_support(parent, present, stakes, support_offs, leader_idxs):

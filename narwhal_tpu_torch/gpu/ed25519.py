@@ -24,7 +24,8 @@ Two implementations of each function:
   A5 one row per thread; the quad walk is `csrc/ed25519_straus.cuh`) and
   `csrc/ed25519_msm.cu` (A2
   and A6: the same window-lane sums, canonical, from one CTA per chain with
-  four threads per point addition, `msm_plan`; the shard reduce) work in
+  four threads per point addition, `msm_plan`; the shard reduce of both
+  lane sets, a quad a lane) work in
   radix 2^25.5 (10 limbs, 64-bit column sums); their shared field layer
   and its bound argument are
   `csrc/ed25519_field.cuh`. Stage outputs keep the JAX layout, int32
@@ -891,23 +892,40 @@ def msm_shard_reduce_plain(lanes):
     return torch.stack(acc, dim=0)
 
 
-def msm_shard_reduce(lanes):
-    """`msm_shard_reduce_plain`'s signature and results (canonical from the
-    kernel). On CUDA tensors the kernel of `csrc/ed25519_msm.cu`."""
-    dev = lanes.device
+_MAX_SHARDS = 16  # lane sets a reduce launch takes (csrc/ed25519_msm.cu kMaxShards)
+
+
+def msm_shard_reduce(parts_a, parts_r):
+    """A6', the cross-shard sum of both lane sets of a sharded msm bucket:
+    parts_a, k A6 outputs over the A set (int32 [4, NLIMB, 64] each, one a
+    shard, in shard order), parts_r the k over the R set ([4, NLIMB, 32]).
+    Returns (v_a, v_r), each `msm_shard_reduce_plain` of its stacked parts
+    (canonical limbs from the kernel). On CUDA tensors one launch of the
+    `csrc/ed25519_msm.cu` kernel reads every part in place (all on one
+    device)."""
+    parts_a, parts_r = list(parts_a), list(parts_r)
+    k = len(parts_a)
+    if k < 1 or len(parts_r) != k:
+        raise ValueError(f"msm_shard_reduce: {k} A and {len(parts_r)} R lane sets; "
+                         f"want the same count >= 1")
+    dev = parts_a[0].device
     if dev.type == "cpu":
-        return msm_shard_reduce_plain(lanes)
+        return (msm_shard_reduce_plain(torch.stack(parts_a)),
+                msm_shard_reduce_plain(torch.stack(parts_r)))
     if dev.type != "cuda":
         raise ValueError(f"msm_shard_reduce: unsupported device {dev}")
-    k = lanes.shape[0] if lanes.dim() == 4 else -1
-    W = lanes.shape[3] if lanes.dim() == 4 else -1
-    if k < 1 or not 1 <= W <= MSM_WA:
-        raise ValueError(f"msm_shard_reduce: lanes must be [k >= 1, 4, {NLIMB}, W <= 64]")
-    _check_inputs("msm_shard_reduce", {"lanes": (lanes, torch.int32, (k, 4, NLIMB, W))}, dev)
-    v = torch.empty((4, NLIMB, W), dtype=torch.int32, device=dev)
+    if k > _MAX_SHARDS:
+        raise ValueError(f"msm_shard_reduce: {k} shards > {_MAX_SHARDS}")
+    want = {f"parts_a[{i}]": (t, torch.int32, (4, NLIMB, MSM_WA)) for i, t in enumerate(parts_a)}
+    want.update({f"parts_r[{i}]": (t, torch.int32, (4, NLIMB, MSM_WR))
+                 for i, t in enumerate(parts_r)})
+    _check_inputs("msm_shard_reduce", want, dev)
+    table = torch.tensor([t.data_ptr() for t in parts_a + parts_r], dtype=torch.int64)
+    v_a = torch.empty((4, NLIMB, MSM_WA), dtype=torch.int32, device=dev)
+    v_r = torch.empty((4, NLIMB, MSM_WR), dtype=torch.int32, device=dev)
     _launch("ed25519_msm", "ed25519_msm_shard_reduce", "msm_shard_reduce", dev,
-            (lanes, _const("KERNEL_CONSTS", dev), v), (k, W))
-    return v
+            (table, _const("KERNEL_CONSTS", dev), v_a, v_r), (k,))
+    return v_a, v_r
 
 
 def msm_window_ops(live: int, lanes: int, batch: int, chunk: int = MSM_CHUNK) -> int:

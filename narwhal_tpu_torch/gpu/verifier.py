@@ -153,9 +153,10 @@ def _sharded_kernels(mesh: DataMesh):
     - item_fn: A3 on the A set and on the R set, A4, A5; the verdicts of the
       shards concatenated on the first device in shard order;
     - msm_fn: A3 twice, A6 over the A set's 64 lanes and the R set's 32; the
-      shards' lane sets brought to the first device and summed there by
-      `msm_shard_reduce` (the reduce XLA inserts on the JAX mesh), and
-      valid = a_valid & r_valid per row.
+      shards' lane sets brought to the first device (a no-op for a shard
+      already there) and both sets summed there by one `msm_shard_reduce`
+      (the reduce XLA inserts on the JAX mesh), and valid = a_valid &
+      r_valid per row.
     The per-lane arithmetic is A1's and A2's, so verdicts are bit-equal to
     the monoliths', and V is the same sum (as points: the shards' chains
     group the rows differently). Cross-device copies order themselves after
@@ -202,12 +203,9 @@ def _sharded_kernels(mesh: DataMesh):
                 v_a.append(ed25519.msm_window(a_pt, ak_digits))
                 v_r.append(ed25519.msm_window(r_pt, z_digits))
                 valid.append(a_valid & r_valid)
-        reduce = ed25519.msm_shard_reduce
-        return (
-            reduce(torch.stack([v.to(first) for v in v_a])),
-            reduce(torch.stack([v.to(first) for v in v_r])),
-            gather(valid),
-        )
+        sum_a, sum_r = ed25519.msm_shard_reduce([v.to(first) for v in v_a],
+                                                [v.to(first) for v in v_r])
+        return sum_a, sum_r, gather(valid)
 
     return item_fn, msm_fn
 

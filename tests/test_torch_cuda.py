@@ -213,17 +213,27 @@ def test_msm_window_kernel_matches_plain_and_msm_accumulate(shape, bucket):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_msm_shard_reduce_kernel_matches_plain(k):
-    """The reduce over k shards of the msm item bucket's A set equals its
-    plain version, and the unsharded A2's V_a, as affine points."""
+    """The reduce of both lane sets over k shards of the msm item bucket, in
+    one launch, equals its plain version on each set (its invalid R row
+    included), and the unsharded A2's V_a and V_r (that row's digits
+    zeroed: off the curve another grouping gives another point), as affine
+    points."""
     _need_card("msm_shard_reduce", "csrc/ed25519_msm.cu")
     t = [torch.from_numpy(a).cuda() for a in chip_smoke.msm_item_bucket(3, 40, 2048)[0]]
     pa, _ = tk.verify_decompress(t[0], t[1])
-    n = 2048 // k
-    lanes = torch.stack([tk.msm_window(pa[..., i * n:(i + 1) * n].contiguous(),
-                                       t[4][i * n:(i + 1) * n]) for i in range(k)])
-    got = tk.msm_shard_reduce(lanes)
-    chip_smoke._same_points("msm_shard_reduce", got, tk.msm_shard_reduce_plain(lanes))
-    chip_smoke._same_points("shards against msm_accumulate", got, tk.msm_accumulate(*t)[0])
+    pr, r_ok = tk.verify_decompress(t[2], t[3])
+    parts_a, parts_r = chip_smoke.shard_lane_sets(pa, pr, t[4], t[5], k)
+    kernel_registry.reset_launch_counts()
+    got_a, got_r = tk.msm_shard_reduce(parts_a, parts_r)
+    assert kernel_registry.launch_counts()["msm_shard_reduce"] == 1
+    for got, parts in ((got_a, parts_a), (got_r, parts_r)):
+        chip_smoke._same_points("msm_shard_reduce", got,
+                                tk.msm_shard_reduce_plain(torch.stack(parts)))
+    z = torch.where(r_ok[:, None], t[5], torch.zeros_like(t[5]))
+    va, vr, _ = tk.msm_accumulate(*t[:5], z)
+    on_curve = tk.msm_shard_reduce(*chip_smoke.shard_lane_sets(pa, pr, t[4], z, k))
+    chip_smoke._same_points("shards against msm_accumulate V_a", got_a, va)
+    chip_smoke._same_points("shards against msm_accumulate V_r", on_curve[1], vr)
 
 
 @pytest.mark.parametrize("layout", ["one card twice", "every card"])
@@ -320,19 +330,34 @@ def test_chain_commit_kernel_matches_plain(kind, w, K):
     assert torch.equal(a, b) and torch.equal(a.cpu(), want) and bool(a.any())
 
 
-@pytest.mark.parametrize("w,K,live", [(64, 1, 1), (64, 64, 56), (128, 1, 1), (128, 64, 61)])
-def test_reach_many_kernel_matches_plain(w, K, live):
+REACH_CASES = ([("sparse", 64, 50, K, live, None) for K, live in ((1, 1), (64, 56))]
+               + [("sparse", 128, 50, K, live, None) for K, live in ((1, 1), (64, 61))]
+               + [c for c in chip_smoke.REACH_SHAPES if c[0] != "sparse"]
+               + [("consensus", 64, 50, 64, 64, 0.3)])
+
+
+@pytest.mark.parametrize("label,w,n,K,live,density", REACH_CASES)
+def test_reach_many_kernel_matches_plain(label, w, n, K, live, density):
     """B6 at the Dag service's shapes (N = 50, the default W = 64 and the
-    grown W = 128): K distinct starts, the rest padding slots, bit-equal
-    to the plain version, padding rows empty."""
+    grown W = 128; the kernels phase's sparse window and the service's
+    dense one in bursts of K = 1, 8 and 64), the consensus step's window
+    with its uncommitted mask, and the wide route (N = 65, 200; W = 512):
+    K starts, the rest padding slots, bit-equal to the plain version,
+    padding rows empty, one launch, on the route the shape calls for."""
     _need_card("reach_many", "csrc/dag_window.cu")
-    host = chip_smoke.reach_many_inputs(np.random.default_rng(w + K), w, 50, K, live)
+    rng = np.random.default_rng(w + K + n)
+    if label == "consensus":
+        host = chip_smoke.consensus_reach_inputs(rng, w, n, K)
+    else:
+        host = chip_smoke.reach_many_inputs(rng, w, n, K, live, density)
     t = [torch.from_numpy(a).cuda() for a in host]
     kernel_registry.reset_launch_counts()
     a = td.reach_many(*t)
     assert kernel_registry.launch_counts()["reach_many"] == 1
     b = td.reach_many_plain(*t)
     assert torch.equal(a, b) and bool(a[:live].any()) and not bool(a[live:].any())
+    wide = n > 64 or w > 256
+    assert td.reach_route(w, n, t[0].device) == ("wide" if wide else "packed")
 
 
 def test_dag_service_on_card_matches_host():

@@ -19,7 +19,11 @@ exchange (each test skips only when g++ is missing):
   `verify_straus_kernel` run eagerly over 2 (the JAX stage scans as many
   windows as its digits have; 2 keep the eager run short);
 - A1 on the quad at B = 8: the verdict bits of `chip_smoke.verify_rows`
-  (torsion, forged, zero and random-limb rows) equal `verify_batch_plain`'s.
+  (torsion, forged, zero and random-limb rows) equal `verify_batch_plain`'s;
+- A6', the shard reduce (`quad_shard_sum` of `csrc/ed25519_msm.cu`, a quad
+  a lane), over k = 2 and 4 lane sets of 64 and of 32 lanes, curve points
+  and off-curve lanes mixed: equal mod p to `msm_shard_reduce_plain` and
+  to the one-thread fold in shard order (in the harness).
 
 The kernels themselves run on the card in tests/test_torch_cuda.py and
 chip_smoke.py.
@@ -51,6 +55,7 @@ QUAD_MAIN = r"""
 #include <thread>
 #include <vector>
 #include "ed25519_straus.cuh"
+#include "ed25519_msm.cu"
 using namespace ed25519_straus;
 
 // A quad's exchange over four threads, one a quad thread.
@@ -202,6 +207,37 @@ int main(int argc, char** argv) {
       fe_to13(v, o13, 1);
       std::fwrite(o13, 4, 20, out);
     }
+    return ok ? 0 : 3;
+  }
+  if (mode == "reduce") {
+    // B shards' lane sets int32 [B][4, 20, W] -> A6' of them [4, 20, W]: a
+    // quad a lane (quad_shard_sum), held mod p to the one-thread fold (the
+    // complete addition in shard order) here
+    std::vector<int32_t> lanes((size_t)B * 80 * W), v((size_t)80 * W, -1);
+    get(in, lanes);
+    std::vector<const i32*> parts(B);
+    for (int s = 0; s < B; s++) parts[s] = lanes.data() + (size_t)s * 80 * W;
+    on_quads(W, [&](int j, int l, const ThreadQuad& x) {
+      fe m;
+      ed25519_msm::quad_shard_sum(m, parts.data(), B, W, j, l, k, x);
+      fe_to13(m, v.data() + (size_t)l * 20 * W + j, W);
+    });
+    bool ok = true;
+    for (int j = 0; j < W; j++) {
+      ge acc, q, got;
+      pt_load13(acc, parts[0], W, j);
+      for (int s = 1; s < B; s++) {
+        pt_load13(q, parts[s], W, j);
+        pt_add(acc, acc, q, k);
+      }
+      pt_load13(got, v.data(), W, j);
+      if (!fe_eq(got.X, acc.X) || !fe_eq(got.Y, acc.Y) || !fe_eq(got.Z, acc.Z) ||
+          !fe_eq(got.T, acc.T)) {
+        std::fprintf(stderr, "lane %d differs from the one-thread fold\n", j);
+        ok = false;
+      }
+    }
+    std::fwrite(v.data(), 4, v.size(), out);
     return ok ? 0 : 3;
   }
   if (mode == "walk") {
@@ -391,3 +427,44 @@ def test_quad_verify_matches_plain(quad_exe, tmp_path, seed):
     assert strict.tolist() == p_strict.tolist() and cof.tolist() == p_cof.tolist()
     assert not strict[0] and cof[0]  # the torsion row
     assert strict[6] and cof[6]  # the valid row
+
+
+# -- A6': the shard reduce on the quad ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shard_sets():
+    """Four shards' lane sets of 64 and of 32 lanes, canonical limbs: curve
+    points (random multiples of the base point, projective with a random Z)
+    in most lanes, random field elements (off the curve, as an A6 lane of
+    an invalid row is) in every third lane of every shard."""
+    rng = np.random.default_rng(21)
+
+    def coords(lane):
+        if lane % 3 == 1:
+            return [int.from_bytes(rng.bytes(32), "little") % ref.P for _ in range(4)]
+        r = int(rng.integers(1, 2**62))
+        return [r * c % ref.P for c in ref.point_mul(int(rng.integers(1, 2**62)), ref.G)]
+
+    sets = {}
+    for width in (64, 32):
+        shards = []
+        for _ in range(4):
+            pts = [coords(j) for j in range(width)]
+            shards.append(np.stack([_limbs([p[c] for p in pts]) for c in range(4)]))
+        sets[width] = np.stack(shards).astype(np.int32)  # [4 shards, 4, NLIMB, width]
+    return sets
+
+
+@pytest.mark.parametrize("k,width", [(2, 64), (4, 64), (2, 32), (4, 32)])
+def test_quad_shard_sum_matches_plain(quad_exe, tmp_path, shard_sets, k, width):
+    """A6' on the quad over k shards: the harness holds every lane to the
+    one-thread fold mod p; here every coordinate equals the plain reduce's
+    mod p (so the lanes are equal as points, off the curve too), and every
+    quad thread stored canonical limbs."""
+    lanes = shard_sets[width][:k]
+    out = _run(quad_exe, "reduce", k, width, [lanes], tmp_path)
+    got = np.frombuffer(out, np.int32).reshape(4, 20, width)
+    want = tk.msm_shard_reduce_plain(torch.from_numpy(lanes)).numpy()
+    assert _mod_p(got) == _mod_p(want)
+    assert (got >= 0).all() and (got < 2**13).all()

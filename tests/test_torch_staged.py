@@ -208,8 +208,14 @@ def test_shard_reduce_folds_the_shard_lanes(msm_rows):
         fold = tk.pt_add(fold, tuple(lanes[s, c] for c in range(4)))
     assert torch.equal(got, torch.stack(fold))
     assert all(_affine(got.numpy(), w) == _affine(whole.numpy(), w) for w in range(64))
-    assert torch.equal(tk.msm_shard_reduce(lanes), got)  # CPU tensors: the plain version
+    # CPU tensors: the plain version on each set, the R set here the A set's first 32 lanes
+    r_parts = [x[..., :32].contiguous() for x in lanes]
+    got_a, got_r = tk.msm_shard_reduce(list(lanes), r_parts)
+    assert torch.equal(got_a, got)
+    assert torch.equal(got_r, tk.msm_shard_reduce_plain(torch.stack(r_parts)))
     assert torch.equal(tk.msm_shard_reduce_plain(lanes[:1]), lanes[0])
+    with pytest.raises(ValueError, match="same count"):
+        tk.msm_shard_reduce(list(lanes), r_parts[:3])
 
 
 def test_staged_wrappers_dispatch_rules(item_rows, msm_rows):
@@ -228,7 +234,7 @@ def test_staged_wrappers_dispatch_rules(item_rows, msm_rows):
         lambda: tk.verify_straus(meta, kd.to("meta"), sd.to("meta")),
         lambda: tk.verify_verdict(meta, meta, r_y, r_sign, valid, valid),
         lambda: tk.msm_window(meta, kd.to("meta")),
-        lambda: tk.msm_shard_reduce(meta[None]),
+        lambda: tk.msm_shard_reduce([meta[..., :64]], [meta[..., :32]]),
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()

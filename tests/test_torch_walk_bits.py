@@ -187,14 +187,102 @@ template <class T> bool get(std::FILE* f, std::vector<T>& v) {
   return std::fread(v.data(), sizeof(T), v.size(), f) == v.size();
 }
 
+// The packed kernels' prologue from `top` on: the strings of parent rows
+// 1..top (from byte par_lo) and present rows 0..top, two zero words of
+// slack each.
+void pack_window(const std::vector<uint8_t>& parent, const std::vector<uint8_t>& present, int N,
+                 int top, long long par_lo, std::vector<uint32_t>& par, std::vector<uint32_t>& pre) {
+  const long long phi = top >= 1 ? (long long)(top + 1) * N * N : par_lo;
+  const long long qhi = (long long)(top + 1) * N;
+  par.assign((phi - par_lo + 31) / 32 + 2, 0);
+  pre.assign((qhi + 31) / 32 + 2, 0);
+  for (size_t i = 0; i + 2 < par.size(); i++) par[i] = pack_word(parent.data(), par_lo, phi, i);
+  for (size_t i = 0; i + 2 < pre.size(); i++) pre[i] = pack_word(present.data(), 0, qhi, i);
+}
+
+// B6, as reach_many_kernel (mode "reach": a CTA of `nwarps` warps per group
+// of nwarps reads, one column table a group, warp i walking read i) or
+// reach_many_wide_kernel ("reachwide": a CTA of 32 * ceil(N / 32) threads a
+// read). in: W N K nwarps, parent,
+// uncommitted, offs int32 [K], onehots [K, N]; out: masks uint8 [K, W, N],
+// every byte written (exit 5 otherwise).
+int reach(bool wide, std::FILE* in, std::FILE* out) {
+  int hdr[4];
+  if (std::fread(hdr, 4, 4, in) != 4) return 2;
+  const int W = hdr[0], N = hdr[1], K = hdr[2], nwarps = hdr[3];
+  std::vector<uint8_t> parent((size_t)W * N * N), unc((size_t)W * N), onehots((size_t)K * N);
+  std::vector<int32_t> offs(K);
+  if (!get(in, parent) || !get(in, unc) || !get(in, offs) || !get(in, onehots)) return 2;
+  std::vector<uint8_t> masks((size_t)K * W * N, 0xAA);
+  bool* mb = reinterpret_cast<bool*>(masks.data());
+  if (wide) {
+    const int NW = (N + 31) / 32, nt = 32 * NW;
+    for (int b = 0; b < K; b++) {
+      std::vector<uint32_t> sm((size_t)2 * NW, 0xFFFFFFFFu);
+      int cand[2] = {0, 0};
+      Cta cta(nt);
+      std::vector<std::thread> threads;
+      for (int p = 0; p < nt; p++) {
+        threads.emplace_back([&, p, b] {
+          wide_walk(ThreadCta{p, nt, &cta}, parent.data(), unc.data(), nullptr, offs.data() + b,
+                    onehots.data() + (size_t)b * N, mb + (size_t)b * W * N, W, N, 1, 0, kSentinel,
+                    sm.data(), cand);
+        });
+      }
+      for (auto& th : threads) th.join();
+    }
+  } else {
+    const long long par_lo = ((long long)N * N) & ~31LL;
+    for (int k0 = 0; k0 < K; k0 += nwarps) {
+      const int kn = std::min(nwarps, K - k0);
+      int top = -1;
+      for (int k = k0; k < k0 + kn; k++) {
+        for (int p = 0; p < N; p++) {
+          if (onehots[(size_t)k * N + p] && offs[k] >= 0 && offs[k] < W) top = std::max(top, offs[k]);
+        }
+      }
+      std::vector<uint32_t> par, pre;
+      pack_window(parent, unc, N, top, par_lo, par, pre);
+      std::vector<uint32_t> ct((size_t)W * N * 2, 0xFFFFFFFFu), prw((size_t)W * 2, 0xFFFFFFFFu);
+      std::vector<uint32_t> keep((size_t)nwarps * W * 2, 0xFFFFFFFFu);
+      const Tables t{ct.data(), prw.data(), N};
+      std::vector<Shared> warps(nwarps);
+      std::barrier<> cta(32 * nwarps);
+      std::vector<std::thread> threads;
+      for (int i = 0; i < 32 * nwarps; i++) {
+        threads.emplace_back([&, i] {
+          const int warp = i / 32;
+          const ThreadLanes x{i % 32, &warps[warp]};
+          column_table(x, par.data(), (int)par_lo, pre.data(), N, top, ct.data(), prw.data(), warp,
+                       nwarps);
+          cta.arrive_and_wait();
+          if (warp < kn) {
+            const int k = k0 + warp;
+            reach_read(x, t, offs[k], onehots.data() + (size_t)k * N, mb + (size_t)k * W * N, W,
+                       keep.data() + (size_t)warp * W * 2);
+          }
+        });
+      }
+      for (auto& th : threads) th.join();
+    }
+  }
+  for (uint8_t b : masks) {
+    if (b > 1) return 5;
+  }
+  std::fwrite(masks.data(), 1, masks.size(), out);
+  return 0;
+}
+
 // mode "walk": in W N K gc lcr, parent, present, lc int32 [N], offs int32 [K],
 // onehots [K, N]; out masks uint8 [K, W, N] (as chain_commit_kernel).
 // mode "wide": the same, as chain_commit_wide_kernel.
 // mode "pack": in n, bytes [n]; out the string of the bytes, then for every
 // bit offset o < 32 n - 64 and width 64 the two words row_bits reads.
+// modes "reach" and "reachwide": B6 (see reach).
 int main(int argc, char** argv) {
   std::FILE* in = std::fopen(argv[2], "rb");
   std::FILE* out = std::fopen(argv[3], "wb");
+  if (std::string(argv[1]).rfind("reach", 0) == 0) return reach(std::string(argv[1]) == "reachwide", in, out);
   if (std::string(argv[1]) == "pack") {
     long long n = 0;
     if (std::fread(&n, 8, 1, in) != 1) return 2;
@@ -245,11 +333,8 @@ int main(int argc, char** argv) {
     }
   }
   const long long par_lo = ((long long)N * N) & ~31LL;
-  const long long phi = top >= 1 ? (long long)(top + 1) * N * N : par_lo;
-  const long long qhi = (long long)(top + 1) * N;
-  std::vector<uint32_t> par((phi - par_lo + 31) / 32 + 2, 0), pre((qhi + 31) / 32 + 2, 0);
-  for (size_t i = 0; i + 2 < par.size(); i++) par[i] = pack_word(parent.data(), par_lo, phi, i);
-  for (size_t i = 0; i + 2 < pre.size(); i++) pre[i] = pack_word(present.data(), 0, qhi, i);
+  std::vector<uint32_t> par, pre;
+  pack_window(parent, present, N, top, par_lo, par, pre);
   std::vector<uint32_t> ct((size_t)W * N * 2, 0), prw((size_t)W * 2, 0);
   const Tables t{ct.data(), prw.data(), N};
   std::vector<int> lc(64, 0);
@@ -264,7 +349,7 @@ int main(int argc, char** argv) {
       x.sync();
       int lcr = lcr0;
       for (int k = 0; k < K; k++) {
-        walk_leader(x, t, onehots.data() + (size_t)k * N, offs[k], W, gc,
+        walk_leader<true>(x, t, onehots.data() + (size_t)k * N, offs[k], W, gc,
                     lc.data(), lcr, keep.data() + (size_t)k * W * 2);
       }
     });
@@ -474,3 +559,68 @@ def test_wide_walk_healed_chain_matches_jax(walk_exe, tmp_path, w, n, K, live):
     got = _walk(walk_exe, parent, present, gc, lc, lcr, offs, onehots, tmp_path, mode="wide")
     assert np.array_equal(got, want) and want[:live].any()
 
+
+
+# -- B6: the batched reach walk --------------------------------------------------
+
+
+def _read_inputs(rng: np.random.Generator, w: int, n: int, k: int, density: float):
+    """K read slots on a random window: links at `density`, present at 90 %,
+    and an uncommitted mask that is not `present` (each column committed up
+    to a random row, as the consensus step passes it). The live reads come
+    first (one at the top row, one at row 0, the rest at random rows, each
+    start uncommitted but one), then padding: zero one-hots, and one slot
+    with a one-hot but an offset past the window (it reaches nothing). In
+    groups of 4 reads (the harness's CTA of four warps), K = 7 puts two
+    padding reads in a group with a live one, and at K = 16 half the slots
+    are padding, so the last two groups pack nothing."""
+    parent = (rng.random((w, n, n)) < density).astype(np.uint8)
+    present = (rng.random((w, n)) < 0.9).astype(np.uint8)
+    lc = rng.integers(-1, w // 3, n)
+    unc = (present & (np.arange(w)[:, None] > lc[None, :])).astype(np.uint8)
+    live = {1: 1, 7: 5}.get(k, k // 2)
+    offs = np.zeros(k, np.int32)
+    onehots = np.zeros((k, n), np.uint8)
+    offs[:live] = rng.integers(0, w, live)
+    offs[0], offs[min(1, live - 1)] = w - 1, 0 if live > 1 else w - 1
+    cols = rng.integers(0, n, live)
+    onehots[np.arange(live), cols] = 1
+    unc[offs[:live], cols] = 1
+    if live > 2:
+        unc[offs[2], cols[2]] = 0  # a start the mask excludes: an all-zero read
+    if k > live + 1:
+        offs[k - 1] = w
+        onehots[k - 1, int(rng.integers(0, n))] = 1
+    assert not np.array_equal(unc, present)
+    return parent, unc, offs, onehots, live
+
+
+_REACH_K = jax.jit(jax.vmap(jd.reach_mask, in_axes=(None, None, 0, 0)))
+
+
+# (W, N, K, link density): W 16, 64 and one 128; N 10, 50 and 65 (past a
+# warp's two words: the wide route only); K 1, 7 (with padding) and 16;
+# sparse (2 / N) and dense (0.7) links
+REACH_CASES = [(16, 10, 1, 0.2), (16, 10, 7, 0.7), (16, 50, 16, 0.04), (16, 50, 7, 0.7),
+               (64, 50, 16, 0.04), (64, 50, 7, 0.7), (64, 10, 16, 0.7), (128, 50, 7, 0.04),
+               (16, 65, 7, 0.03), (16, 65, 16, 0.7), (64, 65, 1, 0.7)]
+
+
+@pytest.mark.parametrize("w,n,K,density", REACH_CASES)
+def test_reach_reads_match_jax(walk_exe, tmp_path, w, n, K, density):
+    """B6 bit for bit against the JAX `_reach_k` (`jax.vmap(reach_mask)`)
+    and `reach_many_plain`: the packed route (N <= 64) as reach_many_kernel
+    runs it, a warp a read (a CTA of four warps walking a group of 4 reads
+    over one column table), and the wide route, a CTA of threads a read; every mask
+    byte written, the padding reads empty."""
+    parent, unc, offs, onehots, live = _read_inputs(
+        np.random.default_rng(w * 100 + n + K), w, n, K, density)
+    want = np.asarray(_REACH_K(parent, unc, offs, onehots))
+    plain = td.reach_many_plain(*(torch.from_numpy(a) for a in (parent, unc, offs, onehots)))
+    assert np.array_equal(plain.numpy(), want)
+    assert want[:live].any() and not want[live:].any()
+    head = np.asarray([w, n, K, 4], np.int32).tobytes()
+    payload = head + b"".join(a.tobytes() for a in (parent, unc, offs, onehots))
+    for mode in (("reach", "reachwide") if n <= 64 else ("reachwide",)):
+        got = np.frombuffer(_run(walk_exe, [mode], payload, tmp_path), np.uint8)
+        assert np.array_equal(got.reshape(K, w, n).astype(bool), want), mode
