@@ -10,7 +10,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             wall (nvcc logs under chiprun_out/chip_smoke/);
   kernels   each kernel against its plain PyTorch version on the same card
             tensors at the main path's shapes (N = 50, W = 64, 2048-row
-            buckets; chain_commit on a healed partition where the gc filter
+            buckets; window_sync, a view's roll and placements, at W = 64
+            and 128, N = 50 and 49, T = 64 and past a parameter block,
+            shifts 0, 1, W - 1 and W, and through B4 roll_window and B3
+            place_batch, each of those with its library call's time;
+            chain_commit on a healed partition where the gc filter
             provably bites; msm_accumulate in the group-lane shape, 20
             compact proofs of 50 signers as 2000 doubled rows plus 48 zero
             rows, and in the item shape with real R and z digits, a torsion
@@ -60,8 +64,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             GpuBullshark(mesh=auth_mesh(2)) (--dag-shards 2) over two cards,
             or the one card twice, on the engine phase's stream: the same
             sequence as the host Bullshark and the unmeshed card engine,
-            through the sharded walk only (chain_commit, place_batch and
-            roll_window launch 0 times): on the "cluster" route (one card)
+            through the sharded walk only (chain_commit and window_sync
+            launch 0 times): on the "cluster" route (one card)
             or "peer" (cards with peer access) one sharded_walk launch per
             card per commit event and no reach_shard_step; on "rowstep"
             reach_shard_step. Certificates/s beside the engine's;
@@ -124,8 +128,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 Launch counts are set to 0 just before each of the ten paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS; the sharded walk's kernel by the mesh's route, which the
-script prints). Then one JSON line with every kernel's numbers (launches
-summed over the paths and per path; the consensus_step phase's forced
+script prints), and a path that syncs a device window may launch
+window_sync at most once per view that rolls or places, more only for a
+sync past a parameter block (the views and those launches are counted
+where they happen, beside the launch counts, and printed). Then one JSON
+line with every kernel's numbers (launches summed over the paths and per
+path; the consensus_step phase's forced
 routes apart, under "forced_route_launches"), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -168,12 +176,12 @@ WALK_KERNEL = {"cluster": "sharded_walk", "peer": "sharded_walk", "rowstep": "re
 
 # The kernels each driven path must launch (counts from 0 just before it).
 PATH_KERNELS = {
-    "engine": ("place_batch", "roll_window", "chain_commit"),
-    "pipeline": ("verify_batch", "place_batch", "roll_window", "chain_commit"),
-    "compact": ("msm_accumulate", "place_batch", "roll_window", "chain_commit"),
+    "engine": ("window_sync", "chain_commit"),
+    "pipeline": ("verify_batch", "window_sync", "chain_commit"),
+    "compact": ("msm_accumulate", "window_sync", "chain_commit"),
     "service": ("verify_batch", "msm_accumulate"),
-    "tusk": ("place_batch", "roll_window", "chain_commit"),
-    "dag_service": ("reach_many", "place_batch", "roll_window"),
+    "tusk": ("window_sync", "chain_commit"),
+    "dag_service": ("reach_many", "window_sync"),
     "sharded": ("verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                 "msm_shard_reduce"),
     "dag_shards": ("walk",),
@@ -266,14 +274,38 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+# Each path's window syncs, read with its launches: the views that rolled or
+# placed a window on the card (counted by DagWindow.device_view) and the
+# window_sync launches past a sync's first (counted by the wrapper when a
+# sync's slots fill more than one parameter block).
+PATH_SYNCS: dict[str, dict] = {}
+
+
 def require_launches(path: str, launches: dict, device, route: str | None = None) -> None:
     """Fail unless every kernel the path names launched on it (on the card;
     a CPU rehearsal launches nothing); "walk" is the sharded walk's kernel
-    on `route`."""
+    on `route`. A path that syncs a window may launch window_sync at most
+    once a view that rolls or places, more only for a sync past a parameter
+    block: launches <= views + the launches past a sync's first (the event
+    counts, read with the launches)."""
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+
     for k in PATH_KERNELS[path]:
         k = WALK_KERNEL[route] if k == "walk" else k
         if device.type == "cuda" and launches[k] <= 0:
             raise AssertionError(f"{path}: {k} never launched")
+    if "window_sync" in PATH_KERNELS[path]:
+        events = kernel_registry.event_counts()
+        views = events.get(dk.WINDOW_VIEWS, 0)
+        extra = events.get(dk.SYNC_LAUNCHES_PAST_FIRST, 0)
+        PATH_SYNCS[path] = {"views": views, "launches_past_first": extra}
+        if device.type == "cuda" and launches["window_sync"] > views + extra:
+            raise AssertionError(f"{path}: {launches['window_sync']} window_sync launches for "
+                                 f"{views} syncing views and {extra} launches past a sync's "
+                                 "first")
+        log(f"{path}: {views} views rolled or placed, {launches['window_sync']} window_sync "
+            f"launches ({extra} past a sync's first)")
 
 
 # ---------------------------------------------------------------------------
@@ -990,7 +1022,34 @@ def _random_window(rng: np.random.Generator, w: int, n: int):
     return parent, present
 
 
+def sync_slots(rng: np.random.Generator, w: int, n: int, T: int, n_dup: int = 4,
+               n_below: int = 0):
+    """T placements of a window sync as host arrays (offs, idxs, rows), the
+    offsets relative to the rolled window: distinct cells with 0/1 rows,
+    then the last `n_dup` slots (when T >= 8) repeating the first ones with
+    identical rows (device_view reads a duplicate's row from its mirror),
+    and `n_below` of the others below the window (dropped)."""
+    dup = n_dup if T >= 8 else 0
+    cells = rng.choice(w * n, T - dup, replace=False)
+    offs = np.concatenate([cells // n, cells[:dup] // n]).astype(np.int32)
+    idxs = np.concatenate([cells % n, cells[:dup] % n]).astype(np.int32)
+    rows = (rng.random((T - dup, n)) < 0.7).astype(np.uint8)
+    rows = np.concatenate([rows, rows[:dup]])
+    offs[dup:dup + n_below] = -1 - np.arange(n_below, dtype=np.int32)
+    return offs, idxs, rows
+
+
+def _slot_bytes(w: int, n: int, T: int) -> int:
+    """Bytes of T slots in window_sync's parameter block (offset, index and
+    row bits a slot)."""
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    return -(-T * dk.sync_layout(w, n)[1] // 8)
+
+
 def check_place_batch(device, n: int, w: int):
+    """B3 through window_sync (in place, shift 0), the slots as host arrays
+    with padding and duplicates, against its plain version."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
@@ -1011,8 +1070,8 @@ def check_place_batch(device, n: int, w: int):
         t = {k: torch.from_numpy(v).to(device) for k, v in
              dict(parent=parent, present=present, offs=offs, idxs=idxs, rows=rows,
                   valid=valid).items()}
-        kp, kq = dk.place_batch(t["parent"].clone(), t["present"].clone(), t["offs"],
-                                t["idxs"], t["rows"], t["valid"])
+        kp, kq = dk.place_batch(t["parent"].clone(), t["present"].clone(), offs, idxs, rows,
+                                valid)
         pp, pq = dk.place_batch_plain(t["parent"].clone(), t["present"].clone(),
                                       t["offs"], t["idxs"], t["rows"], t["valid"])
         err = max(err, int((kp.int() - pp.int()).abs().max()),
@@ -1022,8 +1081,9 @@ def check_place_batch(device, n: int, w: int):
         if T != 64:
             continue
         wp, wq = t["parent"].clone(), t["present"].clone()
-        ms = time_ms(lambda: dk.place_batch(wp, wq, t["offs"], t["idxs"], t["rows"],
-                                            t["valid"]), device, reps=50)
+        ms = time_ms(lambda: dk.place_batch(wp, wq, offs, idxs, rows, valid), device, reps=50)
+        dev_ms, _ = device_breakdown(lambda: dk.place_batch(wp, wq, offs, idxs, rows, valid),
+                                     device)
         plain_ms = time_ms(lambda: dk.place_batch_plain(wp, wq, t["offs"], t["idxs"],
                                                         t["rows"], t["valid"]),
                            device, reps=3)
@@ -1036,20 +1096,22 @@ def check_place_batch(device, n: int, w: int):
             wq.index_put_((o, i), ones)
 
         library_ms = time_ms(library, device, reps=50)
-        # valid[T] read; offs, idxs and the row of each live slot read; each
-        # distinct (off, idx) cell written once (row and present byte).
+        # the live slots' bits read; each distinct (off, idx) cell written
+        # once (row and present byte)
         n_distinct = len(set(zip(offs[:n_live].tolist(), idxs[:n_live].tolist())))
-        nbytes = T + n_live * (4 + 4 + n) + n_distinct * (n + 1)
-        b, by = bound_ms(nbytes)
-        out = {"name": "place_batch", "ms": ms, "plain_ms": plain_ms,
+        b, by = bound_ms(_slot_bytes(w, n, n_live) + n_distinct * (n + 1))
+        out = {"name": "place_batch", "replaces": "narwhal_tpu/tpu/dag_kernels.py:95",
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                "bound_ms": b, "bound_by": by, "library_ms": library_ms,
                "shape": f"W={w} N={n} T={T} ({n_live} valid, 4 duplicates)"}
     out["max_abs_err"] = err
-    log("place_batch: T in (64, 1), duplicates + padding: kernel == plain")
+    log("place_batch: T in (64, 1), duplicates + padding: window_sync == plain")
     return out
 
 
 def check_roll_window(device, n: int, w: int):
+    """B4 through window_sync (no slots, out of place) against its plain
+    version."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
@@ -1064,9 +1126,10 @@ def check_roll_window(device, n: int, w: int):
                   int((kq.int() - pq.int()).abs().max()))
         if not (torch.equal(kp, pp) and torch.equal(kq, pq)):
             raise AssertionError(f"roll_window shift={shift}: kernel != plain")
-    log(f"roll_window: shifts (0, 1, {w - 1}, {w}, {w + 5}): kernel == plain")
+    log(f"roll_window: shifts (0, 1, {w - 1}, {w}, {w + 5}): window_sync == plain")
     shift = 1
     ms = time_ms(lambda: dk.roll_window(tp, tq, shift), device, reps=50)
+    dev_ms, _ = device_breakdown(lambda: dk.roll_window(tp, tq, shift), device)
     plain_ms = time_ms(lambda: dk.roll_window_plain(tp, tq, shift), device, reps=50)
 
     def library():
@@ -1078,9 +1141,69 @@ def check_roll_window(device, n: int, w: int):
     library_ms = time_ms(library, device, reps=50)
     row = n * n + n
     b, by = bound_ms((w - shift) * row + w * row)
-    return {"name": "roll_window", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"name": "roll_window", "replaces": "narwhal_tpu/tpu/dag_kernels.py:79",
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms,
             "shape": f"W={w} N={n} shift={shift}"}
+
+
+# The window syncs the kernels phase holds to the plain version, (W, N, T):
+# the engine's window, the Dag service's grown W 128, an odd N, and a batch
+# past one parameter block (three launches).
+SYNC_SHAPES = ((W, N, 64), (2 * W, N, 64), (W, N - 1, 64), (W, N, "past"))
+
+
+def check_window_sync(device, n: int, w: int):
+    """sync_window, the view's roll and placements in one window_sync
+    launch, at SYNC_SHAPES and shifts 0 (in place), 1, W - 1 and W, with
+    four duplicates and two slots below the window: bit-equal to the plain
+    roll then place, one launch a parameter block. Timed at the engine's
+    view, W = w, N = n, T = 64, shift 1."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    rng = np.random.default_rng(15)
+    err = 0
+    for ww, nn, T in SYNC_SHAPES:
+        parent, present = _random_window(rng, ww, nn)
+        tp, tq = torch.from_numpy(parent).to(device), torch.from_numpy(present).to(device)
+        cap, _bits = dk.sync_layout(ww, nn)
+        size = 2 * cap + 7 if T == "past" else T
+        offs, idxs, rows = sync_slots(rng, ww, nn, size, n_below=2)
+        blocks = -(-int((offs >= 0).sum()) // cap)
+        for shift in (0, 1, ww - 1, ww):
+            kernel_registry.reset_launch_counts()
+            kp, kq = dk.sync_window(tp.clone(), tq.clone(), shift, offs, idxs, rows)
+            launches = kernel_registry.launch_counts()["window_sync"]
+            pp, pq = dk.sync_window_plain(tp.clone(), tq.clone(), shift, offs, idxs, rows)
+            err = max(err, int((kp.int() - pp.int()).abs().max()),
+                      int((kq.int() - pq.int()).abs().max()))
+            if not (torch.equal(kp, pp) and torch.equal(kq, pq)):
+                raise AssertionError(f"window_sync W={ww} N={nn} T={size} shift={shift}: "
+                                     "kernel != plain")
+            if device.type == "cuda" and launches != blocks:
+                raise AssertionError(f"window_sync W={ww} N={nn} T={size}: {launches} "
+                                     f"launches for {blocks} parameter blocks")
+        log(f"window_sync: W={ww} N={nn} T={size} ({blocks} block(s) of {cap}), shifts 0, 1, "
+            f"{ww - 1}, {ww}: kernel == plain")
+    parent, present = _random_window(rng, w, n)
+    tp, tq = torch.from_numpy(parent).to(device), torch.from_numpy(present).to(device)
+    offs, idxs, rows = sync_slots(rng, w, n, 64)
+    shift = 1
+    ms = time_ms(lambda: dk.sync_window(tp, tq, shift, offs, idxs, rows), device, reps=50)
+    dev_ms, _ = device_breakdown(lambda: dk.sync_window(tp, tq, shift, offs, idxs, rows),
+                                 device)
+    plain_ms = time_ms(lambda: dk.sync_window_plain(tp, tq, shift, offs, idxs, rows),
+                       device, reps=3)
+    # (W - shift) rows read and W rows written, parent and present, and the
+    # slots' bits read
+    row = n * n + n
+    b, by = bound_ms((w - shift) * row + w * row + _slot_bytes(w, n, 64))
+    return {"name": "window_sync", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": f"W={w} N={n} T=64 (4 duplicates) shift={shift}",
+            "extra": {"device_ms": dev_ms}}
 
 
 def healed_partition_chain(rng: np.random.Generator, w: int, n: int, gc_depth: int,
@@ -1784,6 +1907,7 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_verify_batch(device, bucket, n_keys, n_ref, plain_reps),
         check_msm_accumulate(device, f, bucket, n_keys, plain_reps),
         *check_staged(device, f, bucket, n_keys, plain_reps),
+        check_window_sync(device, n, w),
         check_place_batch(device, n, w),
         check_roll_window(device, n, w),
         check_chain_commit(device, n, w),
@@ -1803,12 +1927,19 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
     if device.type == "cuda":
         check_peer_reuse(device, n, w)
         check_walk_deadline(device, n, w)
+    by_name = {r["name"]: r for r in rows}
+    # B4 and B3 are window_sync's wrappers: their numbers ride on its row
+    sync = by_name["window_sync"]
+    for name in ("roll_window", "place_batch"):
+        wrapped = {k: v for k, v in by_name[name].items() if k != "name"}
+        sync["extra"][name] = wrapped
+        sync["max_abs_err"] = max(sync["max_abs_err"], wrapped["max_abs_err"])
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {r['name']:13s} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
-    return {r["name"]: r for r in rows}
+    return by_name
 
 
 # ---------------------------------------------------------------------------
@@ -2025,8 +2156,8 @@ def mesh_devices(device, k: int) -> list:
 def phase_dag_shards(device, f, ctx, gc=GC_DEPTH):
     """GpuBullshark(mesh=auth_mesh(2, ...)) (`--dag-shards 2`) over the
     engine phase's stream: its sequence must equal the host Bullshark's and
-    the unmeshed card engine's, through the sharded walk only (chain_commit,
-    place_batch and roll_window launch 0 times). On the "cluster" and
+    the unmeshed card engine's, through the sharded walk only (chain_commit
+    and window_sync launch 0 times). On the "cluster" and
     "peer" routes that is one sharded_walk launch per card per commit
     event, and no reach_shard_step."""
     from narwhal_tpu_torch.consensus import Bullshark
@@ -2042,7 +2173,7 @@ def phase_dag_shards(device, f, ctx, gc=GC_DEPTH):
         ctx["ref_out"], ctx["ref_state"], mesh=mesh)
     if state.last_committed != ctx["state"].last_committed:
         raise AssertionError("dag_shards: last_committed differs from the unmeshed card engine")
-    for k in ("chain_commit", "place_batch", "roll_window"):
+    for k in ("chain_commit", "window_sync"):
         if launches[k]:
             raise AssertionError(f"dag_shards: {k} launched {launches[k]} times on the meshed "
                                  "engine")
@@ -2903,6 +3034,7 @@ def main(argv=None) -> int:
                                 "meshed_s_by_route": csctx["meshed_s_by_route"]},
              "dryrun_wall_s": drctx["wall_s"]}
 
+    kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS
     rows = []
     build_walls = kernel_registry.build_walls()
     for kname, (stem, replaces) in kernel_registry.KERNELS.items():

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Per-launch device times of the window-lane kernels, A1, A3, A4, B2, B6 and
-A6' on one NVIDIA card.
+"""Per-launch device times of the window-lane kernels, A1, A3, A4, B2, B6,
+A6' and the DAG window's sync (B3, B4) on one NVIDIA card.
 
     python3 msm_breakdown.py [--package DIR] [--bucket B ...] [--phases]
                              [--sections S ...]
@@ -38,8 +38,25 @@ two steps `chip_smoke.py` times once each, repeated: the unmeshed
 consensus step (B = 64 walks on its W = 64, N = 50 window, copies in and
 out) and the dry run (`entry()`'s walk, then `dryrun_multichip(4)` over
 this card four times); the median and quartiles over `STEP_REPS` runs.
+Section `window`: the window sync of `DagWindow.device_view` at N = 50,
+W = 64 and 128: B4 `roll_window` at shifts 0 and 1, B3 `place_batch` of
+T = 1, 64 and 128 slots (`chip_smoke.sync_slots`, four duplicates) as the
+package's `device_view` hands them over (a package without `sync_window`
+uploads the four slot arrays first), and the sync of a view that rolls by
+0 or 1 and places T slots (`sync_window`, or the roll and then the place
+where the package has none), each held against the plain roll then place
+first; then the host wall of `device_view` over the engine phase's stream
+(`chip_smoke.engine_stream`, 200 rounds), recorded once as `GpuBullshark`
+calls the window (every insert, one view a commit event) and replayed
+`VIEW_REPLAYS` times on a fresh window: the median and quartiles of the
+views that roll or place, the host clock around the call alone and up to
+the card's end, and the launches of the replays; then one more replay
+under cProfile, its costliest functions by own time a view. Between the
+two, where the package's `sync_window` takes a grid, the sync at W = 64
+and 128, shift 1, T = 0 and 64 for each of `GRID_CHUNKS` (bytes of a
+parent row a CTA) x `GRID_THREADS` (threads a CTA).
 `--sections` picks among `lanes` (A2, A6, A3, A1, A4; the default runs
-every section), `walk` (B2), `reach`, `reduce` and `steps`.
+every section), `walk` (B2), `reach`, `reduce`, `steps` and `window`.
 
 `--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
 chain kernel then records %globaltimer at four points of each CTA) and
@@ -139,6 +156,10 @@ def main(argv=None) -> int:
         reduce(chip_smoke, ed25519, dev, timed)
     if "steps" in args.sections:
         steps(chip_smoke, dev)
+    if "window" in args.sections:
+        window(chip_smoke, dev, timed)
+        window_grid(chip_smoke, dev, timed)
+        view_replay(chip_smoke, dev)
     torch.cuda.synchronize()
     return 0
 
@@ -147,7 +168,8 @@ def main(argv=None) -> int:
 SECTIONS = {"lanes": ("ed25519_msm", "ed25519_staged", "ed25519_verify"),
             "walk": ("dag_window",), "reach": ("dag_window",),
             "reduce": ("ed25519_msm", "ed25519_staged"),
-            "steps": ("dag_window", "ed25519_msm", "ed25519_staged", "ed25519_verify")}
+            "steps": ("dag_window", "ed25519_msm", "ed25519_staged", "ed25519_verify"),
+            "window": ("dag_window",)}
 
 
 def decompress(chip_smoke, ed25519, dev, bucket, timed) -> None:
@@ -317,6 +339,195 @@ def steps(chip_smoke, dev) -> None:
         q1, med, q3 = np.percentile(walls, [25, 50, 75])
         print(f"step {name}: host wall median {med:.4f} ms, quartiles {q1:.4f}-{q3:.4f} "
               f"over {len(walls)} runs", flush=True)
+
+
+# Section `window`: the windows, slot counts and shifts at N = 50, and the
+# replays of the engine stream's views.
+WINDOW_WS = (64, 128)
+WINDOW_TS = (1, 64, 128)
+WINDOW_SHIFTS = (0, 1)
+VIEW_REPLAYS = 5
+
+
+def window(chip_smoke, dev, timed) -> None:
+    """B4, B3 and the sync of a view through the package's wrappers, each
+    held against the plain roll then place first."""
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    n = 50
+    sync = getattr(dk, "sync_window", None)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for w in WINDOW_WS:
+        rng = np.random.default_rng(w)
+        p, q = (up(a) for a in chip_smoke._random_window(rng, w, n))
+        for shift in WINDOW_SHIFTS:
+            chip_smoke._same_bits(f"B4 W={w} shift={shift}",
+                                  torch.cat([x.flatten() for x in dk.roll_window(p, q, shift)]),
+                                  torch.cat([x.flatten()
+                                             for x in dk.roll_window_plain(p, q, shift)]))
+            timed(f"B4 roll_window W={w} N={n} shift={shift}",
+                  lambda: dk.roll_window(p, q, shift))
+        for T in WINDOW_TS:
+            offs, idxs, rows = chip_smoke.sync_slots(rng, w, n, T)
+            valid = np.ones(T, np.uint8)
+
+            def place(pp, qq):
+                if sync is None:  # the slots uploaded as that package's device_view does
+                    return dk.place_batch(pp, qq, up(offs), up(idxs), up(rows), up(valid))
+                return dk.place_batch(pp, qq, offs, idxs, rows, valid)
+
+            def view(pp, qq, shift):
+                if sync is not None:
+                    return dk.sync_window(pp, qq, shift, offs, idxs, rows)
+                if shift:
+                    pp, qq = dk.roll_window(pp, qq, shift)
+                return place(pp, qq)
+
+            def plain(pp, qq, shift):
+                pp, qq = dk.roll_window_plain(pp, qq, shift)
+                return dk.place_batch_plain(pp, qq, *(up(a) for a in (offs, idxs, rows, valid)))
+
+            for shift in WINDOW_SHIFTS:
+                got, want = view(p.clone(), q.clone(), shift), plain(p.clone(), q.clone(), shift)
+                chip_smoke._same_bits(f"sync W={w} T={T} shift={shift}",
+                                      torch.cat([x.flatten() for x in got]),
+                                      torch.cat([x.flatten() for x in want]))
+            wp, wq = p.clone(), q.clone()
+            timed(f"B3 place_batch W={w} N={n} T={T}", lambda: place(wp, wq))
+            for shift in WINDOW_SHIFTS:
+                timed(f"sync W={w} N={n} T={T} shift={shift} "
+                      + ("(sync_window)" if sync is not None else "(roll, then place)"),
+                      lambda: view(wp, wq, shift))
+
+
+# The grid shapes of window_sync the section sweeps: bytes of a parent row
+# a CTA (0: the kernel's default, 640 at N = 50; 16384 a CTA a row; 1280,
+# 640, 320 and 160 split a 2,500-byte row over 2, 4, 8 and 16 CTAs) and
+# threads a CTA.
+GRID_CHUNKS = (0, 16384, 1280, 640, 320, 160)
+GRID_THREADS = (64, 128, 256)
+
+
+def window_grid(chip_smoke, dev, timed) -> None:
+    """sync_window's grid at N = 50, W = 64 and 128, shift 1, T = 0 (the
+    roll alone) and 64: each shape held against the plain roll then place,
+    then timed. A package whose sync_window takes no grid is skipped."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    if "chunk" not in inspect.signature(getattr(dk, "sync_window", lambda: None)).parameters:
+        print("window grid: this package's sync_window takes no grid", flush=True)
+        return
+    n, shift = 50, 1
+    for w in WINDOW_WS:
+        rng = np.random.default_rng(w + 1)
+        p, q = (torch.from_numpy(a).to(dev) for a in chip_smoke._random_window(rng, w, n))
+        for T in (0, 64):
+            offs, idxs, rows = chip_smoke.sync_slots(rng, w, n, T)
+            want = dk.sync_window_plain(p, q, shift, offs, idxs, rows)
+            for chunk in GRID_CHUNKS:
+                for threads in GRID_THREADS:
+                    def run():
+                        return dk.sync_window(p, q, shift, offs, idxs, rows, chunk=chunk,
+                                              threads=threads)
+
+                    chip_smoke._same_bits(f"grid W={w} T={T} chunk={chunk} threads={threads}",
+                                          torch.cat([x.flatten() for x in run()]),
+                                          torch.cat([x.flatten() for x in want]))
+                    timed(f"grid W={w} N={n} T={T} shift={shift} chunk={chunk} "
+                          f"threads={threads}", run)
+
+
+def view_replay(chip_smoke, dev) -> None:
+    """The host wall of DagWindow.device_view as GpuBullshark calls it on
+    the engine phase's stream: the calls recorded once on the card, then
+    replayed on fresh windows, each view timed alone (the card idle before
+    it)."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.consensus import ConsensusState
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.types import Certificate
+
+    f = CommitteeFixture(size=50)
+    eng = dk.GpuBullshark(f.committee, None, chip_smoke.GC_DEPTH, device=dev)
+    w0 = eng.win.W
+    calls = []  # (cert, keep_floor) for an insert, None for a view
+    insert, view = eng.win.insert, eng.win.device_view
+
+    def rec_insert(cert, keep_floor):
+        calls.append((cert, keep_floor))
+        return insert(cert, keep_floor)
+
+    def rec_view():
+        calls.append(None)
+        return view()
+
+    eng.win.insert, eng.win.device_view = rec_insert, rec_view
+    chip_smoke.feed_rounds(eng, ConsensusState(Certificate.genesis(f.committee)),
+                           chip_smoke.engine_stream(f, 200, 3), 50)
+    walls, ends, slots, kinds = [], [], [], {"upload": 0, "sync": 0, "none": 0}
+    torch.cuda.synchronize()
+    kernel_registry.reset_launch_counts()
+    for _ in range(VIEW_REPLAYS):
+        win = dk.DagWindow(f.committee, w0, device=dev)
+        for call in calls:
+            if call is not None:
+                win.insert(*call)
+                continue
+            if win._dev is None or win._dev_stale:
+                kind = "upload"
+            elif win.round_base != win._dev_base or win._dev_pending:
+                kind = "sync"
+                pend = win._dev_pending  # (round, idx) pairs, or a flat list of them
+                slots.append(len(pend) if isinstance(pend[0], tuple) else len(pend) // 2)
+            else:
+                kind = "none"
+            kinds[kind] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            win.device_view()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if kind == "sync":
+                walls.append((t1 - t0) * 1e3)
+                ends.append((t2 - t0) * 1e3)
+    launches = {k: v for k, v in kernel_registry.launch_counts().items() if v}
+    # One more replay under cProfile: where a view's host time goes.
+    prof = cProfile.Profile()
+    win = dk.DagWindow(f.committee, w0, device=dev)
+    for call in calls:
+        if call is not None:
+            win.insert(*call)
+            continue
+        torch.cuda.synchronize()
+        prof.runcall(win.device_view)
+    top = pstats.Stats(prof).sort_stats("tottime")
+    rows = sorted(top.stats.items(), key=lambda kv: -kv[1][2])[:8]
+    print("device_view profiled (own us a view): " + ", ".join(
+        f"{fn[2]} {tt / calls.count(None) * 1e6:.1f}" for fn, (_c, _n, tt, _ct, _cl) in rows),
+        flush=True)
+    for label, xs in (("host wall", walls), ("to the card's end", ends)):
+        q1, med, q3 = np.percentile(xs, [25, 50, 75])
+        print(f"device_view {label}: median {med:.4f} ms, quartiles {q1:.4f}-{q3:.4f} over "
+              f"{len(xs)} views that roll or place", flush=True)
+    print(f"device_view replays: {VIEW_REPLAYS} x {calls.count(None)} views ({kinds}); "
+          f"pending slots a syncing view: median {np.median(slots):.0f}, max {max(slots)}; "
+          f"launches {launches}", flush=True)
 
 
 _PHASE_LIB = []

@@ -4,27 +4,38 @@
 // Tensors (the JAX package's layout, narwhal_tpu/tpu/dag_kernels.py):
 //   parent  [W, N, N] uint8   parent[w, a, p] = cert (w, a) links (w-1, p)
 //   present [W, N]    uint8   a certificate exists at (round offset w, authority)
-// Eight kernels, each with a plain PyTorch version in ../dag_kernels.py:
+// Seven kernels, each with a plain PyTorch version in ../dag_kernels.py:
 //
-// place_batch  replaces narwhal_tpu/tpu/dag_kernels.py:95 `place_batch` (B3).
-//   Scatter T padded placements: for each slot t with valid[t] != 0,
-//   present[offs[t], idxs[t]] = 1 and parent[offs[t], idxs[t], :] = rows[t].
-//   One block per slot, threads stride over the N columns, so a row is
-//   written by consecutive threads (coalesced). Padding slots are no-ops;
-//   duplicate (off, idx) slots carry identical rows (the host reads them from
-//   its mirror at sync time), so their write order does not matter. Slots
-//   whose coordinates fall outside the window are dropped. Bound: bytes,
-//   valid[T] read, offs, idxs and the row of each live slot read, and each
-//   distinct (off, idx) cell written once (N + 1 bytes); at T <= 64,
-//   N = 50 that is under 6 KB, so the launch itself is the cost. Updates the window in place (the JAX kernel donates
-//   its inputs for the same reason: the old generation is dead).
-//
-// roll_window  replaces narwhal_tpu/tpu/dag_kernels.py:79 `roll_window` (B4).
-//   out[w] = in[w + shift] for w < W - shift, else 0, for parent and present
-//   in one launch. The wrapper allocates the outputs, so a copy never
-//   overlaps its own source. Bound: bytes, (W - shift) rows read and W rows
-//   written; one thread per 4-byte word of the output is plenty at
-//   W = 64, N = 50 (160 KB).
+// window_sync  replaces narwhal_tpu/tpu/dag_kernels.py:79 `roll_window` (B4)
+//   and :95 `place_batch` (B3), which the JAX DagWindow.device_view runs
+//   one after the other (:329-378): out[w] = in[w + shift] for
+//   w < W - shift, else 0, for parent and present; then for each slot t of
+//   the launch's parameter block,
+//   present[off_t, idx_t] = 1 and parent[off_t, idx_t, :] = row_t. Duplicate
+//   (off, idx) slots carry identical rows (device_view reads them from its
+//   mirror at sync time), so their order does not matter. The entry point
+//   packs the slots inside the window on the host (the rest are dropped)
+//   into the launch's parameters, a by-value __grid_constant__ struct of
+//   under 4 KB (dag_window_sync.cuh: a slot is its offset, index and row as
+//   one bit string, 62 bits at W = 64, N = 50, so 515 slots a block): no
+//   upload, no staging tensor. A batch past a block takes more launches,
+//   the first rolling and placing, the rest placing in place.
+//   A CTA per chunk of a round row w (by default a quarter of the parent
+//   row, 640 bytes to 16 KB: four CTAs a row at N = 50, one up to N = 25):
+//   when the outputs are not the inputs (a roll, out of place), the CTA
+//   copies its chunk of parent row w + shift (and, chunk 0, present row
+//   w + shift) into row w, or zeroes it when w + shift >= W, in 16-byte
+//   words where the row stride and the tensors' alignment allow, else
+//   4-byte words, else bytes: the row index is the CTA's, so no division a
+//   byte. Then one barrier, and its threads write the block's slots at
+//   offset w, a slot a thread (so the CTA's reads of the block's cells are
+//   in flight together), the slot's bytes in its chunk. So
+//   every output byte is written by the CTA that owns it, a slot after the
+//   rolled copy of its row. In place (shift 0) nothing is copied.
+//   Bound: bytes, (W - shift) rows read and W rows written (N * N + N
+//   bytes each) when it rolls, and the slot bits read: ~0.1 us of HBM time
+//   at W = 64, N = 50, shift 1; in place only the slot bits and the cells
+//   they write (~7 KB at T = 64). The launch is the cost.
 //
 // chain_commit replaces narwhal_tpu/tpu/dag_kernels.py:128 `chain_commit` (B2),
 //   with `reach_mask` (:48, B1) inside it, as a walk over packed bits
@@ -210,46 +221,26 @@
 #include <cuda_runtime.h>
 
 #include "dag_walk_bits.cuh"
+#include "dag_window_sync.cuh"
 
 namespace {
 
-__global__ void place_batch_kernel(uint8_t* __restrict__ parent, uint8_t* __restrict__ present,
-                                   const int32_t* __restrict__ offs,
-                                   const int32_t* __restrict__ idxs,
-                                   const uint8_t* __restrict__ rows,
-                                   const uint8_t* __restrict__ valid, int W, int N) {
-  const int t = blockIdx.x;
-  if (!valid[t]) return;
-  const int off = offs[t], idx = idxs[t];
-  if (off < 0 || off >= W || idx < 0 || idx >= N) return;
-  uint8_t* dst = parent + ((size_t)off * N + idx) * N;
-  const uint8_t* src = rows + (size_t)t * N;
-  for (int c = threadIdx.x; c < N; c += blockDim.x) dst[c] = src[c];
-  if (threadIdx.x == 0) present[(size_t)off * N + idx] = 1;
-}
+constexpr int kSyncThreads = 256;
 
-// out_parent [W*N*N] and out_present [W*N] from the inputs shifted by `shift`
-// rows; one thread per output byte, grid-stride.
-__global__ void roll_window_kernel(const uint8_t* __restrict__ parent,
-                                   const uint8_t* __restrict__ present,
-                                   uint8_t* __restrict__ out_parent,
-                                   uint8_t* __restrict__ out_present, int W, int N,
-                                   int shift) {
-  const size_t row_p = (size_t)N * N;
-  const size_t n_parent = (size_t)W * row_p;
-  const size_t n_total = n_parent + (size_t)W * N;
-  const size_t keep_rows = shift < W ? (size_t)(W - shift) : 0;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    if (i < n_parent) {
-      const size_t w = i / row_p;
-      out_parent[i] = w < keep_rows ? parent[i + (size_t)shift * row_p] : 0;
-    } else {
-      const size_t j = i - n_parent;
-      const size_t w = j / N;
-      out_present[j] = w < keep_rows ? present[j + (size_t)shift * N] : 0;
-    }
+// Grid (W, chunks of `chunk` bytes of a parent row): CTA (w, y) writes
+// chunk y of row w of out_parent and, y == 0, row w of out_present.
+// out_parent == parent (in place, shift 0) copies nothing.
+__global__ void __launch_bounds__(kSyncThreads)
+window_sync_kernel(const uint8_t* parent, const uint8_t* present, uint8_t* out_parent,
+                   uint8_t* out_present, int W, int N, int shift, int chunk,
+                   const __grid_constant__ window_sync::Slots s) {
+  if (out_parent != parent) {
+    window_sync::cta_copy(threadIdx.x, blockDim.x, blockIdx.x, blockIdx.y, chunk, parent,
+                          present, out_parent, out_present, W, N, shift);
+    __syncthreads();
   }
+  window_sync::cta_place(threadIdx.x, blockDim.x, blockIdx.x, blockIdx.y, chunk, s, out_parent,
+                         out_present, W, N);
 }
 
 // One row step of the reach walk (reach_mask's scan body) for column p:
@@ -765,27 +756,51 @@ __global__ void sharded_walk_kernel(const uint8_t* __restrict__ parent,
 
 }  // namespace
 
-extern "C" int dag_window_place_batch(void* parent, void* present, const void* offs,
-                                      const void* idxs, const void* rows, const void* valid,
-                                      int W, int N, int T, void* stream) {
-  const int threads = N < 256 ? ((N + 31) / 32) * 32 : 256;
-  place_batch_kernel<<<T, threads, 0, (cudaStream_t)stream>>>(
-      (uint8_t*)parent, (uint8_t*)present, (const int32_t*)offs, (const int32_t*)idxs,
-      (const uint8_t*)rows, (const uint8_t*)valid, W, N);
-  return (int)cudaGetLastError();
+// The window_sync launches of one sync: the T slots (offs, idxs: int32
+// [T]; rows: [T, (N + 7) / 8] bytes of bits, as dag_window_sync.cuh's
+// pack_block reads them) packed into parameter blocks on the host, so the
+// host arrays are free when this returns; slots outside the window are
+// dropped. The first launch rolls by shift (0 <= shift <= W) when the
+// outputs are not the inputs, the rest place in place; a sync in place
+// with no slot inside the window launches nothing. `chunk` bytes of a
+// parent row a CTA and `threads` a CTA (0: the defaults, chunk_bytes's
+// split of a row and kSyncThreads). *launches gets the launches made.
+extern "C" int dag_window_window_sync(const void* parent, const void* present,
+                                      void* out_parent, void* out_present, const void* offs,
+                                      const void* idxs, const void* rows, void* launches,
+                                      int W, int N, int shift, int T, int chunk, int threads,
+                                      void* stream) {
+  if (W < 1 || N < 1 || W > 65536 || N > 65536 || window_sync::capacity(W, N) < 1 ||
+      shift < 0 || shift > W || T < 0 || chunk < 0 || threads < 0 ||
+      threads > kSyncThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long row = (long long)N * N;
+  const long long ch = window_sync::chunk_bytes(chunk, row);
+  const dim3 grid((unsigned)W, (unsigned)((row + ch - 1) / ch));
+  const int nt = threads > 0 ? threads : kSyncThreads;
+  const uint8_t* src_p = (const uint8_t*)parent;
+  const uint8_t* src_q = (const uint8_t*)present;
+  int n = 0;
+  const int rc = window_sync::for_each_block(
+      (const int32_t*)offs, (const int32_t*)idxs, (const uint8_t*)rows, T, W, N, shift,
+      out_parent != parent, n, [&](const window_sync::Slots& s, int sh) {
+        window_sync_kernel<<<grid, nt, 0, (cudaStream_t)stream>>>(
+            src_p, src_q, (uint8_t*)out_parent, (uint8_t*)out_present, W, N, sh, (int)ch, s);
+        src_p = (const uint8_t*)out_parent;
+        src_q = (const uint8_t*)out_present;
+        return (int)cudaGetLastError();
+      });
+  *(int*)launches = n;
+  return rc;
 }
 
-extern "C" int dag_window_roll_window(const void* parent, const void* present,
-                                      void* out_parent, void* out_present, int W, int N,
-                                      int shift, void* stream) {
-  const size_t total = (size_t)W * N * N + (size_t)W * N;
-  const int threads = 256;
-  size_t blocks = (total + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  roll_window_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)parent, (const uint8_t*)present, (uint8_t*)out_parent,
-      (uint8_t*)out_present, W, N, shift);
-  return (int)cudaGetLastError();
+// The parameter block's layout at W, N: the slots a window_sync launch
+// carries (0: a slot is wider than a block), and the bits of a slot in
+// *slot_bits.
+extern "C" int dag_window_sync_layout(int W, int N, void* slot_bits) {
+  *(int*)slot_bits = window_sync::slot_bits(W, N);
+  return window_sync::capacity(W, N);
 }
 
 // The packed walks' shared-memory limits per card: the opt-in maximum, read

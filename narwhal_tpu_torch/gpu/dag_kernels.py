@@ -3,7 +3,9 @@ the card.
 
 Port of `narwhal_tpu/tpu/dag_kernels.py` (the JAX package's counterpart):
 the kernels `reach_mask` (B1), `roll_window` (B4), `place_batch` (B3) and
-`chain_commit` (B2), the device-resident `DagWindow`, `GpuBullshark` and
+`chain_commit` (B2), with B4 then B3 as one `sync_window` (the
+`window_sync` kernel, which serves `roll_window` and `place_batch` too),
+the device-resident `DagWindow`, `GpuBullshark` and
 `GpuTusk`, the counterparts of `TpuBullshark` and `TpuTusk`; and
 `reach_many` (B6), the batched reach walk of the Dag service's coalesced
 causal reads (`narwhal_tpu/consensus/dag.py` `_reach_k`); `leader_support`
@@ -23,7 +25,8 @@ The window is dense tensors, exactly the JAX layout:
 Each kernel has a plain PyTorch version (`*_plain`) in this module and a
 hand-written CUDA kernel in `csrc/dag_window.cu`; the public function runs
 the plain version on CPU tensors and launches the kernel on CUDA tensors
-(or raises). `reach_mask` runs on the card inside `chain_commit` and
+(or raises); `roll_window`, `place_batch` and `sync_window` share one
+kernel, `window_sync`. `reach_mask` runs on the card inside `chain_commit` and
 `reach_many` (walks over packed bits, `csrc/dag_walk_bits.cuh`) and as the
 device function `reach_step` inside `sharded_walk` and `reach_shard_step`,
 so the public `reach_mask` here is the plain version.
@@ -214,6 +217,16 @@ def place_batch_plain(parent, present, offs, idxs, rows, valid):
     return parent, present
 
 
+def sync_window_plain(parent, present, shift: int, offs, idxs, rows):
+    """`roll_window_plain`, then `place_batch_plain` of every slot (host
+    arrays or tensors): the window a view rolls and places. Returns new
+    tensors."""
+    parent, present = roll_window_plain(parent, present, shift)
+    offs, idxs, rows = (torch.as_tensor(x) for x in (offs, idxs, rows))
+    valid = torch.ones(offs.shape, dtype=torch.uint8)
+    return place_batch_plain(parent, present, offs, idxs, rows.to(parent.device), valid)
+
+
 def chain_commit_plain(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs, onehots):
     """One commit event's chain flatten: for each leader (oldest first), its
     reach mask through the certificates still uncommitted at that point,
@@ -266,55 +279,128 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# Event counts (kernel_registry.count_event) that bound window_sync's
+# launches: the views that synced a window on the card, and the launches
+# past a sync's first (a sync past one parameter block).
+WINDOW_VIEWS = "window views"
+SYNC_LAUNCHES_PAST_FIRST = "window_sync launches past a sync's first"
+
+
+def sync_layout(W: int, N: int) -> tuple[int, int]:
+    """The window_sync parameter block's layout at window W, N, from the
+    kernel's library (`csrc/dag_window_sync.cuh`): (slots a launch carries,
+    bits a slot). A sync of more slots takes more launches."""
+    fn = kernel_registry.library("dag_window").dag_window_sync_layout
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    bits = np.zeros(1, np.int32)
+    cap = fn(W, N, bits.ctypes.data)
+    return cap, int(bits[0])
+
+
+def _host(kernel: str, name: str, x, dtype):
+    """A slot array as a contiguous host numpy array; on the card it
+    raises (it is not read back)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError(f"{kernel}: {name} must be host data (numpy or a CPU tensor), "
+                             f"got a tensor on {x.device}")
+        x = x.numpy()
+    return np.ascontiguousarray(x, dtype=dtype)
+
+
+def _host_slots(kernel: str, offs, idxs, rows, n: int):
+    """The slots as host arrays: offs int32 [T], idxs int32 [T], rows
+    uint8 [T, n]."""
+    offs, idxs = _host(kernel, "offs", offs, np.int32), _host(kernel, "idxs", idxs, np.int32)
+    rows = _host(kernel, "rows", rows, np.uint8)
+    T = offs.shape[0]
+    if offs.shape != (T,) or idxs.shape != (T,) or rows.shape != (T, n):
+        raise ValueError(f"{kernel}: slots must be offs [T], idxs [T], rows [T, {n}], got "
+                         f"{offs.shape}, {idxs.shape}, {rows.shape}")
+    return offs, idxs, rows
+
+
+def _window_sync(kernel: str, parent, present, shift: int, offs, idxs, rows, in_place: bool,
+                 chunk: int = 0, threads: int = 0):
+    """The window_sync launches of one sync of CUDA tensors, the slots
+    packed into the launches' parameters by the C entry point (which drops
+    slots outside the window): the outputs are the inputs (in place, shift
+    0; no launch without a slot inside the window) or two new tensors."""
+    W, N = present.shape
+    dev = parent.device
+    _check("parent", parent, torch.uint8, (W, N, N), dev)
+    _check("present", present, torch.uint8, (W, N), dev)
+    if in_place:
+        out = (parent, present)
+    else:
+        out = (torch.empty_like(parent), torch.empty_like(present))
+    bits = np.packbits(rows, axis=1, bitorder="little")
+    launches = np.zeros(1, np.int32)
+    fn = kernel_registry.function("dag_window", "dag_window_window_sync", 8, 6)
+    rc = fn(
+        parent.data_ptr(), present.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        offs.ctypes.data, idxs.ctypes.data, bits.ctypes.data, launches.ctypes.data,
+        W, N, min(shift, W), offs.shape[0], chunk, threads, _stream(dev),
+    )
+    n = int(launches[0])
+    kernel_registry.count_launch("window_sync", n)
+    if n > 1:
+        kernel_registry.count_event(SYNC_LAUNCHES_PAST_FIRST, n - 1)
+    kernel_registry.check("dag_window", kernel, rc)
+    return out
+
+
 def roll_window(parent, present, shift: int):
-    """`roll_window_plain` on CPU tensors; on CUDA tensors the
-    `dag_window.cu` kernel into freshly allocated outputs."""
+    """`roll_window_plain` on CPU tensors; on CUDA tensors one
+    `window_sync` launch with no slots into freshly allocated outputs."""
     shift = int(shift)
     if shift < 0:
         raise ValueError(f"roll_window: shift must be >= 0, got {shift}")
     if not _on_cuda("roll_window", parent):
         return roll_window_plain(parent, present, shift)
-    W, N = present.shape
-    dev = parent.device
-    _check("parent", parent, torch.uint8, (W, N, N), dev)
-    _check("present", present, torch.uint8, (W, N), dev)
-    out_parent = torch.empty_like(parent)
-    out_present = torch.empty_like(present)
-    fn = kernel_registry.function("dag_window", "dag_window_roll_window", 4, 3)
-    rc = fn(
-        parent.data_ptr(), present.data_ptr(), out_parent.data_ptr(),
-        out_present.data_ptr(), W, N, shift, _stream(dev),
-    )
-    kernel_registry.check("dag_window", "roll_window", rc)
-    kernel_registry.count_launch("roll_window")
-    return out_parent, out_present
+    no = np.zeros(0, np.int32)
+    rows = np.zeros((0, present.shape[1]), np.uint8)
+    return _window_sync("roll_window", parent, present, shift, no, no, rows, in_place=False)
 
 
 def place_batch(parent, present, offs, idxs, rows, valid):
-    """`place_batch_plain` on CPU tensors; on CUDA tensors the
-    `dag_window.cu` scatter kernel. Both update the window in place and
-    return it."""
+    """`place_batch_plain` on CPU tensors; on CUDA tensors the valid slots
+    as `window_sync` launches with shift 0 (one, up to `sync_layout`'s
+    slots), none when no slot inside the window is valid. Both update the
+    window in place and return it. The slot arrays are host data (numpy
+    arrays or CPU tensors, as the JAX function's jit uploads them); arrays
+    on the card raise."""
     if not _on_cuda("place_batch", parent):
-        return place_batch_plain(parent, present, offs, idxs, rows, valid)
-    W, N = present.shape
-    T = offs.shape[0]
-    dev = parent.device
-    _check("parent", parent, torch.uint8, (W, N, N), dev)
-    _check("present", present, torch.uint8, (W, N), dev)
-    _check("offs", offs, torch.int32, (T,), dev)
-    _check("idxs", idxs, torch.int32, (T,), dev)
-    _check("rows", rows, torch.uint8, (T, N), dev)
-    _check("valid", valid, torch.uint8, (T,), dev)
-    if T == 0:
-        return parent, present
-    fn = kernel_registry.function("dag_window", "dag_window_place_batch", 6, 3)
-    rc = fn(
-        parent.data_ptr(), present.data_ptr(), offs.data_ptr(), idxs.data_ptr(),
-        rows.data_ptr(), valid.data_ptr(), W, N, T, _stream(dev),
-    )
-    kernel_registry.check("dag_window", "place_batch", rc)
-    kernel_registry.count_launch("place_batch")
-    return parent, present
+        return place_batch_plain(parent, present,
+                                 *(torch.as_tensor(x) for x in (offs, idxs, rows, valid)))
+    offs, idxs, rows = _host_slots("place_batch", offs, idxs, rows, present.shape[1])
+    valid = _host("place_batch", "valid", valid, np.uint8) != 0
+    if valid.shape != offs.shape:
+        raise ValueError(f"place_batch: valid must be [{offs.shape[0]}], got {valid.shape}")
+    return _window_sync("place_batch", parent, present, 0, offs[valid], idxs[valid],
+                        rows[valid], in_place=True)
+
+
+def sync_window(parent, present, shift: int, offs, idxs, rows, *, chunk: int = 0,
+                threads: int = 0):
+    """Bring a device window up to its host mirror: `roll_window(shift)`,
+    then the placements (offs[t], idxs[t]) <- rows[t], offsets relative to
+    the rolled window, slots outside it dropped, duplicates carrying
+    identical rows. `sync_window_plain` on CPU tensors; on CUDA tensors one
+    `window_sync` launch (more only past `sync_layout`'s slots), none when
+    it neither rolls nor places: out of place when it rolls, in place when
+    it only places. The slot arrays are host data. `chunk` (bytes of a
+    parent row a CTA) and `threads` (a CTA) set the launch's grid for
+    measuring it; 0 takes the kernel's defaults."""
+    shift = int(shift)
+    if shift < 0:
+        raise ValueError(f"sync_window: shift must be >= 0, got {shift}")
+    N = present.shape[1]
+    offs, idxs, rows = _host_slots("sync_window", offs, idxs, rows, N)
+    if not _on_cuda("sync_window", parent):
+        return sync_window_plain(parent, present, shift, offs, idxs, rows)
+    return _window_sync("sync_window", parent, present, shift, offs, idxs, rows,
+                        in_place=shift == 0, chunk=chunk, threads=threads)
 
 
 def chain_commit(parent, present, gc_depth: int, lc_rel, lcr_rel: int, offs, onehots):
@@ -963,10 +1049,10 @@ class DagWindow:
     device-resident copy of the tensors (`narwhal_tpu.tpu.dag_kernels.
     DagWindow` with `device_resident=True`).
 
-    Inserts buffer as pending coordinates and apply as ONE `place_batch`
-    scatter at the next `device_view()`; a slid base applies as one
-    `roll_window`; a full upload happens only on first use and after
-    `_grow`.
+    Inserts buffer as pending coordinates; the next `device_view()` applies
+    them and a slid base as ONE `sync_window` (one `window_sync` launch on
+    the card, the slots in its parameters); a full upload happens only on
+    first use and after `_grow`.
 
     `pad_authorities_to` widens the committee axis with always-absent slots
     (not present, zero stake) so that it divides a mesh's `auth` axis; they
@@ -993,7 +1079,7 @@ class DagWindow:
         self._dev: tuple | None = None
         self._dev_base: Round = 0
         self._dev_stale = True
-        self._dev_pending: list[tuple[Round, int]] = []
+        self._dev_pending: list[int] = []  # round, idx, round, idx, ...
         # Genesis certificates occupy round 0.
         for cert in Certificate.genesis(committee):
             self._place(cert)
@@ -1012,7 +1098,7 @@ class DagWindow:
             if pos is not None and pos[0] == cert.round - 1:
                 self.parent[off, idx, pos[1]] = 1
         if self._dev_resident:
-            self._dev_pending.append((cert.round, idx))
+            self._dev_pending += (cert.round, idx)
 
     def insert(self, cert: Certificate, keep_floor: Round) -> bool:
         """Add a certificate; slides the window forward (dropping only rounds
@@ -1071,45 +1157,30 @@ class DagWindow:
 
     def device_view(self):
         """The (parent, present) tensors on the device, synced to the host
-        mirror: pending placements as one power-of-two padded
-        `place_batch`, a slid base as one `roll_window`."""
+        mirror: a slid base and the pending placements as one `sync_window`
+        (one `window_sync` launch on the card, more only past `sync_layout`'s
+        slots; none when the view neither rolls nor places)."""
         if self._dev is None or self._dev_stale:
             self._dev = (self._upload(self.parent), self._upload(self.present))
             self._dev_base = self.round_base
             self._dev_stale = False
             self._dev_pending.clear()
             return self._dev
-        parent, present = self._dev
-        if self.round_base != self._dev_base:
-            parent, present = roll_window(parent, present, self.round_base - self._dev_base)
-            self._dev_base = self.round_base
-        if self._dev_pending:
+        shift = self.round_base - self._dev_base
+        pend = np.array(self._dev_pending, np.int32).reshape(-1, 2)  # (round, idx) a row
+        offs = pend[:, 0] - np.int32(self.round_base)
+        live = offs >= 0  # entries GC'd below the base since they were buffered
+        if not live.all():
+            pend, offs = pend[live], offs[live]
+        if shift or offs.size:
             # Rows come from the host mirror at sync time, so a placement's
-            # final parent links are what lands on the device; entries GC'd
-            # below the base since they were buffered are dropped.
-            pend = [
-                (r - self.round_base, i)
-                for (r, i) in self._dev_pending
-                if r >= self.round_base
-            ]
-            self._dev_pending.clear()
-            if pend:
-                k = len(pend)
-                kpad = 1 if k <= 1 else 1 << (k - 1).bit_length()
-                offs = np.zeros((kpad,), np.int32)
-                idxs = np.zeros((kpad,), np.int32)
-                rows = np.zeros((kpad, self.N), np.uint8)
-                valid = np.zeros((kpad,), np.uint8)
-                for t, (off, idx) in enumerate(pend):
-                    offs[t] = off
-                    idxs[t] = idx
-                    rows[t] = self.parent[off, idx]
-                    valid[t] = 1
-                parent, present = place_batch(
-                    parent, present, self._upload(offs), self._upload(idxs),
-                    self._upload(rows), self._upload(valid),
-                )
-        self._dev = (parent, present)
+            # final parent links are what lands on the device.
+            idxs = pend[:, 1]
+            self._dev = sync_window(*self._dev, shift, offs, idxs, self.parent[offs, idxs])
+            self._dev_base = self.round_base
+            if self.device.type == "cuda":
+                kernel_registry.count_event(WINDOW_VIEWS)
+        self._dev_pending.clear()
         return self._dev
 
 
@@ -1179,8 +1250,8 @@ class GpuBullshark:
     each commit event is `chain_commit_sharded` instead: the committee axis
     of the window split over the auth devices, padded to a multiple of the
     axis with absent slots. The meshed window stays on the host (the walk
-    uploads each shard's columns itself), so `place_batch` and
-    `roll_window` do not run; `device` is then the mesh's first device."""
+    uploads each shard's columns itself), so `window_sync` does not run;
+    `device` is then the mesh's first device."""
 
     def __init__(
         self,

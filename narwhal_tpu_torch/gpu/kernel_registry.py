@@ -60,8 +60,9 @@ KERNELS: dict[str, tuple[str, str]] = {
     "msm_shard_reduce": (
         "ed25519_msm",
         "narwhal_tpu/tpu/verifier.py:96 the cross-device reduce of msm_window (out_specs=None)"),
-    "place_batch": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:95 place_batch"),
-    "roll_window": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:79 roll_window"),
+    "window_sync": (
+        "dag_window",
+        "narwhal_tpu/tpu/dag_kernels.py:79 roll_window, then :95 place_batch (device_view)"),
     "chain_commit": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit"),
     "reach_many": ("dag_window", "narwhal_tpu/consensus/dag.py:262 _reach_k"),
     "leader_support": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:119 leader_support"),
@@ -79,6 +80,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _WALLS: dict[str, float] = {}  # source stem -> nvcc wall seconds
 _LOGS: dict[str, str] = {}  # source stem -> nvcc output (ptxas register report)
 _LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+_EVENTS: dict[str, int] = {}  # count_event's, zeroed with the launch counts
 
 
 def nvcc() -> str:
@@ -179,9 +181,9 @@ def check(stem: str, kernel: str, rc: int) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}): {err(rc).decode()}")
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, n: int = 1) -> None:
     with _LOCK:
-        _LAUNCHES[kernel] += 1
+        _LAUNCHES[kernel] += n
 
 
 def launch_counts() -> dict[str, int]:
@@ -189,10 +191,24 @@ def launch_counts() -> dict[str, int]:
         return dict(_LAUNCHES)
 
 
+def count_event(name: str, n: int = 1) -> None:
+    """Count a host event that launches follow from (a window view that
+    syncs, a sync's launches past its first), beside the launch counts."""
+    with _LOCK:
+        _EVENTS[name] = _EVENTS.get(name, 0) + n
+
+
+def event_counts() -> dict[str, int]:
+    with _LOCK:
+        return dict(_EVENTS)
+
+
 def reset_launch_counts() -> None:
+    """Zero the launch counts and the event counts."""
     with _LOCK:
         for k in _LAUNCHES:
             _LAUNCHES[k] = 0
+        _EVENTS.clear()
 
 
 def build_walls() -> dict[str, float]:

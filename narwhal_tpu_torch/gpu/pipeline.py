@@ -10,9 +10,10 @@ entry point of the port's certificate path on the card.
                      verdicts' copy to pinned host memory at once);
   _resolve(batch k)- verdicts gathered; accepted certificates enter the
                      consensus engine (GpuBullshark) through ONE
-                     `process_batch` call: one `place_batch` scatter for the
-                     whole batch, the commit rule evaluated per trigger, one
-                     `chain_commit` launch per commit event.
+                     `process_batch` call: the batch's placements synced to
+                     the card by the first commit event's view (one
+                     `window_sync` launch), the commit rule evaluated per
+                     trigger, one `chain_commit` launch per commit event.
 
 Output equivalence: the commit sequence is identical to feeding the same
 certificates one at a time through `process_certificate`.
@@ -34,7 +35,7 @@ from ..types import Certificate, ConsensusOutput
 
 
 class FusedCertificatePipeline:
-    """verify -> place_batch -> chain_commit over certificate batches.
+    """verify -> window sync -> chain_commit over certificate batches.
 
     verifier: a GpuVerifier — its submit/collect halves are the pipeline's
     stage boundary; engine: a GpuBullshark; state: the ConsensusState the

@@ -267,25 +267,66 @@ def test_sharded_verifier_matches_unsharded(layout):
 
 @pytest.mark.parametrize("shift", [0, 1, 63, 64])
 def test_roll_window_kernel_matches_plain(shift):
-    _need_card("roll_window", "csrc/dag_window.cu")
+    """B4 through window_sync: one launch with no slots, out of place."""
+    _need_card("window_sync", "csrc/dag_window.cu")
     _rng, p, q = _window(3, 64, 50)
+    kernel_registry.reset_launch_counts()
     a, b = td.roll_window(p, q, shift), td.roll_window_plain(p, q, shift)
+    assert kernel_registry.launch_counts()["window_sync"] == 1
+    assert a[0].data_ptr() != p.data_ptr()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_place_batch_kernel_matches_plain():
-    _need_card("place_batch", "csrc/dag_window.cu")
+    """B3 through window_sync, in place, the slots as host arrays (padding
+    and a duplicate); slot arrays on the card raise."""
+    _need_card("window_sync", "csrc/dag_window.cu")
     rng, p, q = _window(4, 64, 50)
     cells = rng.choice(64 * 50, 16, replace=False)
-    offs = torch.from_numpy((cells // 50).astype(np.int32)).cuda()
-    idxs = torch.from_numpy((cells % 50).astype(np.int32)).cuda()
-    rows = torch.from_numpy((rng.random((16, 50)) < 0.5).astype(np.uint8)).cuda()
+    offs, idxs = (cells // 50).astype(np.int32), (cells % 50).astype(np.int32)
+    rows = (rng.random((16, 50)) < 0.5).astype(np.uint8)
     offs[9], idxs[9], rows[9] = offs[2], idxs[2], rows[2]  # duplicate slot
-    valid = torch.ones(16, dtype=torch.uint8).cuda()
+    valid = np.ones(16, np.uint8)
     valid[12:] = 0  # padding
+    kernel_registry.reset_launch_counts()
     a = td.place_batch(p.clone(), q.clone(), offs, idxs, rows, valid)
-    b = td.place_batch_plain(p.clone(), q.clone(), offs, idxs, rows, valid)
+    assert kernel_registry.launch_counts()["window_sync"] == 1
+    b = td.place_batch_plain(p.clone(), q.clone(), *(torch.from_numpy(x).cuda()
+                                                     for x in (offs, idxs, rows, valid)))
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with pytest.raises(ValueError, match="host data"):
+        td.place_batch(p, q, torch.from_numpy(offs).cuda(), idxs, rows, valid)
+
+
+SYNC_CASES = [(w, n, T) for w in (64, 128) for n in (49, 50, 65) for T in (1, 64, "past")]
+
+
+@pytest.mark.parametrize("w,n,T", SYNC_CASES)
+def test_sync_window_kernel_matches_plain(w, n, T):
+    """One view's roll and placements at W 64 and 128, N 49, 50 and 65:
+    T = 1, 64 (four duplicates, two below the window) and a batch past a
+    parameter block's capacity (one launch a block, the first rolling), at
+    shifts 0, 1, W - 1 and W, with the default grid and with rows split
+    into 48-byte chunks; bit-equal to the plain roll then place."""
+    _need_card("window_sync", "csrc/dag_window.cu")
+    rng, p, q = _window(w + n, w, n)
+    cap, _bits = td.sync_layout(w, n)
+    size = cap * 2 + 7 if T == "past" else T
+    offs, idxs, rows = chip_smoke.sync_slots(rng, w, n, size, n_below=2 if size >= 8 else 0)
+    live = int((offs >= 0).sum())
+    for shift in (0, 1, w - 1, w):
+        kernel_registry.reset_launch_counts()
+        got = td.sync_window(p.clone(), q.clone(), shift, offs, idxs, rows)
+        launches = kernel_registry.launch_counts()["window_sync"]
+        assert launches == -(-live // cap)
+        assert kernel_registry.event_counts().get(td.SYNC_LAUNCHES_PAST_FIRST, 0) == launches - 1
+        want = td.sync_window_plain(p.clone(), q.clone(), shift, offs, idxs, rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if shift:
+            assert got[0].data_ptr() != p.data_ptr()
+        # a row split over CTAs of 48 bytes and 64 threads
+        got = td.sync_window(p.clone(), q.clone(), shift, offs, idxs, rows, chunk=48, threads=64)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 CHAIN_CASES = ([("healed", w, K) for w in (64, 128, 512) for K in (1, 2, 4)]
@@ -388,7 +429,7 @@ def test_dag_service_on_card_matches_host():
 
 
 def test_engine_on_card_matches_cpu():
-    _need_card("place_batch/roll_window/chain_commit", "csrc/dag_window.cu")
+    _need_card("window_sync/chain_commit", "csrc/dag_window.cu")
     from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.fixtures import CommitteeFixture, make_certificates
     from narwhal_tpu_torch.types import Certificate

@@ -108,6 +108,88 @@ def test_place_batch_matches_jax_with_duplicates_and_padding(T, live):
     assert np.array_equal(gq.numpy(), np.asarray(wq))
 
 
+SYNC_W = 8
+
+
+@pytest.mark.parametrize("T", [0, 1, 64])
+@pytest.mark.parametrize("n", [49, 50, 65])
+@pytest.mark.parametrize("shift", [0, 1, SYNC_W - 1, SYNC_W, SYNC_W + 5])
+def test_sync_window_matches_jax_roll_then_place(shift, n, T):
+    """sync_window on the CPU (the plain roll then place) bit-equal to the
+    JAX roll_window then place_batch, as the JAX device_view runs them: T
+    = 64 carries four duplicate slots and two offsets below the rolled
+    window, which the JAX device_view drops before it places."""
+    rng = np.random.default_rng(shift * 1000 + n * 10 + T)
+    parent = (rng.random((SYNC_W, n, n)) < 0.6).astype(np.uint8)
+    present = (rng.random((SYNC_W, n)) < 0.85).astype(np.uint8)
+    offs, idxs, rows = chip_smoke.sync_slots(rng, SYNC_W, n, T, n_below=2 if T >= 8 else 0)
+    gp, gq = td.sync_window(torch.from_numpy(parent), torch.from_numpy(present), shift,
+                            offs, idxs, rows)
+    wp, wq = jd.roll_window(parent.copy(), present.copy(), np.int32(shift))
+    live = offs >= 0
+    if live.any():
+        wp, wq = jd.place_batch(wp, wq, offs[live], idxs[live], rows[live],
+                                np.ones(int(live.sum()), np.uint8))
+    assert np.array_equal(gp.numpy(), np.asarray(wp))
+    assert np.array_equal(gq.numpy(), np.asarray(wq))
+
+
+def test_sync_window_rejects_negative_shift_and_slots_on_a_device():
+    _rng, parent, present = _window(5, 4, 3)
+    p, q = torch.from_numpy(parent), torch.from_numpy(present)
+    no = np.zeros(0, np.int32)
+    with pytest.raises(ValueError, match="shift"):
+        td.sync_window(p, q, -1, no, no, np.zeros((0, 3), np.uint8))
+    with pytest.raises(ValueError, match="rows"):
+        td.sync_window(p, q, 0, no, no, np.zeros((0, 4), np.uint8))
+
+
+@pytest.mark.parametrize("gap", [False, True], ids=["views", "gap"])
+def test_device_view_matches_jax_window(monkeypatch, gap):
+    """A seeded run of inserts, slides (explicit, and by inserts past the
+    window) and one grow through the port's DagWindow(device="cpu") and the
+    JAX DagWindow(device_resident=True): after each step both device
+    views equal each other and the host mirror, bit for bit. With `gap`,
+    no view is taken for 40 rounds while the window slides on, so the base
+    moves by more than 2W between two views with entries pending. The JAX
+    window's full upload copies here: on the CPU backend `jnp.asarray` can
+    alias the host mirror, which `slide_to` then shifts in place under the
+    device copy (the reference quirk of ROADMAP queue 3)."""
+    import jax.numpy as jnp
+
+    monkeypatch.setattr(jnp, "asarray", lambda a, *args, **kw: jnp.array(a, *args, copy=True,
+                                                                         **kw))
+    jf, f, jc, c = _streams(size=7, rounds=70 if gap else 40, failure=0.25, seed=5)
+    jwin = jd.DagWindow(jf.committee, window=8, device_resident=True)
+    win = td.DagWindow(f.committee, 8, device="cpu")
+    rng = random.Random(7)
+    by_round: dict[int, list] = {}
+    for jcert, cert in zip(jc, c):
+        by_round.setdefault(cert.round, []).append((jcert, cert))
+    quiet = range(22, 63) if gap else range(0)
+    views = rolls = jump = 0
+    for r in sorted(by_round):
+        keep_floor = 0 if 12 <= r < 20 else max(0, r - 5)  # no GC in 12..19: it grows
+        for jcert, cert in by_round[r]:
+            assert jwin.insert(jcert, keep_floor) == win.insert(cert, keep_floor)
+        if rng.random() < 0.3:  # a GC step between views drops pending entries
+            base = win.round_base + rng.randint(1, 2)
+            jwin.slide_to(base)
+            win.slide_to(base)
+        if rng.random() < 0.6 and r not in quiet:
+            rolls += win._dev is not None and win.round_base != win._dev_base
+            if win._dev is not None:
+                jump = max(jump, win.round_base - win._dev_base)
+            jp, jq = (np.asarray(x) for x in jwin.device_view())
+            gp, gq = (x.numpy() for x in win.device_view())
+            assert np.array_equal(gp, jp) and np.array_equal(gq, jq)
+            assert np.array_equal(gp, win.parent) and np.array_equal(gq, win.present)
+            assert not win._dev_pending
+            views += 1
+    assert win.W == jwin.W == 16 and rolls >= 3 and views >= 15
+    assert (jump > 2 * win.W) == gap
+
+
 @pytest.mark.parametrize("K,live", [(1, 1), (2, 2), (4, 3)])
 def test_chain_commit_matches_jax(K, live):
     w, n = 32, 7

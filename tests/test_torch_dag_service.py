@@ -156,6 +156,42 @@ def test_device_reads_across_window_growth_and_slides(run, removals):
         assert dev._win.W > W and dev._win.round_base == 0
 
 
+def test_device_read_after_the_window_slid_past_pending_inserts(run):
+    """A device read at round 8, then 52 rounds of inserts and removals
+    with no device read while the W = 16 window slides on, so the base
+    moves by more than 2W with inserts still pending for the device copy:
+    the next reads equal the JAX host service's, and the view leaves
+    nothing pending."""
+    jf, f, jc, c = _both(11, 60, payload_p=0.6)
+
+    async def scenario():
+        jhost, dev = JDag(jf.committee), _port_dev(f)
+        j_gen = [x.digest for x in JCert.genesis(jf.committee)]
+        gen = [x.digest for x in Certificate.genesis(f.committee)]
+        base_at_read = None
+        for r in range(1, 61):
+            for a, b in zip(jc[4 * (r - 1):4 * r], c[4 * (r - 1):4 * r]):
+                await jhost.insert(a)
+                await dev.insert(b)
+            if r % 4 == 0 and r > 8:
+                await jhost.remove([x.digest for x in jc if x.round <= r - 8] + j_gen)
+                await dev.remove([x.digest for x in c if x.round <= r - 8] + gen)
+            if r in (8, 60):
+                if r == 60:
+                    assert dev._win.round_base - base_at_read > 2 * dev._win.W
+                    assert dev._win._dev_pending
+                for a, b in zip(jc[4 * (r - 3):4 * r:5], c[4 * (r - 3):4 * r:5]):
+                    if await jhost.contains(a.digest):
+                        assert await dev.read_causal(b.digest) == await jhost.read_causal(
+                            a.digest)
+                base_at_read = dev._win._dev_base
+                assert not dev._win._dev_pending
+        return dev
+
+    dev = run(scenario(), timeout=180.0)
+    assert dev.routing_stats()["dev_calls"] >= 2 and dev._win.W == W
+
+
 def test_concurrent_reads_coalesce_into_one_dispatch(run):
     jf, f, jc, c = _both(3, 4, payload_p=1.0, full=True)
 

@@ -100,8 +100,7 @@ def test_registry_sources_define_the_wrapped_entry_points():
     symbols = {
         "verify_batch": "ed25519_verify_batch",
         "msm_accumulate": "ed25519_msm_accumulate",
-        "place_batch": "dag_window_place_batch",
-        "roll_window": "dag_window_roll_window",
+        "window_sync": "dag_window_window_sync",
         "chain_commit": "dag_window_chain_commit",
         "reach_many": "dag_window_reach_many",
         "verify_decompress": "ed25519_verify_decompress",

@@ -1,4 +1,4 @@
-"""The port's certificate path end to end on the CPU: verify -> place_batch
+"""The port's certificate path end to end on the CPU: verify -> window sync
 -> chain_commit through `narwhal_tpu_torch.gpu.pipeline`, held against the
 JAX package's host `Bullshark` fed the same fully signed stream one
 certificate at a time (the stream is built by each package's own

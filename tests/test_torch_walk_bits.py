@@ -12,6 +12,11 @@ missing):
   signs, points with either sign, random y), held mod p against
   `verify_decompress_plain` and the JAX `verify_decompress_kernel` run
   eagerly, and limb for limb against the one-thread `decompress`;
+- B3 and B4, the window sync (`csrc/dag_window_sync.cuh`): its parameter
+  block filled as the C entry fills it, and its grid run CTA by CTA, every
+  thread's copy then every thread's placements (the kernel's one barrier),
+  held bit for bit against `sync_window_plain` and the JAX `roll_window`
+  then `place_batch`, every output byte checked written;
 - B2, the packed-bit walk: the bit packing (every byte value at every
   position), the row reads at every bit offset, the walk of a warp
   (`column_table`, `walk_leader`: 32 threads for the 32 lanes) over the
@@ -368,6 +373,100 @@ int main(int argc, char** argv) {
 """
 
 
+SYNC_MAIN = r"""
+#include <cstdio>
+#include <string>
+#include <vector>
+#include "dag_window_sync.cuh"
+using namespace window_sync;
+
+// argv[1] "layout": in W, N (int32); out capacity(W, N), slot_bits(W, N).
+// argv[1] "pack": in W, N, shift, rolls, T (int32), offs [T], idxs [T]
+// (int32), rows [T, (N + 7) / 8] (packed bits); out, per launch of
+// for_each_block, its shift and slot count, then each slot as the kernel
+// reads it (slot_at): offset, index (int32) and its N row bytes.
+// argv[1] "sync": in W, N, shift, in_place, T, chunk, threads, the slots
+// as for "pack", then parent [W, N, N] and present [W, N]; out the launch
+// count (int32) and the outputs after dag_window_window_sync's launches,
+// each run as window_sync_kernel's grid, a CTA a loop over its threads.
+template <typename X>
+static bool get(FILE* in, X* x, size_t n) { return std::fread(x, sizeof(X), n, in) == n; }
+
+int main(int argc, char** argv) {
+  const std::string mode = argv[1];
+  FILE* in = std::fopen(argv[2], "rb");
+  FILE* out = std::fopen(argv[3], "wb");
+  int h[7];
+  if (mode == "layout") {
+    if (!get(in, h, 2)) return 2;
+    const int r[2] = {capacity(h[0], h[1]), slot_bits(h[0], h[1])};
+    std::fwrite(r, 4, 2, out);
+    return 0;
+  }
+  const int nh = mode == "pack" ? 5 : 7;
+  if (!get(in, h, nh)) return 2;
+  const int W = h[0], N = h[1], shift = h[2], T = h[4], rb = (N + 7) / 8;
+  const bool rolls = mode == "pack" ? h[3] != 0 : h[3] == 0;
+  std::vector<int32_t> offs(T), idxs(T);
+  std::vector<uint8_t> rows((size_t)T * rb);
+  if (!get(in, offs.data(), T) || !get(in, idxs.data(), T) ||
+      !get(in, rows.data(), rows.size())) return 2;
+  int launches = 0;
+  if (mode == "pack") {
+    for_each_block(offs.data(), idxs.data(), rows.data(), T, W, N, shift, rolls, launches,
+                   [&](const Slots& s, int sh) {
+                     const int head[2] = {sh, s.T};
+                     std::fwrite(head, 4, 2, out);
+                     for (int i = 0; i < s.T; i++) {
+                       int cell[2];
+                       const long long r = slot_at(s, i, W, N, cell[0], cell[1]);
+                       std::fwrite(cell, 4, 2, out);
+                       for (int c = 0; c < N; c++) {
+                         const uint8_t b = (uint8_t)bits_at(s.w, r + c, 1);
+                         std::fwrite(&b, 1, 1, out);
+                       }
+                     }
+                     return 0;
+                   });
+    return 0;
+  }
+  std::vector<uint8_t> parent((size_t)W * N * N), present((size_t)W * N);
+  if (!get(in, parent.data(), parent.size()) || !get(in, present.data(), present.size()))
+    return 2;
+  std::vector<uint8_t> op(parent.size(), 0xAB), oq(present.size(), 0xAB);  // unwritten bytes show
+  uint8_t* out_p = rolls ? op.data() : parent.data();
+  uint8_t* out_q = rolls ? oq.data() : present.data();
+  const long long chunk = chunk_bytes(h[5], (long long)N * N);
+  const int nt = h[6] > 0 ? h[6] : 256;
+  const long long chunks = ((long long)N * N + chunk - 1) / chunk;
+  const uint8_t* src_p = parent.data();
+  const uint8_t* src_q = present.data();
+  for_each_block(offs.data(), idxs.data(), rows.data(), T, W, N, shift, rolls, launches,
+                 [&](const Slots& s, int sh) {
+                   for (int w = 0; w < W; w++) {
+                     for (int y = 0; y < chunks; y++) {
+                       if (src_p != out_p) {
+                         for (int t = 0; t < nt; t++) {
+                           cta_copy(t, nt, w, y, chunk, src_p, src_q, out_p, out_q, W, N, sh);
+                         }
+                       }
+                       for (int t = 0; t < nt; t++) {
+                         cta_place(t, nt, w, y, chunk, s, out_p, out_q, W, N);
+                       }
+                     }
+                   }
+                   src_p = out_p;
+                   src_q = out_q;
+                   return 0;
+                 });
+  std::fwrite(&launches, 4, 1, out);
+  std::fwrite(out_p, 1, parent.size(), out);
+  std::fwrite(out_q, 1, present.size(), out);
+  return 0;
+}
+"""
+
+
 def _build(tmp_path_factory, name: str, source: str, std: str) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
@@ -389,6 +488,11 @@ def lanes_exe(tmp_path_factory):
 @pytest.fixture(scope="module")
 def walk_exe(tmp_path_factory):
     return _build(tmp_path_factory, "walk_main", WALK_MAIN, "c++20")
+
+
+@pytest.fixture(scope="module")
+def sync_exe(tmp_path_factory):
+    return _build(tmp_path_factory, "sync_main", SYNC_MAIN, "c++17")
 
 
 def _run(exe: Path, args, payload: bytes, tmp_path: Path) -> bytes:
@@ -624,3 +728,119 @@ def test_reach_reads_match_jax(walk_exe, tmp_path, w, n, K, density):
     for mode in (("reach", "reachwide") if n <= 64 else ("reachwide",)):
         got = np.frombuffer(_run(walk_exe, [mode], payload, tmp_path), np.uint8)
         assert np.array_equal(got.reshape(K, w, n).astype(bool), want), mode
+
+
+# -- B3 and B4: the window sync ------------------------------------------------
+
+
+def _slots_payload(offs, idxs, rows) -> bytes:
+    """The slots as the C entry point takes them: offs, idxs, then the rows
+    packed to bits as `dag_kernels._window_sync` packs them."""
+    return (np.ascontiguousarray(offs, np.int32).tobytes()
+            + np.ascontiguousarray(idxs, np.int32).tobytes()
+            + np.packbits(rows, axis=1, bitorder="little").tobytes())
+
+
+def _layout(exe: Path, w: int, n: int, tmp_path: Path) -> tuple[int, int]:
+    """(slots a parameter block, bits a slot) from the header's own rule."""
+    out = _run(exe, ["layout"], np.asarray([w, n], np.int32).tobytes(), tmp_path)
+    cap, bits = np.frombuffer(out, np.int32)
+    return int(cap), int(bits)
+
+
+def _sync_host(exe: Path, parent, present, shift, offs, idxs, rows, tmp_path: Path,
+               chunk: int = 0, threads: int = 0):
+    """sync_window's launches on the host build, as the C entry point makes
+    them (`for_each_block`: slots outside the window dropped, the first
+    launch out of place when it rolls, the rest in place): (launches,
+    parent, present)."""
+    w, n = present.shape
+    head = np.asarray([w, n, min(shift, w), int(shift == 0), offs.shape[0], chunk, threads],
+                      np.int32).tobytes()
+    out = _run(exe, ["sync"], head + _slots_payload(offs, idxs, rows) + parent.tobytes()
+               + present.tobytes(), tmp_path)
+    launches = int(np.frombuffer(out[:4], np.int32)[0])
+    parent = np.frombuffer(out[4:4 + w * n * n], np.uint8).reshape(w, n, n)
+    present = np.frombuffer(out[4 + w * n * n:], np.uint8).reshape(w, n)
+    return launches, parent, present
+
+
+# (W, N, T): N 1, 49 and 50 (4-byte and byte copies), 64 (16-byte copies),
+# 65 and 200 (a row of three 16 KB chunks); T 0 (a roll alone), 1, 64 with
+# four duplicates and two slots below the window, and past a block.
+SYNC_CASES = [(8, 1, 5), (8, 49, 64), (16, 50, 0), (16, 50, 1), (16, 50, 64), (8, 64, 64),
+              (8, 65, 64), (4, 200, 9), (32, 50, "past"), (4, 200, "past")]
+
+
+@pytest.mark.parametrize("w,n,T", SYNC_CASES)
+def test_window_sync_cta_matches_plain_and_jax(sync_exe, tmp_path, w, n, T):
+    """window_sync's CTA body, parameter blocks and launches on the host,
+    at shifts 0 (in place), 1, W - 1, W and W + 5, with the default grid
+    and with rows split into 48-byte chunks of 64 threads, bit for bit
+    against sync_window_plain and the JAX roll_window then place_batch;
+    one launch a block of live slots (one when it only rolls)."""
+    rng = np.random.default_rng(w * 1000 + n)
+    parent = (rng.random((w, n, n)) < 0.6).astype(np.uint8)
+    present = (rng.random((w, n)) < 0.85).astype(np.uint8)
+    cap, _bits = _layout(sync_exe, w, n, tmp_path)
+    size = 2 * cap + 5 if T == "past" else T
+    assert size <= w * n  # distinct cells, then the duplicates
+    offs, idxs, rows = chip_smoke.sync_slots(rng, w, n, size, n_below=2 if size >= 8 else 0)
+    live = offs >= 0
+    for shift in (0, 1, w - 1, w, w + 5):
+        plain = td.sync_window_plain(torch.from_numpy(parent), torch.from_numpy(present),
+                                     shift, offs, idxs, rows)
+        wp, wq = jd.roll_window(parent.copy(), present.copy(), np.int32(shift))
+        if live.any():
+            wp, wq = jd.place_batch(wp, wq, offs[live], idxs[live], rows[live],
+                                    np.ones(int(live.sum()), np.uint8))
+        blocks = -(-int(live.sum()) // cap)
+        for chunk, threads in ((0, 0), (48, 64)):
+            launches, *got = _sync_host(sync_exe, parent, present, shift, offs, idxs, rows,
+                                        tmp_path, chunk, threads)
+            assert launches == (max(blocks, 1) if shift else blocks), (shift, chunk)
+            for g, p_, j in zip(got, plain, (wp, wq)):
+                assert np.array_equal(g, p_.numpy()) and np.array_equal(g, np.asarray(j)), (
+                    shift, chunk)
+
+
+@pytest.mark.parametrize("n", [1, 49, 50, 64, 65, 200])
+def test_slot_bits_round_trip_and_split_past_capacity(sync_exe, tmp_path, n):
+    """Slot rows packed to bits (numpy's packbits, then the C entry point's
+    pack_block) read back by the kernel's own reader, at N 1, 49, 50, 64, 65
+    and 200: a batch past a block's capacity splits into full blocks, the
+    first carrying the shift, the rest shift 0, slots outside the window
+    dropped; the capacity is the most slots whose bits fit the block."""
+    w = 64
+    cap, bits = _layout(sync_exe, w, n, tmp_path)
+    assert bits == 6 + max(n - 1, 0).bit_length() + n
+    assert cap * bits <= 999 * 32 < (cap + 1) * bits  # kWords - 1 words of bits
+    rng = np.random.default_rng(n)
+    T = 2 * cap + 7
+    offs = rng.integers(0, w, T).astype(np.int32)
+    idxs = rng.integers(0, n, T).astype(np.int32)
+    rows = (rng.random((T, n)) < 0.5).astype(np.uint8)
+    offs[[5, 9]], idxs[11] = (-1, w), n  # outside the window: dropped
+    keep = (offs >= 0) & (offs < w) & (idxs < n)
+
+    def blocks(shift, rolls, k):
+        head = np.asarray([w, n, shift, rolls, k], np.int32).tobytes()
+        out = _run(sync_exe, ["pack"], head + _slots_payload(offs[:k], idxs[:k], rows[:k]),
+                   tmp_path)
+        got, pos = [], 0
+        while pos < len(out):
+            sh, t = np.frombuffer(out[pos:pos + 8], np.int32)
+            pos += 8
+            rec = np.frombuffer(out[pos:pos + t * (8 + n)], np.uint8).reshape(t, 8 + n)
+            pos += t * (8 + n)
+            cells = rec[:, :8].copy().view(np.int32)
+            got.append((int(sh), cells[:, 0], cells[:, 1], rec[:, 8:]))
+        return got
+
+    got = blocks(3, 1, T)
+    assert [(sh, len(o)) for sh, o, _i, _r in got] == [(3, cap), (0, cap), (0, 4)]
+    assert np.array_equal(np.concatenate([o for _s, o, _i, _r in got]), offs[keep])
+    assert np.array_equal(np.concatenate([i for _s, _o, i, _r in got]), idxs[keep])
+    assert np.array_equal(np.concatenate([r for _s, _o, _i, r in got]), rows[keep])
+    assert [(sh, len(o)) for sh, o, _i, _r in blocks(2, 1, 0)] == [(2, 0)]  # a roll alone
+    assert blocks(0, 0, 0) == []  # in place with no slot: no launch
