@@ -31,10 +31,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             and A3 -> A6 again at B = 16, 512, 1024 (a shard's rows) and
             8192 (two tiles of shared memory) on both buckets; A1, A4 and
             A3 -> A4 -> A5 again at B = 1, 7, 1024 and 8192 (verify_rows:
-            torsion, forged, zero and random-limb rows);
+            torsion, forged, zero and random-limb rows), and A5 alone at
+            those B and 2048 (R from the plain A3's loose limbs, rows of
+            random limbs, validity bits flipped);
             leader_support at B = 64 (rows 0 and W - 1 among the offsets),
-            consensus_commit on B6's K = 64 masks with a support vector
-            around the quorum, reach_shard_step on one shard of 2 and of 4
+            consensus_commit at COMMIT_SHAPES (B6's K = 64 masks, the dry
+            run's and the 2 x 2 mesh's shard blocks, N = 200 and 1024, one
+            walk, an unaligned slab and a misaligned view, a wrapping stake
+            sum; support at quorum and one below), one launch each,
+            reach_shard_step on one shard of 2 and of 4
             (N = 50 padded to 52); sharded_walk over 2 and 4 shards of the
             card on the "cluster" route and on "peer" forced (a launch per
             shard), against its plain version, chain_commit (chain mode,
@@ -329,15 +334,18 @@ def phase_build() -> dict:
     return walls
 
 
-def ptxas_report(stem: str) -> dict:
-    """ptxas's figures for each kernel of `stem`'s build (nvcc -Xptxas -v):
-    name<template args> -> "N registers, S bytes spill stores, M bytes smem"."""
+def ptxas_report(stem: str, text: str | None = None) -> dict:
+    """ptxas's figures for each kernel of `stem`'s build (nvcc -Xptxas -v),
+    or of the nvcc output `text`: name<template args> -> "N registers, S
+    bytes spill stores, M bytes smem"."""
     import re
 
     from narwhal_tpu_torch.gpu import kernel_registry
 
+    if text is None:
+        text = kernel_registry.build_logs().get(stem, "")
     out, name = {}, None
-    for line in kernel_registry.build_logs().get(stem, "").splitlines():
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '_Z(\w+)'", line)
         if m:
             sym = m.group(1)
@@ -461,11 +469,41 @@ def verify_rows(seed: int, n_keys: int, b: int):
 VERIFY_SIZES = (1, 7, 1024, 8192)  # beside the bucket's 2048
 
 
+def verdict_inputs(rng: np.random.Generator, acc, r_y, r_sign, a_valid, r_valid):
+    """A5's six inputs off A1's path, from a bucket's accumulators and its R
+    rows: R decompressed by the plain A3 (its loose limbs), acc and R of rows
+    3, 7, 11, ... random radix-2^13 limbs up to 9500, and the validity bits
+    of about a quarter of the rows flipped (invalid A, invalid R)."""
+    import torch
+    from narwhal_tpu_torch.gpu import ed25519
+
+    dev, B = acc.device, acc.shape[2]
+    r_pt, _ = ed25519.verify_decompress_plain(r_y, r_sign)
+    acc, r_pt = acc.clone(), r_pt.contiguous().clone()
+    rows = torch.tensor(list(range(3, B, 4)), dtype=torch.long, device=dev)
+    for pts in (acc, r_pt):
+        pts[..., rows] = torch.from_numpy(
+            rng.integers(0, 9501, (4, 20, len(rows)), dtype=np.int32)).to(dev)
+    flip_a, flip_r = (torch.from_numpy(rng.random(B) < 0.25).to(dev) for _ in range(2))
+    return acc, r_pt, r_y, r_sign, a_valid ^ flip_a, r_valid ^ flip_r
+
+
+def check_verdict_alone(device, acc, r_y, r_sign, a_valid, r_valid, b: int) -> None:
+    """A5 bit-equal to its plain version on verdict_inputs."""
+    from narwhal_tpu_torch.gpu import ed25519
+
+    v = verdict_inputs(np.random.default_rng(b), acc, r_y, r_sign, a_valid, r_valid)
+    (strict, cof), (p_strict, p_cof) = ed25519.verify_verdict(*v), ed25519.verify_verdict_plain(*v)
+    _same_bits(f"verify_verdict B={b} alone strict", strict, p_strict)
+    _same_bits(f"verify_verdict B={b} alone cofactored", cof, p_cof)
+
+
 def check_verify_sizes(device, n_keys: int, sizes=VERIFY_SIZES) -> dict:
-    """A1 and A4 at B in `sizes` on `verify_rows`: A1's verdicts
+    """A1, A4 and A5 at B in `sizes` on `verify_rows`: A1's verdicts
     bit-equal to verify_batch_plain, A4's accumulators equal to
-    verify_straus_plain as affine points, and A3 -> A4 -> A5 bit-equal to
-    A1. Returns each kernel's largest difference."""
+    verify_straus_plain as affine points, A3 -> A4 -> A5 bit-equal to A1,
+    and A5 alone bit-equal to verify_verdict_plain (`check_verdict_alone`).
+    Returns each kernel's largest difference."""
     import torch
     from narwhal_tpu_torch.gpu import ed25519
 
@@ -484,9 +522,11 @@ def check_verify_sizes(device, n_keys: int, sizes=VERIFY_SIZES) -> dict:
         s_strict, s_cof = ed25519.verify_verdict(acc, r_pt, t[2], t[3], a_valid, r_valid)
         _same_bits(f"A3 -> A4 -> A5 B={b} strict against verify_batch", s_strict, strict)
         _same_bits(f"A3 -> A4 -> A5 B={b} cofactored against verify_batch", s_cof, cof)
-        log(f"verify_batch, verify_straus: B={b}, A1 == plain ({int(strict.sum())} strict, "
-            f"{int(cof.sum())} cofactored valid), A4 == plain as affine points, "
-            f"A3 -> A4 -> A5 == A1")
+        check_verdict_alone(device, acc, t[2], t[3], a_valid, r_valid, b)
+        log(f"verify_batch, verify_straus, verify_verdict: B={b}, A1 == plain "
+            f"({int(strict.sum())} strict, {int(cof.sum())} cofactored valid), A4 == plain as "
+            f"affine points, A3 -> A4 -> A5 == A1, A5 == plain on loose, random-limb and "
+            f"flipped-validity rows")
     return errs
 
 
@@ -871,6 +911,7 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
     m_strict, m_cof = ed25519.verify_batch(a_y, a_sign, r_y, r_sign, kd, sd)
     _same_bits("A3 -> A4 -> A5 strict against verify_batch", strict, m_strict)
     _same_bits("A3 -> A4 -> A5 cofactored against verify_batch", cof, m_cof)
+    check_verdict_alone(device, acc, r_y, r_sign, a_valid, r_valid, bucket)
     log(f"staged item: B={bucket}, A3 valid bit-equal and coordinates equal mod p "
         f"({n_invalid} invalid points), A4 equal as affine points, A5 bit-equal; "
         f"A3 -> A4 -> A5 == verify_batch ({int(strict.sum())} strict, {int(cof.sum())} "
@@ -1011,6 +1052,10 @@ def check_staged(device, f, bucket: int, n_keys: int, plain_reps: int):
     log(f"  verify_decompress: B={bucket} events {rows[0]['ms']:.4f} ms, device "
         f"{rows[0]['extra']['device_ms']} ms; B=1024 events "
         f"{rows[0]['extra']['ms_b1024']:.4f} ms, device {rows[0]['extra']['device_ms_b1024']} ms")
+    rows[2]["extra"] = {"device_ms": device_breakdown(
+        lambda: ed25519.verify_verdict(acc, r_pt, r_y, r_sign, a_valid, r_valid), device)[0]}
+    log(f"  verify_verdict: B={bucket} events {rows[2]['ms']:.4f} ms, device "
+        f"{rows[2]['extra']['device_ms']} ms")
     log(f"  staged item path (A3 x2, A4, A5) {rows[0]['extra']['staged_item_ms']:.4f} ms "
         f"beside verify_batch {rows[0]['extra']['verify_batch_ms']:.4f} ms at B={bucket}")
     return rows
@@ -1553,36 +1598,92 @@ def check_leader_support(device, n: int, w: int):
             "library_ms": None, "shape": f"W={w} N={n} B=64"}
 
 
-def check_consensus_commit(device, n: int, w: int):
-    """On B6's K = 64 masks (the kernels phase's reach_many inputs), with a
-    support vector whose values straddle the quorum."""
+# B7's shapes (label, B, W, M, S, masks' offset past a 16-byte boundary,
+# stakes): the consensus step's (on B6's masks), the dry run's shard block
+# (W 8, N 8 over a 2 x 2 mesh: M 4 of S 8), a shard block of the consensus
+# step's 2 x 2 mesh (M 25 of S 50), N 200 and 1024, one walk, a slab of 91
+# bytes (walks straddle 16-byte words), the masks a view 3 bytes past a
+# boundary (every byte alone), and a stake sum that wraps int32. Support
+# is exactly at quorum in walk 0 and one below in walk 1.
+COMMIT_SHAPES = (
+    ("consensus step", 64, W, N, N, 0, "small"),
+    ("dry run shard block", 2, 8, 4, 8, 0, "small"),
+    ("mesh shard block", 32, W, 25, 2 * 25, 0, "small"),
+    ("N 200", 8, W, 200, 200, 0, "small"),
+    ("N 1024", 2, 16, 1024, 1024, 0, "small"),
+    ("B 1", 1, W, N, N, 0, "small"),
+    ("unaligned slab", 9, 7, 13, 13, 0, "small"),
+    ("masks view", 9, 7, 13, 13, 3, "small"),
+    ("wrapping stakes", 64, W, N, N, 0, "wrap"),
+)
+
+
+def commit_inputs(rng: np.random.Generator, device, b: int, w: int, m: int, s: int,
+                  offset: int = 0, stakes: str = "small", masks=None):
+    """consensus_commit's four tensors on `device`: `masks` (bool [b, w, m])
+    or random ones at 30 %, a view `offset` bytes into its storage; stakes
+    1..4, or large enough that their sum wraps int32; support around the
+    quorum, walk 0 exactly at it and walk 1 one below; last_committed with
+    negative entries."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
+    if masks is None:
+        masks = torch.from_numpy(rng.random((b, w, m)) < 0.3).to(device)
+    flat = torch.zeros((offset + b * w * m,), dtype=torch.bool, device=device)
+    flat[offset:] = masks.reshape(-1)
+    lo, hi = (2**30, 2**31 - 1) if stakes == "wrap" else (1, 5)
+    st = rng.integers(lo, hi, s).astype(np.int32)
+    quorum = dk._wrap32(int(st.astype(np.int64).sum())) // 3 + 1
+    support = (quorum + rng.integers(-4, 4, b)).astype(np.int32)
+    support[:2] = (quorum, quorum - 1)[:b]
+    last = rng.integers(-3, max(w, 1), m).astype(np.int32)
+    return [flat[offset:].view(b, w, m)] + [torch.from_numpy(a).to(device)
+                                             for a in (support, st, last)]
+
+
+def check_consensus_commit(device, n: int, w: int):
+    """At each of COMMIT_SHAPES, the consensus step's on B6's K = 64 masks
+    (the kernels phase's reach_many inputs): committed and new_last
+    bit-equal to the plain version, one launch a call; the walks at quorum
+    commit, the one below does not. Timed at the consensus step's shape."""
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+
     rng = np.random.default_rng(16)
     host = reach_many_inputs(rng, w, n, 64, 56)
-    masks = dk.reach_many(*(torch.from_numpy(a).to(device) for a in host))
-    stakes = rng.integers(1, 5, n).astype(np.int32)
-    quorum = int(stakes.sum()) // 3 + 1
-    support = (quorum + rng.integers(-4, 4, 64)).astype(np.int32)
-    last = rng.integers(-3, w, n).astype(np.int32)
-    t = [masks] + [torch.from_numpy(a).to(device) for a in (support, stakes, last)]
-    (kc, kl), (pc, pl) = dk.consensus_commit(*t), dk.consensus_commit_plain(*t)
-    if not (torch.equal(kc, pc) and torch.equal(kl, pl)):
-        raise AssertionError("consensus_commit: kernel != plain")
-    ok = support >= quorum
-    if ok.all() or not ok.any() or torch.equal(kl, t[3]):
-        raise AssertionError("consensus_commit: the inputs do not straddle the quorum")
-    log(f"consensus_commit W={w} N={n} B=64 ({int(ok.sum())} of 64 walks at quorum "
-        f"{quorum}): kernel == plain, {int((kl != t[3]).sum())} last-committed rounds moved")
-    ms = time_ms(lambda: dk.consensus_commit(*t), device, reps=50)
-    plain_ms = time_ms(lambda: dk.consensus_commit_plain(*t), device, reps=50)
+    b6 = dk.reach_many(*(torch.from_numpy(a).to(device) for a in host))
+    err = 0
+    for label, b, ww, m, s, offset, stakes in COMMIT_SHAPES:
+        masks = b6 if label == "consensus step" else None
+        t = commit_inputs(rng, device, b, ww, m, s, offset, stakes, masks)
+        kernel_registry.reset_launch_counts()
+        kc, kl = dk.consensus_commit(*t)
+        if device.type == "cuda" and kernel_registry.launch_counts()["consensus_commit"] != 1:
+            raise AssertionError(f"consensus_commit {label}: not one launch")
+        pc, pl = dk.consensus_commit_plain(*t)
+        if not (torch.equal(kc, pc) and torch.equal(kl, pl)):
+            raise AssertionError(f"consensus_commit {label}: kernel != plain")
+        if b > 1 and not (bool(kc[0].any()) and not bool(kc[1].any())):
+            raise AssertionError(f"consensus_commit {label}: the quorum test is off")
+        err = max(err, int((kl - pl).abs().max()) if m else 0)
+        if label == "consensus step":
+            main = t
+    kc, kl = dk.consensus_commit(*main)
+    log(f"consensus_commit: {', '.join(c[0] for c in COMMIT_SHAPES)}: kernel == plain, one "
+        f"launch each; W={w} N={n} B=64: {int(kc.any(dim=(1, 2)).sum())} of 64 walks commit, "
+        f"{int((kl != main[3]).sum())} last-committed rounds moved")
+    ms = time_ms(lambda: dk.consensus_commit(*main), device, reps=50)
+    plain_ms = time_ms(lambda: dk.consensus_commit_plain(*main), device, reps=50)
     # The masks read and the committed masks written once; support, stakes,
     # last_committed read, new_last written.
     b, by = bound_ms(2 * 64 * w * n + 4 * 64 + 4 * n + 8 * n)
-    return {"name": "consensus_commit", "max_abs_err": int((kl - pl).abs().max()),
+    return {"name": "consensus_commit", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, "shape": f"W={w} N={n} B=64"}
+            "library_ms": None, "shape": f"W={w} N={n} B=64",
+            "extra": {"device_ms": device_breakdown(lambda: dk.consensus_commit(*main),
+                                                     device)[0]}}
 
 
 def shard_step_inputs(rng: np.random.Generator, w: int, n: int, auth: int, k: int, row: int):

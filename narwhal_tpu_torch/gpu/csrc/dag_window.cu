@@ -123,10 +123,21 @@
 //   `consensus_step` (B7): quorum = sum(stakes) // 3 + 1 (wrapping int32,
 //   floor division), committed[b, w, p] = masks[b, w, p] & (support[b] >=
 //   quorum), new_last[p] = max(last[p], max over (b, w) of committed * w).
-//   One thread per authority column p loops over the B walks and W rows, so
-//   a warp reads and writes 32 consecutive bytes of a mask row; each thread
-//   sums the S stakes itself (S <= 1024). Bound: bytes, the B x W x M masks
-//   read and written once (410 KB at B = 64, W = 64, N = 50).
+//   Bound: bytes, the B x W x M masks read and committed written once (410
+//   KB at B = 64, W = 64, N = 50: 0.12 us of HBM time); the launch is the
+//   cost. One launch of one thread-block cluster of up to 8 CTAs (a CTA
+//   for each 4 KB of the slab, commit_mask::ctas_for) of 256 threads:
+//   every CTA sums the S stakes (a warp reduction, then one shared add a
+//   warp); all the launch's threads stream the flat [B, W, M] slab in a
+//   grid-stride loop of 16-byte words, four in flight a thread
+//   (dag_commit.cuh: a word masked whole by its walk's quorum test,
+//   bytewise across a walk boundary and outside the aligned words), each
+//   committed byte raising its column's best row in its CTA's shared table
+//   (a shared atomicMax when the row is higher than the table's); after a
+//   cluster barrier CTA 0 reads the tables through distributed shared
+//   memory and writes new_last. No scratch tensor, no global atomic, and
+//   the same result in any order. A thread a column would leave one CTA of
+//   50 live threads at N = 50, each moving 4,096 single bytes.
 //
 // reach_shard_step replaces narwhal_tpu/tpu/dag_kernels.py:128 `chain_commit`
 //   and `reach_mask` (:48) under the committee-axis mesh (node.py:296-330,
@@ -220,10 +231,13 @@
 #include <mutex>
 #include <cuda_runtime.h>
 
+#include "dag_commit.cuh"
 #include "dag_walk_bits.cuh"
 #include "dag_window_sync.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kSyncThreads = 256;
 
@@ -464,32 +478,54 @@ __global__ void leader_support_kernel(const uint8_t* __restrict__ parent,
   if (lane == 0) out[b] = (int32_t)sum;
 }
 
-__global__ void consensus_commit_kernel(const bool* __restrict__ masks,
-                                        const int32_t* __restrict__ support,
-                                        const int32_t* __restrict__ stakes,
-                                        const int32_t* __restrict__ last,
-                                        bool* __restrict__ committed,
-                                        int32_t* __restrict__ new_last, int B, int W, int M,
-                                        int S) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= M) return;
-  uint32_t total = 0;
-  for (int a = 0; a < S; a++) total += (uint32_t)stakes[a];
-  const int32_t t = (int32_t)total;
-  int32_t q = t / 3;
-  if (t % 3 != 0 && t < 0) q -= 1;  // floor division, as jnp's //
-  const int32_t quorum = q + 1;
-  int best = (B > 0 && W > 0) ? 0 : INT32_MIN;  // max of committed * w over (b, w)
-  for (int b = 0; b < B; b++) {
-    const bool ok = support[b] >= quorum;
-    for (int w = 0; w < W; w++) {
-      const size_t i = ((size_t)b * W + w) * M + p;
-      const bool c = ok && masks[i];
-      committed[i] = c;
-      if (c && w > best) best = w;
-    }
+// A column's best row in the CTA's table, raised; a read first skips the
+// atomic when the table already holds a row as high (tables only grow).
+struct SharedMax {
+  __device__ __forceinline__ void operator()(int* a, int w) const {
+    if (w > *a) atomicMax(a, w);
   }
-  new_last[p] = max(last[p], best);
+};
+
+// CTA r's table of the cluster, through distributed shared memory.
+struct ClusterTables {
+  cg::cluster_group& cluster;
+  int* table;
+  __device__ __forceinline__ int* operator()(int r) const {
+    return cluster.map_shared_rank(table, r);
+  }
+};
+
+// B7's tail: one cluster of C CTAs (see the head of this file and
+// dag_commit.cuh). Each CTA sums the stakes (the quorum), streams its share
+// of the words into its own table of column bests; after a cluster barrier
+// CTA 0 folds the C tables through distributed shared memory, and a second
+// barrier keeps every table alive until it has.
+__global__ void __launch_bounds__(commit_mask::kThreads)
+consensus_commit_kernel(const uint8_t* __restrict__ masks, const int32_t* __restrict__ support,
+                        const int32_t* __restrict__ stakes, const int32_t* __restrict__ last,
+                        uint8_t* __restrict__ committed, int32_t* __restrict__ new_last,
+                        int B, int W, int M, int S) {
+  extern __shared__ int s_best[];
+  __shared__ uint32_t s_total;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t = threadIdx.x, nt = blockDim.x;
+  if (t == 0) s_total = 0;
+  commit_mask::init_best(s_best, M, B, W, t, nt);
+  __syncthreads();
+  const uint32_t part = __reduce_add_sync(0xffffffffu, commit_mask::stake_part(stakes, S, t, nt));
+  if ((t & 31) == 0) atomicAdd(&s_total, part);
+  __syncthreads();
+  const int n = B * W * M;  // < 2^31: the wrapper checks
+  const commit_mask::Dims d{W * M, W, M, commit_mask::quorum_of(s_total)};
+  commit_mask::commit_stream(masks, committed, support, d,
+                             commit_mask::span_of(masks, committed, n), s_best,
+                             (int)blockIdx.x * nt + t, (int)gridDim.x * nt, SharedMax{});
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    commit_mask::fold(last, new_last, M, (int)cluster.num_blocks(),
+                      ClusterTables{cluster, s_best}, t, nt);
+  }
+  cluster.sync();
 }
 
 __global__ void reach_shard_step_kernel(const uint8_t* __restrict__ parent,
@@ -518,8 +554,6 @@ __global__ void reach_shard_step_kernel(const uint8_t* __restrict__ parent,
   int32_t* c = committed + (size_t)k * M + p;
   if (keep && w > *c) *c = w;
 }
-
-namespace cg = cooperative_groups;
 
 constexpr int kSentinel = -(1 << 30);
 
@@ -918,14 +952,37 @@ extern "C" int dag_window_leader_support(const void* parent, const void* present
   return (int)cudaGetLastError();
 }
 
+// B7: one cluster of commit_mask::ctas_for(B * W * M) CTAs, 4 * M bytes of
+// shared memory each; a launch of one CTA is an ordinary launch (the
+// kernel's cluster is then the CTA alone).
 extern "C" int dag_window_consensus_commit(const void* masks, const void* support,
                                            const void* stakes, const void* last,
                                            void* committed, void* new_last, int B, int W, int M,
                                            int S, void* stream) {
-  const int threads = 128;
-  consensus_commit_kernel<<<(M + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      (const bool*)masks, (const int32_t*)support, (const int32_t*)stakes,
-      (const int32_t*)last, (bool*)committed, (int32_t*)new_last, B, W, M, S);
+  const size_t smem = (size_t)4 * M;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        consensus_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int C = commit_mask::ctas_for(B * W * M);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)C);
+  cfg.blockDim = dim3((unsigned)commit_mask::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, consensus_commit_kernel, (const uint8_t*)masks, (const int32_t*)support,
+      (const int32_t*)stakes, (const int32_t*)last, (uint8_t*)committed, (int32_t*)new_last, B,
+      W, M, S);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

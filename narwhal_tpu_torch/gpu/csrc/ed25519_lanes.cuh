@@ -1,9 +1,10 @@
 #pragma once
 
-// A3's decompression on a group of ten lanes a row, one radix-2^25.5 limb a
-// lane: the kernel of ed25519_staged.cu's verify_decompress (lanes 0..29 of a
-// warp are three groups; lanes 30 and 31 run along and store nothing). The
-// one-thread `decompress` of ed25519_field.cuh stays as it is for A1 and A2.
+// A3's decompression and A5's verdicts on a group of ten lanes a row, one
+// radix-2^25.5 limb a lane: the kernels of ed25519_staged.cu's
+// verify_decompress and verify_verdict (lanes 0..29 of a warp are three
+// groups; lanes 30 and 31 run along and store nothing). The one-thread
+// `decompress` of ed25519_field.cuh stays as it is for A1 and A2.
 //
 // Lane q holds limb q of every field element of the chain. A product h = f*g
 // is column q on lane q: h_q = sum_j f[(q - j) mod 10] g[j], the f index
@@ -14,9 +15,9 @@
 // select), scales f by its lane's 19-or-1 per j and doubles g's odd limbs on
 // even lanes, and forms ten multiply-adds. Bounds as fe_mul's: operand limbs
 // at most 19 * 1.65 * 2^26 < 2^31 and 2 * 1.65 * 2^25, a column < 2^61.1.
-// A squaring (255 of the chain's 275 operations) takes each of its column's
-// equal pairs once, doubled, as fe_sq does: twelve shuffles and six
-// products (`lsq`).
+// A squaring (255 of A3's 275 operations, 266 of A5's 300) takes each of
+// its column's equal pairs once, doubled, as fe_sq does: twelve shuffles
+// and six products (`lsq`).
 //
 // The carry is two parallel passes (each column's rounded high part moves to
 // the next column, 19 times from column 9 into column 0), split by column:
@@ -118,16 +119,18 @@ HD i32 lmul(i32 f, i32 g, const Lane& l, const X& x) {
   return carry_lane(even + odd, l, x);
 }
 
-// r = f^2, limb q: twelve shuffles, six products (the pairs of lane_of).
+// r = 2^sh f^2 (sh 0 or 1), limb q: twelve shuffles, six products (the
+// pairs of lane_of); the column shifted before the carry, as fe_sq_shl (a
+// doubled column < 2^62.3).
 template <class X>
-HD i32 lsq(i32 f, const Lane& l, const X& x) {
+HD i32 lsq(i32 f, const Lane& l, const X& x, int sh = 0) {
   i64 even = 0, odd = 0;
 #pragma unroll
   for (int k = 0; k < 6; k += 2) {
     fe_mac(even, x.shfl(f, l.sa[k]) * l.ma[k], x.shfl(f, l.sb[k]) * l.mb[k]);
     fe_mac(odd, x.shfl(f, l.sa[k + 1]) * l.ma[k + 1], x.shfl(f, l.sb[k + 1]) * l.mb[k + 1]);
   }
-  return carry_lane(even + odd, l, x);
+  return carry_lane((i64)((uint64_t)(even + odd) << sh), l, x);
 }
 
 template <class X>
@@ -136,13 +139,14 @@ HD i32 lsq_times(i32 a, int n, const Lane& l, const X& x) {
   return a;
 }
 
-// fe_pow22523's ladder, limb q.
+// fe_ladder's chain, limb q: t1 = z^(2^250 - 1), z11 = z^11.
 template <class X>
-HD i32 lpow22523(i32 z, const Lane& l, const X& x) {
+HD void lladder(i32& t1, i32& z11, i32 z, const Lane& l, const X& x) {
   i32 t0 = lsq(z, l, x);
-  i32 t1 = lsq_times(t0, 2, l, x);
+  t1 = lsq_times(t0, 2, l, x);
   t1 = lmul(z, t1, l, x);           // z^9
   t0 = lmul(t0, t1, l, x);          // z^11
+  z11 = t0;
   i32 t2 = lsq(t0, l, x);
   t1 = lmul(t1, t2, l, x);          // z^31
   t2 = lsq_times(t1, 5, l, x);
@@ -159,8 +163,22 @@ HD i32 lpow22523(i32 z, const Lane& l, const X& x) {
   t2 = lmul(t3, t2, l, x);          // 2^200-1
   t2 = lsq_times(t2, 50, l, x);
   t1 = lmul(t2, t1, l, x);          // 2^250-1
-  t1 = lsq_times(t1, 2, l, x);
-  return lmul(t1, z, l, x);         // z^(2^252-3)
+}
+
+// fe_pow22523, limb q: z^(2^252 - 3).
+template <class X>
+HD i32 lpow22523(i32 z, const Lane& l, const X& x) {
+  i32 t1, z11;
+  lladder(t1, z11, z, l, x);
+  return lmul(lsq_times(t1, 2, l, x), z, l, x);
+}
+
+// fe_invert, limb q: z^(p - 2).
+template <class X>
+HD i32 linvert(i32 z, const Lane& l, const X& x) {
+  i32 t1, z11;
+  lladder(t1, z11, z, l, x);
+  return lmul(lsq_times(t1, 5, l, x), z11, l, x);
 }
 
 // The whole element from its ten lanes, on every lane.
@@ -268,6 +286,120 @@ HD void decompress_lanes_row(const L* y, const S* sign, const Consts& k, i32* pt
   fe_to13_limbs(P.Z, pts + (size_t)2 * 20 * B + b, B, 2 * l.q, 1, 2);
   fe_to13_limbs(P.T, pts + (size_t)3 * 20 * B + b, B, 2 * l.q, 1, 2);
   if (l.q == 0) valid[b] = v;
+}
+
+// -- A5: the verdicts on the lanes ---------------------------------------------
+
+// Limb q of a point's four coordinates.
+struct LPt {
+  i32 X, Y, Z, T;
+};
+
+// Limb q of the coordinate at base[i * B + b], i < 20, in the stage layout
+// (radix 2^13, limbs canonical or the plain versions' loose ones). Limbs 2q
+// and 2q + 1 begin inside column q (13 * 2q = ceil(25.5 q) + floor(q / 2)),
+// so the lane loads those two, forms column q's loose value and carries it
+// (carry_lane): the same value mod p as fe_from13_loose, two loads a
+// coordinate. Built with -DVERDICT_WHOLE_LOAD (msm_breakdown.py times it),
+// every lane loads all 20 limbs, converts them with fe_from13_loose and
+// keeps limb q, as decompress_lanes takes y.
+template <class X>
+HD i32 load_limb(const i32* base, int B, int b, const Lane& l, const X& x) {
+#ifdef VERDICT_WHOLE_LOAD
+  fe f;
+  fe_from13_loose(f, base + b, B);
+  return limb(f, l.q);
+#else
+  const int s = l.q >> 1;
+  const i64 lo = base[(size_t)(2 * l.q) * B + b], hi = base[(size_t)(2 * l.q + 1) * B + b];
+  return carry_lane(lo * ((i64)1 << s) + hi * ((i64)1 << (s + 13)), l, x);
+#endif
+}
+
+template <class X>
+HD LPt load_point(const i32* pt, int B, int b, const Lane& l, const X& x) {
+  return {load_limb(pt, B, b, l, x), load_limb(pt + (size_t)20 * B, B, b, l, x),
+          load_limb(pt + (size_t)40 * B, B, b, l, x), load_limb(pt + (size_t)60 * B, B, b, l, x)};
+}
+
+// pt_add (the complete addition), limb q; d2 is limb q of 2d. Operands as
+// pt_add's: sums of at most two tight values.
+template <class X>
+HD LPt ladd(const LPt& p, const LPt& q, i32 d2, const Lane& l, const X& x) {
+  const i32 a = lmul(p.Y - p.X, q.Y - q.X, l, x);
+  const i32 b = lmul(p.Y + p.X, q.Y + q.X, l, x);
+  const i32 c = lmul(lmul(p.T, d2, l, x), q.T, l, x);
+  const i32 d = lmul(p.Z + p.Z, q.Z, l, x);
+  const i32 e = b - a, f = d - c, g = d + c, h = b + a;
+  return {lmul(e, f, l, x), lmul(g, h, l, x), lmul(f, g, l, x), lmul(e, h, l, x)};
+}
+
+// pt_double, limb q: 2 Z^2 comes carried out of its squaring (lsq's shift),
+// so e and f are sums of three tight values, as in pt_double.
+template <class X>
+HD LPt ldouble(const LPt& p, const Lane& l, const X& x) {
+  const i32 a = lsq(p.X, l, x), b = lsq(p.Y, l, x), c = lsq(p.Z, l, x, 1);
+  const i32 t = lsq(p.X + p.Y, l, x);
+  const i32 h = a + b, e = h - t, g = a - b, f = c + g;
+  return {lmul(e, f, l, x), lmul(g, h, l, x), lmul(f, g, l, x), lmul(e, h, l, x)};
+}
+
+// The strict test: encode(acc) == (ry, rs). x = X / Z and y = Y / Z on the
+// lanes, then gathered: the one-thread tests on canonical values.
+template <class X>
+HD bool strict_lanes(const LPt& acc, const fe& ry, i32 rs, const Lane& l, const X& x) {
+  const i32 zinv = linvert(acc.Z, l, x);
+  fe xw, yw, xc;
+  gather(xw, lmul(acc.X, zinv, l, x), x);
+  gather(yw, lmul(acc.Y, zinv, l, x), x);
+  fe_canonical(xc, xw);
+  return fe_eq(yw, ry) && ((xc.v[0] & 1) == rs);
+}
+
+// The cofactored test: [8](acc - R) == identity (X == 0 and Y == Z).
+template <class X>
+HD bool cof_lanes(const LPt& acc, const LPt& r, i32 d2, const Lane& l, const X& x) {
+  LPt d = ladd(acc, {-r.X, r.Y, r.Z, -r.T}, d2, l, x);
+#pragma unroll
+  for (int i = 0; i < 3; i++) d = ldouble(d, l, x);
+  fe dx, dy, dz, zero;
+  gather(dx, d.X, x);
+  gather(dy, d.Y, x);
+  gather(dz, d.Z, x);
+  fe_zero(zero);
+  return fe_eq(dx, zero) && fe_eq(dy, dz);
+}
+
+// A5 for row b: the JAX stage's two verdicts, strict masked by A's
+// validity, cofactored by both. The halves are independent; the cofactored
+// one (33 operations, rounds of four) comes first, in one basic block with
+// the head of the inversion's ladder (straight-line code up to its first
+// loop of squarings), so the compiler can interleave the two chains. Built
+// with -DVERDICT_SERIAL (msm_breakdown.py times it) the strict half runs
+// first and, on the card, a __syncwarp() keeps the halves apart. Lane 0 of
+// a group with `store` stores the bits.
+template <typename L, typename S, class X>
+HD void verdict_lanes_row(const i32* acc_pt, const i32* r_pt, const L* r_y, const S* r_sign,
+                          const bool* a_valid, const bool* r_valid, i32 d2, bool* strict,
+                          bool* cof, int B, int b, const Lane& l, const X& x, bool store = true) {
+  const LPt acc = load_point(acc_pt, B, b, l, x), r = load_point(r_pt, B, b, l, x);
+  fe ry;
+  fe_from13(ry, r_y + (size_t)b * 20);
+  const i32 rs = (i32)r_sign[b];
+#ifdef VERDICT_SERIAL
+  const bool s = strict_lanes(acc, ry, rs, l, x);
+#ifdef __CUDA_ARCH__
+  __syncwarp();
+#endif
+  const bool c = cof_lanes(acc, r, d2, l, x);
+#else
+  const bool c = cof_lanes(acc, r, d2, l, x);
+  const bool s = strict_lanes(acc, ry, rs, l, x);
+#endif
+  if (store && l.q == 0) {
+    strict[b] = s && a_valid[b];
+    cof[b] = c && a_valid[b] && r_valid[b];
+  }
 }
 
 #ifdef __CUDACC__

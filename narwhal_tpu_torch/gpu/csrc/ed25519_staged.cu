@@ -1,8 +1,8 @@
 // The staged per-item ed25519 verify, three kernels for Hopper (sm_90a): the
 // stages that the mesh-sharded verifier runs on every shard in place of A1's
-// single launch. A3 runs a group of ten lanes a row (ed25519_lanes.cuh), A4
-// a quad of four threads a row (ed25519_straus.cuh, ed25519_quad.cuh), A5 a
-// thread a row.
+// single launch. A3 and A5 run a group of ten lanes a row
+// (ed25519_lanes.cuh), A4 a quad of four threads a row (ed25519_straus.cuh,
+// ed25519_quad.cuh).
 //
 // Replaces (narwhal_tpu/tpu/ed25519.py):
 //   A3 :485 `verify_decompress_kernel`  y int16 [B, 20], sign int8 [B]
@@ -25,8 +25,9 @@
 // sums invalid rows into V as A2 does.
 //
 // The arithmetic is A1's: A3 is `decompress` (ed25519_field.cuh) split over
-// ten lanes, which gives the same canonical limbs, A4 the quad walk and A5
-// the one-thread epilogue of ed25519_straus.cuh, so A3 -> A4 -> A5 gives
+// ten lanes, which gives the same canonical limbs, A4 the quad walk of
+// ed25519_straus.cuh, and A5 the epilogue's operations split over ten lanes
+// with its tests on the gathered canonical values, so A3 -> A4 -> A5 gives
 // A1's verdicts bit for bit (chip_smoke.py and tests/test_torch_cuda.py
 // check it).
 //
@@ -45,38 +46,21 @@
 //     at B = 2048, its table in local memory; a quad a row runs 12 product
 //     rounds a window on 256 warps, the table in shared memory (20 KB a
 //     warp of 8 rows), kQuadCta threads a CTA (ed25519_straus.cuh);
-//   - A5 holds no table and runs 64 threads a block, a thread a row.
+//   - A5: one thread a row ran its 266 squarings and 34 products as one
+//     dependent chain (248 registers, 16 CTAs at a shard's 1024 rows), the
+//     inversion's ~0.1 ms of product latency; ten lanes split each operation
+//     by column as A3 does (ed25519_lanes.cuh `verdict_lanes_row`), a CTA
+//     one warp of three rows, each lane loading only the two radix-2^13
+//     limbs that begin in its column, the cofactored half's 33 operations
+//     placed beside the head of the inversion's chain.
 
 #include "ed25519_lanes.cuh"
 #include "ed25519_straus.cuh"
 
-namespace ed25519_staged {
-
+#ifdef __CUDACC__
 using namespace ed25519_straus;
 
-// A5 for row b.
-template <typename L, typename S>
-HD void verdict_row(const i32* acc_pt, const i32* r_pt, const L* r_y, const S* r_sign,
-                    const bool* a_valid, const bool* r_valid, const Consts& k,
-                    bool* strict, bool* cof, int B, int b) {
-  ge acc, R;
-  pt_load13(acc, acc_pt, B, b);
-  pt_load13(R, r_pt, B, b);
-  fe ry;
-  fe_from13(ry, r_y + (size_t)b * 20);
-  bool s, c;
-  straus_verdict(acc, R, ry, (i32)r_sign[b], a_valid[b], r_valid[b], k, s, c);
-  strict[b] = s;
-  cof[b] = c;
-}
-
-}  // namespace ed25519_staged
-
-#ifdef __CUDACC__
-using namespace ed25519_staged;
-
-constexpr int kThreads = 64;
-constexpr int kLaneRows = 3;      // A3: one warp, three groups of ten lanes
+constexpr int kLaneRows = 3;      // A3 and A5: one warp, three groups of ten lanes
 
 __global__ void __launch_bounds__(32)
 decompress_kernel(const int16_t* __restrict__ y, const int8_t* __restrict__ sign,
@@ -116,19 +100,22 @@ straus_kernel(const int32_t* __restrict__ a_pt, const int8_t* __restrict__ k_dig
                   row < B ? row : B - 1, l, QuadShfl{}, row < B);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A5: a group of ten lanes a row, as A3. Lane q keeps limb q of 2d.
+__global__ void __launch_bounds__(32)
 verdict_kernel(const int32_t* __restrict__ acc_pt, const int32_t* __restrict__ r_pt,
                const int16_t* __restrict__ r_y, const int8_t* __restrict__ r_sign,
                const bool* __restrict__ a_valid, const bool* __restrict__ r_valid,
                const int32_t* __restrict__ consts13, bool* __restrict__ strict,
                bool* __restrict__ cof, int B) {
-  __shared__ Consts s_k;
-  for (int t = threadIdx.x; t < 3; t += blockDim.x) load_consts(t, consts13, s_k);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Consts k = s_k;
-  verdict_row(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid, k, strict, cof, B, b);
+  const int g = threadIdx.x / ed25519_lanes::kLanes, q = threadIdx.x - g * ed25519_lanes::kLanes;
+  const int row = blockIdx.x * kLaneRows + g;
+  const bool live = g < kLaneRows && row < B;  // lanes 30 and 31 and groups past B run along
+  fe d2;
+  fe_from13(d2, consts13 + 20);
+  const ed25519_lanes::Lanes10Shfl x{g * ed25519_lanes::kLanes};
+  ed25519_lanes::verdict_lanes_row(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid,
+                                   ed25519_lanes::limb(d2, q), strict, cof, B,
+                                   live ? row : B - 1, ed25519_lanes::lane_of(q), x, live);
 }
 
 extern "C" int ed25519_verify_decompress(const void* y, const void* sign,
@@ -155,7 +142,7 @@ extern "C" int ed25519_verify_verdict(const void* acc_pt, const void* r_pt, cons
                                       const void* r_sign, const void* a_valid,
                                       const void* r_valid, const void* consts13,
                                       void* strict, void* cof, int B, void* stream) {
-  verdict_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+  verdict_kernel<<<(B + kLaneRows - 1) / kLaneRows, 32, 0, (cudaStream_t)stream>>>(
       (const int32_t*)acc_pt, (const int32_t*)r_pt, (const int16_t*)r_y,
       (const int8_t*)r_sign, (const bool*)a_valid, (const bool*)r_valid,
       (const int32_t*)consts13, (bool*)strict, (bool*)cof, B);

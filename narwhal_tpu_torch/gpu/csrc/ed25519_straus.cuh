@@ -1,8 +1,8 @@
 #pragma once
 
-// A1's Straus walk and verdict epilogue, shared by ed25519_verify.cu (A1,
-// which decompresses A and R in place) and ed25519_staged.cu (A4 and A5,
-// which read the points that A3 wrote).
+// A1's Straus walk and verdict epilogue: the walk shared by
+// ed25519_verify.cu (A1, which decompresses A and R in place) and
+// ed25519_staged.cu (A4, which reads the points that A3 wrote).
 //
 // The walk runs on a quad of threads per signature (ed25519_quad.cuh):
 // thread l holds coordinate l of the accumulator and builds field l of every
@@ -17,8 +17,8 @@
 // one-thread operation's field values mod p, so the walk's accumulator is
 // the one-thread walk's.
 //
-// A5 keeps the one-thread epilogue (`straus_verdict`, a thread a row); A1
-// runs the same tests on the quad (`quad_verdict`).
+// A1 runs the epilogue on the quad (`quad_verdict`); A5 runs the same
+// operations and tests on ten lanes (ed25519_lanes.cuh `verdict_lanes_row`).
 
 #include "ed25519_quad.cuh"
 
@@ -82,28 +82,9 @@ HD void quad_straus_walk(fe& m, const fe& a, const D* k_digits, const D* s_digit
   }
 }
 
-// Both verdicts from the walk's accumulator and R:
+// Both verdicts on the quad, from coordinate l of acc (m) and of R (r):
 //   strict     encode(acc) == (ry, rs), masked by A's validity;
 //   cofactored [8](acc - R) == identity, masked by both validities.
-HD void straus_verdict(const ge& acc, const ge& R, const fe& ry, i32 rs, bool a_valid,
-                       bool r_valid, const Consts& k, bool& strict, bool& cof) {
-  fe zinv, x, y, xc;
-  fe_invert(zinv, acc.Z);
-  fe_mul(x, acc.X, zinv);
-  fe_mul(y, acc.Y, zinv);
-  fe_canonical(xc, x);
-  strict = fe_eq(y, ry) && ((xc.v[0] & 1) == rs) && a_valid;
-
-  ge negR, diff;
-  pt_neg(negR, R);
-  pt_add(diff, acc, negR, k);
-  for (int i = 0; i < 3; i++) pt_double(diff, diff);
-  fe zero;
-  fe_zero(zero);
-  cof = fe_eq(diff.X, zero) && fe_eq(diff.Y, diff.Z) && a_valid && r_valid;
-}
-
-// straus_verdict on the quad, from coordinate l of acc (m) and of R (r):
 // the strict half gathers X, Y, Z to every thread, which all run the
 // inversion in step (one thread's time); the cofactored half is a
 // quad_add of -R and three doublings, then X, Y, Z gathered. The same tests

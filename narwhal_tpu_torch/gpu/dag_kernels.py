@@ -518,7 +518,9 @@ def leader_support(parent, present, stakes, support_offs, leader_idxs):
 
 def consensus_commit(masks, support, stakes, last_committed):
     """`consensus_commit_plain` on CPU tensors; on CUDA tensors the
-    `dag_window.cu` kernel (one thread per authority column)."""
+    `dag_window.cu` kernel: one launch of a cluster of up to 8 CTAs that
+    stream the masks in 16-byte words and fold their column tables through
+    distributed shared memory (`csrc/dag_commit.cuh`)."""
     if not _on_cuda("consensus_commit", masks):
         return consensus_commit_plain(masks, support, stakes, last_committed)
     B, W, M = masks.shape
@@ -528,6 +530,8 @@ def consensus_commit(masks, support, stakes, last_committed):
     _check("support", support, torch.int32, (B,), dev)
     _check("stakes", stakes, torch.int32, (S,), dev)
     _check("last_committed", last_committed, torch.int32, (M,), dev)
+    if B * W * M >= 2**31:
+        raise ValueError(f"consensus_commit: {B * W * M} mask bytes, the kernel takes < 2^31")
     committed = torch.empty_like(masks)
     new_last = torch.empty_like(last_committed)
     with torch.cuda.device(dev):

@@ -636,8 +636,8 @@ def verify_straus(a_pt, k_digits, s_digits):
 def verify_verdict(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid):
     """A5: the strict and cofactored verdicts; `verify_verdict_plain`'s
     signature and results. On CUDA tensors the kernel of
-    `csrc/ed25519_staged.cu` (int32 points, int16 r_y, int8 r_sign, bool
-    validity)."""
+    `csrc/ed25519_staged.cu`, ten lanes a row (`csrc/ed25519_lanes.cuh`;
+    int32 points, int16 r_y, int8 r_sign, bool validity)."""
     dev = acc_pt.device
     if dev.type == "cpu":
         return verify_verdict_plain(acc_pt, r_pt, r_y, r_sign, a_valid, r_valid)

@@ -185,6 +185,27 @@ def test_staged_kernels_match_plain_and_verify_batch(B):
     _torsion_verdicts(strict, cof)
 
 
+@pytest.mark.parametrize("B", VERIFY_SIZES)
+def test_verify_verdict_kernel_matches_plain(B):
+    """A5 alone (ten lanes a row) on chip_smoke.verdict_inputs at B rows:
+    R from the plain A3 (loose limbs), rows of random limbs, validity bits
+    flipped; strict and cofactored bit-equal to the plain version, one
+    launch a call."""
+    _need_card("verify_verdict", "csrc/ed25519_staged.cu")
+    t = [torch.from_numpy(a).cuda() for a in chip_smoke.verify_rows(7, 120, B)]
+    a_pt, a_valid = tk.verify_decompress(t[0], t[1])
+    _r_pt, r_valid = tk.verify_decompress(t[2], t[3])
+    acc = tk.verify_straus(a_pt, t[4], t[5])
+    v = chip_smoke.verdict_inputs(np.random.default_rng(B), acc, t[2], t[3], a_valid, r_valid)
+    kernel_registry.reset_launch_counts()
+    strict, cof = tk.verify_verdict(*v)
+    assert kernel_registry.launch_counts()["verify_verdict"] == 1
+    p_strict, p_cof = tk.verify_verdict_plain(*v)
+    assert torch.equal(strict, p_strict) and torch.equal(cof, p_cof)
+    assert B < 1024 or (0 < int(strict.sum()) < B and 0 < int(cof.sum()) < B
+                        and bool((strict != cof).any()))
+
+
 @pytest.mark.parametrize("bucket", [16, 512, 1024, 2048, 8192])
 @pytest.mark.parametrize("shape", ["item", "group"])
 def test_msm_window_kernel_matches_plain_and_msm_accumulate(shape, bucket):
@@ -463,17 +484,29 @@ def test_leader_support_kernel_matches_plain(b):
     assert torch.equal(a, td.leader_support_plain(*t)) and bool((a > 0).any())
 
 
-def test_consensus_commit_kernel_matches_plain():
+@pytest.mark.parametrize("shape", [c[0] for c in chip_smoke.COMMIT_SHAPES])
+def test_consensus_commit_kernel_matches_plain(shape):
+    """B7 at chip_smoke.COMMIT_SHAPES (the consensus step's on B6's masks,
+    shard blocks, N 200 and 1024, one walk, an unaligned slab, a misaligned
+    view, a wrapping stake sum): committed and new_last bit-equal to the
+    plain version, one launch; walk 0 (at quorum) commits, walk 1 (one
+    below) does not."""
     _need_card("consensus_commit", "csrc/dag_window.cu")
+    label, b, w, m, s, offset, stakes = next(c for c in chip_smoke.COMMIT_SHAPES
+                                             if c[0] == shape)
     rng = np.random.default_rng(6)
-    host = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
-    masks = td.reach_many(*(torch.from_numpy(a).cuda() for a in host))
-    stakes = rng.integers(1, 5, 50).astype(np.int32)
-    support = (int(stakes.sum()) // 3 + 1 + rng.integers(-4, 4, 64)).astype(np.int32)
-    last = rng.integers(-3, 64, 50).astype(np.int32)
-    t = [masks] + [torch.from_numpy(a).cuda() for a in (support, stakes, last)]
-    (kc, kl), (pc, pl) = td.consensus_commit(*t), td.consensus_commit_plain(*t)
-    assert torch.equal(kc, pc) and torch.equal(kl, pl) and not torch.equal(kl, t[3])
+    masks = None
+    if label == "consensus step":
+        host = chip_smoke.reach_many_inputs(rng, w, m, 64, 56)
+        masks = td.reach_many(*(torch.from_numpy(a).cuda() for a in host))
+    t = chip_smoke.commit_inputs(rng, torch.device("cuda"), b, w, m, s, offset, stakes, masks)
+    kernel_registry.reset_launch_counts()
+    kc, kl = td.consensus_commit(*t)
+    assert kernel_registry.launch_counts()["consensus_commit"] == 1
+    pc, pl = td.consensus_commit_plain(*t)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+    if b > 1:
+        assert bool(kc[0].any()) and not bool(kc[1].any()) and not torch.equal(kl, t[3])
 
 
 @pytest.mark.parametrize("auth,k", [(2, 1), (4, 16)])

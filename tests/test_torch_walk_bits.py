@@ -1,17 +1,27 @@
-"""The redesigned B2 and A3 kernels' own arithmetic, compiled for the host.
+"""The redesigned kernels' own arithmetic, compiled for the host: B2, B6,
+A3, A5, B3 and B4, and B7.
 
 The kernels' device code is written as host-and-device functions
-(`csrc/dag_walk_bits.cuh`, `csrc/ed25519_lanes.cuh`) with the warp's or the
-CTA's collectives behind a small interface, so g++ builds the same code for
-the CPU and runs it on threads, one a lane (each test skips only when g++ is
-missing):
+(`csrc/dag_walk_bits.cuh`, `csrc/ed25519_lanes.cuh`,
+`csrc/dag_window_sync.cuh`, `csrc/dag_commit.cuh`) with the warp's or the
+CTA's collectives behind a small interface, so g++ builds the same code
+for the CPU and runs it a lane or a thread at a time (each test skips only
+when g++ is missing):
 
-- A3, the ten-lane decompression (`decompress_lanes_row`: ten threads for
-  the ten lanes of a group), over chip_smoke's A3 rows (the edge encodings
-  y = 0, 1, p - 1 and the non-canonical p, p + 3 and 2^255 - 1 with both
-  signs, points with either sign, random y), held mod p against
-  `verify_decompress_plain` and the JAX `verify_decompress_kernel` run
-  eagerly, and limb for limb against the one-thread `decompress`;
+- A3, the ten-lane decompression (`decompress_lanes_row`: ten fibers of
+  one thread for the ten lanes of a group), over chip_smoke's A3 rows (the
+  edge encodings y = 0, 1, p - 1 and the non-canonical p, p + 3 and
+  2^255 - 1 with both signs, points with either sign, random y), held mod
+  p against `verify_decompress_plain` and the JAX
+  `verify_decompress_kernel` run eagerly, and limb for limb against the
+  one-thread `decompress`;
+- A5, the ten-lane verdicts (`verdict_lanes_row`, the same ten fibers),
+  bit for bit against `verify_verdict_plain` and the JAX
+  `verify_verdict_kernel` run eagerly (torsion, forged, invalid-A,
+  invalid-R and random-limb rows, loose limbs), and `linvert` mod p
+  against the one-thread `fe_invert`;
+- B7, the commit mask (`dag_commit.cuh`): the launch run CTA by CTA and
+  phase by phase, held bit for bit against `consensus_commit_plain`;
 - B3 and B4, the window sync (`csrc/dag_window_sync.cuh`): its parameter
   block filled as the C entry fills it, and its grid run CTA by CTA, every
   thread's copy then every thread's placements (the kernel's one barrier),
@@ -47,33 +57,82 @@ from narwhal_tpu_torch.gpu import ed25519 as tk
 
 CSRC = Path(td.__file__).resolve().parent / "csrc"
 
-LANES_MAIN = r"""
-#include <barrier>
+LANES_HARNESS = r"""
+#include <ucontext.h>
+
 #include <cstdio>
-#include <thread>
+#include <functional>
 #include <vector>
 #include "ed25519_lanes.cuh"
 using namespace ed25519_lanes;
 
-// The group's shuffle over ten threads, one a lane.
+// The group's ten lanes as ten fibers of one thread (ucontext), switched in
+// turn: a shuffle writes the lane's value and passes to the next lane; when
+// the lane runs again every lane has written (all take the same shuffles,
+// as a warp's lanes do), so it reads, and passes again before any lane
+// writes anew. One thread: no lane waits on the OS scheduler, however
+// loaded the machine.
 struct Group {
-  std::barrier<> bar{kLanes};
+  ucontext_t main, ctx[kLanes];
+  std::vector<char> stack[kLanes];
+  int cur = 0, left = kLanes;
   i64 slot[kLanes];
+  std::function<void(int)> body;
+  void pass() {
+    const int q = cur;
+    cur = (cur + 1) % kLanes;
+    swapcontext(&ctx[q], &ctx[cur]);
+  }
 };
-struct ThreadShfl {
+Group* g_group;
+
+void lane_entry(int q) {
+  g_group->body(q);
+  if (--g_group->left > 0) {
+    for (;;) g_group->pass();  // finished: pass until the last lane is done
+  }
+  swapcontext(&g_group->ctx[q], &g_group->main);
+}
+
+// Run body(q) for the ten lanes q of `g`, to the end of every lane.
+void run_lanes(Group& g, std::function<void(int)> body) {
+  g_group = &g;
+  g.body = std::move(body);
+  g.cur = 0;
+  g.left = kLanes;
+  for (int q = 0; q < kLanes; q++) {
+    g.stack[q].assign(1 << 20, 0);
+    getcontext(&g.ctx[q]);
+    g.ctx[q].uc_stack.ss_sp = g.stack[q].data();
+    g.ctx[q].uc_stack.ss_size = g.stack[q].size();
+    g.ctx[q].uc_link = nullptr;
+    makecontext(&g.ctx[q], (void (*)())lane_entry, 1, q);
+  }
+  swapcontext(&g.main, &g.ctx[0]);
+}
+
+struct FiberShfl {
   int q;
   Group* g;
   i64 x(i64 v, int src) const {
     g->slot[q] = v;
-    g->bar.arrive_and_wait();
+    g->pass();
     const i64 r = g->slot[src];
-    g->bar.arrive_and_wait();
+    g->pass();
     return r;
   }
   i32 shfl(i32 v, int src) const { return (i32)x(v, src); }
   i64 shfl(i64 v, int src) const { return x(v, src); }
 };
 
+template <class T>
+bool read(FILE* in, std::vector<T>& v, size_t n) {
+  v.resize(n);
+  return std::fread(v.data(), sizeof(T), n, in) == n;
+}
+"""
+
+LANES_MAIN = LANES_HARNESS + r"""
 // in: B, y int16 [B, 20], sign int8 [B], consts int32 [3, 20]
 // out: points int32 [4, 20, B], valid uint8 [B]; every row held limb for
 // limb to the one-thread `decompress`.
@@ -93,16 +152,12 @@ int main(int argc, char** argv) {
   std::vector<int32_t> pts((size_t)4 * 20 * B, -1);
   bool* valid = new bool[B];
   Group grp;
-  std::vector<std::thread> lanes;
-  for (int q = 0; q < kLanes; q++) {
-    lanes.emplace_back([&, q] {
-      for (int b = 0; b < B; b++) {
-        decompress_lanes_row(y.data(), sign.data(), k, pts.data(), valid, B, b, lane_of(q),
-                             ThreadShfl{q, &grp});
-      }
-    });
-  }
-  for (auto& th : lanes) th.join();
+  run_lanes(grp, [&](int q) {
+    for (int b = 0; b < B; b++) {
+      decompress_lanes_row(y.data(), sign.data(), k, pts.data(), valid, B, b, lane_of(q),
+                           FiberShfl{q, &grp});
+    }
+  });
   for (int b = 0; b < B; b++) {
     fe yf;
     fe_from13(yf, y.data() + (size_t)b * 20);
@@ -120,6 +175,65 @@ int main(int argc, char** argv) {
   for (int b = 0; b < B; b++) std::fputc(valid[b] ? 1 : 0, out);
   std::fclose(out);
   delete[] valid;
+  return 0;
+}
+"""
+
+VERDICT_MAIN = LANES_HARNESS + r"""
+// in: B, acc and R int32 [4, 20, B] (the stage layout), r_y int16 [B, 20],
+// r_sign int8 [B], a_valid and r_valid uint8 [B], consts int32 [3, 20], n,
+// z int32 [n, 20] (radix-2^13 limbs)
+// out: strict and cofactored uint8 [B] from verdict_lanes_row, a group of
+// ten lanes a row; exits 3 when linvert of a z differs mod p from the
+// one-thread fe_invert.
+int main(int argc, char** argv) {
+  FILE* in = std::fopen(argv[1], "rb");
+  int B = 0, n = 0;
+  std::vector<int32_t> acc, r, c13, z;
+  std::vector<int16_t> ry;
+  std::vector<int8_t> rs;
+  std::vector<uint8_t> av, rv;
+  if (std::fread(&B, 4, 1, in) != 1 || !read(in, acc, (size_t)80 * B) ||
+      !read(in, r, (size_t)80 * B) || !read(in, ry, (size_t)20 * B) || !read(in, rs, B) ||
+      !read(in, av, B) || !read(in, rv, B) || !read(in, c13, 60) ||
+      std::fread(&n, 4, 1, in) != 1 || !read(in, z, (size_t)20 * n)) return 2;
+  std::fclose(in);
+  Consts k;
+  for (int t = 0; t < 3; t++) load_consts(t, c13.data(), k);
+  bool* a_valid = new bool[B];
+  bool* r_valid = new bool[B];
+  bool* strict = new bool[B];
+  bool* cof = new bool[B];
+  for (int b = 0; b < B; b++) {
+    a_valid[b] = av[b] != 0;
+    r_valid[b] = rv[b] != 0;
+  }
+  std::vector<int32_t> inv((size_t)10 * n);
+  Group grp;
+  run_lanes(grp, [&](int q) {
+    const Lane l = lane_of(q);
+    const FiberShfl x{q, &grp};
+    for (int b = 0; b < B; b++) {
+      verdict_lanes_row(acc.data(), r.data(), ry.data(), rs.data(), a_valid, r_valid,
+                        limb(k.d2, q), strict, cof, B, b, l, x);
+    }
+    for (int i = 0; i < n; i++) {
+      fe zi;
+      fe_from13(zi, z.data() + (size_t)20 * i);
+      inv[(size_t)10 * i + q] = linvert(limb(zi, q), l, x);
+    }
+  });
+  for (int i = 0; i < n; i++) {
+    fe zi, want, got;
+    fe_from13(zi, z.data() + (size_t)20 * i);
+    fe_invert(want, zi);
+    for (int q = 0; q < kLanes; q++) got.v[q] = inv[(size_t)10 * i + q];
+    if (!fe_eq(got, want)) return 3;
+  }
+  std::FILE* out = std::fopen(argv[2], "wb");
+  for (int b = 0; b < B; b++) std::fputc(strict[b] ? 1 : 0, out);
+  for (int b = 0; b < B; b++) std::fputc(cof[b] ? 1 : 0, out);
+  std::fclose(out);
   return 0;
 }
 """
@@ -467,7 +581,72 @@ int main(int argc, char** argv) {
 """
 
 
-def _build(tmp_path_factory, name: str, source: str, std: str) -> Path:
+COMMIT_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "dag_commit.cuh"
+using namespace commit_mask;
+
+template <class T>
+bool read(FILE* in, std::vector<T>& v, size_t n) {
+  v.resize(n);
+  return std::fread(v.data(), sizeof(T), n, in) == n;
+}
+
+// in: B, W, M, S, the byte offsets of masks and committed past a 16-byte
+// boundary, masks uint8 [B, W, M], support int32 [B], stakes int32 [S],
+// last int32 [M]
+// out: the CTAs C, committed uint8 [B, W, M], new_last int32 [M]. The
+// launch as consensus_commit_kernel runs it, phase by phase: each CTA's
+// table and stake sum, every thread's stream, CTA 0's fold. Exits 3 when a
+// committed byte was not written.
+int main(int argc, char** argv) {
+  FILE* in = std::fopen(argv[1], "rb");
+  int h[6];
+  if (std::fread(h, 4, 6, in) != 6) return 2;
+  const int B = h[0], W = h[1], M = h[2], S = h[3];
+  const int n = B * W * M;
+  std::vector<uint8_t> m;
+  std::vector<int32_t> support, stakes, last;
+  if (!read(in, m, n) || !read(in, support, B) || !read(in, stakes, S) || !read(in, last, M))
+    return 2;
+  std::fclose(in);
+  std::vector<uint8_t> mbuf(n + 32), cbuf(n + 32, 0xAB);
+  auto at = [](std::vector<uint8_t>& v, int off) {
+    return v.data() + ((16 - ((uintptr_t)v.data() & 15)) & 15) + off;
+  };
+  uint8_t* masks = at(mbuf, h[4]);
+  uint8_t* committed = at(cbuf, h[5]);
+  std::copy(m.begin(), m.end(), masks);
+  const int C = ctas_for(n);
+  std::vector<std::vector<int>> best(C, std::vector<int>(M));
+  for (int c = 0; c < C; c++)
+    for (int t = 0; t < kThreads; t++) init_best(best[c].data(), M, B, W, t, kThreads);
+  uint32_t total = 0;  // every CTA's sum alike
+  for (int t = 0; t < kThreads; t++) total += stake_part(stakes.data(), S, t, kThreads);
+  const Dims d{W * M, W, M, quorum_of(total)};
+  const Span sp = span_of(masks, committed, n);
+  auto mx = [](int* a, int w) { if (w > *a) *a = w; };
+  for (int c = 0; c < C; c++)
+    for (int t = 0; t < kThreads; t++)
+      commit_stream(masks, committed, support.data(), d, sp, best[c].data(), c * kThreads + t,
+                    C * kThreads, mx);
+  std::vector<int32_t> new_last(M, -7);
+  for (int t = 0; t < kThreads; t++)
+    fold(last.data(), new_last.data(), M, C, [&](int c) { return best[c].data(); }, t, kThreads);
+  for (int i = 0; i < n; i++)
+    if (committed[i] > 1) return 3;
+  std::FILE* out = std::fopen(argv[2], "wb");
+  std::fwrite(&C, 4, 1, out);
+  std::fwrite(committed, 1, n, out);
+  std::fwrite(new_last.data(), 4, M, out);
+  std::fclose(out);
+  return 0;
+}
+"""
+
+
+def _build(tmp_path_factory, name: str, source: str, std: str, defines=()) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed: the host build of the kernels' code needs it")
@@ -476,7 +655,8 @@ def _build(tmp_path_factory, name: str, source: str, std: str) -> Path:
     src.write_text(source)
     exe = d / name
     subprocess.run([gxx, f"-std={std}", "-O2", "-pthread", "-Wno-unknown-pragmas",
-                    "-I", str(CSRC), "-o", str(exe), str(src)], check=True, timeout=300)
+                    *(f"-D{m}" for m in defines), "-I", str(CSRC), "-o", str(exe), str(src)],
+                   check=True, timeout=300)
     return exe
 
 
@@ -485,9 +665,34 @@ def lanes_exe(tmp_path_factory):
     return _build(tmp_path_factory, "lanes_main", LANES_MAIN, "c++20")
 
 
+# The verdict's build as the kernel's, and the two variants msm_breakdown.py
+# times (every lane loading whole coordinates; the halves one after the other).
+VERDICT_BUILDS = {"kernel": (), "variants": ("VERDICT_WHOLE_LOAD", "VERDICT_SERIAL")}
+
+
+@pytest.fixture(scope="module", params=sorted(VERDICT_BUILDS))
+def verdict_exe(tmp_path_factory, request):
+    return _build(tmp_path_factory, f"verdict_{request.param}", VERDICT_MAIN, "c++20",
+                  VERDICT_BUILDS[request.param])
+
+
 @pytest.fixture(scope="module")
 def walk_exe(tmp_path_factory):
     return _build(tmp_path_factory, "walk_main", WALK_MAIN, "c++20")
+
+
+# B7's build as the kernel's (256 threads, a CTA for each 4 KB), and with
+# CTAs of 32 threads and 512 bytes (eight CTAs from 4 KB: the fold over
+# several tables at every shape): build -> (defines, bytes a CTA).
+COMMIT_BUILDS = {"kernel": ((), 4096),
+                 "small CTAs": (("COMMIT_THREADS=32", "COMMIT_WORDS=1"), 512)}
+
+
+@pytest.fixture(scope="module", params=sorted(COMMIT_BUILDS))
+def commit_exe(tmp_path_factory, request):
+    defines, cta_bytes = COMMIT_BUILDS[request.param]
+    exe = _build(tmp_path_factory, f"commit_{len(defines)}", COMMIT_MAIN, "c++17", defines)
+    return exe, cta_bytes
 
 
 @pytest.fixture(scope="module")
@@ -519,7 +724,7 @@ def _decompress(exe: Path, rows, signs, tmp_path: Path):
 
 @pytest.mark.parametrize("seed,b", [(1, 7), (2, 36), (5, 12), (6, 24)])
 def test_lanes_decompress_matches_plain(lanes_exe, tmp_path, seed, b):
-    """The ten-lane form (the kernel's): ten threads for the ten lanes of a
+    """The ten-lane form (the kernel's): ten fibers for the ten lanes of a
     group, on chip_smoke's A3 rows (the edge encodings, multiples of the
     base point with either sign, random y); held mod p against the plain
     version and limb for limb against the one-thread decompress (in the
@@ -543,6 +748,82 @@ def test_lanes_decompress_matches_jax_eager(lanes_exe, tmp_path):
     pts, valid = _decompress(lanes_exe, rows, signs, tmp_path)
     assert np.asarray(jvalid).tolist() == valid.tolist()
     assert chip_smoke._mod_p(pts) == chip_smoke._mod_p(np.asarray(jpts))
+
+
+# -- A5: the ten-lane verdict -------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def verdict_rows():
+    """A5's inputs, B = 13: chip_smoke.verify_rows' eight rows through the
+    plain A3 and A4 (rows 0-7: a torsion-defect item, corrupt R, corrupt
+    S, a wrong message, a zero row, a random-limb row, a valid signature,
+    padding; the plain stages' loose limbs), then the valid row with A
+    marked invalid (8) and with R marked invalid (9), the torsion row with
+    R marked invalid (10), and two rows of random radix-2^13 limbs for acc
+    and R, canonical (11) and loose up to 9500 (12)."""
+    a_y, a_sign, r_y, r_sign, kd, sd = (torch.from_numpy(a)
+                                        for a in chip_smoke.verify_rows(7, 16, 8))
+    a_pt, a_valid = tk.verify_decompress_plain(a_y, a_sign)
+    r_pt, r_valid = tk.verify_decompress_plain(r_y, r_sign)
+    acc = tk.verify_straus_plain(a_pt, kd, sd).numpy()
+    r_pt, r_y, r_sign = r_pt.numpy(), r_y.numpy(), r_sign.numpy()
+    av, rv = a_valid.numpy().copy(), r_valid.numpy().copy()
+    pick = [6, 6, 0]
+    rng = np.random.default_rng(12)
+    rnd = [rng.integers(0, top, (4, 20, 1), dtype=np.int32) for top in (2**13, 9501)]
+    rnd_r = [rng.integers(0, top, (4, 20, 1), dtype=np.int32) for top in (2**13, 9501)]
+    acc = np.concatenate([acc, acc[..., pick], *rnd], axis=2)
+    r_pt = np.concatenate([r_pt, r_pt[..., pick], *rnd_r], axis=2)
+    r_y = np.concatenate([r_y, r_y[pick], rng.integers(0, 2**13, (2, 20)).astype(np.int16)])
+    r_sign = np.concatenate([r_sign, r_sign[pick], np.array([0, 1], np.int8)])
+    av = np.concatenate([av, [False, True, True, True, True]])
+    rv = np.concatenate([rv, [True, False, False, True, True]])
+    return [np.ascontiguousarray(a) for a in (acc, r_pt, r_y, r_sign, av, rv)]
+
+
+@pytest.fixture(scope="module")
+def verdict_jax(verdict_rows):
+    """The JAX `verify_verdict_kernel` on verdict_rows, run op by op
+    (`jax.disable_jit()`, as tests/test_torch_staged.py runs it; ~13 s,
+    once for both builds)."""
+    with jax.disable_jit():
+        js, jc = jk.verify_verdict_kernel(*(jnp.asarray(a) for a in verdict_rows))
+    return np.asarray(js).tolist(), np.asarray(jc).tolist()
+
+
+def _verdict(exe: Path, rows, z, tmp_path: Path):
+    acc, r_pt, r_y, r_sign, av, rv = rows
+    B = acc.shape[2]
+    payload = (np.int32(B).tobytes() + acc.astype(np.int32).tobytes()
+               + r_pt.astype(np.int32).tobytes() + r_y.astype(np.int16).tobytes()
+               + r_sign.astype(np.int8).tobytes() + av.astype(np.uint8).tobytes()
+               + rv.astype(np.uint8).tobytes()
+               + np.ascontiguousarray(tk._KERNEL_CONSTS, np.int32).tobytes()
+               + np.int32(len(z)).tobytes() + np.asarray(z, np.int32).tobytes())
+    out = np.frombuffer(_run(exe, [], payload, tmp_path), np.uint8).astype(bool)
+    return out[:B], out[B:]
+
+
+def test_lanes_verdict_matches_plain_and_jax(verdict_exe, verdict_rows, verdict_jax, tmp_path):
+    """The ten-lane A5 (`verdict_lanes_row`, ten fibers a group) on
+    verdict_rows, bit for bit against `verify_verdict_plain` and the JAX
+    `verify_verdict_kernel` run eagerly; in the same run `linvert` mod p
+    against the one-thread `fe_invert` (in the harness) on 0, 1, p - 1 and
+    two random elements. Both builds: the kernel's, and the variants'
+    (whole-coordinate loads, the halves one after the other)."""
+    p1 = tk.int_to_limbs(2**255 - 20).reshape(-1)
+    rng = np.random.default_rng(3)
+    z = [np.zeros(20, np.int32), tk.int_to_limbs(1).reshape(-1), p1,
+         *rng.integers(0, 2**13, (2, 20), dtype=np.int32)]
+    strict, cof = _verdict(verdict_exe, verdict_rows, z, tmp_path)
+    p_strict, p_cof = tk.verify_verdict_plain(*(torch.from_numpy(a) for a in verdict_rows))
+    assert strict.tolist() == p_strict.tolist() and cof.tolist() == p_cof.tolist()
+    assert verdict_jax == (strict.tolist(), cof.tolist())
+    # torsion: cofactored only; valid: both; A invalid: neither; R invalid:
+    # strict only; the torsion row with R invalid: neither
+    assert [(strict[i], cof[i]) for i in (0, 6, 8, 9, 10)] == [
+        (False, True), (True, True), (False, False), (True, False), (False, False)]
 
 
 # -- B2: the packed-bit walk ---------------------------------------------------
@@ -844,3 +1125,59 @@ def test_slot_bits_round_trip_and_split_past_capacity(sync_exe, tmp_path, n):
     assert np.array_equal(np.concatenate([r for _s, _o, _i, r in got]), rows[keep])
     assert [(sh, len(o)) for sh, o, _i, _r in blocks(2, 1, 0)] == [(2, 0)]  # a roll alone
     assert blocks(0, 0, 0) == []  # in place with no slot: no launch
+
+
+# -- B7: the commit mask -------------------------------------------------------
+
+# (B, W, M, S, masks' and committed's offsets past a 16-byte boundary, the
+# stakes): the consensus step's shape, the dry run's, a shard block of the
+# 2 x 2 mesh (M = 25 of S = 50), N = 200 and 1024, one walk, a slab of W * M
+# = 91 bytes 3 bytes past a boundary (walks straddle words; head and tail
+# bytes), the same with committed on another alignment (every byte alone),
+# no walk, and a stake sum that wraps int32.
+COMMIT_CASES = [
+    (64, 64, 50, 50, 0, 0, "small"),
+    (2, 8, 4, 8, 0, 0, "small"),
+    (32, 64, 25, 50, 0, 0, "small"),
+    (8, 64, 200, 200, 0, 0, "small"),
+    (2, 16, 1024, 1024, 0, 0, "small"),
+    (1, 64, 50, 50, 0, 0, "small"),
+    (9, 7, 13, 13, 3, 3, "small"),
+    (9, 7, 13, 13, 5, 0, "small"),
+    (0, 64, 50, 50, 0, 0, "small"),
+    (64, 64, 50, 50, 7, 7, "wrap"),
+]
+
+
+@pytest.mark.parametrize("B,W,M,S,moff,coff,stakes", COMMIT_CASES)
+def test_commit_cta_matches_plain(commit_exe, tmp_path, B, W, M, S, moff, coff, stakes):
+    """consensus_commit_kernel's launch (dag_commit.cuh's pieces, run phase
+    by phase over its CTAs and threads; COMMIT_BUILDS) against
+    `consensus_commit_plain`:
+    committed and new_last bit for bit, support exactly at quorum and one
+    below, `last` with negative entries, every committed byte written."""
+    rng = np.random.default_rng(B * 7 + M + moff)
+    masks = rng.random((B, W, M)) < 0.3
+    top = 2**31 - 1 if stakes == "wrap" else 5
+    st = rng.integers(top // 2 if stakes == "wrap" else 1, top, S).astype(np.int32)
+    total = int(st.astype(np.int64).sum())
+    quorum = td._wrap32(total) // 3 + 1
+    assert stakes != "wrap" or total >= 2**31  # the sum wraps
+    support = (quorum + rng.integers(-2, 2, B)).astype(np.int32)
+    support[:2] = (quorum, quorum - 1)[:B]
+    last = rng.integers(-5, max(W, 1), M).astype(np.int32)
+    payload = (np.asarray([B, W, M, S, moff, coff], np.int32).tobytes()
+               + masks.astype(np.uint8).tobytes() + support.tobytes() + st.tobytes()
+               + last.tobytes())
+    exe, cta_bytes = commit_exe
+    out = _run(exe, [], payload, tmp_path)
+    C = int(np.frombuffer(out[:4], np.int32)[0])
+    n = B * W * M
+    committed = np.frombuffer(out[4:4 + n], np.uint8).reshape(B, W, M).astype(bool)
+    new_last = np.frombuffer(out[4 + n:], np.int32)
+    pc, pl = td.consensus_commit_plain(*(torch.from_numpy(a) for a in (masks, support, st, last)))
+    assert np.array_equal(committed, pc.numpy()) and np.array_equal(new_last, pl.numpy())
+    assert C == min(8, max(1, -(-n // cta_bytes)))
+    if B > 1:
+        assert committed[0].any() and not committed[1].any()  # at quorum; one below
+        assert (new_last != last).any()
