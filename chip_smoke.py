@@ -334,18 +334,15 @@ def phase_build() -> dict:
     return walls
 
 
-def ptxas_report(stem: str, text: str | None = None) -> dict:
-    """ptxas's figures for each kernel of `stem`'s build (nvcc -Xptxas -v),
-    or of the nvcc output `text`: name<template args> -> "N registers, S
-    bytes spill stores, M bytes smem"."""
+def ptxas_report(stem: str) -> dict:
+    """ptxas's figures for each kernel of `stem`'s build (nvcc -Xptxas -v):
+    name<template args> -> "N registers, S bytes spill stores, M bytes smem"."""
     import re
 
     from narwhal_tpu_torch.gpu import kernel_registry
 
-    if text is None:
-        text = kernel_registry.build_logs().get(stem, "")
     out, name = {}, None
-    for line in text.splitlines():
+    for line in kernel_registry.build_logs().get(stem, "").splitlines():
         m = re.search(r"Compiling entry function '_Z(\w+)'", line)
         if m:
             sym = m.group(1)

@@ -12,11 +12,7 @@ For each bucket (default the verifier's 2048 rows and a shard's 1024): A2
 (the edge encodings); A1 `verify_batch` on `chip_smoke.signature_bucket`
 (forged, torsion, zero and random-limb rows), A4 `verify_straus` on its
 A set decompressed by A3 and A5 `verify_verdict` on A4's accumulators and
-its R set; then A5 built with each of `VERDICT_VARIANTS` (-D flags of
-`csrc/ed25519_lanes.cuh`: the halves one after the other; whole
-coordinates loaded by every lane), where the package's source has them,
-each held bit for bit against the kernel and timed through its C entry
-point. Then B2 `chain_commit`
+its R set. Then B2 `chain_commit`
 at the main path's shape (W = 64, N = 50, K = 1, the healed-partition chain
 of `chip_smoke.check_chain_commit`, leader row 58), from row 2 of the same
 window (the slope of the two is the time a row costs), with the leader
@@ -43,11 +39,7 @@ bit for bit, lanes as affine points). Section `commit`: B7
 64, N = 50, B = 64 on B6's masks; the dry run's shard block W = 8, M = 4
 of S = 8; a shard block of the 2 x 2 mesh, M = 25 of S = 50; N = 200 and
 1024, one walk, an unaligned slab, a misaligned view, a wrapping stake
-sum), each held against its plain version first, then B7 built with each
-of `COMMIT_VARIANTS` (-D flags of `csrc/dag_commit.cuh`: threads a CTA,
-words a thread before another CTA joins; one CTA of 1024 threads) at the
-path's three shapes, held bit for bit against the kernel and timed
-through its C entry point. Section `steps`: the host wall of two steps
+sum), each held against its plain version first. Section `steps`: the host wall of two steps
 `chip_smoke.py` times once each, repeated: the unmeshed
 consensus step (B = 64 walks on its W = 64, N = 50 window, copies in and
 out) and the dry run (`entry()`'s walk, then `dryrun_multichip(4)` over
@@ -160,11 +152,10 @@ def main(argv=None) -> int:
             timed(f"A3 verify_decompress {shape} B={bucket}",
                   lambda: ed25519.verify_decompress(t[0], t[1]))
             if args.phases:
-                phases(chip_smoke, ed25519, kernel_registry, dev, t, pa, pr,
-                       f"{shape} B={bucket}")
+                phases(ed25519, kernel_registry, dev, t, pa, pr, f"{shape} B={bucket}")
         decompress(chip_smoke, ed25519, dev, bucket, timed)
         straus(chip_smoke, ed25519, dev, bucket, timed)
-        verdict(chip_smoke, ed25519, kernel_registry, dev, bucket, timed)
+        verdict(chip_smoke, ed25519, dev, bucket, timed)
     if "walk" in args.sections:
         walk(chip_smoke, dev, timed)
     if "reach" in args.sections:
@@ -172,7 +163,7 @@ def main(argv=None) -> int:
     if "reduce" in args.sections:
         reduce(chip_smoke, ed25519, dev, timed)
     if "commit" in args.sections:
-        commit(chip_smoke, kernel_registry, dev, timed)
+        commit(chip_smoke, dev, timed)
     if "steps" in args.sections:
         steps(chip_smoke, dev)
     if "window" in args.sections:
@@ -225,19 +216,9 @@ def straus(chip_smoke, ed25519, dev, bucket, timed) -> None:
     timed(f"A4 verify_straus B={bucket}", lambda: ed25519.verify_straus(a_pt, t[4], t[5]))
 
 
-# A5's builds with another design, where the package's source has them:
-# -D<name> -> what the build changes.
-VERDICT_VARIANTS = {
-    "VERDICT_SERIAL": "the strict half, then the cofactored (no overlap)",
-    "VERDICT_WHOLE_LOAD": "every lane loads whole coordinates (fe_from13_loose)",
-}
-
-
-def verdict(chip_smoke, ed25519, kernel_registry, dev, bucket, timed) -> None:
+def verdict(chip_smoke, ed25519, dev, bucket, timed) -> None:
     """A5 on signature_bucket's rows (A3 and A4 outputs), held against its
-    plain version first and timed; then each of VERDICT_VARIANTS that the
-    package's ed25519_lanes.cuh knows, built apart, held bit for bit
-    against the kernel and timed through its C entry point."""
+    plain version first and timed."""
     import torch
 
     t = [torch.from_numpy(a).to(dev) for a in chip_smoke.signature_bucket(7, 300, bucket)[0]]
@@ -250,74 +231,12 @@ def verdict(chip_smoke, ed25519, kernel_registry, dev, bucket, timed) -> None:
     chip_smoke._same_bits("A5 strict", strict, p_strict)
     chip_smoke._same_bits("A5 cofactored", cof, p_cof)
     timed(f"A5 verify_verdict B={bucket}", lambda: ed25519.verify_verdict(*args))
-    lanes = (kernel_registry.CSRC / "ed25519_lanes.cuh").read_text()
-    for define, what in VERDICT_VARIANTS.items():
-        if define not in lanes:
-            continue
-        lib = variant_lib(chip_smoke, kernel_registry, "ed25519_staged", (define,))
-        fn = lib.ed25519_verify_verdict
-        out = (torch.empty_like(strict), torch.empty_like(cof))
-        ptrs = [x.data_ptr() for x in (*args, ed25519._const("KERNEL_CONSTS", dev), *out)]
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def call():
-            if fn(*ptrs, bucket, stream) != 0:
-                raise RuntimeError(f"A5 -D{define}: the launch failed")
-
-        call()
-        chip_smoke._same_bits(f"A5 -D{define} strict", out[0], strict)
-        chip_smoke._same_bits(f"A5 -D{define} cofactored", out[1], cof)
-        timed(f"A5 verify_verdict -D{define} ({what}) B={bucket}", call)
 
 
-_VARIANT_LIBS: dict = {}
-
-
-def variant_lib(chip_smoke, kernel_registry, stem: str, defines: tuple):
-    """`stem`'s source built with -D of each of `defines` beside the
-    registry's builds, loaded (once a process), its ptxas figures printed."""
-    import ctypes
-    import subprocess
-
-    key = (stem, defines)
-    if key not in _VARIANT_LIBS:
-        tag = "-".join(d.replace("=", "_") for d in defines)
-        out = kernel_registry.BUILD_DIR / f"{stem}-{tag}.so"
-        run = subprocess.run([kernel_registry.nvcc(), *kernel_registry.NVCC_FLAGS,
-                              *(f"-D{d}" for d in defines), "-o", str(out),
-                              str(kernel_registry.CSRC / f"{stem}.cu")],
-                             check=True, capture_output=True, text=True)
-        for kernel, figures in chip_smoke.ptxas_report(stem, run.stdout + run.stderr).items():
-            print(f"ptxas -D{' -D'.join(defines)} {kernel}: {figures}", flush=True)
-        lib = ctypes.CDLL(str(out))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        if stem == "ed25519_staged":
-            lib.ed25519_verify_verdict.argtypes = [P] * 9 + [I, P]
-        elif stem == "dag_window":
-            lib.dag_window_consensus_commit.argtypes = [P] * 6 + [I] * 4 + [P]
-        else:
-            lib.ed25519_msm_window.argtypes = [P] * 5 + [I] * 5 + [P]
-            lib.ed25519_msm_accumulate.argtypes = [P] * 11 + [I] * 4 + [P]
-            lib.ed25519_msm_phase_times.argtypes = [P]
-        _VARIANT_LIBS[key] = lib
-    return _VARIANT_LIBS[key]
-
-
-# B7's builds with another grid, where the package's dag_commit.cuh has
-# them (threads a CTA; 16-byte words a thread before the launch takes
-# another CTA, up to 8), timed at the path's shapes.
-COMMIT_VARIANTS = (("COMMIT_THREADS=128",), ("COMMIT_THREADS=512",), ("COMMIT_THREADS=1024",),
-                   ("COMMIT_WORDS=2",), ("COMMIT_WORDS=4",),
-                   ("COMMIT_THREADS=1024", "COMMIT_WORDS=64"))
-COMMIT_PATH_SHAPES = ("consensus step", "dry run shard block", "mesh shard block")
-
-
-def commit(chip_smoke, kernel_registry, dev, timed) -> None:
+def commit(chip_smoke, dev, timed) -> None:
     """B7 at chip_smoke.COMMIT_SHAPES (the path's: the consensus step's on
     B6's masks, the dry run's and the 2 x 2 mesh's shard blocks; then the
-    rest), each held against its plain version first; then each of
-    COMMIT_VARIANTS at the path's shapes, built apart, held bit for bit
-    against the kernel and timed through its C entry point."""
+    rest), each held against its plain version first."""
     import numpy as np
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
@@ -325,7 +244,6 @@ def commit(chip_smoke, kernel_registry, dev, timed) -> None:
     rng = np.random.default_rng(16)
     host = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
     b6 = dk.reach_many(*(torch.from_numpy(a).to(dev) for a in host))
-    path = {}
     for label, b, w, m, s, offset, stakes in chip_smoke.COMMIT_SHAPES:
         t = chip_smoke.commit_inputs(rng, dev, b, w, m, s, offset, stakes,
                                      b6 if label == "consensus step" else None)
@@ -335,27 +253,6 @@ def commit(chip_smoke, kernel_registry, dev, timed) -> None:
         chip_smoke._same_bits(f"B7 {label} new_last", kl, pl)
         timed(f"B7 consensus_commit {label} B={b} W={w} M={m} S={s}",
               lambda: dk.consensus_commit(*t))
-        if label in COMMIT_PATH_SHAPES:
-            path[label] = (t, kc, kl, (b, w, m, s))
-    header = kernel_registry.CSRC / "dag_commit.cuh"
-    if not header.exists() or "COMMIT_THREADS" not in header.read_text():
-        return
-    stream = torch.cuda.current_stream().cuda_stream
-    for defines in COMMIT_VARIANTS:
-        lib = variant_lib(chip_smoke, kernel_registry, "dag_window", defines)
-        fn = lib.dag_window_consensus_commit
-        for label, (t, kc, kl, dims) in path.items():
-            out = (torch.empty_like(kc), torch.empty_like(kl))
-            ptrs = [x.data_ptr() for x in (*t, *out)]
-
-            def call():
-                if fn(*ptrs, *dims, stream) != 0:
-                    raise RuntimeError(f"B7 {defines}: the launch failed")
-
-            call()
-            chip_smoke._same_bits(f"B7 -D{defines} {label} committed", out[0], kc)
-            chip_smoke._same_bits(f"B7 -D{defines} {label} new_last", out[1], kl)
-            timed(f"B7 consensus_commit -D{' -D'.join(defines)} {label}", call)
 
 
 # B2's shapes off the main path, which the wide walk serves: (W, N, leader
@@ -682,14 +579,31 @@ def view_replay(chip_smoke, dev) -> None:
           f"launches {launches}", flush=True)
 
 
-def phases(chip_smoke, ed25519, kernel_registry, dev, t, pa, pr, tag) -> None:
+_PHASE_LIB = []
+
+
+def phases(ed25519, kernel_registry, dev, t, pa, pr, tag) -> None:
     """The chain kernel's phases (a build with -DMSM_PHASE_TIMES), launched
     with the wrappers' arguments: A2 on the bucket t, A6 on its A and R
     sets pa and pr."""
+    import ctypes
+    import subprocess
+
     import numpy as np
     import torch
 
-    lib = variant_lib(chip_smoke, kernel_registry, "ed25519_msm", ("MSM_PHASE_TIMES",))
+    if not _PHASE_LIB:
+        out = kernel_registry.BUILD_DIR / "ed25519_msm-phases.so"
+        subprocess.run([kernel_registry.nvcc(), *kernel_registry.NVCC_FLAGS, "-DMSM_PHASE_TIMES",
+                        "-o", str(out), str(kernel_registry.CSRC / "ed25519_msm.cu")],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(out))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.ed25519_msm_window.argtypes = [P] * 5 + [I] * 5 + [P]
+        lib.ed25519_msm_accumulate.argtypes = [P] * 11 + [I] * 4 + [P]
+        lib.ed25519_msm_phase_times.argtypes = [P]
+        _PHASE_LIB.append(lib)
+    lib = _PHASE_LIB[0]
     consts = ed25519._const("KERNEL_CONSTS", dev)
     stream = torch.cuda.current_stream().cuda_stream
     B = t[0].shape[0]

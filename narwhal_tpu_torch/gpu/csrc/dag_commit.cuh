@@ -5,14 +5,17 @@
 //
 // The flat [B, W, M] byte arrays (masks in, committed out; under 2^31
 // bytes) are streamed by every thread of the launch in a grid-stride loop
-// over 16-byte words, kBatch of a thread's words loaded at once:
-// byte i belongs to walk i / (W * M), column i % M and round row
-// (i / M) % W. A word inside one walk is masked whole by that walk's
-// quorum test; a word across a walk boundary byte by byte. The bytes
-// before masks' first 16-byte boundary and after its last go byte by
-// byte, and so does everything when masks and committed differ in their
-// alignment mod 16 (a view). A committed byte raises its column's best
-// row in the CTA's table; the fold takes the launch's tables and `last`.
+// over 16-byte words, kBatch of a thread's words loaded at once (the first
+// batch before the quorum is known): byte i belongs to walk i / (W * M),
+// column i % M and round row (i / M) % W. A word inside one walk is masked
+// whole by that walk's quorum test; a word across a walk boundary byte by
+// byte. The bytes before masks' first 16-byte boundary and after its last
+// go byte by byte, and so does everything when masks and committed differ
+// in their alignment mod 16 (a view), or when the launch has a thread for
+// every byte (the dry run's 64-byte blocks: a byte a thread is a short
+// loop, a word's 16 table updates a long chain). A committed byte raises
+// its column's best row in the CTA's table; the fold takes the launch's
+// tables and `last`.
 //
 // The functions are CM_HD (host and device under nvcc, plain inline C++
 // otherwise) and the CTA's barriers, its stake sum and its table updates
@@ -32,21 +35,13 @@
 
 namespace commit_mask {
 
-// A CTA's threads, and the 16-byte words a thread streams before the launch
-// takes another CTA (up to kMaxCtas): 256 and one, a CTA for each 4 KB, the
-// fastest grid over the consensus step's launches on the H100 (PERF.md:
-// 128 to 1024 threads, one to four words, one CTA of 1024 threads). Builds
-// with -DCOMMIT_THREADS= or -DCOMMIT_WORDS= set others (msm_breakdown.py
-// times them).
-#ifndef COMMIT_THREADS
-#define COMMIT_THREADS 256
-#endif
-#ifndef COMMIT_WORDS
-#define COMMIT_WORDS 1
-#endif
-constexpr int kThreads = COMMIT_THREADS;
+// A CTA's threads, and the bytes a CTA streams before the launch takes
+// another (up to kMaxCtas): 256 threads, a 16-byte word each, the fastest
+// grid over the consensus step's launches on the H100 (PERF.md: 128 to
+// 1024 threads, one to four words a thread, one CTA of 1024 threads).
+constexpr int kThreads = 256;
 constexpr int kMaxCtas = 8;  // the portable cluster size
-constexpr int kCtaBytes = 16 * kThreads * COMMIT_WORDS;
+constexpr int kCtaBytes = 16 * kThreads;
 constexpr int kBatch = 4;    // words a thread loads before it uses them
 
 // CTAs of a launch over n bytes: 1 to kMaxCtas.
@@ -80,23 +75,29 @@ CM_HD void init_best(int* best, int M, int B, int W, int t, int nt) {
   for (int p = t; p < M; p += nt) best[p] = v;
 }
 
-// The flat array's parts (n < 2^31 bytes, the wrapper checks): bytes
-// [0, head) and [tail, n) one at a time, the 16-byte words of [head, tail)
-// whole.
+// The flat array's parts (n < 2^31 bytes, the wrapper checks) for a
+// launch of G threads: bytes [0, head) and [tail, n) one at a time, the
+// 16-byte words of [head, tail) whole.
 struct Span {
   int n, head, tail;
 };
 
-CM_HD Span span_of(const void* masks, const void* committed, int n) {
+CM_HD Span span_of(const void* masks, const void* committed, int n, int G) {
   const uintptr_t a = (uintptr_t)masks, c = (uintptr_t)committed;
   Span s{n, n, n};
-  if (((a ^ c) & 15) == 0) {
+  if (((a ^ c) & 15) == 0 && n > G) {
     const int h = (int)((16 - (a & 15)) & 15);
     s.head = h < n ? h : n;
     s.tail = s.head + (n - s.head) / 16 * 16;
   }
   return s;
 }
+
+CM_HD int words_of(const Span& sp) { return (sp.tail - sp.head) / 16; }
+
+// The bytes outside the words, and the index of the e-th of them.
+CM_HD int edge_of(const Span& sp) { return sp.head + (sp.n - sp.tail); }
+CM_HD int edge_byte(const Span& sp, int e) { return e < sp.head ? e : sp.tail + (e - sp.head); }
 
 struct Dims {
   int slab;  // W * M: the bytes of a walk
@@ -168,47 +169,82 @@ CM_HD void commit_word(uint32_t v[4], uint8_t* committed, const int32_t* support
   if (set) raise_rows(best, d, i, set, mx);
 }
 
-// Thread g of the launch's G: its words, kBatch at a time (their loads and
-// their walks' support reads in flight together), then its bytes outside
-// them.
+// kBatch of a thread's words, u0, u0 + G, ..., loaded with their walks'
+// support before any is used (a word past the last reloads u0, unused);
+// in the first batch also the thread's first byte outside the words.
+struct Batch {
+  uint32_t v[kBatch][4];
+  int i[kBatch], b[kBatch];
+  int32_t support[kBatch];
+  uint8_t byte;
+  int32_t byte_support;
+};
+
+CM_HD void load_batch(const uint8_t* masks, const int32_t* support, int slab, const Span& sp,
+                      int u0, int G, Batch& x) {
+  const int words = words_of(sp);
+  if (u0 >= words) return;
+#pragma unroll
+  for (int k = 0; k < kBatch; k++) {
+    const int u = u0 + k * G;
+    x.i[k] = sp.head + 16 * (u < words ? u : u0);
+    x.b[k] = x.i[k] / slab;
+    load16(masks + x.i[k], x.v[k]);
+    x.support[k] = support[x.b[k]];
+  }
+}
+
+// Thread g of G's first batch: its words g, g + G, ... and its byte g
+// outside them, each with its walk's support.
+CM_HD void load_first(const uint8_t* masks, const int32_t* support, int slab, const Span& sp,
+                      int g, int G, Batch& x) {
+  load_batch(masks, support, slab, sp, g, G, x);
+  if (g < edge_of(sp)) {
+    const int i = edge_byte(sp, g);
+    x.byte = masks[i];
+    x.byte_support = support[i / slab];
+  }
+}
+
+// Thread g of the launch's G: its words, kBatch at a time, then its bytes
+// outside them; x holds its first batch (load_first).
 template <class Mx>
 CM_HD void commit_stream(const uint8_t* masks, uint8_t* committed, const int32_t* support,
-                         const Dims& d, const Span& sp, int* best, int g, int G,
+                         const Dims& d, const Span& sp, int* best, int g, int G, Batch& x,
                          const Mx& mx) {
-  const int words = (sp.tail - sp.head) / 16;
+  const int words = words_of(sp);
   for (int u0 = g; u0 < words; u0 += kBatch * G) {
-    uint32_t v[kBatch][4];
-    int i[kBatch], b[kBatch];
-    bool ok[kBatch];
+    if (u0 != g) load_batch(masks, support, d.slab, sp, u0, G, x);
 #pragma unroll
     for (int k = 0; k < kBatch; k++) {
-      const int u = u0 + k * G;
-      i[k] = sp.head + 16 * (u < words ? u : u0);
-      b[k] = i[k] / d.slab;
-      load16(masks + i[k], v[k]);
-      ok[k] = support[b[k]] >= d.quorum;
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; k++) {
-      if (u0 + k * G < words) commit_word(v[k], committed, support, d, i[k], b[k], ok[k], best, mx);
+      if (u0 + k * G < words)
+        commit_word(x.v[k], committed, support, d, x.i[k], x.b[k], x.support[k] >= d.quorum,
+                    best, mx);
     }
   }
-  const int edge = sp.head + (sp.n - sp.tail);
+  const int edge = edge_of(sp);
   for (int e = g; e < edge; e += G) {
-    const int i = e < sp.head ? e : sp.tail + (e - sp.head);
-    const bool c = masks[i] && support[i / d.slab] >= d.quorum;
+    const int i = edge_byte(sp, e);
+    uint8_t m = x.byte;
+    int32_t s = x.byte_support;
+    if (e != g) {
+      m = masks[i];
+      s = support[i / d.slab];
+    }
+    const bool c = m && s >= d.quorum;
     committed[i] = c;
     if (c) raise_rows(best, d, i, 1u, mx);
   }
 }
 
 // Thread t of nt of the folding CTA: new_last[p] = max(last[p], the best
-// row of column p in each of the C tables); table(c) is CTA c's.
+// row of column p in each of the C tables); table(c) is CTA c's, and
+// last_t is last[t] (read before the stream) when t < M.
 template <class Tab>
-CM_HD void fold(const int32_t* last, int32_t* new_last, int M, int C, const Tab& table, int t,
-                int nt) {
+CM_HD void fold(int32_t last_t, const int32_t* last, int32_t* new_last, int M, int C,
+                const Tab& table, int t, int nt) {
   for (int p = t; p < M; p += nt) {
-    int32_t v = last[p];
+    int32_t v = p == t ? last_t : last[p];
     for (int c = 0; c < C; c++) {
       const int b = table(c)[p];
       v = b > v ? b : v;

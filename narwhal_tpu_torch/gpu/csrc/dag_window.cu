@@ -127,15 +127,20 @@
 //   KB at B = 64, W = 64, N = 50: 0.12 us of HBM time); the launch is the
 //   cost. One launch of one thread-block cluster of up to 8 CTAs (a CTA
 //   for each 4 KB of the slab, commit_mask::ctas_for) of 256 threads:
-//   every CTA sums the S stakes (a warp reduction, then one shared add a
+//   each thread first issues its stake reads, its first four words and
+//   its first byte outside them, with their walks' support, and (CTA 0)
+//   its entry of `last`, so one global read's latency precedes the
+//   stream; every CTA sums the S stakes (a warp reduction, a shared word a
 //   warp); all the launch's threads stream the flat [B, W, M] slab in a
 //   grid-stride loop of 16-byte words, four in flight a thread
 //   (dag_commit.cuh: a word masked whole by its walk's quorum test,
-//   bytewise across a walk boundary and outside the aligned words), each
-//   committed byte raising its column's best row in its CTA's shared table
-//   (a shared atomicMax when the row is higher than the table's); after a
-//   cluster barrier CTA 0 reads the tables through distributed shared
-//   memory and writes new_last. No scratch tensor, no global atomic, and
+//   bytewise across a walk boundary, outside the aligned words, and
+//   everywhere when the launch has a thread a byte), each committed byte
+//   raising its column's best row in its CTA's shared table (a shared
+//   atomicMax when the row is higher than the table's); after a cluster
+//   barrier CTA 0 reads the tables through distributed shared memory and
+//   writes new_last (a launch of one CTA: its own table after a CTA
+//   barrier, no cluster barrier). No scratch tensor, no global atomic, and
 //   the same result in any order. A thread a column would leave one CTA of
 //   50 live threads at N = 50, each moving 4,096 single bytes.
 //
@@ -495,34 +500,54 @@ struct ClusterTables {
   }
 };
 
+// The CTA's own table (a launch of one CTA).
+struct OwnTable {
+  int* table;
+  __device__ __forceinline__ int* operator()(int) const { return table; }
+};
+
 // B7's tail: one cluster of C CTAs (see the head of this file and
-// dag_commit.cuh). Each CTA sums the stakes (the quorum), streams its share
-// of the words into its own table of column bests; after a cluster barrier
-// CTA 0 folds the C tables through distributed shared memory, and a second
-// barrier keeps every table alive until it has.
+// dag_commit.cuh). Every global read that does not wait on the quorum goes
+// out first: the thread's stakes, its first words and byte with their
+// walks' support, and in CTA 0 last[t]. Each CTA sums the stakes (a warp
+// reduction, a shared word a warp, one barrier), streams its share of the
+// words into its own table of column bests; after a cluster barrier CTA 0
+// folds the C tables through distributed shared memory, and a second
+// barrier keeps every table alive until it has. A launch of one CTA folds
+// its own table after a CTA barrier.
 __global__ void __launch_bounds__(commit_mask::kThreads)
 consensus_commit_kernel(const uint8_t* __restrict__ masks, const int32_t* __restrict__ support,
                         const int32_t* __restrict__ stakes, const int32_t* __restrict__ last,
                         uint8_t* __restrict__ committed, int32_t* __restrict__ new_last,
                         int B, int W, int M, int S) {
   extern __shared__ int s_best[];
-  __shared__ uint32_t s_total;
-  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ uint32_t s_part[commit_mask::kThreads / 32];
   const int t = threadIdx.x, nt = blockDim.x;
-  if (t == 0) s_total = 0;
-  commit_mask::init_best(s_best, M, B, W, t, nt);
-  __syncthreads();
-  const uint32_t part = __reduce_add_sync(0xffffffffu, commit_mask::stake_part(stakes, S, t, nt));
-  if ((t & 31) == 0) atomicAdd(&s_total, part);
-  __syncthreads();
+  const int g = (int)blockIdx.x * nt + t, G = (int)gridDim.x * nt;
   const int n = B * W * M;  // < 2^31: the wrapper checks
-  const commit_mask::Dims d{W * M, W, M, commit_mask::quorum_of(s_total)};
-  commit_mask::commit_stream(masks, committed, support, d,
-                             commit_mask::span_of(masks, committed, n), s_best,
-                             (int)blockIdx.x * nt + t, (int)gridDim.x * nt, SharedMax{});
+  const commit_mask::Span sp = commit_mask::span_of(masks, committed, n, G);
+  const uint32_t part = commit_mask::stake_part(stakes, S, t, nt);
+  commit_mask::Batch x;
+  commit_mask::load_first(masks, support, W * M, sp, g, G, x);
+  const int32_t last_t = (blockIdx.x == 0 && t < M) ? last[t] : 0;
+  commit_mask::init_best(s_best, M, B, W, t, nt);
+  const uint32_t warp_part = __reduce_add_sync(0xffffffffu, part);
+  if ((t & 31) == 0) s_part[t >> 5] = warp_part;
+  __syncthreads();
+  uint32_t total = 0;
+#pragma unroll
+  for (int k = 0; k < commit_mask::kThreads / 32; k++) total += s_part[k];
+  const commit_mask::Dims d{W * M, W, M, commit_mask::quorum_of(total)};
+  commit_mask::commit_stream(masks, committed, support, d, sp, s_best, g, G, x, SharedMax{});
+  if (gridDim.x == 1) {
+    __syncthreads();
+    commit_mask::fold(last_t, last, new_last, M, 1, OwnTable{s_best}, t, nt);
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   if (cluster.block_rank() == 0) {
-    commit_mask::fold(last, new_last, M, (int)cluster.num_blocks(),
+    commit_mask::fold(last_t, last, new_last, M, (int)cluster.num_blocks(),
                       ClusterTables{cluster, s_best}, t, nt);
   }
   cluster.sync();
@@ -953,8 +978,7 @@ extern "C" int dag_window_leader_support(const void* parent, const void* present
 }
 
 // B7: one cluster of commit_mask::ctas_for(B * W * M) CTAs, 4 * M bytes of
-// shared memory each; a launch of one CTA is an ordinary launch (the
-// kernel's cluster is then the CTA alone).
+// shared memory each; a launch of one CTA is an ordinary launch.
 extern "C" int dag_window_consensus_commit(const void* masks, const void* support,
                                            const void* stakes, const void* last,
                                            void* committed, void* new_last, int B, int W, int M,

@@ -300,20 +300,12 @@ struct LPt {
 // and 2q + 1 begin inside column q (13 * 2q = ceil(25.5 q) + floor(q / 2)),
 // so the lane loads those two, forms column q's loose value and carries it
 // (carry_lane): the same value mod p as fe_from13_loose, two loads a
-// coordinate. Built with -DVERDICT_WHOLE_LOAD (msm_breakdown.py times it),
-// every lane loads all 20 limbs, converts them with fe_from13_loose and
-// keeps limb q, as decompress_lanes takes y.
+// coordinate.
 template <class X>
 HD i32 load_limb(const i32* base, int B, int b, const Lane& l, const X& x) {
-#ifdef VERDICT_WHOLE_LOAD
-  fe f;
-  fe_from13_loose(f, base + b, B);
-  return limb(f, l.q);
-#else
   const int s = l.q >> 1;
   const i64 lo = base[(size_t)(2 * l.q) * B + b], hi = base[(size_t)(2 * l.q + 1) * B + b];
   return carry_lane(lo * ((i64)1 << s) + hi * ((i64)1 << (s + 13)), l, x);
-#endif
 }
 
 template <class X>
@@ -374,10 +366,8 @@ HD bool cof_lanes(const LPt& acc, const LPt& r, i32 d2, const Lane& l, const X& 
 // validity, cofactored by both. The halves are independent; the cofactored
 // one (33 operations, rounds of four) comes first, in one basic block with
 // the head of the inversion's ladder (straight-line code up to its first
-// loop of squarings), so the compiler can interleave the two chains. Built
-// with -DVERDICT_SERIAL (msm_breakdown.py times it) the strict half runs
-// first and, on the card, a __syncwarp() keeps the halves apart. Lane 0 of
-// a group with `store` stores the bits.
+// loop of squarings), so the compiler can interleave the two chains. Lane 0
+// of a group with `store` stores the bits.
 template <typename L, typename S, class X>
 HD void verdict_lanes_row(const i32* acc_pt, const i32* r_pt, const L* r_y, const S* r_sign,
                           const bool* a_valid, const bool* r_valid, i32 d2, bool* strict,
@@ -386,16 +376,8 @@ HD void verdict_lanes_row(const i32* acc_pt, const i32* r_pt, const L* r_y, cons
   fe ry;
   fe_from13(ry, r_y + (size_t)b * 20);
   const i32 rs = (i32)r_sign[b];
-#ifdef VERDICT_SERIAL
-  const bool s = strict_lanes(acc, ry, rs, l, x);
-#ifdef __CUDA_ARCH__
-  __syncwarp();
-#endif
-  const bool c = cof_lanes(acc, r, d2, l, x);
-#else
   const bool c = cof_lanes(acc, r, d2, l, x);
   const bool s = strict_lanes(acc, ry, rs, l, x);
-#endif
   if (store && l.q == 0) {
     strict[b] = s && a_valid[b];
     cof[b] = c && a_valid[b] && r_valid[b];

@@ -618,22 +618,25 @@ int main(int argc, char** argv) {
   uint8_t* masks = at(mbuf, h[4]);
   uint8_t* committed = at(cbuf, h[5]);
   std::copy(m.begin(), m.end(), masks);
-  const int C = ctas_for(n);
+  const int C = ctas_for(n), G = C * kThreads;
   std::vector<std::vector<int>> best(C, std::vector<int>(M));
   for (int c = 0; c < C; c++)
     for (int t = 0; t < kThreads; t++) init_best(best[c].data(), M, B, W, t, kThreads);
   uint32_t total = 0;  // every CTA's sum alike
   for (int t = 0; t < kThreads; t++) total += stake_part(stakes.data(), S, t, kThreads);
   const Dims d{W * M, W, M, quorum_of(total)};
-  const Span sp = span_of(masks, committed, n);
+  const Span sp = span_of(masks, committed, n, G);
   auto mx = [](int* a, int w) { if (w > *a) *a = w; };
-  for (int c = 0; c < C; c++)
-    for (int t = 0; t < kThreads; t++)
-      commit_stream(masks, committed, support.data(), d, sp, best[c].data(), c * kThreads + t,
-                    C * kThreads, mx);
+  for (int g = 0; g < G; g++) {
+    Batch x;
+    load_first(masks, support.data(), W * M, sp, g, G, x);
+    commit_stream(masks, committed, support.data(), d, sp, best[g / kThreads].data(), g, G, x,
+                  mx);
+  }
   std::vector<int32_t> new_last(M, -7);
   for (int t = 0; t < kThreads; t++)
-    fold(last.data(), new_last.data(), M, C, [&](int c) { return best[c].data(); }, t, kThreads);
+    fold(t < M ? last[t] : 0, last.data(), new_last.data(), M, C,
+         [&](int c) { return best[c].data(); }, t, kThreads);
   for (int i = 0; i < n; i++)
     if (committed[i] > 1) return 3;
   std::FILE* out = std::fopen(argv[2], "wb");
@@ -665,15 +668,9 @@ def lanes_exe(tmp_path_factory):
     return _build(tmp_path_factory, "lanes_main", LANES_MAIN, "c++20")
 
 
-# The verdict's build as the kernel's, and the two variants msm_breakdown.py
-# times (every lane loading whole coordinates; the halves one after the other).
-VERDICT_BUILDS = {"kernel": (), "variants": ("VERDICT_WHOLE_LOAD", "VERDICT_SERIAL")}
-
-
-@pytest.fixture(scope="module", params=sorted(VERDICT_BUILDS))
-def verdict_exe(tmp_path_factory, request):
-    return _build(tmp_path_factory, f"verdict_{request.param}", VERDICT_MAIN, "c++20",
-                  VERDICT_BUILDS[request.param])
+@pytest.fixture(scope="module")
+def verdict_exe(tmp_path_factory):
+    return _build(tmp_path_factory, "verdict_main", VERDICT_MAIN, "c++20")
 
 
 @pytest.fixture(scope="module")
@@ -681,18 +678,9 @@ def walk_exe(tmp_path_factory):
     return _build(tmp_path_factory, "walk_main", WALK_MAIN, "c++20")
 
 
-# B7's build as the kernel's (256 threads, a CTA for each 4 KB), and with
-# CTAs of 32 threads and 512 bytes (eight CTAs from 4 KB: the fold over
-# several tables at every shape): build -> (defines, bytes a CTA).
-COMMIT_BUILDS = {"kernel": ((), 4096),
-                 "small CTAs": (("COMMIT_THREADS=32", "COMMIT_WORDS=1"), 512)}
-
-
-@pytest.fixture(scope="module", params=sorted(COMMIT_BUILDS))
-def commit_exe(tmp_path_factory, request):
-    defines, cta_bytes = COMMIT_BUILDS[request.param]
-    exe = _build(tmp_path_factory, f"commit_{len(defines)}", COMMIT_MAIN, "c++17", defines)
-    return exe, cta_bytes
+@pytest.fixture(scope="module")
+def commit_exe(tmp_path_factory):
+    return _build(tmp_path_factory, "commit_main", COMMIT_MAIN, "c++17")
 
 
 @pytest.fixture(scope="module")
@@ -785,8 +773,7 @@ def verdict_rows():
 @pytest.fixture(scope="module")
 def verdict_jax(verdict_rows):
     """The JAX `verify_verdict_kernel` on verdict_rows, run op by op
-    (`jax.disable_jit()`, as tests/test_torch_staged.py runs it; ~13 s,
-    once for both builds)."""
+    (`jax.disable_jit()`, as tests/test_torch_staged.py runs it; ~13 s)."""
     with jax.disable_jit():
         js, jc = jk.verify_verdict_kernel(*(jnp.asarray(a) for a in verdict_rows))
     return np.asarray(js).tolist(), np.asarray(jc).tolist()
@@ -810,8 +797,7 @@ def test_lanes_verdict_matches_plain_and_jax(verdict_exe, verdict_rows, verdict_
     verdict_rows, bit for bit against `verify_verdict_plain` and the JAX
     `verify_verdict_kernel` run eagerly; in the same run `linvert` mod p
     against the one-thread `fe_invert` (in the harness) on 0, 1, p - 1 and
-    two random elements. Both builds: the kernel's, and the variants'
-    (whole-coordinate loads, the halves one after the other)."""
+    two random elements."""
     p1 = tk.int_to_limbs(2**255 - 20).reshape(-1)
     rng = np.random.default_rng(3)
     z = [np.zeros(20, np.int32), tk.int_to_limbs(1).reshape(-1), p1,
@@ -1130,21 +1116,34 @@ def test_slot_bits_round_trip_and_split_past_capacity(sync_exe, tmp_path, n):
 # -- B7: the commit mask -------------------------------------------------------
 
 # (B, W, M, S, masks' and committed's offsets past a 16-byte boundary, the
-# stakes): the consensus step's shape, the dry run's, a shard block of the
-# 2 x 2 mesh (M = 25 of S = 50), N = 200 and 1024, one walk, a slab of W * M
-# = 91 bytes 3 bytes past a boundary (walks straddle words; head and tail
-# bytes), the same with committed on another alignment (every byte alone),
-# no walk, and a stake sum that wraps int32.
+# stakes): the consensus step's shape (8 CTAs, two batches of words a
+# thread), the dry run's (one CTA, a byte a thread, its own table), the
+# same 1 byte past a boundary, a shard block of the 2 x 2 mesh (M = 25 of
+# S = 50), 2 and 3 CTAs, N = 200 and 1024 (M past a CTA's threads), one
+# walk, a slab of W * M = 91 bytes 3 bytes past a boundary (walks straddle
+# words; head and tail bytes) on one CTA and on eight, the same with
+# committed on another alignment (every byte alone), one byte, 256 bytes
+# (a byte a thread) and 257 (words and a tail byte), no walk, no row, and
+# a stake sum that wraps int32.
 COMMIT_CASES = [
     (64, 64, 50, 50, 0, 0, "small"),
     (2, 8, 4, 8, 0, 0, "small"),
+    (2, 8, 4, 8, 1, 1, "small"),
     (32, 64, 25, 50, 0, 0, "small"),
+    (5, 64, 25, 50, 0, 0, "small"),
+    (3, 64, 50, 50, 0, 0, "small"),
     (8, 64, 200, 200, 0, 0, "small"),
     (2, 16, 1024, 1024, 0, 0, "small"),
     (1, 64, 50, 50, 0, 0, "small"),
     (9, 7, 13, 13, 3, 3, "small"),
+    (400, 7, 13, 13, 3, 3, "small"),
     (9, 7, 13, 13, 5, 0, "small"),
+    (400, 7, 13, 13, 5, 0, "small"),
+    (1, 1, 1, 1, 0, 0, "small"),
+    (1, 16, 16, 16, 0, 0, "small"),
+    (1, 1, 257, 257, 0, 0, "small"),
     (0, 64, 50, 50, 0, 0, "small"),
+    (4, 0, 50, 50, 0, 0, "small"),
     (64, 64, 50, 50, 7, 7, "wrap"),
 ]
 
@@ -1152,7 +1151,7 @@ COMMIT_CASES = [
 @pytest.mark.parametrize("B,W,M,S,moff,coff,stakes", COMMIT_CASES)
 def test_commit_cta_matches_plain(commit_exe, tmp_path, B, W, M, S, moff, coff, stakes):
     """consensus_commit_kernel's launch (dag_commit.cuh's pieces, run phase
-    by phase over its CTAs and threads; COMMIT_BUILDS) against
+    by phase over its CTAs and threads) against
     `consensus_commit_plain`:
     committed and new_last bit for bit, support exactly at quorum and one
     below, `last` with negative entries, every committed byte written."""
@@ -1169,15 +1168,14 @@ def test_commit_cta_matches_plain(commit_exe, tmp_path, B, W, M, S, moff, coff, 
     payload = (np.asarray([B, W, M, S, moff, coff], np.int32).tobytes()
                + masks.astype(np.uint8).tobytes() + support.tobytes() + st.tobytes()
                + last.tobytes())
-    exe, cta_bytes = commit_exe
-    out = _run(exe, [], payload, tmp_path)
+    out = _run(commit_exe, [], payload, tmp_path)
     C = int(np.frombuffer(out[:4], np.int32)[0])
     n = B * W * M
     committed = np.frombuffer(out[4:4 + n], np.uint8).reshape(B, W, M).astype(bool)
     new_last = np.frombuffer(out[4 + n:], np.int32)
     pc, pl = td.consensus_commit_plain(*(torch.from_numpy(a) for a in (masks, support, st, last)))
     assert np.array_equal(committed, pc.numpy()) and np.array_equal(new_last, pl.numpy())
-    assert C == min(8, max(1, -(-n // cta_bytes)))
-    if B > 1:
+    assert C == min(8, max(1, -(-n // 4096)))
+    if B > 1 and W > 0:
         assert committed[0].any() and not committed[1].any()  # at quorum; one below
         assert (new_last != last).any()
