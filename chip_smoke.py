@@ -34,20 +34,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             torsion, forged, zero and random-limb rows), and A5 alone at
             those B and 2048 (R from the plain A3's loose limbs, rows of
             random limbs, validity bits flipped);
-            leader_support at B = 64 (rows 0 and W - 1 among the offsets),
+            leader_support at B = 64 (rows 0 and W - 1 among the offsets;
+            then an out-of-range offset and an out-of-range leader, each
+            raising the CPU's ValueError from the kernel's error words, the
+            call's other walks equal to the plain version without it),
             consensus_commit at COMMIT_SHAPES (B6's K = 64 masks, the dry
             run's and the 2 x 2 mesh's shard blocks, N = 200 and 1024, one
             walk, an unaligned slab and a misaligned view, a wrapping stake
-            sum; support at quorum and one below), one launch each,
-            reach_shard_step on one shard of 2 and of 4
-            (N = 50 padded to 52); sharded_walk over 2 and 4 shards of the
-            card on the "cluster" route and on "peer" forced (a launch per
-            shard), against its plain version, chain_commit (chain mode,
-            K = 1, 2, 4 on the healed-partition chains) and reach_many
-            (many mode, K = 64 at W = 64 and 128), and the compositions
-            chain_commit_sharded / reach_many_sharded on every route
-            (rowstep included) against B2 / B6; then a missing peer (one of
-            two peer launches issued, a 100 ms deadline) must raise), with
+            sum; support at quorum and one below), one launch each;
+            sharded_walk over 2 and 4 shards of the card (N = 50 padded
+            to 52) on the "cluster" route and on "peer" and "host" forced
+            (a launch per shard), against its plain version, chain_commit
+            (chain mode, K = 1, 2, 4 on the healed-partition chains) and
+            reach_many (many mode, K = 64 at W = 64 and 128), and the
+            compositions chain_commit_sharded / reach_many_sharded on every
+            route against B2 / B6; one exchange of each of "peer" and
+            "host" reused across modes and walk counts; then a missing peer
+            (one of two launches issued, a 100 ms deadline) must raise on
+            both), with
             kernel / plain / library times from CUDA events (median of
             repeats; for msm_accumulate and msm_window also
             torch.profiler's device time by launch and ptxas's figures).
@@ -70,10 +74,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             or the one card twice, on the engine phase's stream: the same
             sequence as the host Bullshark and the unmeshed card engine,
             through the sharded walk only (chain_commit and window_sync
-            launch 0 times): on the "cluster" route (one card)
-            or "peer" (cards with peer access) one sharded_walk launch per
-            card per commit event and no reach_shard_step; on "rowstep"
-            reach_shard_step. Certificates/s beside the engine's;
+            launch 0 times): one sharded_walk launch per card per commit
+            event on the mesh's route ("cluster" on one card, "peer" or
+            "host" across cards); then the same on the "host" route forced
+            where the mesh's is another, counted apart. Certificates/s
+            beside the engine's;
   pipeline  FusedCertificatePipeline (strict item lane) on the card,
             continuing the engine phase's engine, over a fully signed
             N = 50 stream of the next 12 rounds (600 certificates x 50
@@ -126,20 +131,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             consensus_commit), then over a 2 x 2 data x auth mesh (four
             cards, or the card four times: the mesh's route, the path's
             launches read just after it; then the other routes forced,
-            "rowstep" included, each counted apart): every output equal;
+            "host" included, each counted apart): every output equal;
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
 Launch counts are set to 0 just before each of the ten paths and read
 just after it, and each path must have launched the kernels it names
-(PATH_KERNELS; the sharded walk's kernel by the mesh's route, which the
-script prints), and a path that syncs a device window may launch
-window_sync at most once per view that rolls or places, more only for a
-sync past a parameter block (the views and those launches are counted
-where they happen, beside the launch counts, and printed). Then one JSON
-line with every kernel's numbers (launches summed over the paths and per
-path; the consensus_step phase's forced
-routes apart, under "forced_route_launches"), and as the last line
+(PATH_KERNELS; the script prints the sharded walk's route), and a path
+that syncs a device window may launch window_sync at most once per view
+that rolls or places, more only for a sync past a parameter block (the
+views and those launches are counted where they happen, beside the launch
+counts, and printed). Then one JSON line with every kernel's numbers
+(launches summed over the paths and per path; the consensus_step phase's
+forced routes apart, under "forced_route_launches"), and as the last line
 {"ok": true, "device": {...}}.
 
 The script needs a CUDA card: without one it exits 2 before printing any
@@ -175,10 +179,6 @@ GC_DEPTH = 50  # the reference default (config.py Parameters.gc_depth)
 W = GC_DEPTH + 14  # the engine's window
 BUCKET = 2048  # the verifier's fixed bucket
 
-# The kernel of the sharded walk on each route (narwhal_tpu_torch/gpu/mesh.py
-# walk_route): "walk" in PATH_KERNELS stands for it.
-WALK_KERNEL = {"cluster": "sharded_walk", "peer": "sharded_walk", "rowstep": "reach_shard_step"}
-
 # The kernels each driven path must launch (counts from 0 just before it).
 PATH_KERNELS = {
     "engine": ("window_sync", "chain_commit"),
@@ -189,9 +189,9 @@ PATH_KERNELS = {
     "dag_service": ("reach_many", "window_sync"),
     "sharded": ("verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                 "msm_shard_reduce"),
-    "dag_shards": ("walk",),
-    "consensus_step": ("reach_many", "leader_support", "consensus_commit", "walk"),
-    "dryrun": ("reach_many", "walk", "leader_support", "consensus_commit",
+    "dag_shards": ("sharded_walk",),
+    "consensus_step": ("reach_many", "leader_support", "consensus_commit", "sharded_walk"),
+    "dryrun": ("reach_many", "sharded_walk", "leader_support", "consensus_commit",
                "verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                "msm_shard_reduce"),
 }
@@ -286,18 +286,16 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
 PATH_SYNCS: dict[str, dict] = {}
 
 
-def require_launches(path: str, launches: dict, device, route: str | None = None) -> None:
+def require_launches(path: str, launches: dict, device) -> None:
     """Fail unless every kernel the path names launched on it (on the card;
-    a CPU rehearsal launches nothing); "walk" is the sharded walk's kernel
-    on `route`. A path that syncs a window may launch window_sync at most
-    once a view that rolls or places, more only for a sync past a parameter
-    block: launches <= views + the launches past a sync's first (the event
-    counts, read with the launches)."""
+    a CPU rehearsal launches nothing). A path that syncs a window may
+    launch window_sync at most once a view that rolls or places, more only
+    for a sync past a parameter block: launches <= views + the launches
+    past a sync's first (the event counts, read with the launches)."""
     from narwhal_tpu_torch.gpu import dag_kernels as dk
     from narwhal_tpu_torch.gpu import kernel_registry
 
     for k in PATH_KERNELS[path]:
-        k = WALK_KERNEL[route] if k == "walk" else k
         if device.type == "cuda" and launches[k] <= 0:
             raise AssertionError(f"{path}: {k} never launched")
     if "window_sync" in PATH_KERNELS[path]:
@@ -1571,6 +1569,12 @@ def support_inputs(rng: np.random.Generator, w: int, n: int, b: int, density: fl
 
 
 def check_leader_support(device, n: int, w: int):
+    """B5 at the consensus step's shape against its plain version, then its
+    range check: an offset outside the window and a leader outside the
+    link columns, each in a call of the same walks, raise the CPU's
+    ValueError (the lowest bad walk named) from the kernel's error words,
+    and the other walks of that call are the plain version's. Timed, with
+    the device time of one call."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
@@ -1582,8 +1586,33 @@ def check_leader_support(device, n: int, w: int):
         raise AssertionError("leader_support: kernel != plain")
     if tuple(got.shape) != (64,) or not 0 < int(got.min()) < int(got.max()):
         raise AssertionError(f"leader_support: sums {got.tolist()}")
+    for what, bad_offs, bad_leaders in (("offset", (w, -1), None), ("leader", None, (n, -3))):
+        o, l = offs.copy(), leaders.copy()
+        for b, v in zip((41, 17), bad_offs or bad_leaders):
+            (o if bad_offs else l)[b] = v
+        messages = []
+        for dev in ("cpu", device):
+            bt = [torch.from_numpy(a).to(dev) for a in (parent, present, stakes, o, l)]
+            try:
+                dk.leader_support(*bt)
+            except ValueError as e:
+                messages.append(str(e))
+            else:
+                raise AssertionError(f"leader_support: an out-of-range {what} on {dev} did "
+                                     "not raise")
+        if messages[0] != messages[1] or "walk 17 " not in messages[0]:
+            raise AssertionError(f"leader_support: out-of-range {what}: {messages}")
+        if device.type == "cuda":  # the call's in-range walks, read past the raise
+            bt = [torch.from_numpy(a).to(device) for a in (parent, present, stakes, o, l)]
+            part, _check = dk._leader_support(*bt)
+            keep = torch.ones(64, dtype=torch.bool)
+            keep[[17, 41]] = False
+            if not torch.equal(part.cpu()[keep], want.cpu()[keep]) or bool(part[[17, 41]].any()):
+                raise AssertionError(f"leader_support: the in-range walks of a call with an "
+                                     f"out-of-range {what} differ")
     log(f"leader_support W={w} N={n} B=64 (rows 0 and {w - 1} among the offsets): "
-        f"kernel == plain, support {int(got.min())}..{int(got.max())}")
+        f"kernel == plain, support {int(got.min())}..{int(got.max())}; an out-of-range "
+        f"offset and leader each raise as on the CPU: {messages[1]}")
     ms = time_ms(lambda: dk.leader_support(*t), device, reps=50)
     plain_ms = time_ms(lambda: dk.leader_support_plain(*t), device, reps=20)
     # Per walk its parent column (N bytes) and offset and leader read, its
@@ -1592,7 +1621,9 @@ def check_leader_support(device, n: int, w: int):
     b, by = bound_ms(nbytes)
     return {"name": "leader_support", "max_abs_err": int((got - want).abs().max()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, "shape": f"W={w} N={n} B=64"}
+            "library_ms": None, "shape": f"W={w} N={n} B=64",
+            "extra": {"device_ms": device_breakdown(lambda: dk.leader_support(*t),
+                                                     device)[1].get("leader_support_kernel")}}
 
 
 # B7's shapes (label, B, W, M, S, masks' offset past a 16-byte boundary,
@@ -1683,79 +1714,6 @@ def check_consensus_commit(device, n: int, w: int):
                                                      device)[0]}}
 
 
-def shard_step_inputs(rng: np.random.Generator, w: int, n: int, auth: int, k: int, row: int):
-    """One shard's operands of a reach_shard_step at `row`: shard 1 of the
-    committee axis padded to a multiple of `auth`, a healed-partition
-    window, lc and lcr as a chain leaves them, K walks starting above the
-    row (with K > 1 one at the row itself, on a column of the shard) and a
-    random frontier of the row above."""
-    parent, present, lc, lcr, _o, _h = healed_partition_chain(rng, w, n, GC_DEPTH, 1, 1)
-    npad = -(-n // auth) * auth
-    m = npad // auth
-    parent = np.pad(parent, ((0, 0), (0, npad - n), (0, npad - n)))
-    present = np.pad(present, ((0, 0), (0, npad - n)))
-    lc = np.pad(lc, (0, npad - n))
-    cols = slice(m, 2 * m)
-    offs = rng.integers(row + 1, w, k).astype(np.int32)
-    onehots = np.zeros((k, npad), np.uint8)
-    onehots[np.arange(k), rng.integers(0, npad, k)] = 1
-    if k > 1:
-        offs[0] = row
-        onehots[0] = 0
-        onehots[0, m + 1] = present[row, m + 1] = 1
-    frontier = (rng.random((k, npad)) < 0.3).astype(np.uint8)
-    frontier[:, n:] = 0
-    committed = np.full((k, m), -(2**30), np.int32)
-    committed[:, ::3] = row + 1
-    return (np.ascontiguousarray(parent[..., cols]), np.ascontiguousarray(present[:, cols]),
-            np.ascontiguousarray(lc[cols]), frontier, offs,
-            np.ascontiguousarray(onehots[:, cols]), np.array([lcr], np.int32),
-            np.zeros((k, w, m), bool), committed)
-
-
-def check_reach_shard_step(device, n: int, w: int, gc_depth: int = GC_DEPTH):
-    """The step kernel of the "rowstep" route against its plain version on
-    one shard of `auth` in {2, 4} (N = 50 padded to 52 over 4)."""
-    import torch
-    from narwhal_tpu_torch.gpu import dag_kernels as dk
-
-    rng = np.random.default_rng(17)
-    out, err = None, 0
-    for auth, k in ((2, 1), (4, 16)):
-        row = w - 8
-        host = shard_step_inputs(rng, w, n, auth, k, row)
-        t = [torch.from_numpy(a).to(device) for a in host]
-        kt, pt = [x.clone() for x in t], [x.clone() for x in t]
-        kf = dk.reach_shard_step(*kt, row, gc_depth)
-        pf = dk.reach_shard_step_plain(*pt, row, gc_depth)
-        for name, a, b in (("frontier", kf, pf), ("masks", kt[7], pt[7]),
-                           ("committed", kt[8], pt[8])):
-            err = max(err, int((a.int() - b.int()).abs().max()))
-            if not torch.equal(a, b):
-                raise AssertionError(f"reach_shard_step auth={auth} K={k}: {name} kernel != plain")
-        if not kf.any() or torch.equal(kt[8], t[8]):
-            raise AssertionError(f"reach_shard_step auth={auth} K={k}: the step reached nothing")
-        log(f"reach_shard_step auth={auth} K={k} (N={n} padded to {-(-n // auth) * auth}): "
-            f"step == plain")
-        if auth != 2:
-            continue
-        ms = time_ms(lambda: dk.reach_shard_step(*kt, row, gc_depth), device, reps=50)
-        plain_ms = time_ms(lambda: dk.reach_shard_step_plain(*pt, row, gc_depth), device,
-                           reps=20)
-        m, npad = host[1].shape[1], host[3].shape[1]
-        # Parent row w + 1's block, the present row, lc, the frontier, offs,
-        # one-hots and lcr read; the mask row, the frontier block and
-        # committed written.
-        nbytes = (npad * m + m + 4 * m + k * npad + 4 * k + k * m + 4
-                  + k * m + k * m + 4 * k * m)
-        b, by = bound_ms(nbytes)
-        out = {"name": "reach_shard_step", "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b, "bound_by": by, "library_ms": None,
-               "shape": f"W={w} N={n} auth=2 (25 columns a shard) K={k} row {row}"}
-    out["max_abs_err"] = err
-    return out
-
-
 def walk_blocks(auth: int, parent, present, lc, onehots):
     """numpy operands of sharded_walk over `auth` shards: the committee axis
     padded to a multiple of `auth` with absent slots, then cut into column
@@ -1783,19 +1741,22 @@ def unblock(masks, n: int):
 def walk_routes(device) -> tuple:
     """The walk routes a device can be forced onto: all three on the card;
     on the CPU (a rehearsal) the peer exchange has no form."""
-    return ("cluster", "peer", "rowstep") if device.type == "cuda" else ("cluster", "rowstep")
+    return ("cluster", "peer", "host") if device.type == "cuda" else ("cluster", "host")
 
 
-def walk_peer(mesh, ops, gc_depth: int, lcr: int, chain: bool, **kw):
-    """sharded_walk on the "peer" route over the mesh's first auth row (on
-    one card repeated, forced: each slot its own launch, stream and
-    exchange buffer; over cards with peer access, a launch per card).
-    `ops` are the cluster form's tensors on one card; returns the masks in
-    that form, on that card."""
+EXCHANGE_ROUTES = ("peer", "host")  # the routes whose launches exchange across cards
+
+
+def walk_exchange(mesh, ops, gc_depth: int, lcr: int, chain: bool, route: str = "peer", **kw):
+    """sharded_walk on an exchange route ("peer" or "host") over the mesh's
+    first auth row (on one card repeated, forced: each slot its own launch,
+    stream and exchange buffer; over cards, a launch per card). `ops` are
+    the cluster form's tensors on one card; returns the masks in that form,
+    on that card."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
 
-    ex = mesh.walk(0, "peer")
+    ex = mesh.walk(0, route)
     parent, present, lc, offs, onehots = ops
     cut = (lambda t: None if t is None else [t[s].to(d) for s, d in zip(ex.groups, ex.devices)])
     whole = (lambda t: [t.to(d) for d in ex.devices])
@@ -1820,18 +1781,20 @@ def walk_bytes(w: int, npad: int, offs, onehots, k: int) -> int:
 def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
     """sharded_walk against its plain version and against B2 / B6 over
     `auth` in {2, 4} shards of this card (N = 50 padded to 52 over 4), on
-    the "cluster" route and on "peer" forced on the card repeated: chain
-    mode at K = 1, 2, 4 on the healed-partition chains (a padding slot at
-    K = 4), many mode at K = 64 on the sparse read windows (W and 2W); and
-    the compositions chain_commit_sharded / reach_many_sharded on every
-    route (rowstep included) against chain_commit / reach_many. Bit-equal."""
+    the "cluster" route and on "peer" and "host" forced on the card
+    repeated: chain mode at K = 1, 2, 4 on the healed-partition chains (a
+    padding slot at K = 4), many mode at K = 64 on the sparse read windows
+    (W and 2W); and the compositions chain_commit_sharded /
+    reach_many_sharded on every route against chain_commit / reach_many.
+    Bit-equal."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     rng = np.random.default_rng(19)
     routes = walk_routes(device)
-    out, err, extra = None, 0, {"walk_routes": [r for r in routes if r != "rowstep"]}
+    out, err, extra = None, 0, {"walk_routes": list(routes)}
+    exchanges = EXCHANGE_ROUTES if device.type == "cuda" else ()  # card tensors only
 
     def same(what, got, want):
         nonlocal err
@@ -1852,9 +1815,9 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
             same(f"chain auth={auth} K={K} cluster against plain", km,
                  dk.sharded_walk_plain(*ops, gc_depth, lcr, True))
             same(f"chain auth={auth} K={K} cluster against chain_commit", unblock(km, n), want)
-            if "peer" in routes:
-                same(f"chain auth={auth} K={K} peer against cluster",
-                     walk_peer(mesh, ops, gc_depth, lcr, True), km)
+            for route in exchanges:
+                same(f"chain auth={auth} K={K} {route} against cluster",
+                     walk_exchange(mesh, ops, gc_depth, lcr, True, route), km)
             for route in routes:
                 same(f"chain_commit_sharded auth={auth} K={K} {route}",
                      dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc, lcr, offs,
@@ -1863,9 +1826,10 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
                 args = (*ops, gc_depth, lcr, True)
                 ms = time_ms(lambda: dk.sharded_walk(*args), device, reps=50)
                 plain_ms = time_ms(lambda: dk.sharded_walk_plain(*args), device, reps=3)
-                if "peer" in routes:
-                    extra["peer_ms"] = time_ms(
-                        lambda: walk_peer(mesh, ops, gc_depth, lcr, True), device, reps=20)
+                for route in exchanges:
+                    extra[f"{route}_ms"] = time_ms(
+                        lambda: walk_exchange(mesh, ops, gc_depth, lcr, True, route),
+                        device, reps=20)
                 extra["chain_commit_ms_same_inputs"] = time_ms(
                     lambda: dk.chain_commit(ct[0], ct[1], gc_depth, ct[2], lcr, ct[3], ct[4]),
                     device, reps=50)
@@ -1873,7 +1837,7 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
                     extra[f"chain_commit_sharded_ms_{route}"] = time_ms(
                         lambda: dk.chain_commit_sharded(mesh, parent, present, gc_depth, lc,
                                                         lcr, offs, onehots, route=route),
-                        device, reps=5 if route == "rowstep" else 20)
+                        device, reps=20)
                 top = int(offs.max())
                 b, by = bound_ms(walk_bytes(w, n, offs, onehots, K))
                 # The time a row costs, measured: the slope between this walk
@@ -1897,9 +1861,9 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
             same(f"many auth={auth} W={ww} cluster against plain", km,
                  dk.sharded_walk_plain(*ops, 0, -(2**30), False))
             same(f"many auth={auth} W={ww} cluster against reach_many", unblock(km, n), want)
-            if "peer" in routes:
-                same(f"many auth={auth} W={ww} peer against cluster",
-                     walk_peer(mesh, ops, 0, -(2**30), False), km)
+            for route in exchanges:
+                same(f"many auth={auth} W={ww} {route} against cluster",
+                     walk_exchange(mesh, ops, 0, -(2**30), False, route), km)
             for route in routes:
                 same(f"reach_many_sharded auth={auth} W={ww} {route}",
                      dk.reach_many_sharded(mesh, *rin, route=route), want)
@@ -1914,13 +1878,14 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
                 for route in routes:
                     extra[f"reach_many_sharded_ms_{route}"] = time_ms(
                         lambda: dk.reach_many_sharded(mesh, *rin, route=route), device,
-                        reps=2 if route == "rowstep" else 10)
+                        reps=10)
         log(f"sharded_walk auth={auth} (N={n} padded to {-(-n // auth) * auth}): == plain, "
             f"== chain_commit (K 1, 2, 4) and == reach_many (K 64, W {w} and {2 * w}) on "
             f"{extra['walk_routes']}; the compositions == B2 / B6 on {list(routes)}")
     per_route = (lambda what: " / ".join(f"{extra[f'{what}_ms_{r}']:.4f}" for r in routes))
-    log(f"sharded_walk: chain K=1 {out['ms']:.4f} ms (cluster), peer (a launch a shard on the "
-        f"card) {extra.get('peer_ms', float('nan')):.4f} ms; "
+    log(f"sharded_walk: chain K=1 {out['ms']:.4f} ms (cluster), peer / host (a launch a shard "
+        f"on the card) {extra.get('peer_ms', float('nan')):.4f} / "
+        f"{extra.get('host_ms', float('nan')):.4f} ms; "
         f"B2 {extra['chain_commit_ms_same_inputs']:.4f} ms; "
         f"many K=64 {extra['many_ms_k64']:.4f} ms (B6 {extra['reach_many_ms_same_inputs']:.4f}); "
         f"bound {out['bound_ms']:.7f} ms ({out['bound_by']}); measured {extra['row_ms']:.5f} ms "
@@ -1932,9 +1897,10 @@ def check_sharded_walk(device, n: int, w: int, gc_depth: int = GC_DEPTH):
     return out
 
 
-def check_peer_reuse(device, n: int = 50, w: int = 64, devices=None) -> list:
-    """One peer exchange over 4 shards of the card (forced), or over
-    `devices` (cards with peer access, the row's own route), reused by calls
+def check_peer_reuse(device, n: int = 50, w: int = 64, devices=None,
+                     route: str = "peer") -> list:
+    """One exchange of `route` ("peer" or "host") over 4 shards of the card
+    (forced), or over `devices` (cards), reused by calls
     that change mode and walk count, each on fresh inputs: many mode at
     K = 64 (the buffers laid out for 64 walk slots), chain mode (one slot),
     many at K = 64, many at K = 5, chain again. Each result must equal B6 /
@@ -1953,25 +1919,26 @@ def check_peer_reuse(device, n: int = 50, w: int = 64, devices=None) -> list:
         if mode == "many":
             rin = reach_many_inputs(rng, w, n, K, K - 2)
             want = dk.reach_many(*(torch.from_numpy(a).to(device) for a in rin))
-            got = dk.reach_many_sharded(mesh, *rin, route="peer").to(device)
+            got = dk.reach_many_sharded(mesh, *rin, route=route).to(device)
         else:
             parent, present, lc, lcr, offs, onehots = healed_partition_chain(
                 rng, w, n, GC_DEPTH, K, K - 1)
             t = [torch.from_numpy(a).to(device) for a in (parent, present, lc, offs, onehots)]
             want = dk.chain_commit(t[0], t[1], GC_DEPTH, t[2], lcr, t[3], t[4])
             got = dk.chain_commit_sharded(mesh, parent, present, GC_DEPTH, lc, lcr, offs,
-                                          onehots, route="peer").to(device)
+                                          onehots, route=route).to(device)
         if not (bool(want.any()) and torch.equal(got, want)):
-            raise AssertionError(f"sharded_walk: the reused peer exchange differs at {mode} "
+            raise AssertionError(f"sharded_walk: the reused {route} exchange differs at {mode} "
                                  f"K={K}")
-    log(f"sharded_walk: one peer exchange over {[str(d) for d in devices]} reused by {seq}: "
+    log(f"sharded_walk: one {route} exchange over {[str(d) for d in devices]} reused by {seq}: "
         f"each == B6 / B2")
     return seq
 
 
-def check_walk_deadline(device, n: int = 50, w: int = 64, timeout_ms: int = 100):
-    """A missing peer: only slot 0 of a forced peer route launched, with a
-    short deadline. The call must raise RuntimeError within the deadline
+def check_walk_deadline(device, n: int = 50, w: int = 64, timeout_ms: int = 100,
+                        route: str = "peer"):
+    """A missing peer: only slot 0 of a forced exchange route (`route`)
+    launched, with a short deadline. The call must raise RuntimeError within the deadline
     (plus the host's own wait), and the exchange must work again after."""
     import torch
     from narwhal_tpu_torch.gpu import dag_kernels as dk
@@ -1985,17 +1952,18 @@ def check_walk_deadline(device, n: int = 50, w: int = 64, timeout_ms: int = 100)
     want = dk.sharded_walk(*ops, GC_DEPTH, lcr, True)
     t0 = time.perf_counter()
     try:
-        walk_peer(mesh, ops, GC_DEPTH, lcr, True, launch=[0], timeout_ms=timeout_ms)
+        walk_exchange(mesh, ops, GC_DEPTH, lcr, True, route, launch=[0], timeout_ms=timeout_ms)
     except RuntimeError as e:
         wall = time.perf_counter() - t0
-        log(f"sharded_walk: a missing peer raised after {wall * 1e3:.1f} ms "
+        log(f"sharded_walk: a missing peer on {route} raised after {wall * 1e3:.1f} ms "
             f"(deadline {timeout_ms} ms): {e}")
     else:
-        raise AssertionError("sharded_walk: a missing peer did not raise")
+        raise AssertionError(f"sharded_walk: a missing peer on {route} did not raise")
     if wall > timeout_ms / 1e3 + 2.0:
-        raise AssertionError(f"sharded_walk: a missing peer took {wall:.3f} s to raise")
-    if not torch.equal(walk_peer(mesh, ops, GC_DEPTH, lcr, True), want):
-        raise AssertionError("sharded_walk: the peer route differs after a missed deadline")
+        raise AssertionError(f"sharded_walk: a missing peer on {route} took {wall:.3f} s to "
+                             "raise")
+    if not torch.equal(walk_exchange(mesh, ops, GC_DEPTH, lcr, True, route), want):
+        raise AssertionError(f"sharded_walk: the {route} route differs after a missed deadline")
     return wall
 
 
@@ -2012,7 +1980,6 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
         check_reach_many(device, n, w),
         check_leader_support(device, n, w),
         check_consensus_commit(device, n, w),
-        check_reach_shard_step(device, n, w),
         check_sharded_walk(device, n, w),
     ]
     shapes_err = check_msm_shapes(device) if device.type == "cuda" else 0
@@ -2023,8 +1990,9 @@ def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_re
             r["max_abs_err"] = max(r["max_abs_err"], shapes_err)
         r["max_abs_err"] = max(r["max_abs_err"], sizes_err.get(r["name"], 0))
     if device.type == "cuda":
-        check_peer_reuse(device, n, w)
-        check_walk_deadline(device, n, w)
+        for route in EXCHANGE_ROUTES:
+            check_peer_reuse(device, n, w, route=route)
+            check_walk_deadline(device, n, w, route=route)
     by_name = {r["name"]: r for r in rows}
     # B4 and B3 are window_sync's wrappers: their numbers ride on its row
     sync = by_name["window_sync"]
@@ -2129,7 +2097,7 @@ def engine_stream(f, rounds: int, seed: int):
 
 
 def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_state,
-                mesh=None):
+                mesh=None, label=None):
     """Drive `engine_cls` (GpuBullshark or GpuTusk) on `device`, or on
     `mesh` when given, over `certs`, one round per process_batch_async
     call, with the launch counts set to 0 just before and read just after.
@@ -2137,7 +2105,8 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
     `ref_state`) and the host engine's (`host_cls`); the window must grow
     and slide, and a chain of 3+ leaders commit in one event. Returns the
     engine, its state and outputs, the launch counts, the certificates per
-    second and the number of commit events."""
+    second and the number of commit events. `label` names the run in its
+    messages (default `path`, whose kernels it must launch)."""
     import torch
     from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.gpu import kernel_registry
@@ -2145,6 +2114,7 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
     from narwhal_tpu_torch.types import Certificate
 
     n = f.committee.size()
+    name = label or path
     state = ConsensusState(Certificate.genesis(f.committee))
     where = {"device": device} if mesh is None else {"mesh": mesh}
     eng = engine_cls(f.committee, NodeStorage(None).consensus_store, gc, **where)
@@ -2172,18 +2142,18 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
 
     seq = [(o.certificate.digest, o.consensus_index) for o in out]
     if seq != [(o.certificate.digest, o.consensus_index) for o in ref_out]:
-        raise AssertionError(f"{path}: commit sequence differs from the CPU engine")
+        raise AssertionError(f"{name}: commit sequence differs from the CPU engine")
     if seq != host_sequence(host_cls, f, certs, gc):
-        raise AssertionError(f"{path}: commit sequence differs from the host {host_cls.__name__}")
+        raise AssertionError(f"{name}: commit sequence differs from the host {host_cls.__name__}")
     if state.last_committed != ref_state.last_committed:
-        raise AssertionError(f"{path}: last_committed differs from the CPU engine")
+        raise AssertionError(f"{name}: last_committed differs from the CPU engine")
     if max_w <= w0 or eng.win.round_base == 0:
-        raise AssertionError(f"{path}: the window must grow and slide (W {max_w}, "
+        raise AssertionError(f"{name}: the window must grow and slide (W {max_w}, "
                              f"base {eng.win.round_base})")
     if max(chains) < 3:
-        raise AssertionError(f"{path}: no chain of 3+ leaders (max K {max(chains)})")
-    require_launches(path, launches, device, mesh.routes[0] if mesh is not None else None)
-    log(f"{path}: N={n}, {certs[-1].round} rounds, {len(certs)} certificates, {len(out)} "
+        raise AssertionError(f"{name}: no chain of 3+ leaders (max K {max(chains)})")
+    require_launches(path, launches, device)
+    log(f"{name}: N={n}, {certs[-1].round} rounds, {len(certs)} certificates, {len(out)} "
         f"committed (== CPU engine == host {host_cls.__name__}), window grew to W={max_w} "
         f"and slid to base {eng.win.round_base}; {len(chains)} commit events, chain "
         f"lengths {sorted(set(chains))}; {wall:.3f} s host wall, {len(certs) / wall:.1f} "
@@ -2255,37 +2225,48 @@ def phase_dag_shards(device, f, ctx, gc=GC_DEPTH):
     """GpuBullshark(mesh=auth_mesh(2, ...)) (`--dag-shards 2`) over the
     engine phase's stream: its sequence must equal the host Bullshark's and
     the unmeshed card engine's, through the sharded walk only (chain_commit
-    and window_sync launch 0 times). On the "cluster" and
-    "peer" routes that is one sharded_walk launch per card per commit
-    event, and no reach_shard_step."""
+    and window_sync launch 0 times), one sharded_walk launch per card (per
+    group of the route's exchange) per commit event. Then, where the mesh's
+    route is another, the same on the "host" route forced (the engine walks
+    on its mesh's route), counted apart."""
     from narwhal_tpu_torch.consensus import Bullshark
     from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
-    mesh = auth_mesh(2, devices=mesh_devices(device, 2))
-    route = mesh.routes[0]
-    cards = len(mesh.walk(0).groups)
-    log(f"dag_shards: auth mesh over {[str(d) for d in mesh.rows('auth')[0]]}, route {route}")
-    _eng, state, _out, launches, rate, events = engine_path(
-        "dag_shards", device, f, GpuBullshark, Bullshark, ctx["certs"], gc,
-        ctx["ref_out"], ctx["ref_state"], mesh=mesh)
-    if state.last_committed != ctx["state"].last_committed:
-        raise AssertionError("dag_shards: last_committed differs from the unmeshed card engine")
-    for k in ("chain_commit", "window_sync"):
-        if launches[k]:
-            raise AssertionError(f"dag_shards: {k} launched {launches[k]} times on the meshed "
+    def run(forced=None):
+        mesh = auth_mesh(2, devices=mesh_devices(device, 2))
+        if forced is not None:
+            mesh.routes = [forced]
+        route = mesh.routes[0]
+        label = "dag_shards" if forced is None else f"dag_shards ({forced} forced)"
+        groups = len(mesh.walk(0).groups)
+        log(f"{label}: auth mesh over {[str(d) for d in mesh.rows('auth')[0]]}, route {route}")
+        _eng, state, _out, launches, rate, events = engine_path(
+            "dag_shards", device, f, GpuBullshark, Bullshark, ctx["certs"], gc,
+            ctx["ref_out"], ctx["ref_state"], mesh=mesh, label=label)
+        if state.last_committed != ctx["state"].last_committed:
+            raise AssertionError(f"{label}: last_committed differs from the unmeshed card "
                                  "engine")
-    if device.type == "cuda" and route != "rowstep":
-        if launches["sharded_walk"] != cards * events or launches["reach_shard_step"]:
-            raise AssertionError(
-                f"dag_shards: {launches['sharded_walk']} sharded_walk and "
-                f"{launches['reach_shard_step']} reach_shard_step launches for {events} "
-                f"commit events on {cards} card(s)")
-    log(f"dag_shards: route {route}, {events} commit events, {launches['sharded_walk']} "
-        f"sharded_walk launches; {rate:.1f} certificates/s against the unmeshed engine's "
-        f"{ctx['certificates_per_s']:.1f}")
-    return {"launches": launches, "certificates_per_s": rate, "route": route,
-            "commit_events": events, "devices": [str(d) for d in mesh.rows("auth")[0]]}
+        for k in ("chain_commit", "window_sync"):
+            if launches[k]:
+                raise AssertionError(f"{label}: {k} launched {launches[k]} times on the "
+                                     "meshed engine")
+        if device.type == "cuda" and launches["sharded_walk"] != groups * events:
+            raise AssertionError(f"{label}: {launches['sharded_walk']} sharded_walk launches "
+                                 f"for {events} commit events on {groups} launch group(s)")
+        log(f"{label}: route {route}, {events} commit events, {launches['sharded_walk']} "
+            f"sharded_walk launches; {rate:.1f} certificates/s against the unmeshed engine's "
+            f"{ctx['certificates_per_s']:.1f}")
+        return {"launches": launches, "certificates_per_s": rate, "route": route,
+                "commit_events": events, "devices": [str(d) for d in mesh.rows("auth")[0]]}
+
+    out = run()
+    if out["route"] != "host":
+        forced = run("host")
+        out["forced_host"] = {"certificates_per_s": forced["certificates_per_s"],
+                              "sharded_walk_launches": forced["launches"]["sharded_walk"],
+                              "commit_events": forced["commit_events"]}
+    return out
 
 
 def phase_consensus_step(device, f, w=W, b=64):
@@ -2312,11 +2293,11 @@ def phase_consensus_step(device, f, w=W, b=64):
     meshed = [x.cpu() for x in dk.consensus_step_sharded(mesh, *host)]
     t2 = time.perf_counter()
     launches = kernel_registry.launch_counts()  # the main path: the mesh's own route
-    require_launches("consensus_step", launches, device, route)
+    require_launches("consensus_step", launches, device)
     runs, walls = [(route, meshed)], {route: t2 - t1}
     # The other routes this topology allows, forced, each counted on its own
     # (not the main path's launches): every walk kernel runs.
-    others = {"cluster": ("peer", "rowstep"), "peer": ("rowstep",), "rowstep": ()}[route]
+    others = {"cluster": ("peer", "host"), "peer": ("host",), "host": ()}[route]
     others = [r for r in others if r in walk_routes(device)]
     forced = {}
     for r in others:
@@ -2325,9 +2306,9 @@ def phase_consensus_step(device, f, w=W, b=64):
         runs.append((r, [x.cpu() for x in dk.consensus_step_sharded(mesh, *host, route=r)]))
         walls[r] = time.perf_counter() - t3
         forced[r] = kernel_registry.launch_counts()
-        if device.type == "cuda" and forced[r][WALK_KERNEL[r]] <= 0:
-            raise AssertionError(f"consensus_step: {WALK_KERNEL[r]} never launched on the "
-                                 f"forced {r} route")
+        if device.type == "cuda" and forced[r]["sharded_walk"] <= 0:
+            raise AssertionError(f"consensus_step: sharded_walk never launched on the forced {r} "
+                                 "route")
     for r, out in runs:
         for name, a, c in zip(("committed", "support", "new_last"), flat, out):
             if not torch.equal(a, c):
@@ -2358,7 +2339,6 @@ def phase_dryrun(device):
     from narwhal_tpu_torch import entry as tentry
     from narwhal_tpu_torch.gpu import dag_kernels as dk
     from narwhal_tpu_torch.gpu import kernel_registry
-    from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     kernel_registry.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2373,8 +2353,7 @@ def phase_dryrun(device):
         tentry.dryrun_multichip(4, devices=devices)
     wall = time.perf_counter() - t0
     launches = kernel_registry.launch_counts()
-    route = auth_mesh(2, devices=devices[:2]).routes[0]
-    require_launches("dryrun", launches, device, route)
+    require_launches("dryrun", launches, device)
     log(f"dryrun: entry() reached {int(mask.sum())} certificates (== plain); "
         f"dryrun_multichip(4) over {[str(d) for d in devices]} passed in {wall:.3f} s; "
         f"launches {launches}")
@@ -3126,7 +3105,8 @@ def main(argv=None) -> int:
                              "adaptive_routing": dctx["routing_adaptive"]},
              "dag_shards": {"devices": dsctx["devices"], "route": dsctx["route"],
                             "commit_events": dsctx["commit_events"],
-                            "certificates_per_s": dsctx["certificates_per_s"]},
+                            "certificates_per_s": dsctx["certificates_per_s"],
+                            "forced_host": dsctx.get("forced_host")},
              "consensus_step": {"unmeshed_s": csctx["unmeshed_s"],
                                 "meshed_s": csctx["meshed_s"], "route": csctx["route"],
                                 "meshed_s_by_route": csctx["meshed_s_by_route"]},

@@ -61,9 +61,27 @@ under cProfile, its costliest functions by own time a view. Between the
 two, where the package's `sync_window` takes a grid, the sync at W = 64
 and 128, shift 1, T = 0 and 64 for each of `GRID_CHUNKS` (bytes of a
 parent row a CTA) x `GRID_THREADS` (threads a CTA).
+Section `support`: B5 `leader_support` at the consensus step's shape (W
+= 64, N = 50, B = 64 walks, `chip_smoke.check_leader_support`'s inputs),
+at B = 1 and 200, and on a shard's block of the 2 x 2 mesh (M = 25 link
+columns of the padded N = 50, its walks' leaders in the block), each held
+against its plain version first; the events time is the wrapper's whole
+call (with the read of its range check: before the launch in a package
+that checks on the host, after it where the kernel writes error words),
+the device time split by what it launched.
+Section `routes`: the committee-sharded compositions at N = 50, W = 64 on
+this card, forced onto each route the package's `mesh.ROUTES` names
+("host" for cards without peer access, or "rowstep", the host row loop,
+in a package from before it): `chain_commit_sharded` over 2
+shards on the healed-partition chain of `chip_smoke.check_sharded_walk`
+(K = 1, leader row 58), `reach_many_sharded` over 2 shards at K = 64 (56
+live) and `consensus_step_sharded` over a 2 x 2 mesh (B = 64), each held
+against the unsharded kernel first; events ms a call (each call waits for
+its result on the host, so this is its wall) and the launches of one call
+by kernel.
 `--sections` picks among `lanes` (A2, A6, A3, A1, A4, A5; the default
-runs every section), `walk` (B2), `reach`, `reduce`, `commit`, `steps`
-and `window`.
+runs every section), `walk` (B2), `reach`, `reduce`, `commit`, `steps`,
+`window`, `support` and `routes`.
 
 `--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
 chain kernel then records %globaltimer at four points of each CTA) and
@@ -170,6 +188,10 @@ def main(argv=None) -> int:
         window(chip_smoke, dev, timed)
         window_grid(chip_smoke, dev, timed)
         view_replay(chip_smoke, dev)
+    if "support" in args.sections:
+        support(chip_smoke, dev, timed)
+    if "routes" in args.sections:
+        routes(chip_smoke, dev)
     torch.cuda.synchronize()
     return 0
 
@@ -179,7 +201,7 @@ SECTIONS = {"lanes": ("ed25519_msm", "ed25519_staged", "ed25519_verify"),
             "walk": ("dag_window",), "reach": ("dag_window",), "commit": ("dag_window",),
             "reduce": ("ed25519_msm", "ed25519_staged"),
             "steps": ("dag_window", "ed25519_msm", "ed25519_staged", "ed25519_verify"),
-            "window": ("dag_window",)}
+            "window": ("dag_window",), "support": ("dag_window",), "routes": ("dag_window",)}
 
 
 def decompress(chip_smoke, ed25519, dev, bucket, timed) -> None:
@@ -634,6 +656,73 @@ def phases(ed25519, kernel_registry, dev, t, pa, pr, tag) -> None:
                     f"{np.median(rel[:, 2] - rel[:, 1]):.1f}, chains "
                     f"{np.median(rel[:, 3] - rel[:, 2]):.1f}, last CTA done {rel[:, 3].max():.1f}")
     print(f"phases {tag}: " + "; ".join(runs), flush=True)
+
+
+def support(chip_smoke, dev, timed) -> None:
+    """B5 at the consensus step's shape, B = 1 and 200, and a 2 x 2 mesh's
+    shard block, each held against its plain version first."""
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+
+    parent, present, stakes, offs, _oh, leaders, _last = chip_smoke.support_inputs(
+        np.random.default_rng(15), 64, 50, 64, 0.3)
+    shapes = {"B=64": (parent, present, stakes, offs, leaders)}
+    for b in (1, 200):
+        p, q, st, o, _h, ld, _l = chip_smoke.support_inputs(np.random.default_rng(b), 64, 50,
+                                                            b, 0.3)
+        shapes[f"B={b}"] = (p, q, st, o, ld)
+    shapes["shard block M=25 B=32"] = (np.ascontiguousarray(parent[..., :25]), present, stakes,
+                                       offs[:32], leaders[:32] % 25)
+    for label, host in shapes.items():
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host]
+        chip_smoke._same_bits(f"B5 {label}", dk.leader_support(*t), dk.leader_support_plain(*t))
+        timed(f"B5 leader_support W=64 N=50 {label}", lambda: dk.leader_support(*t))
+
+
+def routes(chip_smoke, dev) -> None:
+    """The sharded compositions forced onto each route of the package, on
+    this card: events ms a call and the launches of one call."""
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import dag_kernels as dk
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu import mesh as mesh_mod
+
+    mesh = mesh_mod.auth_mesh(2, devices=[dev] * 2)
+    grid = mesh_mod.auth_mesh(2, devices=[dev] * 4, data=2)
+    chain = chip_smoke.healed_partition_chain(np.random.default_rng(19), 64, 50, 50, 1, 1)
+    parent, present, lc, lcr, offs, onehots = chain
+    t = [torch.from_numpy(a).to(dev) for a in (parent, present, lc, offs, onehots)]
+    want_c = dk.chain_commit(t[0], t[1], 50, t[2], lcr, t[3], t[4])
+    rin = chip_smoke.reach_many_inputs(np.random.default_rng(21), 64, 50, 64, 56)
+    want_r = dk.reach_many(*(torch.from_numpy(a).to(dev) for a in rin))
+    step = chip_smoke.support_inputs(np.random.default_rng(18), 64, 50, 64, 0.3)
+    want_s = [x.cpu() for x in dk.consensus_step(*(torch.from_numpy(a).to(dev) for a in step))]
+    calls = {
+        "chain_commit_sharded K=1 row 58": (
+            lambda r: dk.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots,
+                                              route=r), want_c),
+        "reach_many_sharded K=64": (lambda r: dk.reach_many_sharded(mesh, *rin, route=r),
+                                    want_r),
+        "consensus_step_sharded 2x2 B=64": (
+            lambda r: dk.consensus_step_sharded(grid, *step, route=r), want_s),
+    }
+    for r in mesh_mod.ROUTES:
+        for name, (fn, want) in calls.items():
+            got = fn(r)
+            if isinstance(want, list):
+                for a, b in zip(got, want):
+                    chip_smoke._same_bits(f"{name} {r}", a.cpu(), b)
+            else:
+                chip_smoke._same_bits(f"{name} {r}", got, want)
+            kernel_registry.reset_launch_counts()
+            fn(r)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernel_registry.launch_counts().items() if v}
+            ms = chip_smoke.time_ms(lambda: fn(r), dev, reps=5)
+            print(f"route {r} {name}: events {ms:.4f} ms a call, launches {launches}",
+                  flush=True)
 
 
 if __name__ == "__main__":

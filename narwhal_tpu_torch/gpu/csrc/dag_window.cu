@@ -4,7 +4,7 @@
 // Tensors (the JAX package's layout, narwhal_tpu/tpu/dag_kernels.py):
 //   parent  [W, N, N] uint8   parent[w, a, p] = cert (w, a) links (w-1, p)
 //   present [W, N]    uint8   a certificate exists at (round offset w, authority)
-// Seven kernels, each with a plain PyTorch version in ../dag_kernels.py:
+// Six kernels, each with a plain PyTorch version in ../dag_kernels.py:
 //
 // window_sync  replaces narwhal_tpu/tpu/dag_kernels.py:79 `roll_window` (B4)
 //   and :95 `place_batch` (B3), which the JAX DagWindow.device_view runs
@@ -112,10 +112,17 @@
 //   sum of stakes[a] over the a with parent[offs[b], a, leaders[b]] and
 //   present[offs[b], a] set, in wrapping int32 arithmetic like jnp.sum. The
 //   link axis has M columns (M = N unsharded; a shard's column block under
-//   the committee-axis mesh), so `leaders` index that block. One warp per
-//   walk, lanes stride over the N voters (a strided byte column of the
-//   parent row: one 32-byte sector per voter), then a shuffle reduction.
-//   The wrapper rejects offsets and leader indices outside the window.
+//   the committee-axis mesh), so `leaders` index that block. A warp a walk,
+//   16 walks a CTA (B = 64: one wave of 4 CTAs); each lane issues the
+//   walk's offset and leader and its first stakes at once, then its
+//   voters' link and present bytes in one second round, and
+//   __reduce_add_sync sums the lanes (dag_support.cuh). The range check is
+//   the kernel's: a walk whose offset lies outside [0, W) or whose leader
+//   lies outside [0, M) reads nothing, writes 0, and each CTA writes its
+//   lowest such walk {walk, offset, leader} to its error word (a shared
+//   atomicMin on the walk, so the choice is the same in any order); the
+//   wrapper reads the words with the result and raises. No host read
+//   before the launch.
 //   Bound: bytes, the B parent columns, present rows and stakes it reads
 //   (under 20 KB at B = 64, N = 50): the launch is the cost.
 //
@@ -144,26 +151,6 @@
 //   the same result in any order. A thread a column would leave one CTA of
 //   50 live threads at N = 50, each moving 4,096 single bytes.
 //
-// reach_shard_step replaces narwhal_tpu/tpu/dag_kernels.py:128 `chain_commit`
-//   and `reach_mask` (:48) under the committee-axis mesh (node.py:296-330,
-//   in-specs P(None, None, "auth")): one row step of K walks on one shard.
-//   The shard holds a column block of M = N / auth link columns, parent
-//   [W, N, M], present [W, M] and lc [M]; the frontier of the row above is
-//   replicated, [K, N]. For each walk k and column p of the block it runs
-//   `reach_step` at row w, masks by uncommitted = present & (w > lc[p]),
-//   keeps = reached & (w + gc_depth >= *lcr), writes masks[k, w, p] and
-//   frontier_out[k, p] (this shard's block of the next frontier), and raises
-//   committed[k, p] to w where kept: chain_commit_kernel's bookkeeping for
-//   its own columns. The host all-gathers the frontier blocks between rows
-//   and takes the max of the shards' committed rounds (the lcr candidates)
-//   between leaders. One CTA per walk, one thread per column (M <= 1024);
-//   the row above's frontier is staged in shared memory. Bound: bytes, the
-//   parent row w + 1 block, present row, lc, the frontier and the walk's
-//   one-hots read, the mask row, frontier block and committed written; a few
-//   KB per launch at N = 50, so each launch costs its launch latency, and a
-//   walk costs W of them per shard. It serves only the "rowstep" route: an
-//   auth row over cards without peer access.
-//
 // sharded_walk replaces narwhal_tpu/tpu/dag_kernels.py:497-519, the sharded
 //   `chain_commit` (one XLA program under shard_map, P(None, None, "auth"),
 //   whose per-row frontier all-gather XLA places on the interconnect): a
@@ -177,8 +164,9 @@
 //   alike). Each CTA keeps the FULL frontier of the row above, [Npad]
 //   bytes, in shared memory, double-buffered by row parity.
 //   One row w: thread p runs `reach_step` (unchanged, so the bits equal
-//   B2's) against buf[(w+1)&1], applies the uncommitted and gc filters as
-//   reach_shard_step_kernel does, writes its mask byte, stores its bit into
+//   B2's) against buf[(w+1)&1], applies the uncommitted and gc filters
+//   (uncommitted = present & (w > lc[p]), keep = reached & (w + gc_depth >=
+//   lcr)), writes its mask byte, stores its bit into
 //   buf[w&1][s*m + p] of EVERY CTA of the cluster (distributed shared
 //   memory, map_shared_rank), then one cluster.sync():
 //
@@ -198,14 +186,22 @@
 //   Many mode (reach_many_sharded, consensus_step_sharded): one cluster per
 //   walk, K clusters in the grid, `present` is the caller's uncommitted, no
 //   lc and no gc filter (as reach_many).
-//   Across cards ("peer" route, G > 1 launches, one per card, each on its
-//   own stream): after a row's SYNC A, rank 0 writes this card's frontier
-//   columns into the exchange buffer of every peer card (peer-mapped
-//   memory), fences system-wide and bumps its generation flag on every
-//   peer with st.release.sys; it then spins (ld.acquire.sys) on its own
-//   buffer's flags of every peer, bounded by a %globaltimer deadline, and
-//   copies the peers' columns into every local CTA's buf[w&1] before SYNC
-//   B. The lcr reduction between leaders crosses cards the same way. The
+//   Across cards ("peer" and "host" routes, G > 1 launches, one per card,
+//   or one per shard on a card repeated, each on its own stream): after a
+//   row's SYNC A, rank 0 writes this card's frontier columns into the
+//   exchange buffer of every peer card, fences system-wide and bumps its
+//   generation flag on every peer with st.release.sys; it then spins
+//   (ld.acquire.sys) on its own buffer's flags of every peer, bounded by a
+//   %globaltimer deadline, and copies the peers' columns into every local
+//   CTA's buf[w&1] before SYNC B. On "peer" the buffers are device memory
+//   mapped between cards with peer access; on "host" (cards without it)
+//   they are pinned host memory every card maps (portable, mapped: one
+//   address under unified addressing), so every flag and byte crosses
+//   PCIe. The peers' bytes and lcr candidates are read with
+//   ld.relaxed.sys after the acquire and a CTA barrier: the writer's
+//   stores are ordered before its release by its system fence, and the
+//   strong loads take nothing from a cache that another card's stores to
+//   host memory do not reach. The lcr reduction between leaders crosses cards the same way. The
 //   buffer's layout is fixed by the number of walk slots it was allocated
 //   for (`nslots`, not a launch's walk count): a buffer reused by a later
 //   launch with fewer walks, or in the other mode, keeps every flag, lcr
@@ -233,10 +229,12 @@
 #include <atomic>
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cstring>
 #include <mutex>
 #include <cuda_runtime.h>
 
 #include "dag_commit.cuh"
+#include "dag_support.cuh"
 #include "dag_walk_bits.cuh"
 #include "dag_window_sync.cuh"
 
@@ -463,24 +461,42 @@ reach_many_wide_kernel(const uint8_t* __restrict__ parent,
                        masks + (size_t)k * W * N, W, N, 1, 0, walk_bits::kSentinel, sm, s_cand);
 }
 
-__global__ void leader_support_kernel(const uint8_t* __restrict__ parent,
-                                      const uint8_t* __restrict__ present,
-                                      const int32_t* __restrict__ stakes,
-                                      const int32_t* __restrict__ offs,
-                                      const int32_t* __restrict__ leaders,
-                                      int32_t* __restrict__ out, int N, int M, int B) {
+// B5 (see the head of this file and dag_support.cuh): warp i of CTA c
+// walks c * kWarps + i; err[3c..3c+2] gets the CTA's lowest out-of-range
+// walk {walk, offset, leader}, or {kNoWalk, 0, 0}.
+__global__ void __launch_bounds__(32 * support::kWarps)
+leader_support_kernel(const uint8_t* __restrict__ parent, const uint8_t* __restrict__ present,
+                      const int32_t* __restrict__ stakes, const int32_t* __restrict__ offs,
+                      const int32_t* __restrict__ leaders, int32_t* __restrict__ out,
+                      int32_t* __restrict__ err, int W, int N, int M, int B) {
+  __shared__ int s_bad;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= B) return;  // warp-uniform
-  const int off = offs[b], l = leaders[b];
-  const uint8_t* links = parent + (size_t)off * N * M;
-  const uint8_t* pres = present + (size_t)off * N;
-  uint32_t sum = 0;  // unsigned: int32 wrap-around without undefined behaviour
-  for (int a = lane; a < N; a += 32) {
-    if (links[(size_t)a * M + l] && pres[a]) sum += (uint32_t)stakes[a];
+  const int b = blockIdx.x * support::kWarps + (threadIdx.x >> 5);
+  if (threadIdx.x == 0) s_bad = support::kNoWalk;
+  int32_t off = 0, leader = 0;
+  bool ok = true;
+  uint32_t part = 0;
+  if (b < B) {  // warp-uniform
+    part = support::lane_part(parent, present, stakes, offs, leaders, b, W, N, M, lane, &off,
+                              &leader, &ok);
   }
-  for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
-  if (lane == 0) out[b] = (int32_t)sum;
+  const uint32_t sum = __reduce_add_sync(0xffffffffu, part);
+  if (b < B && lane == 0) out[b] = (int32_t)sum;
+  __syncthreads();  // s_bad set
+  if (!ok && lane == 0) atomicMin(&s_bad, b);
+  __syncthreads();
+  const int bad = s_bad;
+  int32_t* word = err + 3 * blockIdx.x;
+  if (bad == support::kNoWalk) {
+    if (threadIdx.x == 0) {
+      word[0] = support::kNoWalk;
+      word[1] = word[2] = 0;
+    }
+  } else if (b == bad && lane == 0) {
+    word[0] = b;
+    word[1] = off;
+    word[2] = leader;
+  }
 }
 
 // A column's best row in the CTA's table, raised; a read first skips the
@@ -553,38 +569,11 @@ consensus_commit_kernel(const uint8_t* __restrict__ masks, const int32_t* __rest
   cluster.sync();
 }
 
-__global__ void reach_shard_step_kernel(const uint8_t* __restrict__ parent,
-                                        const uint8_t* __restrict__ present,
-                                        const int32_t* __restrict__ lc,
-                                        const uint8_t* __restrict__ frontier_in,
-                                        const int32_t* __restrict__ offs,
-                                        const uint8_t* __restrict__ onehots,
-                                        const int32_t* __restrict__ lcr,
-                                        uint8_t* __restrict__ frontier_out,
-                                        bool* __restrict__ masks,
-                                        int32_t* __restrict__ committed, int W, int N, int M,
-                                        int w, int gc_depth) {
-  extern __shared__ uint8_t frontier[];  // [N], the row above, every column
-  const int k = blockIdx.x;
-  for (int a = threadIdx.x; a < N; a += blockDim.x) frontier[a] = frontier_in[(size_t)k * N + a];
-  __syncthreads();
-  const int p = threadIdx.x;
-  if (p >= M) return;
-  const bool start_bit = onehots[(size_t)k * M + p] != 0;
-  bool here = reach_step(parent, frontier, w, W, N, M, p, offs[k], start_bit);
-  here = here && present[(size_t)w * M + p] != 0 && w > lc[p];  // uncommitted
-  const bool keep = here && (w + gc_depth >= lcr[0]);
-  masks[((size_t)k * W + w) * M + p] = keep;
-  frontier_out[(size_t)k * M + p] = here;
-  int32_t* c = committed + (size_t)k * M + p;
-  if (keep && w > *c) *c = w;
-}
-
 constexpr int kSentinel = -(1 << 30);
 
 // One card's view of the exchange with the other cards of its auth row
-// ("peer" route). G == 1 on the "cluster" route: no exchange at all, and
-// the pointers are null. A card's buffer holds, for each of `nslots` walk
+// ("peer" and "host" routes). G == 1 on the "cluster" route: no exchange at
+// all, and the pointers are null. A card's buffer holds, for each of `nslots` walk
 // slots: flags uint32 [nslots][G] (the generation each card raised last),
 // lcr int32 [nslots][2][G] and frontier uint8 [nslots][2][Npad] (the
 // values of an exchange event, by event parity).
@@ -610,6 +599,20 @@ __device__ __forceinline__ void store_release_sys(uint32_t* p, uint32_t v) {
 __device__ __forceinline__ uint32_t load_acquire_sys(const uint32_t* p) {
   uint32_t v;
   asm volatile("ld.acquire.sys.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A peer's byte or lcr candidate, after the acquire of its flag: strong
+// at system scope (see the head of this file).
+__device__ __forceinline__ uint8_t load_relaxed_sys(const uint8_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.sys.u8 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return (uint8_t)v;
+}
+
+__device__ __forceinline__ int32_t load_relaxed_sys(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.relaxed.sys.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
@@ -669,7 +672,7 @@ __device__ int exchange_row(cg::cluster_group& cluster, const PeerExchange& x, u
     const uint8_t* src = x_front(x.bufs[x.g], x, slot, par, Npad);
     for (int i = threadIdx.x; i < Npad; i += blockDim.x) {
       if (x.owner[i / m] == x.g) continue;
-      const uint8_t v = __ldcg(src + i);
+      const uint8_t v = load_relaxed_sys(src + i);
       for (int r = 0; r < nr; r++) cluster.map_shared_rank(row, r)[i] = v;
     }
   }
@@ -718,7 +721,7 @@ __device__ int reduce_lcr(cg::cluster_group& cluster, const PeerExchange& x, int
     if (!status) {
       const int32_t* src = x_lcr(x.bufs[x.g], x, slot, par);
       for (int h = 0; h < x.G; h++) {
-        if (h != x.g) glob = max(glob, __ldcg(src + h));
+        if (h != x.g) glob = max(glob, load_relaxed_sys(src + h));
       }
     } else {
       x.err[0] = 1;
@@ -965,16 +968,26 @@ extern "C" int dag_window_reach_many(const void* parent, const void* uncommitted
   return (int)cudaGetLastError();
 }
 
+// B5: support::ctas_for(B) CTAs of support::kWarps walks; err holds 3
+// int32 a CTA (its lowest out-of-range walk, see leader_support_kernel).
 extern "C" int dag_window_leader_support(const void* parent, const void* present,
                                          const void* stakes, const void* offs,
-                                         const void* leaders, void* out, int N, int M, int B,
-                                         void* stream) {
-  const int warps = 4;
-  const int blocks = (B + warps - 1) / warps;
-  leader_support_kernel<<<blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
+                                         const void* leaders, void* out, void* err, int W,
+                                         int N, int M, int B, void* stream) {
+  if (B < 1 || W < 0 || N < 0 || M < 0) return (int)cudaErrorInvalidValue;
+  leader_support_kernel<<<support::ctas_for(B), 32 * support::kWarps, 0,
+                          (cudaStream_t)stream>>>(
       (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)stakes,
-      (const int32_t*)offs, (const int32_t*)leaders, (int32_t*)out, N, M, B);
+      (const int32_t*)offs, (const int32_t*)leaders, (int32_t*)out, (int32_t*)err, W, N, M, B);
   return (int)cudaGetLastError();
+}
+
+// B5's walks a CTA (the error words of a launch over B walks: 3 int32 for
+// each of ceil(B / walks) CTAs) and the error word's walk when none is out
+// of range.
+extern "C" int dag_window_leader_support_layout(void* no_walk) {
+  *(int32_t*)no_walk = support::kNoWalk;
+  return support::kWarps;
 }
 
 // B7: one cluster of commit_mask::ctas_for(B * W * M) CTAs, 4 * M bytes of
@@ -1007,21 +1020,6 @@ extern "C" int dag_window_consensus_commit(const void* masks, const void* suppor
       (const int32_t*)stakes, (const int32_t*)last, (uint8_t*)committed, (int32_t*)new_last, B,
       W, M, S);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-extern "C" int dag_window_reach_shard_step(const void* parent, const void* present,
-                                           const void* lc, const void* frontier_in,
-                                           const void* offs, const void* onehots,
-                                           const void* lcr, void* frontier_out, void* masks,
-                                           void* committed, int W, int N, int M, int K, int w,
-                                           int gc_depth, void* stream) {
-  const int threads = ((M + 31) / 32) * 32;
-  reach_shard_step_kernel<<<K, threads, (size_t)N, (cudaStream_t)stream>>>(
-      (const uint8_t*)parent, (const uint8_t*)present, (const int32_t*)lc,
-      (const uint8_t*)frontier_in, (const int32_t*)offs, (const uint8_t*)onehots,
-      (const int32_t*)lcr, (uint8_t*)frontier_out, (bool*)masks, (int32_t*)committed, W, N,
-      M, w, gc_depth);
   return (int)cudaGetLastError();
 }
 
@@ -1108,6 +1106,27 @@ extern "C" int dag_window_enable_peer(int dev, int peer) {
   const cudaError_t back = cudaSetDevice(cur);
   return (int)(e != cudaSuccess ? e : back);
 }
+
+// Pinned host memory that every card can address, for the "host" route's
+// exchange buffers: portable and mapped, its host pointer its device
+// pointer under unified addressing (checked), zeroed. *ptr gets it.
+extern "C" int dag_window_host_alloc(long long bytes, void* ptr) {
+  void* p = nullptr;
+  cudaError_t e = cudaHostAlloc(&p, (size_t)bytes, cudaHostAllocPortable | cudaHostAllocMapped);
+  if (e != cudaSuccess) return (int)e;
+  void* d = nullptr;
+  e = cudaHostGetDevicePointer(&d, p, 0);
+  if (e != cudaSuccess || d != p) {
+    cudaFreeHost(p);
+    return e != cudaSuccess ? (int)e : (int)cudaErrorNotSupported;
+  }
+  std::memset(p, 0, (size_t)bytes);
+  *(void**)ptr = p;
+  return 0;
+}
+
+// Frees what dag_window_host_alloc gave, once no launch that holds it runs.
+extern "C" int dag_window_host_free(void* p) { return (int)cudaFreeHost(p); }
 
 extern "C" const char* dag_window_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -12,10 +12,9 @@ causal reads (`narwhal_tpu/consensus/dag.py` `_reach_k`); `leader_support`
 (B5) and `consensus_commit`, which with B6 make the consensus step of
 `__graft_entry__.py` (B7, `consensus_step`); and the committee-axis
 sharded walk of `--dag-shards` (`sharded_walk`, a walk set in one launch
-per card, and `reach_shard_step`, one row step on one shard, composed into
-`chain_commit_sharded`, `reach_many_sharded` and `consensus_step_sharded`
-over a `mesh.DeviceMesh` on the route of its topology), behind
-`GpuBullshark(mesh=...)`.
+per card, composed into `chain_commit_sharded`, `reach_many_sharded` and
+`consensus_step_sharded` over a `mesh.DeviceMesh` on the route of its
+topology), behind `GpuBullshark(mesh=...)`.
 
 The window is dense tensors, exactly the JAX layout:
   present[W, N]    uint8 - certificate exists at (round offset, authority)
@@ -28,8 +27,8 @@ the plain version on CPU tensors and launches the kernel on CUDA tensors
 (or raises); `roll_window`, `place_batch` and `sync_window` share one
 kernel, `window_sync`. `reach_mask` runs on the card inside `chain_commit` and
 `reach_many` (walks over packed bits, `csrc/dag_walk_bits.cuh`) and as the
-device function `reach_step` inside `sharded_walk` and `reach_shard_step`,
-so the public `reach_mask` here is the plain version.
+device function `reach_step` inside `sharded_walk`, so the public
+`reach_mask` here is the plain version.
 
 The JAX engine's background prewarm threads are not ported: they existed to
 compile each new window shape ahead of need, and the CUDA kernels here take
@@ -112,7 +111,7 @@ def leader_support_plain(parent, present, stakes, support_offs, leader_idxs):
 
     parent [W, N, M] uint8 (M = N, or a shard's link columns), present
     [W, N], stakes [N]; the indices are taken as given (the wrapper checks
-    them)."""
+    them: `support_range_error`)."""
     offs = support_offs.long()
     links = parent[offs, :, leader_idxs.long()].bool()  # [B, N]
     voters = links & present[offs].bool()
@@ -138,35 +137,6 @@ def consensus_commit_plain(masks, support, stakes, last_committed):
     rows = torch.arange(W, dtype=torch.int32, device=masks.device)[None, :, None]
     best = (committed.to(torch.int32) * rows).amax(dim=(0, 1))
     return committed, torch.maximum(last_committed.to(torch.int32), best)
-
-
-def reach_shard_step_plain(parent, present, lc, frontier, offs, onehots, lcr, masks,
-                           committed, w: int, gc_depth: int):
-    """One row step, at row `w`, of K walks on one shard of the committee
-    axis. The shard holds M link columns: parent [W, N, M], present [W, M],
-    lc [M] int32; the row above's frontier [K, N] covers every column.
-    offs [K] int32 and onehots [K, M] are the walks' starts, lcr [1] int32
-    the last committed round before this walk.
-
-    For each walk k and column p: reached as `reach_mask`'s row step,
-    uncommitted = present[w, p] & (w > lc[p]), keep = reached & uncommitted
-    & (w + gc_depth >= lcr). Writes masks[k, w] = keep and raises
-    committed[k, p] to w where kept, in place; returns this shard's block of
-    the next frontier, [K, M] uint8 (reached & uncommitted)."""
-    W, N, M = parent.shape
-    K = offs.shape[0]
-    dev = parent.device
-    start = offs.long()[:, None]
-    if w + 1 < W:
-        above = (parent[w + 1].bool()[None] & frontier.bool()[:, :, None]).any(dim=1)
-    else:
-        above = torch.zeros((K, M), dtype=torch.bool, device=dev)
-    here = torch.where(start == w, onehots.bool(), above & (start > w))
-    here = here & present[w].bool()[None] & (lc < w)[None]
-    keep = here & (w + int(gc_depth) >= int(lcr[0]))
-    masks[:, w] = keep
-    committed.copy_(torch.where(keep & (committed < w), w, committed))
-    return here.to(torch.uint8)
 
 
 def sharded_walk_plain(parent, present, lc, offs, onehots, gc_depth: int = 0,
@@ -477,42 +447,93 @@ def reach_route(W: int, N: int, device) -> str:
     return "packed" if r == 1 else "wide"
 
 
-def leader_support(parent, present, stakes, support_offs, leader_idxs):
-    """`leader_support_plain` on CPU tensors; on CUDA tensors the
-    `dag_window.cu` kernel (one warp per walk). B = 1 is the JAX scalar
-    call. Raises on an offset outside the window or a leader index outside
-    the link columns (jnp.take would fill or wrap them)."""
+def support_range_error(W: int, M: int, walk: int, off: int, leader: int) -> ValueError:
+    """The error of a leader_support walk outside the window (offset not in
+    [0, W)) or the link columns (leader not in [0, M)), named by the lowest
+    such walk, on the CPU and on the card alike (jnp.take would fill or
+    wrap it)."""
+    return ValueError(f"leader_support: offsets must lie in [0, {W}) and leader indices in "
+                      f"[0, {M}); walk {walk} has offset {off} and leader index {leader}")
+
+
+_SUPPORT_LAYOUT: tuple[int, int] | None = None
+
+
+def _support_layout() -> tuple[int, int]:
+    """B5's walks a CTA and its error word's walk when none is out of range
+    (`csrc/dag_support.cuh`)."""
+    global _SUPPORT_LAYOUT
+    if _SUPPORT_LAYOUT is None:
+        fn = kernel_registry.library("dag_window").dag_window_leader_support_layout
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        none = np.zeros(1, np.int32)
+        walks = fn(none.ctypes.data)
+        _SUPPORT_LAYOUT = (walks, int(none[0]))
+    return _SUPPORT_LAYOUT
+
+
+def support_error(words, none: int) -> tuple[int, int, int] | None:
+    """The lowest out-of-range walk of a leader_support launch, (walk,
+    offset, leader), from its CTAs' error words (int32, 3 a CTA, as a
+    list; `none` a word's walk when its CTA has none), or None."""
+    bad = [tuple(words[i:i + 3]) for i in range(0, len(words), 3) if words[i] != none]
+    return min(bad) if bad else None
+
+
+def _leader_support(parent, present, stakes, support_offs, leader_idxs):
+    """leader_support without the read of its error words: (support,
+    check), check() raising on an out-of-range walk. On CPU tensors the
+    range is checked first and the plain version runs; on CUDA tensors
+    check() reads the launch's error words (one small device-to-host read),
+    so a caller may queue more launches before it."""
     W, N, M = parent.shape
     B = support_offs.shape[0]
-    if B:
-        lo_off, hi_off, lo_l, hi_l = torch.stack([
-            support_offs.min(), support_offs.max(), leader_idxs.min(), leader_idxs.max()
-        ]).tolist()
-        if lo_off < 0 or hi_off >= W or lo_l < 0 or hi_l >= M:
-            raise ValueError(
-                f"leader_support: offsets {lo_off}..{hi_off} must lie in [0, {W}) and "
-                f"leader indices {lo_l}..{hi_l} in [0, {M})"
-            )
     if not _on_cuda("leader_support", parent):
-        return leader_support_plain(parent, present, stakes, support_offs, leader_idxs)
+        bad = ((support_offs < 0) | (support_offs >= W) | (leader_idxs < 0)
+               | (leader_idxs >= M)).nonzero()
+        if bad.numel():
+            b = int(bad[0, 0])
+            raise support_range_error(W, M, b, int(support_offs[b]), int(leader_idxs[b]))
+        return (leader_support_plain(parent, present, stakes, support_offs, leader_idxs),
+                lambda: None)
     dev = parent.device
     _check("parent", parent, torch.uint8, (W, N, M), dev)
     _check("present", present, torch.uint8, (W, N), dev)
     _check("stakes", stakes, torch.int32, (N,), dev)
     _check("support_offs", support_offs, torch.int32, (B,), dev)
     _check("leader_idxs", leader_idxs, torch.int32, (B,), dev)
-    out = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
-        return out
+        return torch.empty((0,), dtype=torch.int32, device=dev), lambda: None
+    walks, none = _support_layout()
+    buf = torch.empty((B + 3 * -(-B // walks),), dtype=torch.int32, device=dev)
+    out, err = buf[:B], buf[B:]
     with torch.cuda.device(dev):
-        fn = kernel_registry.function("dag_window", "dag_window_leader_support", 6, 3)
+        fn = kernel_registry.function("dag_window", "dag_window_leader_support", 7, 4)
         rc = fn(
             parent.data_ptr(), present.data_ptr(), stakes.data_ptr(),
-            support_offs.data_ptr(), leader_idxs.data_ptr(), out.data_ptr(), N, M, B,
-            _stream(dev),
+            support_offs.data_ptr(), leader_idxs.data_ptr(), out.data_ptr(), err.data_ptr(),
+            W, N, M, B, _stream(dev),
         )
     kernel_registry.check("dag_window", "leader_support", rc)
     kernel_registry.count_launch("leader_support")
+
+    def check():
+        bad = support_error(err.tolist(), none)
+        if bad is not None:
+            raise support_range_error(W, M, *bad)
+    return out, check
+
+
+def leader_support(parent, present, stakes, support_offs, leader_idxs):
+    """`leader_support_plain` on CPU tensors; on CUDA tensors the
+    `dag_window.cu` kernel (a warp per walk, `csrc/dag_support.cuh`). B = 1
+    is the JAX scalar call. Raises `support_range_error` on an offset
+    outside the window or a leader index outside the link columns
+    (jnp.take would fill or wrap them): on the CPU before the plain
+    version runs, on the card from the kernel's error words, read after
+    the launch with the result."""
+    out, check = _leader_support(parent, present, stakes, support_offs, leader_idxs)
+    check()
     return out
 
 
@@ -546,48 +567,7 @@ def consensus_commit(masks, support, stakes, last_committed):
     return committed, new_last
 
 
-def reach_shard_step(parent, present, lc, frontier, offs, onehots, lcr, masks, committed,
-                     w: int, gc_depth: int):
-    """`reach_shard_step_plain` on CPU tensors; on CUDA tensors the
-    `dag_window.cu` kernel (one CTA per walk, one thread per column of the
-    shard). Updates `masks` row w and `committed` in place and returns the
-    shard's block of the next frontier."""
-    W, N, M = parent.shape
-    K = offs.shape[0]
-    if not 0 <= w < W:
-        raise ValueError(f"reach_shard_step: row {w} outside the window of {W}")
-    if not _on_cuda("reach_shard_step", parent):
-        return reach_shard_step_plain(parent, present, lc, frontier, offs, onehots, lcr,
-                                      masks, committed, w, gc_depth)
-    dev = parent.device
-    if M > _MAX_N:
-        raise ValueError(f"reach_shard_step: {M} columns a shard > {_MAX_N}")
-    _check("parent", parent, torch.uint8, (W, N, M), dev)
-    _check("present", present, torch.uint8, (W, M), dev)
-    _check("lc", lc, torch.int32, (M,), dev)
-    _check("frontier", frontier, torch.uint8, (K, N), dev)
-    _check("offs", offs, torch.int32, (K,), dev)
-    _check("onehots", onehots, torch.uint8, (K, M), dev)
-    _check("lcr", lcr, torch.int32, (1,), dev)
-    _check("masks", masks, torch.bool, (K, W, M), dev)
-    _check("committed", committed, torch.int32, (K, M), dev)
-    out = torch.empty((K, M), dtype=torch.uint8, device=dev)
-    if K == 0:
-        return out
-    with torch.cuda.device(dev):
-        fn = kernel_registry.function("dag_window", "dag_window_reach_shard_step", 10, 6)
-        rc = fn(
-            parent.data_ptr(), present.data_ptr(), lc.data_ptr(), frontier.data_ptr(),
-            offs.data_ptr(), onehots.data_ptr(), lcr.data_ptr(), out.data_ptr(),
-            masks.data_ptr(), committed.data_ptr(), W, N, M, K, int(w), int(gc_depth),
-            _stream(dev),
-        )
-    kernel_registry.check("dag_window", "reach_shard_step", rc)
-    kernel_registry.count_launch("reach_shard_step")
-    return out
-
-
-_WALK_TIMEOUT_MS = 5000  # the peer route's bound on each wait for the other cards
+_WALK_TIMEOUT_MS = 5000  # the exchange routes' bound on each wait for the other cards
 _MAX_CLUSTERS: dict[tuple, int] = {}  # (card, a, m, Npad) -> co-resident clusters
 
 
@@ -602,15 +582,16 @@ def sharded_walk(parent, present, lc, offs, onehots, gc_depth: int = 0,
     masks [a, K, W, m]: one launch, a thread-block cluster of a CTAs (a <=
     16) per walk set (chain mode) or per walk (many mode).
 
-    With `exchange` (a `mesh.WalkExchange` on the "peer" route; card
-    tensors only, the exchange has no plain form) parent, present and lc
-    are lists, one entry per group of the exchange on the group's device:
-    the blocks of its slots, [a_g, W, Npad, m] and so on; offs and onehots
-    are lists of the whole arrays on each group's device.
-    Every group's launch is issued on its own stream before any is waited
-    on; the launches exchange frontier blocks and lcr candidates through
-    the peer-mapped buffers. Returns one masks tensor [a_g, K, W, m] per
-    group. A wait that outlasts `timeout_ms` makes the kernel stop and the
+    With `exchange` (a `mesh.WalkExchange` on the "peer" or "host" route;
+    card tensors only, the exchange has no plain form) parent, present and
+    lc are lists, one entry per group of the exchange on the group's
+    device: the blocks of its slots, [a_g, W, Npad, m] and so on; offs and
+    onehots are lists of the whole arrays on each group's device. Every
+    group's launch is issued on its own stream before any is waited on;
+    the launches exchange frontier blocks and lcr candidates through the
+    exchange's buffers (peer-mapped card memory, or pinned host memory
+    every card maps). Returns one masks tensor [a_g, K, W, m] per group.
+    A wait that outlasts `timeout_ms` makes the kernel stop and the
     call raise RuntimeError. `launch` (default every group) names the
     groups to launch: a test launches fewer to see a missing peer raise."""
     if exchange is None:
@@ -629,12 +610,12 @@ def sharded_walk(parent, present, lc, offs, onehots, gc_depth: int = 0,
                          W, npad, m, K, 0, 1 if chain else K, 0, a, gc_depth, lcr_rel, chain,
                          1, 0, 0, 0, torch.cuda.current_stream(dev))
         return masks
-    if exchange.route != "peer":
+    if exchange.route not in ("peer", "host"):
         raise ValueError(f"sharded_walk: an exchange of the {exchange.route} route")
     if not _on_cuda("sharded_walk", parent[0]):
-        raise ValueError("sharded_walk: the peer form runs on the card only")
-    return _sharded_walk_peer(exchange, parent, present, lc, offs, onehots, gc_depth,
-                              lcr_rel, chain, launch, timeout_ms)
+        raise ValueError(f"sharded_walk: the {exchange.route} form runs on the card only")
+    return _sharded_walk_exchange(exchange, parent, present, lc, offs, onehots, gc_depth,
+                                  lcr_rel, chain, launch, timeout_ms)
 
 
 def _check_walk(parent, present, lc, offs, onehots, a, W, npad, m, K, chain, dev) -> None:
@@ -682,9 +663,10 @@ def _max_clusters(dev, a: int, m: int, npad: int) -> int:
     return _MAX_CLUSTERS[key]
 
 
-def _sharded_walk_peer(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel, chain,
-                       launch, timeout_ms):
-    """The peer form on the card: every group's launch on its own stream,
+def _sharded_walk_exchange(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel, chain,
+                           launch, timeout_ms):
+    """The exchange form ("peer", "host") on the card: every group's launch
+    on its own stream,
     in waves of walks that fit on the cards at once (many mode), each wave
     waited on and its error words read before the next."""
     G = len(ex.groups)
@@ -706,8 +688,8 @@ def _sharded_walk_peer(ex, parent, present, lc, offs, onehots, gc_depth, lcr_rel
     fit = min(_max_clusters(ex.devices[g], len(ex.groups[g]), m, npad)
               // sharing[ex.devices[g]] for g in launch)
     if fit < 1:
-        raise RuntimeError(f"sharded_walk: the peer launches do not fit on their cards at once "
-                           f"({sharing} launches a card)")
+        raise RuntimeError(f"sharded_walk: the {ex.route} launches do not fit on their cards "
+                           f"at once ({sharing} launches a card)")
     wave = 1 if chain else min(K, fit)
     st = ex.shared(wave, npad)
     span = K * W + 1 if chain else W  # exchange events a launch may use
@@ -752,22 +734,25 @@ def consensus_step(parent, uncommitted, stakes, offs, onehots, leaders, last_com
     (`consensus_commit`). parent [W, N, N] uint8, uncommitted [W, N] uint8,
     stakes [N] int32, offs [B] int32, onehots [B, N] uint8, leaders [B]
     int32, last_committed [N] int32. Returns (committed [B, W, N] bool,
-    support [B] int32, new_last [N] int32)."""
+    support [B] int32, new_last [N] int32). On the card the three launches
+    go out with no host wait between them; leader_support's error words are
+    read after the last, and an out-of-range walk raises then."""
     masks = reach_many(parent, uncommitted, offs, onehots)
-    support = leader_support(parent, uncommitted, stakes, offs, leaders)
+    support, check = _leader_support(parent, uncommitted, stakes, offs, leaders)
     committed, new_last = consensus_commit(masks, support, stakes, last_committed)
+    check()
     return committed, support, new_last
 
 
 # ---------------------------------------------------------------------------
 # The committee-axis sharded walk: JAX's chain_commit and reach_mask under
 # in-specs P(None, None, "auth"), P(None, "auth"), P("auth"). Each shard of
-# an auth row of the mesh holds a block of the link columns. On the
-# "cluster" and "peer" routes (`mesh.walk_route`) a whole walk set is one
-# `sharded_walk` launch per card, the frontier blocks exchanged on the
-# device; on "rowstep" the host steps every shard one row at a time
-# (`reach_shard_step`) and all-gathers the frontier blocks between rows
-# (`.to(device)` over the row's devices), the exchange XLA inserts.
+# an auth row of the mesh holds a block of the link columns. On every route
+# (`mesh.walk_route`) a whole walk set is one `sharded_walk` launch per card
+# (per group of the row's `WalkExchange`), the frontier blocks exchanged on
+# the device: through a cluster's shared memory ("cluster"), peer-mapped
+# card memory ("peer") or pinned host memory every card maps ("host"), the
+# all-gather XLA inserts between rows.
 # ---------------------------------------------------------------------------
 
 
@@ -775,8 +760,8 @@ class _Shards:
     """The column blocks of a window on one auth row of devices. The
     committee axis is padded to a multiple of the row's length with absent
     slots (no parent links, not present, zero stake), which reach nothing
-    and relay nothing; `cols(t)` cuts a host array's last axis into the
-    blocks and uploads each to its device, `blocks(t)` stacks them first."""
+    and relay nothing; `blocks(t)` cuts a host array's last axis into the
+    blocks, stacked first."""
 
     def __init__(self, devices, n: int):
         self.devices = tuple(devices)
@@ -791,13 +776,6 @@ class _Shards:
             return np.ascontiguousarray(arr)
         width = [(0, self.npad - self.n if i in axes else 0) for i in range(arr.ndim)]
         return np.pad(arr, width)
-
-    def cols(self, arr) -> list[torch.Tensor]:
-        """The blocks of the (padded) last axis, each on its device."""
-        return [
-            torch.from_numpy(np.ascontiguousarray(arr[..., i * self.m:(i + 1) * self.m])).to(dev)
-            for i, dev in enumerate(self.devices)
-        ]
 
     def blocks(self, arr) -> np.ndarray:
         """The blocks of the (padded) last axis stacked first: [a, ..., m]."""
@@ -818,27 +796,6 @@ class _Shards:
         """The blocks joined along `dim` on `dev` (an all-gather's share)."""
         return torch.cat([b.to(dev) for b in blocks], dim=dim)
 
-    def walk(self, parent_s, present_s, lc_s, offs_s, onehots_s, lcr_s, masks_s,
-             gc_depth: int, top: int) -> list[torch.Tensor]:
-        """Rows `top` .. 0 of one launch set of walks: a `reach_shard_step`
-        on every shard per row, the frontier blocks all-gathered between
-        rows. Fills masks_s in place; returns each shard's committed rounds
-        [K, m] (the sentinel where nothing was kept)."""
-        K = offs_s[0].shape[0]
-        committed = [torch.full((K, self.m), _SENTINEL, dtype=torch.int32, device=dev)
-                     for dev in self.devices]
-        frontier = [torch.zeros((K, self.npad), dtype=torch.uint8, device=dev)
-                    for dev in self.devices]
-        for w in range(top, -1, -1):
-            blocks = [
-                reach_shard_step(parent_s[i], present_s[i], lc_s[i], frontier[i], offs_s[i],
-                                 onehots_s[i], lcr_s[i], masks_s[i], committed[i], w, gc_depth)
-                for i in range(len(self.devices))
-            ]
-            if w:
-                frontier = [self.gather(blocks, dev) for dev in self.devices]
-        return committed
-
 
 def _group_blocks(ex, shards: _Shards, blocked: np.ndarray) -> list[torch.Tensor]:
     """`blocked` [a, ...] as one tensor per group of `ex`, [a_g, ...] on the
@@ -858,10 +815,12 @@ def _group_blocks(ex, shards: _Shards, blocked: np.ndarray) -> list[torch.Tensor
 
 def _walk_row(ex, shards: _Shards, parent, present, lc, offs, onehots, gc_depth: int,
               lcr_rel: int, chain: bool):
-    """The walk set of one auth row through `sharded_walk` on ex.route
-    ("cluster" or "peer"): each operand uploaded once per card as one
-    [a_g, ...] block tensor. Returns, per slot of the row, (masks [K, W, m],
-    parent [W, Npad, m], present [W, m]) on the slot's device."""
+    """The walk set of one auth row through `sharded_walk` on ex.route: one
+    launch when the row is one group ("cluster", or "host" on the CPU,
+    where the plain version walks), else the exchange form, a launch a
+    group; each operand uploaded once per card as one [a_g, ...] block
+    tensor. Returns, per slot of the row, (masks [K, W, m], parent
+    [W, Npad, m], present [W, m]) on the slot's device."""
     pg = _group_blocks(ex, shards, shards.blocks(shards.pad(parent, (1, 2))))
     qg = _group_blocks(ex, shards, shards.blocks(shards.pad(present, (1,))))
     lg = (None if lc is None else
@@ -874,7 +833,7 @@ def _walk_row(ex, shards: _Shards, parent, present, lc, offs, onehots, gc_depth:
     if K == 0:
         masks = [torch.zeros((len(s), 0, W, shards.m), dtype=torch.bool, device=d)
                  for s, d in zip(ex.groups, ex.devices)]
-    elif ex.route == "cluster":
+    elif len(ex.groups) == 1:
         masks = [sharded_walk(pg[0], qg[0], None if lg is None else lg[0], og[0], hg[0],
                               gc_depth, lcr_rel, chain)]
     else:
@@ -896,12 +855,11 @@ def chain_commit_sharded(mesh, parent, present, gc_depth: int, lc_rel, lcr_rel: 
     """`chain_commit` (B2) with the committee axis sharded over the mesh's
     `auth` axis: each shard holds parent [W, N, N/a] (the link columns),
     present [W, N/a] and lc [N/a]; every leader's walk runs with the lc
-    and lcr updates between leaders. On the "cluster" and "peer" routes
-    that is one `sharded_walk` launch per card for the whole chain; on
-    "rowstep" a `reach_shard_step` per shard per row, with the lc folds and
-    the lcr max between leaders on the host's devices. A `data` axis is
-    replicated in JAX; here the first data row computes (the others would
-    compute the same). `route` forces a route (the mesh's own by default).
+    and lcr updates between leaders, all in one `sharded_walk` launch per
+    card for the whole chain (per slot on a card repeated under a forced
+    "peer" or "host" route). A `data` axis is replicated in JAX; here the
+    first data row computes (the others would compute the same). `route`
+    forces a route (the mesh's own by default).
 
     Operands are host arrays (numpy or CPU tensors), the full window, as
     the JAX dispatch takes numpy operands and places them by its in-specs;
@@ -910,51 +868,18 @@ def chain_commit_sharded(mesh, parent, present, gc_depth: int, lc_rel, lcr_rel: 
     W, N = np.asarray(present).shape
     ex = mesh.walk(0, route)
     shards = _Shards(ex.row, N)
-    if ex.route == "rowstep":
-        return _chain_commit_rowstep(shards, parent, present, gc_depth, lc_rel, lcr_rel, offs,
-                                     onehots)
     walked = _walk_row(ex, shards, parent, present, lc_rel, offs, onehots, gc_depth,
                        int(lcr_rel), chain=True)
     return shards.gather([w[0] for w in walked], shards.devices[0])[..., :N]
-
-
-def _chain_commit_rowstep(shards: _Shards, parent, present, gc_depth: int, lc_rel,
-                          lcr_rel: int, offs, onehots):
-    """chain_commit_sharded on the "rowstep" route: the host row loop."""
-    W = np.asarray(present).shape[0]
-    offs = np.asarray(offs, np.int32)
-    onehots = np.asarray(onehots, np.uint8)
-    K = offs.shape[0]
-    parent_s = shards.cols(shards.pad(parent, (1, 2)))
-    present_s = shards.cols(shards.pad(present, (1,)))
-    lc_s = shards.cols(shards.pad(np.asarray(lc_rel, np.int32), (0,)))
-    onehots_p = shards.pad(onehots, (1,))
-    lcr_s = shards.replicate(np.array([lcr_rel], np.int32))
-    masks_s = [torch.zeros((K, W, shards.m), dtype=torch.bool, device=dev)
-               for dev in shards.devices]
-    first = shards.devices[0]
-    for k in range(K):
-        if not onehots[k].any():
-            continue  # a padding slot reaches nothing and changes nothing
-        committed = shards.walk(
-            parent_s, present_s, lc_s, shards.replicate(offs[k:k + 1]),
-            shards.cols(onehots_p[k:k + 1]), lcr_s, [m[k:k + 1] for m in masks_s],
-            gc_depth, min(int(offs[k]), W - 1))
-        lc_s = [torch.maximum(lc, c[0]) for lc, c in zip(lc_s, committed)]
-        cand = torch.stack([c.amax().to(first) for c in committed]).amax()
-        lcr = torch.maximum(lcr_s[0][0].to(first), cand).reshape(1)
-        lcr_s = [lcr.to(dev) for dev in shards.devices]
-    return shards.gather(masks_s, first)[..., :shards.n]
 
 
 def reach_many_sharded(mesh, parent, uncommitted, offs, onehots, route: str | None = None):
     """`reach_many` (B6) with the committee axis sharded over the mesh's
     `auth` axis (the first data row), with no lc, gc filter or update
     between walks: one cluster per walk of one `sharded_walk` launch per
-    card ("cluster", "peer"), or the K walks advancing together one
-    `reach_shard_step` a row on every shard ("rowstep"). Operands are host
-    arrays; returns masks [K, W, N] bool on the mesh's first device, equal
-    to `reach_many`'s."""
+    card, in waves that fit on the cards at once. Operands are host arrays;
+    returns masks [K, W, N] bool on the mesh's first device, equal to
+    `reach_many`'s."""
     ex = mesh.walk(0, route)
     shards = _Shards(ex.row, np.asarray(uncommitted).shape[1])
     masks_s = _reach_blocks(ex, shards, parent, uncommitted, offs, onehots)[0]
@@ -964,24 +889,9 @@ def reach_many_sharded(mesh, parent, uncommitted, offs, onehots, route: str | No
 def _reach_blocks(ex, shards: _Shards, parent, uncommitted, offs, onehots):
     """The sharded reach walks on one auth row: (the masks blocks
     [K, W, m], the parent blocks, the uncommitted blocks) of each shard."""
-    if ex.route != "rowstep":
-        walked = _walk_row(ex, shards, parent, uncommitted, None, offs, onehots, 0, _SENTINEL,
-                           chain=False)
-        return tuple([w[i] for w in walked] for i in range(3))
-    W = np.asarray(uncommitted).shape[0]
-    offs = np.asarray(offs, np.int32)
-    K = offs.shape[0]
-    parent_s = shards.cols(shards.pad(parent, (1, 2)))
-    unc_s = shards.cols(shards.pad(uncommitted, (1,)))
-    masks_s = [torch.zeros((K, W, shards.m), dtype=torch.bool, device=dev)
-               for dev in shards.devices]
-    if K:
-        lc_s = shards.cols(np.full((shards.npad,), _SENTINEL, np.int32))
-        shards.walk(parent_s, unc_s, lc_s, shards.replicate(offs),
-                    shards.cols(shards.pad(onehots, (1,))),
-                    shards.replicate(np.array([_SENTINEL], np.int32)), masks_s, 0,
-                    min(int(offs.max()), W - 1))
-    return masks_s, parent_s, unc_s
+    walked = _walk_row(ex, shards, parent, uncommitted, None, offs, onehots, 0, _SENTINEL,
+                       chain=False)
+    return tuple([w[i] for w in walked] for i in range(3))
 
 
 def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, leaders,
@@ -992,11 +902,12 @@ def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, lea
     as `reach_many_sharded` does (on the row's route, or `route`), each
     walk's support on the shard that holds its leader's column
     (`leader_support` on the shard's parent columns and the all-gathered
-    uncommitted rows), and `consensus_commit` on every shard's block;
-    new_last is the max over the data rows. Operands are host arrays; B
-    must divide by the data axis. Returns (committed [B, W, N] bool,
-    support [B] int32, new_last [N] int32) on the mesh's first device,
-    equal to `consensus_step`'s."""
+    uncommitted rows), and `consensus_commit` on every shard's block; the
+    supports' error words are read after the commits, so an out-of-range
+    offset raises then. new_last is the max over the data rows. Operands
+    are host arrays; B must divide by the data axis. Returns (committed
+    [B, W, N] bool, support [B] int32, new_last [N] int32) on the mesh's
+    first device, equal to `consensus_step`'s."""
     rows = mesh.rows("auth")
     W, N = np.asarray(uncommitted).shape
     offs = np.asarray(offs, np.int32)
@@ -1009,7 +920,7 @@ def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, lea
         raise ValueError(f"consensus_step_sharded: leader indices outside [0, {N})")
     bd = B // len(rows)
     first = rows[0][0]
-    committed, support, new_last = [], [], []
+    committed, support, new_last, checks = [], [], [], []
     for r in range(len(rows)):
         ex = mesh.walk(r, route)
         shards = _Shards(ex.row, N)
@@ -1023,10 +934,11 @@ def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, lea
             mine = np.nonzero(owner == i)[0]
             if not mine.size:
                 continue
-            part = leader_support(
+            part, check = _leader_support(
                 parent_s[i], shards.gather(unc_s, dev), stakes_s[i],
                 torch.from_numpy(offs[b][mine]).to(dev),
                 torch.from_numpy(leaders[b][mine] - i * shards.m).to(dev))
+            checks.append(check)
             sup[torch.from_numpy(mine).to(first)] = part.to(first)
         last_s = _slot_views(ex, _group_blocks(ex, shards, shards.blocks(
             shards.pad(np.asarray(last_committed, np.int32), (0,)))))
@@ -1038,6 +950,8 @@ def consensus_step_sharded(mesh, parent, uncommitted, stakes, offs, onehots, lea
         committed.append(shards.gather(blocks, first)[..., :N])
         support.append(sup)
         new_last.append(shards.gather(lasts, first)[:N])
+    for check in checks:
+        check()
     return (torch.cat(committed), torch.cat(support),
             torch.stack(new_last).amax(dim=0))
 

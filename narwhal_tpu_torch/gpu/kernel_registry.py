@@ -67,9 +67,6 @@ KERNELS: dict[str, tuple[str, str]] = {
     "reach_many": ("dag_window", "narwhal_tpu/consensus/dag.py:262 _reach_k"),
     "leader_support": ("dag_window", "narwhal_tpu/tpu/dag_kernels.py:119 leader_support"),
     "consensus_commit": ("dag_window", "__graft_entry__.py:229 consensus_step"),
-    "reach_shard_step": (
-        "dag_window",
-        "narwhal_tpu/tpu/dag_kernels.py:128 chain_commit (auth-sharded, node.py:296-330)"),
     "sharded_walk": (
         "dag_window",
         "narwhal_tpu/tpu/dag_kernels.py:497-519 the sharded chain_commit (shard_map, auth)"),

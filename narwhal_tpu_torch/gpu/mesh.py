@@ -9,21 +9,23 @@ one process; so does the port: a mesh is an explicit grid of
 
 The sharded walk of an auth row takes one of three routes, chosen from the
 row's topology when the mesh is built (`walk_route`, kept in
-`DeviceMesh.routes`) and never on a failure:
-  "cluster"  every shard on one card: one `sharded_walk` launch, a
-             thread-block cluster of a CTA per shard;
+`DeviceMesh.routes`) and never on a failure. On each a walk set is one
+`sharded_walk` launch per card, a thread-block cluster of a CTA per shard
+of the card:
+  "cluster"  every shard on one card: one launch;
   "peer"     the row spans cards that all have peer access to one
-             another: one launch per card, exchanging frontier blocks
-             through peer-mapped buffers (`WalkExchange`, kept on the mesh
-             so that they outlive every launch);
-  "rowstep"  the row spans cards without peer access: the host steps every
-             shard one row at a time (`reach_shard_step`) and moves the
-             frontier blocks with `.to(device)`.
+             another: the launches exchange frontier blocks through
+             peer-mapped card memory (`WalkExchange`, kept on the mesh so
+             that its buffers outlive every launch);
+  "host"     the row spans cards without peer access: the launches
+             exchange through pinned host memory that every card maps.
+A mesh on the CPU walks with the plain version on every route but "peer".
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -32,7 +34,7 @@ from . import named_device
 
 
 MAX_CLUSTER = 16  # sharded_walk: CTAs a cluster (8 portable, 16 non-portable)
-ROUTES = ("cluster", "peer", "rowstep")
+ROUTES = ("cluster", "peer", "host")
 
 
 def walk_route(devices) -> str:
@@ -40,19 +42,21 @@ def walk_route(devices) -> str:
     topology alone: "cluster" when every shard is on one device, "peer"
     when the row spans CUDA cards that all have peer access to one another
     (`torch.cuda.can_device_access_peer` on every ordered pair), else
-    "rowstep". Raises ConfigError when a cluster route would put more
-    shards on one card than a cluster holds (MAX_CLUSTER); a CPU device,
-    where the plain version walks, takes any number."""
+    "host". Raises ConfigError when a row mixes the CPU and cards, or
+    when a card would hold more shards of the row than a cluster holds
+    (MAX_CLUSTER); the CPU, where the plain version walks, takes any
+    number."""
     devs = tuple(devices)
     distinct = list(dict.fromkeys(devs))
+    if len({d.type for d in distinct}) > 1:
+        raise ConfigError(f"an auth row mixes device types: {[str(d) for d in distinct]}")
     if len(distinct) == 1:
         route = "cluster"
-    elif all(d.type == "cuda" for d in distinct) and all(
-        torch.cuda.can_device_access_peer(a, b) for a in distinct for b in distinct if a != b
-    ):
+    elif all(torch.cuda.can_device_access_peer(a, b)
+             for a in distinct for b in distinct if a != b):
         route = "peer"
     else:
-        return "rowstep"
+        route = "host"
     if distinct[0].type != "cuda":
         return route  # one CPU device: the plain version, no cluster
     most = max(devs.count(d) for d in distinct)
@@ -68,14 +72,17 @@ class WalkExchange:
     """One auth row's shards as the sharded walk launches them on `route`.
 
     `groups` holds one list of slots (shard indices of the row) per launch:
-    every slot in one group on "cluster"; on "peer" one group per card, or,
-    on one card repeated (a forced route that tests the exchange without a
-    second card), one group per slot, each with its own launch, stream and
-    exchange buffer; one group per slot on "rowstep". `devices[g]` is group
-    g's device. On "peer" on the card it also keeps what the launches
-    share: each group's exchange buffer, pointer table, error word, slot
-    and owner tables and stream, and the generation counter `gen` that
-    every launch advances (see csrc/dag_window.cu, sharded_walk)."""
+    every slot in one group on "cluster"; on "peer" and "host" one group
+    per card, or, on one card repeated (a forced route that tests the
+    exchange without a second card), one group per slot, each with its own
+    launch, stream and exchange buffer; on a CPU row "host" is one group
+    (the plain version walks every slot at once). `devices[g]` is group
+    g's device. On the exchange routes on the card it also keeps what the
+    launches share: each group's exchange buffer ("peer": card memory
+    mapped by the other cards; "host": pinned host memory every card
+    maps), pointer table, error word, slot and owner tables and stream, and
+    the generation counter `gen` that every launch advances (see
+    csrc/dag_window.cu, sharded_walk)."""
 
     def __init__(self, devices, route: str):
         row = tuple(devices)
@@ -86,19 +93,21 @@ class WalkExchange:
                                   f"{[str(d) for d in row]}")
             walk_route(row)
             groups = [list(range(len(row)))]
-        elif route == "peer":
-            if any(d.type != "cuda" for d in distinct):
-                raise ConfigError(f"the peer route runs on cards only, got "
+        elif route in ("peer", "host"):
+            cards = all(d.type == "cuda" for d in distinct)
+            if route == "host" and not cards and len(distinct) == 1:
+                groups = [list(range(len(row)))]  # the CPU: the plain version
+            elif not cards:
+                raise ConfigError(f"the {route} route runs on cards only, got "
                                   f"{[str(d) for d in distinct]}")
-            if len(distinct) == 1:
+            elif len(distinct) == 1:
                 groups = [[i] for i in range(len(row))]
-            elif walk_route(row) != "peer":
-                raise ConfigError(f"the peer route needs peer access between every pair of "
-                                  f"{[str(d) for d in distinct]}")
             else:
+                own = walk_route(row)  # raises past a cluster's shards on one card
+                if route == "peer" and own != "peer":
+                    raise ConfigError(f"the peer route needs peer access between every pair "
+                                      f"of {[str(d) for d in distinct]}")
                 groups = [[i for i, d in enumerate(row) if d == u] for u in distinct]
-        elif route == "rowstep":
-            groups = [[i] for i in range(len(row))]
         else:
             raise ConfigError(f"unknown walk route {route!r} (one of {ROUTES})")
         self.route = route
@@ -109,21 +118,23 @@ class WalkExchange:
         self._shared = None
 
     def shared(self, nslots: int, npad: int) -> dict:
-        """The peer launches' shared state, sized for `nslots` walk slots of
-        `npad` frontier bytes (grown, zeroed and `gen` reset when too small;
-        the caller synchronises every launch before it returns, so no launch
-        is in flight then). Every launch passes the kernel st["nslots"], the
-        layout the buffers were made with, whatever its own walk count, so a
-        later launch with fewer walks or in the other mode finds each flag
-        where the earlier ones left it. Maps each ordered pair of distinct
-        cards at the first call."""
+        """The exchange launches' shared state, sized for `nslots` walk slots
+        of `npad` frontier bytes (grown, zeroed and `gen` reset when too
+        small; the caller synchronises every launch before it returns, so no
+        launch is in flight then, and the buffers it drops are freed). Every
+        launch passes the kernel st["nslots"], the layout the buffers were
+        made with, whatever its own walk count, so a later launch with fewer
+        walks or in the other mode finds each flag where the earlier ones
+        left it. On "peer" the buffers are card memory, each ordered pair of
+        distinct cards mapped at the first call; on "host" pinned host
+        memory (`HostBuffer`), with no peer mapping."""
         from . import kernel_registry
 
         st = self._shared
         if st is not None and st["nslots"] >= nslots and st["npad"] >= npad:
             return st
         G = len(self.groups)
-        if st is None:
+        if st is None and self.route == "peer":
             enable = kernel_registry.library("dag_window").dag_window_enable_peer
             enable.argtypes, enable.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
             cards = list(dict.fromkeys(self.devices))
@@ -133,8 +144,12 @@ class WalkExchange:
                         kernel_registry.check("dag_window", "enable_peer",
                                               enable(a.index, b.index))
         nbytes = 12 * nslots * G + 2 * nslots * npad
-        bufs = [torch.zeros((nbytes,), dtype=torch.uint8, device=d) for d in self.devices]
-        ptrs = [b.data_ptr() for b in bufs]
+        if self.route == "host":
+            bufs = [HostBuffer(nbytes) for _ in self.devices]
+            ptrs = [b.ptr for b in bufs]
+        else:
+            bufs = [torch.zeros((nbytes,), dtype=torch.uint8, device=d) for d in self.devices]
+            ptrs = [b.data_ptr() for b in bufs]
         owner = [0] * len(self.row)
         for g, slots in enumerate(self.groups):
             for s in slots:
@@ -150,6 +165,26 @@ class WalkExchange:
         }
         self.gen = 0
         return st
+
+
+class HostBuffer:
+    """`nbytes` of zeroed pinned host memory that every card maps (portable,
+    mapped; `ptr` is its address on the host and on every card), freed
+    when the object goes. Its holder keeps it past every launch that uses
+    it (`WalkExchange.shared`)."""
+
+    def __init__(self, nbytes: int):
+        from . import kernel_registry
+
+        lib = kernel_registry.library("dag_window")
+        alloc, free = lib.dag_window_host_alloc, lib.dag_window_host_free
+        alloc.argtypes, alloc.restype = [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int
+        free.argtypes, free.restype = [ctypes.c_void_p], ctypes.c_int
+        out = ctypes.c_void_p()
+        kernel_registry.check("dag_window", "host_alloc", alloc(nbytes, ctypes.byref(out)))
+        self.ptr = out.value
+        self.nbytes = nbytes
+        weakref.finalize(self, free, self.ptr)
 
 
 class DeviceMesh:
@@ -188,8 +223,8 @@ class DeviceMesh:
     def walk(self, row: int = 0, route: str | None = None) -> WalkExchange:
         """Auth row `row`'s shards as the sharded walk launches them: on the
         row's own route, or on `route` where a caller forces one (tests and
-        chip_smoke.py run "peer" on one card repeated). Kept on the mesh, so
-        the peer route's exchange buffers outlive every launch."""
+        chip_smoke.py run "peer" and "host" on one card repeated). Kept on
+        the mesh, so the exchange routes' buffers outlive every launch."""
         route = route or self.routes[row]
         ex = self._walks.get((row, route))
         if ex is None:

@@ -472,7 +472,7 @@ def test_engine_on_card_matches_cpu():
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 100
 
 
-@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("b", [1, 64, 200])
 def test_leader_support_kernel_matches_plain(b):
     _need_card("leader_support", "csrc/dag_window.cu")
     host = chip_smoke.support_inputs(np.random.default_rng(b), 64, 50, b, 0.3)
@@ -482,6 +482,55 @@ def test_leader_support_kernel_matches_plain(b):
     a = td.leader_support(*t)
     assert kernel_registry.launch_counts()["leader_support"] == 1
     assert torch.equal(a, td.leader_support_plain(*t)) and bool((a > 0).any())
+
+
+@pytest.mark.parametrize("what", ["offset", "leader"])
+def test_leader_support_error_word_raises(what):
+    """An out-of-range walk among 64 (walk 40: an offset of W, or a leader
+    of M) raises the CPU's ValueError from the kernel's error words, after
+    one launch; the same call with the walk removed is bit-equal to the
+    plain version, and the kernel wrote 0 for the bad walk and the plain
+    support for the others."""
+    _need_card("leader_support", "csrc/dag_window.cu")
+    parent, present, stakes, offs, _oh, leaders, _last = chip_smoke.support_inputs(
+        np.random.default_rng(40), 64, 50, 64, 0.3)
+    o, l = offs.copy(), leaders.copy()
+    (o if what == "offset" else l)[40] = 64 if what == "offset" else 50
+    host = (parent, present, stakes, o, l)
+    with pytest.raises(ValueError) as cpu_err:
+        td.leader_support(*(torch.from_numpy(a) for a in host))
+    kernel_registry.reset_launch_counts()
+    with pytest.raises(ValueError) as card_err:
+        td.leader_support(*(torch.from_numpy(a).cuda() for a in host))
+    assert kernel_registry.launch_counts()["leader_support"] == 1
+    assert str(card_err.value) == str(cpu_err.value) and "walk 40 " in str(card_err.value)
+    keep = np.arange(64) != 40
+    t = [torch.from_numpy(a).cuda() for a in (parent, present, stakes, o[keep], l[keep])]
+    got = td.leader_support(*t)
+    assert torch.equal(got, td.leader_support_plain(*t))
+    part, _check = td._leader_support(*(torch.from_numpy(a).cuda() for a in host))
+    assert int(part[40]) == 0 and torch.equal(part[torch.from_numpy(keep).cuda()], got)
+
+
+def test_consensus_step_raises_on_an_out_of_range_leader():
+    """consensus_step on the card: its three launches go out, then an
+    out-of-range leader raises the CPU's ValueError; in range it equals
+    the plain composition."""
+    _need_card("leader_support", "csrc/dag_window.cu")
+    host = list(chip_smoke.support_inputs(np.random.default_rng(41), 64, 50, 64, 0.3))
+    flat = td.consensus_step(*(torch.from_numpy(a).cuda() for a in host))
+    for a, b in zip(flat, td.consensus_step(*(torch.from_numpy(a) for a in host))):
+        assert torch.equal(a.cpu(), b)
+    host[5] = host[5].copy()
+    host[5][7] = 50
+    with pytest.raises(ValueError) as cpu_err:
+        td.consensus_step(*(torch.from_numpy(a) for a in host))
+    kernel_registry.reset_launch_counts()
+    with pytest.raises(ValueError) as card_err:
+        td.consensus_step(*(torch.from_numpy(a).cuda() for a in host))
+    counts = kernel_registry.launch_counts()
+    assert counts["reach_many"] == counts["leader_support"] == counts["consensus_commit"] == 1
+    assert str(card_err.value) == str(cpu_err.value)
 
 
 @pytest.mark.parametrize("shape", [c[0] for c in chip_smoke.COMMIT_SHAPES])
@@ -509,27 +558,13 @@ def test_consensus_commit_kernel_matches_plain(shape):
         assert bool(kc[0].any()) and not bool(kc[1].any()) and not torch.equal(kl, t[3])
 
 
-@pytest.mark.parametrize("auth,k", [(2, 1), (4, 16)])
-def test_reach_shard_step_kernel_matches_plain(auth, k):
-    """One row step on shard 1 of N = 50 padded to a multiple of `auth`."""
-    _need_card("reach_shard_step", "csrc/dag_window.cu")
-    host = chip_smoke.shard_step_inputs(np.random.default_rng(auth), 64, 50, auth, k, 56)
-    kt = [torch.from_numpy(a).cuda() for a in host]
-    pt = [x.clone() for x in kt]
-    kf = td.reach_shard_step(*kt, 56, 50)
-    pf = td.reach_shard_step_plain(*pt, 56, 50)
-    assert torch.equal(kf, pf) and bool(kf.any())
-    assert torch.equal(kt[7], pt[7]) and torch.equal(kt[8], pt[8])
-
-
 def test_sharded_compositions_match_unsharded_kernels():
     """Over [cuda:0, cuda:0], on each route: chain_commit_sharded equals
     chain_commit on a healed-partition chain, reach_many_sharded equals
     reach_many, and consensus_step_sharded (2 x 2) equals consensus_step,
-    launching neither unsharded walk: sharded_walk and no reach_shard_step
-    on "cluster" (the mesh's own route) and "peer" (forced), the reverse on
-    "rowstep" (forced)."""
-    _need_card("sharded_walk, reach_shard_step", "csrc/dag_window.cu")
+    launching neither unsharded walk, through sharded_walk, on "cluster"
+    (the mesh's own route) and on "peer" and "host" (forced)."""
+    _need_card("sharded_walk", "csrc/dag_window.cu")
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
     mesh = auth_mesh(2, devices=["cuda:0", "cuda:0"])
@@ -544,7 +579,7 @@ def test_sharded_compositions_match_unsharded_kernels():
     host = chip_smoke.support_inputs(rng, 64, 50, 64, 0.3)
     flat = td.consensus_step(*(torch.from_numpy(a).cuda() for a in host))
     grid = auth_mesh(2, devices=["cuda:0"] * 4, data=2)
-    for route in ("cluster", "peer", "rowstep"):
+    for route in ("cluster", "peer", "host"):
         kernel_registry.reset_launch_counts()
         got = td.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots,
                                       route=route)
@@ -554,20 +589,20 @@ def test_sharded_compositions_match_unsharded_kernels():
         assert torch.equal(got, want) and torch.equal(got_r, want_r)
         for a, b in zip(flat, meshed):
             assert torch.equal(a, b)
-        walk, step = counts["sharded_walk"], counts["reach_shard_step"]
-        assert (walk > 0 and step == 0) if route != "rowstep" else (step > 0 and walk == 0)
+        assert counts["sharded_walk"] > 0
         assert counts["chain_commit"] == counts["reach_many"] == 0
     assert got.device == torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("route", ["cluster", "peer"])
+@pytest.mark.parametrize("route", ["cluster", "peer", "host"])
 @pytest.mark.parametrize("auth", [2, 4])
 def test_sharded_walk_kernel_matches_plain(route, auth):
     """sharded_walk over `auth` shards of the card (N = 50 padded to 52
-    over 4) on `route` ("peer" forced: a launch, a stream and an exchange
-    buffer per shard), bit-equal to its plain version and to B2 / B6: chain
-    mode at K = 1, 2, 4 on healed-partition chains (a padding slot at
-    K = 4), many mode at K = 64 on the sparse read window."""
+    over 4) on `route` ("peer" and "host" forced: a launch, a stream and an
+    exchange buffer per shard, card memory or pinned host memory),
+    bit-equal to its plain version and to B2 / B6: chain mode at K = 1, 2,
+    4 on healed-partition chains (a padding slot at K = 4), many mode at
+    K = 64 on the sparse read window."""
     _need_card("sharded_walk", "csrc/dag_window.cu")
     from narwhal_tpu_torch.gpu.mesh import auth_mesh
 
@@ -576,7 +611,7 @@ def test_sharded_walk_kernel_matches_plain(route, auth):
     def walk(ops, gc_depth, lcr, chain):
         if route == "cluster":
             return td.sharded_walk(*ops, gc_depth, lcr, chain)
-        return chip_smoke.walk_peer(mesh, ops, gc_depth, lcr, chain)
+        return chip_smoke.walk_exchange(mesh, ops, gc_depth, lcr, chain, route)
 
     rng = np.random.default_rng(auth)
     for K, live in ((1, 1), (2, 2), (4, 3)):
@@ -602,10 +637,11 @@ def test_sharded_walk_kernel_matches_plain(route, auth):
     assert torch.equal(chip_smoke.unblock(got, 50), want)
 
 
-def test_sharded_walk_missing_peer_raises_within_deadline():
-    """Only one of the two launches of a forced peer route is issued, with a
-    100 ms deadline: the launched one gives up at its deadline and the call
-    raises RuntimeError (no hang); the exchange then works again."""
+@pytest.mark.parametrize("route", ["peer", "host"])
+def test_sharded_walk_missing_peer_raises_within_deadline(route):
+    """Only one of the two launches of a forced exchange route is issued,
+    with a 100 ms deadline: the launched one gives up at its deadline and
+    the call raises RuntimeError (no hang); the exchange then works again."""
     _need_card("sharded_walk", "csrc/dag_window.cu")
     import time
 
@@ -616,20 +652,23 @@ def test_sharded_walk_missing_peer_raises_within_deadline():
         np.random.default_rng(3), 64, 50, 50, 1, 1)
     blocks = chip_smoke.walk_blocks(2, parent, present, lc, onehots)
     ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
-    want = chip_smoke.walk_peer(mesh, ops, 50, lcr, True)
+    want = chip_smoke.walk_exchange(mesh, ops, 50, lcr, True, route)
+    assert torch.equal(want, td.sharded_walk(*ops, 50, lcr, True))
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError, match="waited more than 100 ms"):
-        chip_smoke.walk_peer(mesh, ops, 50, lcr, True, launch=[0], timeout_ms=100)
+        chip_smoke.walk_exchange(mesh, ops, 50, lcr, True, route, launch=[0], timeout_ms=100)
     assert time.perf_counter() - t0 < 1.1
-    assert torch.equal(chip_smoke.walk_peer(mesh, ops, 50, lcr, True), want)
+    assert torch.equal(chip_smoke.walk_exchange(mesh, ops, 50, lcr, True, route), want)
 
 
-def test_peer_exchange_reused_across_modes_and_walk_counts():
-    """One forced peer exchange on the card reused by calls that change mode
-    and walk count, each on fresh inputs (chip_smoke.check_peer_reuse):
-    every result equals B6 / B2."""
+@pytest.mark.parametrize("route", ["peer", "host"])
+def test_peer_exchange_reused_across_modes_and_walk_counts(route):
+    """One forced exchange of `route` on the card reused by calls that
+    change mode and walk count, each on fresh inputs
+    (chip_smoke.check_peer_reuse): every result equals B6 / B2, the "host"
+    route's host-memory slots reused every second event included."""
     _need_card("sharded_walk", "csrc/dag_window.cu")
-    seq = chip_smoke.check_peer_reuse(torch.device("cuda", 0))
+    seq = chip_smoke.check_peer_reuse(torch.device("cuda", 0), route=route)
     assert seq[0] == ("many", 64) and ("chain", 2) in seq  # a large layout, then fewer walks
 
 
@@ -643,12 +682,13 @@ def _cards(k: int) -> int:
 @pytest.mark.parametrize("layout", ["two cards", "every card", "two cards twice"])
 def test_sharded_walk_across_cards(layout, capsys):
     """An auth row over distinct cards: its route from the topology ("peer"
-    where every pair has peer access, else "rowstep"), the compositions
+    where every pair has peer access, else "host"), the compositions
     equal to chain_commit / reach_many / consensus_step on cuda:0 on that
-    route and on "rowstep" forced, one sharded_walk launch per card per
-    chain; on "peer" one exchange reused across modes and walk counts
-    stays exact, and a missing peer raises within its deadline. Prints the
-    route and the host wall of each composition."""
+    route and on "host" forced (a real exchange through host memory over
+    PCIe), one sharded_walk launch per card per chain; on each exchange
+    route one exchange reused across modes and walk counts stays exact,
+    and a missing peer raises within its deadline. Prints the cards, their
+    peer access, the route and the host wall of each composition."""
     _need_card("sharded_walk", "csrc/dag_window.cu")
     import time
 
@@ -662,7 +702,7 @@ def test_sharded_walk_across_cards(layout, capsys):
     route = mesh.routes[0]
     access = all(torch.cuda.can_device_access_peer(a, b)
                  for a in range(n) for b in range(n) if a != b)
-    assert route == ("peer" if access else "rowstep")
+    assert route == ("peer" if access else "host")
     rng = np.random.default_rng(11)
     parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
         rng, 64, 50, 50, 4, 3)
@@ -671,13 +711,12 @@ def test_sharded_walk_across_cards(layout, capsys):
     rin = chip_smoke.reach_many_inputs(rng, 64, 50, 64, 56)
     want_r = td.reach_many(*(torch.from_numpy(a).cuda() for a in rin))
     walls = {}
-    for r in dict.fromkeys((route, "rowstep")):
+    for r in dict.fromkeys((route, "host")):
         kernel_registry.reset_launch_counts()
         got = td.chain_commit_sharded(mesh, parent, present, 50, lc, lcr, offs, onehots, route=r)
         counts = kernel_registry.launch_counts()
         assert torch.equal(got.to("cuda:0"), want)
-        if r == "peer":
-            assert counts["sharded_walk"] == len(mesh.walk(0, r).groups)
+        assert counts["sharded_walk"] == len(mesh.walk(0, r).groups)
         assert torch.equal(td.reach_many_sharded(mesh, *rin, route=r).to("cuda:0"), want_r)
         for name, fn in (("chain_commit_sharded K=4", lambda: td.chain_commit_sharded(
                 mesh, parent, present, 50, lc, lcr, offs, onehots, route=r)),
@@ -696,20 +735,20 @@ def test_sharded_walk_across_cards(layout, capsys):
             else auth_mesh(len(devs), devices=devs))
     for a, b in zip(flat, td.consensus_step_sharded(grid, *host)):
         assert torch.equal(a, b.to("cuda:0"))
-    if route == "peer":
-        chip_smoke.check_peer_reuse(torch.device("cuda", 0), devices=devs)
-        blocks = chip_smoke.walk_blocks(len(devs), parent, present, lc, onehots)
-        ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
-        assert torch.equal(chip_smoke.unblock(chip_smoke.walk_peer(mesh, ops, 50, lcr, True),
-                                              50), want)
+    blocks = chip_smoke.walk_blocks(len(devs), parent, present, lc, onehots)
+    ops = [torch.from_numpy(a).cuda() for a in (*blocks[:3], offs, blocks[3])]
+    for r in dict.fromkeys((route, "host")):
+        chip_smoke.check_peer_reuse(torch.device("cuda", 0), devices=devs, route=r)
+        got = chip_smoke.walk_exchange(mesh, ops, 50, lcr, True, r)
+        assert torch.equal(chip_smoke.unblock(got, 50), want)
         t0 = time.perf_counter()
         with pytest.raises(RuntimeError, match="waited more than 100 ms"):
-            chip_smoke.walk_peer(mesh, ops, 50, lcr, True, launch=[0], timeout_ms=100)
-        walls["missing peer raised after"] = (time.perf_counter() - t0) * 1e3
-        assert walls["missing peer raised after"] < 1100
+            chip_smoke.walk_exchange(mesh, ops, 50, lcr, True, r, launch=[0], timeout_ms=100)
+        walls[f"missing peer raised after ({r})"] = (time.perf_counter() - t0) * 1e3
+        assert walls[f"missing peer raised after ({r})"] < 1100
     with capsys.disabled():
-        print(f"\n[{layout}] {devs}: route {route}; ms a call: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
+        print(f"\n[{layout}] {devs} (peer access between every pair: {access}): route "
+              f"{route}; ms a call: " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
 
 
 def test_meshed_engine_across_cards(capsys):

@@ -114,6 +114,45 @@ def test_leader_support_rejects_out_of_range():
                                   np.array(leaders, np.int32)))
 
 
+@pytest.mark.parametrize("offs,leaders,named", [
+    ([1, 4, 2, 0], [0, 1, 5, 2], (1, 4, 1)),
+    ([0, 1, 2, -1], [0, 9, 1, 2], (1, 1, 9)),
+    ([0, 0, 0, 0], [0, 1, 2, 3], (3, 0, 3)),
+])
+def test_leader_support_names_the_lowest_bad_walk(offs, leaders, named):
+    """The CPU check raises `support_range_error` for the lowest walk with
+    an offset outside [0, W) or a leader outside [0, M), as the card's
+    error words name it; the error words read back give the same walk."""
+    parent = np.ones((4, 3, 3), np.uint8)
+    present = np.ones((4, 3), np.uint8)
+    stakes = np.array([1, 2, 4], np.int32)
+    walk, off, leader = named
+    with pytest.raises(ValueError) as err:
+        td.leader_support(*_t(parent, present, stakes, np.array(offs, np.int32),
+                              np.array(leaders, np.int32)))
+    assert str(err.value) == str(td.support_range_error(4, 3, walk, off, leader))
+    assert f"walk {walk} has offset {off} and leader index {leader}" in str(err.value)
+    none = 2**31 - 1
+    words = [none, 0, 0, walk + 16, 5, 5, walk, off, leader]
+    assert td.support_error(words, none) == named
+    assert td.support_error([none, 0, 0], none) is None
+
+
+def test_consensus_step_raises_on_an_out_of_range_leader():
+    """The consensus step, unmeshed and over a 2 x 2 mesh, raises on a
+    leader outside the committee and on an offset outside the window,
+    rather than fill or wrap as jnp.take would."""
+    parent, unc, stakes, offs, onehots, leaders, last = _step_inputs(9, 16, 7, 8)
+    for field, value in (("leaders", 7), ("leaders", -1), ("offs", 16), ("offs", -2)):
+        o, l = offs.copy(), leaders.copy()
+        (l if field == "leaders" else o)[5] = value
+        with pytest.raises(ValueError):
+            td.consensus_step(*_t(parent, unc, stakes, o, onehots, l, last))
+        with pytest.raises(ValueError):
+            td.consensus_step_sharded(_cpu_mesh(2, 2), parent, unc, stakes, o, onehots, l,
+                                      last)
+
+
 # -- B7 consensus_step ------------------------------------------------------
 
 
@@ -208,40 +247,6 @@ def test_consensus_step_sharded_matches_unsharded():
             assert torch.equal(g, x)
     with pytest.raises(ValueError):  # 8 walks do not split over 3 data rows
         td.consensus_step_sharded(_cpu_mesh(1, 3), *inputs)
-
-
-def test_reach_shard_step_is_a_row_of_the_walk():
-    """Stepped by hand over two shards with the all-gather between rows,
-    the step reproduces reach_mask row by row."""
-    w, n = 6, 4
-    rng, parent, present = _window(8, w, n)
-    onehot = np.zeros((1, n), np.uint8)
-    onehot[0, 1] = 1
-    present[w - 1, 1] = 1
-    want = td.reach_mask(*_t(parent, present), w - 1, torch.from_numpy(onehot[0]))
-    lc = torch.full((2,), -(2**30), dtype=torch.int32)
-    lcr = torch.tensor([0], dtype=torch.int32)
-    masks = [torch.zeros((1, w, 2), dtype=torch.bool) for _ in range(2)]
-    committed = [torch.full((1, 2), -(2**30), dtype=torch.int32) for _ in range(2)]
-    frontier = torch.zeros((1, n), dtype=torch.uint8)
-    offs = torch.tensor([w - 1], dtype=torch.int32)
-    for row in range(w - 1, -1, -1):
-        blocks = [td.reach_shard_step(
-            torch.from_numpy(parent[..., 2 * s:2 * s + 2].copy()),
-            torch.from_numpy(present[:, 2 * s:2 * s + 2].copy()), lc, frontier, offs,
-            torch.from_numpy(onehot[:, 2 * s:2 * s + 2].copy()), lcr, masks[s],
-            committed[s], row, 0) for s in range(2)]
-        frontier = torch.cat(blocks, dim=1)
-        assert torch.equal(frontier[0].bool(), want[row])
-    assert torch.equal(torch.cat(masks, dim=2)[0], want)
-    top = torch.cat(committed, dim=1)[0]
-    rows = torch.arange(w)[:, None]
-    assert torch.equal(top, torch.where(want, rows, -(2**30)).amax(dim=0).int())
-    with pytest.raises(ValueError):
-        td.reach_shard_step(torch.from_numpy(parent[..., :2].copy()),
-                            torch.from_numpy(present[:, :2].copy()), lc, frontier, offs,
-                            torch.from_numpy(onehot[:, :2].copy()), lcr, masks[0],
-                            committed[0], w, 0)
 
 
 # -- the meshed engines against the JAX host engines -------------------------

@@ -110,7 +110,6 @@ def test_registry_sources_define_the_wrapped_entry_points():
         "msm_shard_reduce": "ed25519_msm_shard_reduce",
         "leader_support": "dag_window_leader_support",
         "consensus_commit": "dag_window_consensus_commit",
-        "reach_shard_step": "dag_window_reach_shard_step",
         "sharded_walk": "dag_window_sharded_walk",
     }
     assert set(kr.KERNELS) == set(symbols)

@@ -8,13 +8,16 @@ selection, and its compositions on every route, on the CPU.
   (many mode), on the same numpy inputs: bit-exact;
 - `mesh.walk_route` with `torch.cuda.can_device_access_peer` and the
   device count monkeypatched: a repeated card is "cluster", distinct cards
-  with access "peer", without it "rowstep", and more shards on one card
+  with access "peer", without it "host", and more shards on one card
   than a cluster holds is a ConfigError (a CPU mesh takes any number);
+  the "host" route's launch groups (one a card, one a slot on a card
+  repeated) with no peer mapping;
 - `chain_commit_sharded`, `reach_many_sharded` and
-  `consensus_step_sharded` forced onto the "cluster" and "rowstep" routes
-  over `["cpu"] * k` meshes, against the unsharded plain versions: exact;
-  "peer" forced on CPU devices is a ConfigError (the peer exchange has no
-  plain form: it runs on the card only).
+  `consensus_step_sharded` forced onto the "cluster" and "host" routes
+  over `["cpu"] * k` meshes (the plain version walks the CPU's one group),
+  against the unsharded plain versions: exact; "peer" forced on CPU
+  devices is a ConfigError (the peer exchange has no plain form: it runs
+  on the card only).
 
 The kernel itself runs only on the card: tests/test_torch_cuda.py and
 chip_smoke.py hold it to this plain version there.
@@ -111,19 +114,50 @@ def test_route_is_peer_across_cards_with_access(cards):
     assert two.routes == ["peer"] and two.walk().groups == [[0, 2], [1, 3]]
 
 
-def test_route_is_rowstep_across_cards_without_access(cards):
+def test_route_is_host_across_cards_without_access(cards):
     cards(2, lambda a, b: False)
-    assert auth_mesh(2).routes == ["rowstep"]
+    assert auth_mesh(2).routes == ["host"]
     cards(2, lambda a, b: a == 0)  # one direction only
     mesh = auth_mesh(2)
-    assert mesh.routes == ["rowstep"] and mesh.walk().groups == [[0], [1]]
+    assert mesh.routes == ["host"] and mesh.walk().groups == [[0], [1]]
     with pytest.raises(ConfigError):  # a row over two cards is no cluster
         mesh.walk(0, "cluster")
     with pytest.raises(ConfigError):  # nor a peer route without access
         mesh.walk(0, "peer")
-    # Without clusters, any number of shards may share a card.
-    many = ["cuda:0"] * (tmesh.MAX_CLUSTER + 1) + ["cuda:1"]
-    assert tmesh.walk_route([torch.device(d) for d in many]) == "rowstep"
+    # A card's shards of the row form one cluster on "host" too.
+    k = tmesh.MAX_CLUSTER
+    assert tmesh.walk_route([torch.device(d) for d in ["cuda:0"] * k + ["cuda:1"]]) == "host"
+    with pytest.raises(ConfigError):
+        tmesh.walk_route([torch.device(d) for d in ["cuda:0"] * (k + 1) + ["cuda:1"]])
+    with pytest.raises(ConfigError):  # the CPU and a card in one row
+        auth_mesh(2, devices=["cpu", "cuda:0"])
+
+
+def test_host_exchange_groups_without_peer_mapping(cards, monkeypatch):
+    """WalkExchange(..., "host"): one launch group per card, one per slot
+    on a card repeated, a card's slots together on a row over cards
+    repeated; on a CPU row one group (the plain version). Building it, and
+    forcing it where the cards have peer access, maps no pair of cards:
+    its buffers are host memory."""
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    def no_library(stem):
+        raise AssertionError(f"the host route's groups loaded {stem}: no peer mapping")
+    monkeypatch.setattr(kernel_registry, "library", no_library)
+    cards(4, lambda a, b: False)
+    dev = (lambda *i: [torch.device("cuda", j) for j in i])
+    two = WalkExchange(dev(0, 1), "host")
+    assert two.groups == [[0], [1]] and two.devices == dev(0, 1)
+    assert WalkExchange(dev(0, 0, 0), "host").groups == [[0], [1], [2]]
+    spread = WalkExchange(dev(0, 1, 0, 1), "host")
+    assert spread.groups == [[0, 2], [1, 3]] and spread.devices == dev(0, 1)
+    assert auth_mesh(4, devices=["cuda:2"] * 4).walk(0, "host").groups == [[0], [1], [2], [3]]
+    cards(4, lambda a, b: True)  # forced where the cards have peer access
+    mesh = auth_mesh(2, devices=["cuda:0", "cuda:1"])
+    assert mesh.routes == ["peer"] and mesh.walk(0, "host").groups == [[0], [1]]
+    assert mesh.walk(0, "host") is mesh.walk(0, "host")  # kept on the mesh
+    cpu = WalkExchange([torch.device("cpu")] * 3, "host")
+    assert cpu.groups == [[0, 1, 2]] and cpu.devices == [torch.device("cpu")]
 
 
 def test_cluster_size_above_the_limit_raises(cards):
@@ -141,7 +175,7 @@ def test_cluster_size_above_the_limit_raises(cards):
 # -- the compositions on every route -----------------------------------------
 
 
-@pytest.mark.parametrize("route", ["cluster", "peer", "rowstep"])
+@pytest.mark.parametrize("route", ["cluster", "peer", "host"])
 @pytest.mark.parametrize("auth,n", [(2, 4), (4, 7)])
 def test_sharded_compositions_on_each_route(route, auth, n):
     """Each composition forced onto `route` over a CPU mesh equals the
@@ -191,15 +225,16 @@ def test_cpu_mesh_takes_any_shard_count():
 
 
 def test_peer_form_refuses_cpu_tensors(cards):
-    """sharded_walk with a peer exchange takes card tensors only: on CPU
-    tensors it raises rather than walk a plain stand-in."""
+    """sharded_walk with an exchange ("peer" or "host") takes card tensors
+    only: on CPU tensors it raises rather than walk a plain stand-in."""
     cards(2, lambda a, b: True)
-    ex = WalkExchange([torch.device("cuda", i % 2) for i in range(4)], "peer")
-    assert ex.groups == [[0, 2], [1, 3]]
     parent, present, lc, lcr, offs, onehots = chip_smoke.healed_partition_chain(
         np.random.default_rng(5), W, 4, GC, 2, 2)
     pb, qb, lb, oh = _t(*chip_smoke.walk_blocks(4, parent, present, lc, onehots))
-    cut = (lambda t: [t[g] for g in ex.groups])
-    with pytest.raises(ValueError, match="card only"):
-        td.sharded_walk(cut(pb), cut(qb), cut(lb), [torch.from_numpy(offs)] * 2, [oh] * 2,
-                        GC, lcr, True, exchange=ex)
+    for route in ("peer", "host"):
+        ex = WalkExchange([torch.device("cuda", i % 2) for i in range(4)], route)
+        assert ex.groups == [[0, 2], [1, 3]]
+        cut = (lambda t: [t[g] for g in ex.groups])
+        with pytest.raises(ValueError, match=f"{route} form runs on the card only"):
+            td.sharded_walk(cut(pb), cut(qb), cut(lb), [torch.from_numpy(offs)] * 2, [oh] * 2,
+                            GC, lcr, True, exchange=ex)

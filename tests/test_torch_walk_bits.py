@@ -22,6 +22,11 @@ when g++ is missing):
   against the one-thread `fe_invert`;
 - B7, the commit mask (`dag_commit.cuh`): the launch run CTA by CTA and
   phase by phase, held bit for bit against `consensus_commit_plain`;
+- B5, the leader support (`dag_support.cuh`): every lane of every walk's
+  warp and each CTA's error word as `leader_support_kernel` writes them,
+  held bit for bit against `leader_support_plain` on the in-range walks,
+  0 on the out-of-range ones, and the words read as the wrapper reads
+  them against the lowest out-of-range walk (walk, offset, leader);
 - B3 and B4, the window sync (`csrc/dag_window_sync.cuh`): its parameter
   block filled as the C entry fills it, and its grid run CTA by CTA, every
   thread's copy then every thread's placements (the kernel's one barrier),
@@ -649,6 +654,78 @@ int main(int argc, char** argv) {
 """
 
 
+SUPPORT_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "dag_support.cuh"
+using namespace support;
+
+template <class T>
+bool read(FILE* in, std::vector<T>& v, size_t n) {
+  v.resize(n);
+  return std::fread(v.data(), sizeof(T), n, in) == n;
+}
+
+// in: W, N, M, B, parent uint8 [W, N, M], present uint8 [W, N], stakes
+// int32 [N], offs int32 [B], leaders int32 [B]
+// out: kWarps, kNoWalk, the CTAs C, out int32 [B], err int32 [C, 3]. The
+// launch as leader_support_kernel runs it: a warp a walk, its 32 lanes'
+// parts summed as __reduce_add_sync sums them (wrapping), each CTA's error
+// word its lowest out-of-range walk.
+int main(int argc, char** argv) {
+  FILE* in = std::fopen(argv[1], "rb");
+  int h[4];
+  if (std::fread(h, 4, 4, in) != 4) return 2;
+  const int W = h[0], N = h[1], M = h[2], B = h[3];
+  std::vector<uint8_t> parent, present;
+  std::vector<int32_t> stakes, offs, leaders;
+  if (!read(in, parent, (size_t)W * N * M) || !read(in, present, (size_t)W * N) ||
+      !read(in, stakes, N) || !read(in, offs, B) || !read(in, leaders, B))
+    return 2;
+  std::fclose(in);
+  const int C = ctas_for(B);
+  std::vector<int32_t> out(B, -7), err(3 * C, -7);
+  for (int c = 0; c < C; c++) {
+    int bad = kNoWalk;
+    std::vector<int32_t> off_of(kWarps), leader_of(kWarps);
+    for (int i = 0; i < kWarps; i++) {
+      const int b = c * kWarps + i;
+      if (b >= B) continue;
+      uint32_t sum = 0;
+      bool ok = true;
+      for (int lane = 0; lane < 32; lane++) {
+        int32_t off, leader;
+        bool lane_ok;
+        sum += lane_part(parent.data(), present.data(), stakes.data(), offs.data(),
+                         leaders.data(), b, W, N, M, lane, &off, &leader, &lane_ok);
+        if (lane > 0 && lane_ok != ok) return 3;  // the test is warp-uniform
+        ok = lane_ok;
+        off_of[i] = off;
+        leader_of[i] = leader;
+      }
+      out[b] = (int32_t)sum;
+      if (!ok && b < bad) bad = b;
+    }
+    if (bad == kNoWalk) {
+      err[3 * c] = kNoWalk;
+      err[3 * c + 1] = err[3 * c + 2] = 0;
+    } else {
+      err[3 * c] = bad;
+      err[3 * c + 1] = off_of[bad - c * kWarps];
+      err[3 * c + 2] = leader_of[bad - c * kWarps];
+    }
+  }
+  std::FILE* o = std::fopen(argv[2], "wb");
+  const int32_t head[3] = {kWarps, kNoWalk, C};
+  std::fwrite(head, 4, 3, o);
+  std::fwrite(out.data(), 4, B, o);
+  std::fwrite(err.data(), 4, 3 * C, o);
+  std::fclose(o);
+  return 0;
+}
+"""
+
+
 def _build(tmp_path_factory, name: str, source: str, std: str, defines=()) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
@@ -681,6 +758,11 @@ def walk_exe(tmp_path_factory):
 @pytest.fixture(scope="module")
 def commit_exe(tmp_path_factory):
     return _build(tmp_path_factory, "commit_main", COMMIT_MAIN, "c++17")
+
+
+@pytest.fixture(scope="module")
+def support_exe(tmp_path_factory):
+    return _build(tmp_path_factory, "support_main", SUPPORT_MAIN, "c++17")
 
 
 @pytest.fixture(scope="module")
@@ -1179,3 +1261,65 @@ def test_commit_cta_matches_plain(commit_exe, tmp_path, B, W, M, S, moff, coff, 
     if B > 1 and W > 0:
         assert committed[0].any() and not committed[1].any()  # at quorum; one below
         assert (new_last != last).any()
+
+
+# -- B5: the leader support ----------------------------------------------------
+
+
+def _bad_walks(rng, B: int, W: int, M: int, count: int) -> dict:
+    """`count` distinct walks of B, each with an offset outside [0, W) or a
+    leader outside [0, M) (both, now and then): walk -> (offset, leader),
+    None where the walk keeps its own."""
+    kinds = [(W, None), (-1, None), (2**31 - 1, None), (None, M), (None, -2),
+             (None, -(2**31)), (W + 3, M + 5)]
+    walks = rng.choice(B, size=count, replace=False)
+    return {int(b): kinds[int(rng.integers(len(kinds)))] for b in walks}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("B,M,n_bad", [(1, 50, 0), (1, 50, 1), (1, 25, 1), (64, 50, 0),
+                                       (64, 50, 3), (64, 25, 5), (200, 50, 4)])
+def test_support_cta_matches_plain(support_exe, tmp_path, seed, B, M, n_bad):
+    """leader_support_kernel's launch (dag_support.cuh's lane body, a warp a
+    walk, each CTA's error word) at the consensus step's window (W 64, N
+    50), on the whole link axis (M = N) and on a shard's block (M = 25),
+    stakes whose sums wrap int32 now and then, out-of-range walks among
+    the in-range ones: each in-range walk's support bit-equal to
+    `leader_support_plain`, each out-of-range one 0, and the words read as
+    the wrapper reads them (`support_error`) name the lowest out-of-range
+    walk with its offset and leader."""
+    rng = np.random.default_rng(1000 * seed + 10 * B + M + n_bad)
+    W, N = 64, 50
+    parent = (rng.random((W, N, M)) < 0.3).astype(np.uint8)
+    present = (rng.random((W, N)) < 0.9).astype(np.uint8)
+    top = 2**30 if seed == 2 else 5
+    stakes = rng.integers(1, top, N).astype(np.int32)
+    offs = rng.integers(0, W, B).astype(np.int32)
+    leaders = rng.integers(0, M, B).astype(np.int32)
+    offs[:2] = (W - 1, 0)[:B]
+    bad = _bad_walks(rng, B, W, M, n_bad)
+    for b, (o, l) in bad.items():
+        offs[b] = offs[b] if o is None else o
+        leaders[b] = leaders[b] if l is None else l
+    payload = (np.asarray([W, N, M, B], np.int32).tobytes() + parent.tobytes()
+               + present.tobytes() + stakes.tobytes() + offs.tobytes() + leaders.tobytes())
+    out = _run(support_exe, [], payload, tmp_path)
+    warps, none, C = np.frombuffer(out[:12], np.int32).tolist()
+    got = np.frombuffer(out[12:12 + 4 * B], np.int32)
+    words = np.frombuffer(out[12 + 4 * B:], np.int32).tolist()
+    assert warps == 16 and none == 2**31 - 1 and C == -(-B // warps) and len(words) == 3 * C
+    good = np.array([b not in bad for b in range(B)])
+    if good.any():
+        idx = np.nonzero(good)[0]
+        t = [torch.from_numpy(a) for a in (parent, present, stakes, offs[idx], leaders[idx])]
+        want = td.leader_support_plain(*t).numpy()
+        assert np.array_equal(got[idx], want) and (want > 0).any()
+    assert not got[~good].any()
+    first = min(bad) if bad else None
+    expect = None if first is None else (first, int(offs[first]), int(leaders[first]))
+    assert td.support_error(words, none) == expect
+    if expect is not None:  # the CPU wrapper names the same walk
+        with pytest.raises(ValueError, match=f"walk {first} has offset {expect[1]} and "
+                                             f"leader index {expect[2]}"):
+            td.leader_support(*(torch.from_numpy(a) for a in (parent, present, stakes, offs,
+                                                               leaders)))
