@@ -109,6 +109,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   tusk      GpuTusk.process_batch_async on the card over another lossy
             N = 50 DAG of 200 rounds built like the engine phase's: the
             sequence must equal the port's host Tusk's and the CPU engine's;
+  runner    consensus.Consensus (the consensus runner) over GpuBullshark on
+            the card and a durable NodeStorage in a temporary directory on
+            the native storage engine, fed the engine phase's stream: each
+            certificate group-committed to the certificate store before it
+            is sent, in bursts of two rounds (the runner drains 64 a pass
+            into process_batch_async) and every tenth round one certificate
+            at a time (process_certificate_async); after round 100 the
+            input drains, the shutdown goes out on the Watch, the storage
+            closes and reopens on the same directory, and a new engine and
+            Consensus recover from it (new_from_store, GpuBullshark.recover)
+            and take rounds 101-200. The joined outputs, the tx_primary
+            stream and the ConsensusStore record must equal the port's host
+            Bullshark's over the stream without a stop. Then GpuTusk (a
+            stream built like the tusk phase's) against the host Tusk, and
+            Bullshark again on the Python WAL (NARWHAL_NATIVE=0) over 60
+            rounds restarted after 30, inside a stretch without commits.
+            Prints certificates/s, the commit stage's p50 and p99 from a
+            Tracer behind ConsensusMetrics, and StorageStats' groups;
   dag_service
             the external-consensus Dag service: 200 rounds of N = 50
             certificates, about half with an empty payload, fed through
@@ -135,7 +153,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the ten paths and read
+Launch counts are set to 0 just before each of the eleven paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS; the script prints the sharded walk's route), and a path
 that syncs a device window may launch window_sync at most once per view
@@ -186,6 +204,7 @@ PATH_KERNELS = {
     "compact": ("msm_accumulate", "window_sync", "chain_commit"),
     "service": ("verify_batch", "msm_accumulate"),
     "tusk": ("window_sync", "chain_commit"),
+    "runner": ("window_sync", "chain_commit"),
     "dag_service": ("reach_many", "window_sync"),
     "sharded": ("verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                 "msm_shard_reduce"),
@@ -2051,22 +2070,31 @@ def lossy_dag(committee, rounds: int, seed: int, gap: range, weak: set, failure=
     return certs
 
 
-def host_sequence(engine_cls, f, certs, gc=GC_DEPTH):
-    """(digest, consensus_index) of every commit of the port's host engine
-    (`consensus.Bullshark` or `consensus.Tusk`, the pure-Python commit
-    rules) over `certs`, one certificate at a time."""
+def host_run(engine_cls, f, certs, gc=GC_DEPTH):
+    """The port's host engine (`consensus.Bullshark` or `consensus.Tusk`,
+    the pure-Python commit rules) over `certs`, one certificate at a time,
+    on an in-memory store: (digest, consensus_index) of every commit, and
+    the store's record (`store_record`)."""
     from narwhal_tpu_torch.consensus import ConsensusState
     from narwhal_tpu_torch.stores import NodeStorage
     from narwhal_tpu_torch.types import Certificate
 
     state = ConsensusState(Certificate.genesis(f.committee))
-    eng = engine_cls(f.committee, NodeStorage(None).consensus_store, gc)
+    store = NodeStorage(None).consensus_store
+    eng = engine_cls(f.committee, store, gc)
     seq, i = [], 0
     for c in certs:
         outs = eng.process_certificate(state, i, c)
         i += len(outs)
         seq.extend((o.certificate.digest, o.consensus_index) for o in outs)
-    return seq
+    return seq, store_record(store)
+
+
+def store_record(store):
+    """What a ConsensusStore holds: last committed round by authority, the
+    next consensus index, and every sequenced (index, digest)."""
+    return (store.read_last_committed(), store.last_consensus_index(),
+            store.read_sequenced_digests_after(0))
 
 
 def feed_rounds(eng, state, certs, n: int, idx: int = 0):
@@ -2143,7 +2171,7 @@ def engine_path(path, device, f, engine_cls, host_cls, certs, gc, ref_out, ref_s
     seq = [(o.certificate.digest, o.consensus_index) for o in out]
     if seq != [(o.certificate.digest, o.consensus_index) for o in ref_out]:
         raise AssertionError(f"{name}: commit sequence differs from the CPU engine")
-    if seq != host_sequence(host_cls, f, certs, gc):
+    if seq != host_run(host_cls, f, certs, gc)[0]:
         raise AssertionError(f"{name}: commit sequence differs from the host {host_cls.__name__}")
     if state.last_committed != ref_state.last_committed:
         raise AssertionError(f"{name}: last_committed differs from the CPU engine")
@@ -2205,6 +2233,294 @@ def phase_tusk(device, f, rounds=200, gc=GC_DEPTH):
     _eng, _state, _out, launches, rate, _events = engine_path(
         "tusk", device, f, GpuTusk, Tusk, certs, gc, ref_out, ref_state)
     return {"launches": launches, "certificates_per_s": rate}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the consensus runner over a durable node store, across a restart
+# ---------------------------------------------------------------------------
+
+
+def port_modules():
+    """The port's modules the runner path uses, as one namespace. The CPU
+    parity tests pass the JAX package's modules in its place, so one feed
+    runs both packages' runners."""
+    from types import SimpleNamespace
+
+    import narwhal_tpu_torch.channels as channels
+    import narwhal_tpu_torch.consensus as consensus
+    import narwhal_tpu_torch.consensus.metrics as cmetrics
+    import narwhal_tpu_torch.metrics as metrics
+    import narwhal_tpu_torch.stores as stores
+    import narwhal_tpu_torch.types as types
+
+    return SimpleNamespace(channels=channels, consensus=consensus, cmetrics=cmetrics,
+                           metrics=metrics, stores=stores, types=types)
+
+
+def count_processed(engine) -> list:
+    """Wrap the engine's process methods on the instance, so that each
+    certificate it is handed adds one to the returned counter once the call
+    returns; the second entry sums the calls' host wall. The runner emits a
+    call's outputs before it next yields, so a counter that reached the
+    certificates sent means they are processed and their outputs sent."""
+    done = [0, 0.0]
+    for name in ("process_certificate", "process_certificate_async", "process_batch_async"):
+        fn = getattr(engine, name, None)
+        if fn is None:
+            continue
+        if name == "process_batch_async":
+            async def wrapped(state, index, certs, fn=fn):
+                t0 = time.perf_counter()
+                out = await fn(state, index, certs)
+                done[0] += len(certs)
+                done[1] += time.perf_counter() - t0
+                return out
+        elif name == "process_certificate_async":
+            async def wrapped(state, index, cert, fn=fn):
+                t0 = time.perf_counter()
+                out = await fn(state, index, cert)
+                done[0] += 1
+                done[1] += time.perf_counter() - t0
+                return out
+        else:
+            def wrapped(state, index, cert, fn=fn):
+                t0 = time.perf_counter()
+                out = fn(state, index, cert)
+                done[0] += 1
+                done[1] += time.perf_counter() - t0
+                return out
+        setattr(engine, name, wrapped)
+    return done
+
+
+def _drain(channel) -> list:
+    out = []
+    while (item := channel.try_recv()) is not None:
+        out.append(item)
+    return out
+
+
+async def consensus_life(m, committee, engine, storage, bursts, gc, metrics=None, notes=None,
+                         timeout: float = 600.0):
+    """One life of a node's consensus: a new `m.consensus.Consensus` over
+    `storage`'s consensus and certificate stores (its constructor recovers
+    from them) drives `engine`. Each burst of `bursts` is group-committed to
+    the certificate store (awaited), then sent on the certificate channel at
+    once, so the runner drains up to 64 a pass; the next burst goes only when
+    this one is processed. `notes` maps a burst's index to a
+    ReconfigureNotification sent on the Watch (and taken) before it. Then
+    the shutdown notification on the Watch ends the runner. Returns the
+    runner's outputs (tx_output), its primary stream (tx_primary), the
+    runner, and the host wall of the engine's calls."""
+    rx, tx_primary, tx_output = (m.channels.Channel(1 << 20) for _ in range(3))
+    watch = m.channels.Watch(m.types.ReconfigureNotification("boot"))
+    runner = m.consensus.Consensus(committee, engine, storage.consensus_store,
+                                   storage.certificate_store, rx, tx_primary, tx_output,
+                                   watch, gc, metrics)
+    done = count_processed(engine)
+    task = runner.spawn()
+    deadline = time.monotonic() + timeout
+
+    async def settle(ready):
+        while not ready():
+            if task.done():
+                task.result()
+                raise AssertionError("runner: the runner ended before its input")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"runner: {done[0]} certificates processed")
+            await asyncio.sleep(0.0005)
+
+    want = 0
+    for i, burst in enumerate(bursts):
+        note = (notes or {}).get(i)
+        if note is not None:
+            watch.send(note)
+            await settle(lambda: runner.committee is note.committee)
+        await storage.certificate_store.write_all_async(burst)
+        await rx.send_many(burst)
+        want += sum(c.epoch == runner.committee.epoch for c in burst)
+        await settle(lambda: done[0] >= want and rx.empty())
+    watch.send(m.types.ReconfigureNotification("shutdown"))
+    await asyncio.wait_for(task, timeout)
+    return _drain(tx_output), _drain(tx_primary), runner, done[1]
+
+
+def runner_bursts(certs, n: int, burst_rounds: int = 2, lone_every: int = 10) -> list:
+    """The certificate stream as the runner's input: `burst_rounds` rounds
+    of n certificates a burst, and every round that is a multiple of
+    `lone_every` one certificate at a time."""
+    by_round: dict[int, list] = {}
+    for c in certs:
+        by_round.setdefault(c.round, []).append(c)
+    bursts, cur = [], []
+    for r in sorted(by_round):
+        if r % lone_every == 0:
+            if cur:
+                bursts.append(cur)
+                cur = []
+            bursts.extend([c] for c in by_round[r])
+            continue
+        cur.extend(by_round[r])
+        if len(cur) >= burst_rounds * n:
+            bursts.append(cur)
+            cur = []
+    if cur:
+        bursts.append(cur)
+    return bursts
+
+
+def runner_restart(device, f, engine_cls, certs, stop_round: int, gc=GC_DEPTH, metrics=None,
+                   native: bool = True):
+    """The port's consensus runner over `engine_cls` on `device` and a
+    durable `NodeStorage(tmpdir)` (the native engine, or with `native=False`
+    the Python WAL through NARWHAL_NATIVE=0): rounds up to `stop_round`,
+    then a shutdown through the Watch, the storage closed and reopened on
+    the same directory, a new engine and a new Consensus that recover from
+    it, and the rounds after `stop_round`. Returns the joined outputs, the
+    primary stream, the store's record after the run, the second runner,
+    and the walls of the two lives and of the restart between them, with
+    the part of the lives in the engine's calls and, inside those, in the
+    ConsensusStore's writes."""
+    import tempfile
+
+    m = port_modules()
+    n = f.committee.size()
+    lives = (("first", runner_bursts([c for c in certs if c.round <= stop_round], n)),
+             ("second", runner_bursts([c for c in certs if c.round > stop_round], n)))
+    env = os.environ.get("NARWHAL_NATIVE")
+    os.environ["NARWHAL_NATIVE"] = "1" if native else "0"
+    walls = {"restart_s": 0.0, "engine_s": 0.0, "store_write_s": 0.0}
+    outs, prim = [], []
+    try:
+        with tempfile.TemporaryDirectory(prefix="runner-") as path:
+            for life, bursts in lives:
+                t0 = time.perf_counter()
+                storage = m.stores.NodeStorage(path)
+                if (storage.engine._native is not None) != native:
+                    raise AssertionError("runner: the storage engine is not the "
+                                         f"{'native' if native else 'Python WAL'} one")
+                eng = engine_cls(f.committee, storage.consensus_store, gc, device=device)
+                if life == "second":
+                    walls["restart_s"] += time.perf_counter() - t0
+                store_write = storage.consensus_store.write_consensus_state
+
+                def timed_write(*a, write=store_write):
+                    t1 = time.perf_counter()
+                    write(*a)
+                    walls["store_write_s"] += time.perf_counter() - t1
+
+                storage.consensus_store.write_consensus_state = timed_write
+                t0 = time.perf_counter()
+                o, p, runner, engine_s = asyncio.run(
+                    consensus_life(m, f.committee, eng, storage, bursts, gc, metrics))
+                walls[f"{life}_s"] = time.perf_counter() - t0
+                walls["engine_s"] += engine_s
+                outs += o
+                prim += p
+                record = store_record(storage.consensus_store)
+                t0 = time.perf_counter()
+                storage.close()
+                if life == "first":
+                    walls["restart_s"] += time.perf_counter() - t0
+    finally:
+        if env is None:
+            os.environ.pop("NARWHAL_NATIVE", None)
+        else:
+            os.environ["NARWHAL_NATIVE"] = env
+    return outs, prim, record, runner, walls
+
+
+def check_runner(name, outs, prim, record, runner, host, stop_round: int) -> None:
+    """The runner's joined outputs, primary stream and store record against
+    the host engine's run without a stop (`host_run`); the second life must
+    have recovered a committed state and committed after it."""
+    seq = [(o.certificate.digest, o.consensus_index) for o in outs]
+    if seq != host[0]:
+        at = next((i for i, (a, b) in enumerate(zip(seq, host[0])) if a != b),
+                  min(len(seq), len(host[0])))
+        raise AssertionError(f"{name}: outputs differ from the host engine's at {at} "
+                             f"({len(seq)} against {len(host[0])})")
+    if [c.digest for c in prim] != [d for d, _ in host[0]]:
+        raise AssertionError(f"{name}: tx_primary differs from the committed certificates")
+    if record != host[1]:
+        raise AssertionError(f"{name}: the ConsensusStore record differs from the host "
+                             "engine's")
+    if not any(o.certificate.round <= stop_round for o in outs):
+        raise AssertionError(f"{name}: nothing committed before the restart")
+    if not any(o.certificate.round > stop_round for o in outs):
+        raise AssertionError(f"{name}: nothing committed after the restart")
+    if runner.state.last_committed_round <= stop_round:
+        raise AssertionError(f"{name}: the second life did not commit past round {stop_round}")
+
+
+def phase_runner(device, f, ctx, rounds=200, gc=GC_DEPTH, short=60):
+    """`consensus.Consensus` over GpuBullshark, then GpuTusk, on `device`
+    and a durable NodeStorage on the native engine, restarted halfway
+    (`runner_restart`): the engine phase's stream for Bullshark, one built
+    like the tusk phase's for Tusk, each held to the port's host engine over
+    the same stream without a stop; then Bullshark again on the Python WAL
+    (NARWHAL_NATIVE=0) over a shorter stream. A real Tracer behind
+    ConsensusMetrics gives the commit stage's percentiles."""
+    import torch
+    from narwhal_tpu_torch import native, storage as storage_mod, tracing
+    from narwhal_tpu_torch.consensus import Bullshark, Tusk
+    from narwhal_tpu_torch.consensus.metrics import ConsensusMetrics
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark, GpuTusk
+    from narwhal_tpu_torch.metrics import Registry
+
+    if native.load() is None:
+        raise AssertionError("runner: the native storage engine did not build or load")
+    runs = [("bullshark", GpuBullshark, Bullshark, ctx["certs"], rounds // 2, True),
+            ("tusk", GpuTusk, Tusk, engine_stream(f, rounds, 4), rounds // 2, True),
+            ("bullshark_wal", GpuBullshark, Bullshark, engine_stream(f, short, 6),
+             short // 2, False)]
+    hosts = [host_run(host_cls, f, certs, gc) for _, _, host_cls, certs, _, _ in runs]
+    tracer = tracing.Tracer(node="runner", enabled=True, sample=1.0, ring=1 << 16)
+    metrics = ConsensusMetrics(Registry(), tracer=tracer)
+    groups0 = storage_mod.StorageStats.snapshot()
+    results = {}
+    kernel_registry.reset_launch_counts()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for (name, eng_cls, _host_cls, certs, stop, on_native), host in zip(runs, hosts):
+        outs, prim, record, runner, walls = runner_restart(
+            device, f, eng_cls, certs, stop, gc, metrics=metrics, native=on_native)
+        check_runner(f"runner {name}", outs, prim, record, runner, host, stop)
+        live = walls["first_s"] + walls["second_s"]
+        results[name] = {"certificates": len(certs), "committed": len(outs), "stop": stop,
+                         "certificates_per_s": len(certs) / live, **walls}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernel_registry.launch_counts()
+    require_launches("runner", launches, device)
+    groups1 = storage_mod.StorageStats.snapshot()
+    n_groups = groups1["groups_committed"] - groups0["groups_committed"]
+    n_ops = groups1["ops_committed"] - groups0["ops_committed"]
+    spans = sorted(ev[4] - ev[3] for ev in tracer.events
+                   if ev[0] == "span" and ev[1] == "commit")
+    if not spans:
+        raise AssertionError("runner: the tracer recorded no commit span")
+    commit = {"count": len(spans), "p50_ms": spans[len(spans) // 2] * 1e3,
+              "p99_ms": spans[min(len(spans) - 1, int(0.99 * len(spans)))] * 1e3}
+    for name, r in results.items():
+        log(f"runner {name}: {r['certificates']} certificates, {r['committed']} committed "
+            f"(== the host engine without a stop; tx_primary and the ConsensusStore "
+            f"record equal), restarted after round {r['stop']}; "
+            f"{r['certificates_per_s']:.1f} certificates/s (host wall of both lives), "
+            f"lives {r['first_s']:.3f} + {r['second_s']:.3f} s, of which engine calls "
+            f"{r['engine_s']:.3f} s (ConsensusStore writes in them {r['store_write_s']:.3f} "
+            f"s), restart {r['restart_s']:.3f} s")
+    flush_s = groups1["flush_seconds_total"] - groups0["flush_seconds_total"]
+    log(f"runner: commit stage (Tracer spans through ConsensusMetrics.commit_timer) "
+        f"{commit['count']} spans, p50 {commit['p50_ms']:.3f} ms, p99 "
+        f"{commit['p99_ms']:.3f} ms; StorageStats: {n_groups} groups, {n_ops} ops, "
+        f"{n_ops / max(1, n_groups):.2f} ops a group, largest {groups1['max_group_ops']}, "
+        f"{flush_s:.3f} s in their flushes; launches {launches}")
+    return {"launches": launches, "results": results, "commit": commit,
+            "storage_groups": {"groups": n_groups, "ops": n_ops,
+                               "max_group_ops": groups1["max_group_ops"],
+                               "flush_s": flush_s}}
 
 
 # ---------------------------------------------------------------------------
@@ -2647,6 +2963,48 @@ def forge(cert, rng: random.Random):
     return Certificate(cert.header, cert.signers, tuple(sigs))
 
 
+def require_native_scalar(path: str):
+    """The native scalar library (the verifier's precheck, challenge and
+    folds in C), or a failed phase."""
+    from narwhal_tpu_torch import native
+
+    lib = native.load_scalar()
+    if lib is None:
+        raise AssertionError(f"{path}: the native scalar library did not build or load")
+    return lib
+
+
+def check_native_scalars(verifier, items, seed: int = 7) -> None:
+    """On `items` (forged rows included): the native precheck bit-identical
+    to the Python one (its verdicts, and the a, r, s and k rows of the items
+    that pass: the only rows packed), and the native fold of the passing
+    rows equal to the Python fold under one draw of weights."""
+    lib = require_native_scalar("pipeline")
+    t0 = time.perf_counter()
+    got = verifier._precheck_native(items, lib)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = verifier._precheck_py(items)
+    t_py = time.perf_counter() - t0
+    if not np.array_equal(got[0], want[0]):
+        raise AssertionError("pipeline: native precheck's verdicts differ from Python's")
+    idx = np.flatnonzero(got[0])
+    for field, a, b in zip(("a", "r", "s", "k"), got[1:], want[1:]):
+        if not np.array_equal(a[idx], b[idx]):
+            raise AssertionError(f"pipeline: native precheck's {field} rows differ from "
+                                 "Python's")
+    k_rows = np.ascontiguousarray(got[4][idx])
+    s_rows = np.ascontiguousarray(got[3][idx])
+    rnd = random.Random(seed).randbytes(16 * idx.size)
+    fold = verifier._fold_native(lib, k_rows, s_rows, rnd)
+    if not (np.array_equal(fold[0], (py := verifier._fold_py(k_rows, s_rows, rnd))[0])
+            and fold[1] == py[1]):
+        raise AssertionError("pipeline: native fold differs from Python's")
+    log(f"pipeline: native precheck of {len(items)} items ({len(items) - idx.size} "
+        f"failing) bit-identical to the Python one ({t_native * 1e3:.3f} ms against "
+        f"{t_py * 1e3:.3f} ms), the native fold of {idx.size} rows equal to Python's")
+
+
 def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=3):
     """The fused pipeline over a signed stream that continues the engine
     phase's DAG, so it runs on a window that slides (a node in steady
@@ -2658,6 +3016,7 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
     from narwhal_tpu_torch.gpu.pipeline import FusedCertificatePipeline
     from narwhal_tpu_torch.gpu.verifier import GpuVerifier
 
+    require_native_scalar("pipeline")
     n = f.committee.size()
     last = ctx["certs"][-1].round
     tips = {c.digest for c in ctx["certs"] if c.round == last}
@@ -2709,6 +3068,7 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
     if engine.win.round_base <= base0:
         raise AssertionError("pipeline: the window never slid")
     require_launches("pipeline", launches, device)
+    check_native_scalars(verifier, [it for c in certs for it in c.verify_items(f.committee)])
     if device.type == "cuda":
         # The same run again under the profiler, on an engine brought to the
         # same state by replaying the unsigned stream (untraced).
@@ -2720,6 +3080,10 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
         profile_run(lambda: traced.run(batches), device, "pipeline")
         log("  host stages (pipeline spans, summed over batches): " + ", ".join(
             f"{k} {v * 1e3:.3f} ms" for k, v in sorted(spans.totals.items())))
+        log(f"  with the native scalar library: device_dispatch "
+            f"{spans.totals.get('device_dispatch', 0.0) * 1e3:.3f} ms, pack_items "
+            f"{spans.totals.get('pack_items', 0.0) * 1e3:.3f} ms (with the Python "
+            f"precheck, PERF.md section 5: 241.2 and 76.4 ms; a record, no claim)")
     log(f"pipeline: N={n}, {rounds} rounds, {len(certs)} certificates in batches of "
         f"{batch} ({batch * n} items per {bucket} bucket), {n_forged} forged -> "
         f"rejected exactly those; {len(out)} committed (== CPU engine); window base "
@@ -2787,6 +3151,7 @@ def phase_compact(device, f, ctx, pctx, bucket=BUCKET):
     from narwhal_tpu_torch.gpu.verifier import GpuVerifier
     from narwhal_tpu_torch.types import Certificate
 
+    require_native_scalar("compact")
     n = f.committee.size()
     t_agg = time.perf_counter()
     certs = [Certificate.compact_from_votes(c.header, c.signers, c.signatures)
@@ -2885,6 +3250,7 @@ def phase_service(device, f, pctx, cctx, bucket=BUCKET):
     from narwhal_tpu_torch.gpu import kernel_registry
     from narwhal_tpu_torch.gpu.verifier import VerifyService
 
+    require_native_scalar("service")
     forged_at = set(pctx["forged_at"])
     groups = [c.aggregate_group(f.committee) for c in cctx["certs"]]
     want_groups = [i not in forged_at for i in range(len(groups))]
@@ -3087,13 +3453,15 @@ def main(argv=None) -> int:
     sctx = phase_service(device, f, pctx, cctx)
     shctx = phase_sharded(device, sctx)
     tctx = phase_tusk(device, f)
+    rctx = phase_runner(device, f, ctx)
     dctx = phase_dag_service(device, f)
     csctx = phase_consensus_step(device, f)
     drctx = phase_dryrun(device)
     by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
                "compact": cctx["launches"], "service": sctx["launches"],
                "sharded": shctx["launches"],
-               "tusk": tctx["launches"], "dag_service": dctx["launches"],
+               "tusk": tctx["launches"], "runner": rctx["launches"],
+               "dag_service": dctx["launches"],
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
                "dryrun": drctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
@@ -3101,6 +3469,8 @@ def main(argv=None) -> int:
              "service": sctx["rates"],
              "sharded": {"devices": shctx["devices"], **shctx["rates"]},
              "tusk_certificates_per_s": tctx["certificates_per_s"],
+             "runner": {"runs": rctx["results"], "commit_stage_ms": rctx["commit"],
+                        "storage_groups": rctx["storage_groups"]},
              "dag_service": {"per_k": dctx["per_k"], "wall_s": dctx["wall_s"],
                              "adaptive_routing": dctx["routing_adaptive"]},
              "dag_shards": {"devices": dsctx["devices"], "route": dsctx["route"],

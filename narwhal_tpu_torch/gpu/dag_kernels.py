@@ -1158,8 +1158,8 @@ def window_from_numpy(
 
 class GpuBullshark:
     """Bullshark with the DAG walks on the card: the counterpart of
-    `narwhal_tpu.tpu.dag_kernels.TpuBullshark`, same process_certificate /
-    process_batch / process_batch_async semantics. The host keeps the
+    `narwhal_tpu.tpu.dag_kernels.TpuBullshark`, same process_certificate(_async)
+    / process_batch(_async) / recover semantics. The host keeps the
     bookkeeping (commit rule, chain linkage, the final index -> certificate
     gather); each commit event is ONE `chain_commit` launch over the
     device-resident window.
@@ -1280,6 +1280,24 @@ class GpuBullshark:
             return []
         readback, K = dispatch
         return self._materialize(state, consensus_index, readback.result()[0], K)
+
+    async def process_certificate_async(
+        self, state: ConsensusState, consensus_index: SequenceNumber,
+        certificate: Certificate,
+    ) -> list[ConsensusOutput]:
+        """process_certificate with the readback awaited off-thread, so the
+        node's event loop keeps running during the device->host wait. The
+        consensus runner takes it for a lone certificate; events stay
+        serialized because the runner awaits each certificate in order."""
+        import asyncio
+
+        self._ingest(state, certificate)
+        dispatch = self._eval_commit(state, certificate.round)
+        if dispatch is None:
+            return []
+        readback, K = dispatch
+        (masks,) = await asyncio.get_running_loop().run_in_executor(None, readback.result)
+        return self._materialize(state, consensus_index, masks, K)
 
     def _commit_coords(self, round: Round) -> tuple[Round, Round] | None:
         """Bullshark rule: on a round-r+1 certificate the candidate leader

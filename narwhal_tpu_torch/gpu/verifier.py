@@ -6,9 +6,15 @@ Port of `narwhal_tpu/tpu/verifier.py` (`TpuVerifier`, `msm_epilogue_check`,
 reference:
 
 - host prechecks the kernels don't do: length, canonical S (< L), canonical
-  R/A encodings (y < p) — the Python precheck (`_precheck_py`);
+  R/A encodings (y < p);
 - the SHA-512 challenge k = H(R || A || M) mod L (the device only sees
   256-bit scalars as 4-bit window digits);
+- the msm lanes' mod-L scalars: ak_i = z_i k_i and sum z_i s_i (item lane),
+  y_i = w_g z_i and y_i k_i (group lane). These and the prechecks run in the
+  native scalar library (`native.load_scalar()`, native_src/scalar_ops.cpp:
+  `_precheck_native`, `_fold_native`, `_mulmod_native`, the GIL released)
+  when it builds, else in their bit-identical Python twins (`_precheck_py`,
+  `_fold_py`, `_mulmod_py`);
 - shape bucketing: each bucket pads to a power of two (or to `max_bucket`
   with `fixed_bucket`);
 - two lanes for signature items: `mode="item"` runs the per-item Straus
@@ -32,12 +38,15 @@ pinned host memory (`HostCopy`: a non-blocking copy plus a CUDA event), so
 several submitted buckets stay in flight and `collect` only waits on the
 event.
 
+`GpuVerifier(mode=None)` reads NARWHAL_TPU_VERIFY_MODE (default "msm"), as
+the reference does; unlike the reference, which runs item mode for any value
+but "msm", a value other than "msm" or "item" raises ConfigError, so a
+misspelt variable cannot boot a node on another verdict rule.
+
 Not ported (ROADMAP): `make_batch_verifier`, `AsyncVerifierPool` and the
-strict-mode host-library fallback (queue 1 item 5, with the node boot rules
-that decide when a host fallback is allowed); the `NARWHAL_TPU_VERIFY_MODE`
-reader (item 7); `data_mesh`'s fallback to virtual CPU devices (the port
-raises instead: a silent CPU mesh would hide the card); the native host
-scalar library (item 7) — the port uses the Python precheck and fold.
+strict-mode host-library fallback (with the node boot rules that decide
+when a host fallback is allowed); `data_mesh`'s fallback to virtual CPU
+devices (the port raises instead: a silent CPU mesh would hide the card).
 """
 
 from __future__ import annotations
@@ -67,6 +76,27 @@ logger = logging.getLogger("narwhal.gpu.verifier")
 _MIN_BUCKET = 16
 _MAX_BUCKET = 8192
 _MODES = ("msm", "item")
+MODE_ENV = "NARWHAL_TPU_VERIFY_MODE"
+
+
+def _scalar_lib():
+    """The native host scalar pipeline, or None (the Python twins)."""
+    from ..native import load_scalar
+
+    return load_scalar()
+
+
+def verify_mode(mode: str | None = None) -> str:
+    """The verify mode: `mode` when given, else NARWHAL_TPU_VERIFY_MODE,
+    default "msm". Anything but "msm" or "item" raises ConfigError."""
+    if mode is None:
+        value = os.environ.get(MODE_ENV, "msm")
+        if value not in _MODES:
+            raise ConfigError(f"{MODE_ENV}={value!r} is not a verify mode (one of {_MODES})")
+        return value
+    if mode not in _MODES:
+        raise ConfigError(f"verify mode must be one of {_MODES}, got {mode!r}")
+    return mode
 
 
 def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
@@ -214,7 +244,8 @@ class GpuVerifier:
     """Synchronous batch verifier backed by the CUDA kernels (or, with
     `device="cpu"`, by their plain PyTorch versions).
 
-    mode="msm" (default): one random-linear-combination check per bucket of
+    mode=None reads NARWHAL_TPU_VERIFY_MODE (default "msm"; `verify_mode`).
+    mode="msm": one random-linear-combination check per bucket of
     at least `msm_min_bucket` rows — [sum z_iS_i]B - sum[z_ik_i]A_i -
     sum[z_i]R_i == 0 with fresh 128-bit z_i — through A2 and the host
     epilogue; a failed bucket falls back to A1 to locate offenders. Every
@@ -229,17 +260,15 @@ class GpuVerifier:
     def __init__(
         self,
         max_bucket: int = _MAX_BUCKET,
-        mode: str = "msm",
+        mode: str | None = None,
         msm_min_bucket: int = 512,
         fixed_bucket: bool = False,
         device=None,
         mesh: DataMesh | None = None,
         data_axis: str = "data",
     ):
-        if mode not in _MODES:
-            raise ValueError(f"verify mode must be one of {_MODES}, got {mode!r}")
+        self.mode = verify_mode(mode)
         self.max_bucket = max_bucket
-        self.mode = mode
         self.msm_min_bucket = msm_min_bucket
         self.fixed_bucket = fixed_bucket
         self.mesh = mesh
@@ -268,9 +297,56 @@ class GpuVerifier:
         self.device = mesh.devices[0]
         self._item_fn, self._msm_fn = _sharded_kernels(mesh)
 
-    def _precheck_py(self, items: Sequence[BatchItem]):
+    def _precheck(self, items: Sequence[BatchItem]):
         """Canonicality checks + challenge scalars: returns (precheck[n]
-        bool, a_raw, r_raw, s_raw, k_raw as uint8[n, 32])."""
+        bool, a_raw, r_raw, s_raw, k_raw as uint8[n, 32]), in the native
+        library when it loads."""
+        lib = _scalar_lib()
+        if lib is not None:
+            return self._precheck_native(items, lib)
+        return self._precheck_py(items)
+
+    def _precheck_native(self, items: Sequence[BatchItem], lib):
+        """`_precheck` in C (GIL released for the call)."""
+        n = len(items)
+        lenok = np.ones(n, bool)
+        pk_parts: list[bytes] = []
+        sig_parts: list[bytes] = []
+        msg_parts: list[bytes] = []
+        lens = np.empty(n, np.int64)
+        zero32, zero64 = b"\0" * 32, b"\0" * 64
+        for i, (pk, msg, sig) in enumerate(items):
+            if len(pk) != 32 or len(sig) != 64:
+                lenok[i] = False
+                pk_parts.append(zero32)
+                sig_parts.append(zero64)
+                lens[i] = 0
+                continue
+            pk_parts.append(pk)
+            sig_parts.append(sig)
+            msg_parts.append(msg)
+            lens[i] = len(msg)
+        pk_buf = b"".join(pk_parts)
+        sig_buf = b"".join(sig_parts)
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        k_raw = np.empty((n, 32), np.uint8)
+        ok_raw = np.empty(n, np.uint8)
+        rc = lib.ed25519_precheck_k(
+            n, pk_buf, sig_buf, b"".join(msg_parts), offs.ctypes.data,
+            k_raw.ctypes.data, ok_raw.ctypes.data,
+        )
+        if rc != 0:
+            raise RuntimeError(f"ed25519_precheck_k failed: rc={rc}")
+        precheck = ok_raw.astype(bool) & lenok
+        sig_rows = np.frombuffer(sig_buf, np.uint8).reshape(n, 64)
+        a_raw = np.frombuffer(pk_buf, np.uint8).reshape(n, 32)
+        return precheck, a_raw, sig_rows[:, :32], sig_rows[:, 32:], k_raw
+
+    def _precheck_py(self, items: Sequence[BatchItem]):
+        """Python twin of `_precheck_native`: bit-identical verdicts, and
+        bit-identical rows for the items that pass (the rows of a failing
+        item are zero here, its own bytes there; neither is packed)."""
         n = len(items)
         precheck = np.zeros(n, bool)
         a_raw = np.zeros((n, 32), np.uint8)
@@ -304,7 +380,7 @@ class GpuVerifier:
         """Precheck + pack: (precheck-passing indices, packed rows) where the
         rows are (a_y i16 [m, 20], a_sign i8 [m], r_y i16, r_sign i8,
         k_raw u8 [m, 32], s_raw u8 [m, 32]) for the m passing items."""
-        precheck, a_all, r_all, s_all, k_all = self._precheck_py(items)
+        precheck, a_all, r_all, s_all, k_all = self._precheck(items)
         idx = np.flatnonzero(precheck)
         a_raw = np.ascontiguousarray(a_all[idx])
         r_raw = np.ascontiguousarray(r_all[idx])
@@ -360,9 +436,20 @@ class GpuVerifier:
         valid)."""
         return HostCopy(*self._msm_fn(arrays))
 
-    def _fold_py(self, k_rows: np.ndarray, s_rows: np.ndarray, rnd: bytes):
-        """ak_i = z_i*k_i mod L and sum(z_i*s_i) mod L, z_i the 16-byte
-        little-endian words of `rnd`."""
+    @staticmethod
+    def _fold_native(lib, k_rows: np.ndarray, s_rows: np.ndarray, rnd: bytes):
+        """ak_i = z_i*k_i mod L and sum(z_i*s_i) mod L in C, z_i the
+        16-byte little-endian words of `rnd`; rows contiguous uint8[m, 32]."""
+        m = k_rows.shape[0]
+        ak_raw = np.empty((m, 32), np.uint8)
+        sum_raw = np.empty(32, np.uint8)
+        lib.scalar_fold(m, k_rows.ctypes.data, s_rows.ctypes.data, rnd,
+                        ak_raw.ctypes.data, sum_raw.ctypes.data)
+        return ak_raw, int.from_bytes(sum_raw.tobytes(), "little")
+
+    @staticmethod
+    def _fold_py(k_rows: np.ndarray, s_rows: np.ndarray, rnd: bytes):
+        """Python twin of `_fold_native` (identical outputs)."""
         L = ref.L
         m = k_rows.shape[0]
         from_bytes = int.from_bytes
@@ -389,7 +476,11 @@ class GpuVerifier:
         rnd = os.urandom(16 * m)  # lint: allow(raw-entropy)
         k_rows = np.ascontiguousarray(k_raw[lo:hi])
         s_rows = np.ascontiguousarray(s_raw[lo:hi])
-        ak_raw, sum_s = self._fold_py(k_rows, s_rows, rnd)
+        lib = _scalar_lib()
+        if lib is not None:
+            ak_raw, sum_s = self._fold_native(lib, k_rows, s_rows, rnd)
+        else:
+            ak_raw, sum_s = self._fold_py(k_rows, s_rows, rnd)
         if pad:
             ak_raw = np.concatenate([ak_raw, np.zeros((pad, 32), np.uint8)])
         z_raw = np.zeros((m + pad, 32), np.uint8)
@@ -514,22 +605,29 @@ class GpuVerifier:
         # k_i = H(R||A||m) + canonicality through the item precheck: the
         # fake 64-byte signature is R || 0, so the s-range check passes.
         fake = [(pk, msg, r + b"\0" * 32) for pk, msg, r in flat_items]
-        precheck, a_all, r_all, _s, k_all = self._precheck_py(fake)
+        precheck, a_all, r_all, _s, k_all = self._precheck(fake)
         if not bool(precheck.all()):
             return None
 
         # Effective scalars y_i = w_g * z_i and ak_i = y_i * k_i (mod L).
-        y_rows = np.empty((m, 32), np.uint8)
-        ak_items = np.empty((m, 32), np.uint8)
+        w_rows = np.empty((m, 32), np.uint8)
+        z_rows = np.empty((m, 32), np.uint8)
         t = 0
         for _, _items, zs, s_agg, w in chunk:
             sum_s = (sum_s + w * s_agg) % L
+            wb = np.frombuffer(w.to_bytes(32, "little"), np.uint8)
             for z in zs:
-                y = (w * z) % L
-                k = int.from_bytes(k_all[t].tobytes(), "little")
-                y_rows[t] = np.frombuffer(y.to_bytes(32, "little"), np.uint8)
-                ak_items[t] = np.frombuffer(((y * k) % L).to_bytes(32, "little"), np.uint8)
+                w_rows[t] = wb
+                z_rows[t] = np.frombuffer(z.to_bytes(32, "little"), np.uint8)
                 t += 1
+        k_rows = np.ascontiguousarray(k_all[:m])
+        lib = _scalar_lib()
+        if lib is not None:
+            y_rows = self._mulmod_native(lib, w_rows, z_rows)
+            ak_items = self._mulmod_native(lib, y_rows, k_rows)
+        else:
+            y_rows = self._mulmod_py(w_rows, z_rows)
+            ak_items = self._mulmod_py(y_rows, k_rows)
 
         # Doubled rows: even = A_i with scalar ak_i, odd = R_i (through the
         # A slot) with scalar y_i.
@@ -552,6 +650,26 @@ class GpuVerifier:
             np.zeros((bucket, 32), np.int8),
         ]
         return (self._launch_msm(arrays), sum_s)
+
+    @staticmethod
+    def _mulmod_native(lib, a_rows: np.ndarray, b_rows: np.ndarray) -> np.ndarray:
+        """Row-wise a_i * b_i mod L in C over contiguous uint8[m, 32]
+        little-endian rows."""
+        out = np.empty(a_rows.shape, np.uint8)
+        lib.scalar_mulmod(a_rows.shape[0], a_rows.ctypes.data, b_rows.ctypes.data,
+                          out.ctypes.data)
+        return out
+
+    @staticmethod
+    def _mulmod_py(a_rows: np.ndarray, b_rows: np.ndarray) -> np.ndarray:
+        """Python twin of `_mulmod_native` (identical outputs)."""
+        L = ref.L
+        out = np.empty(a_rows.shape, np.uint8)
+        for i in range(a_rows.shape[0]):
+            a = int.from_bytes(a_rows[i].tobytes(), "little")
+            b = int.from_bytes(b_rows[i].tobytes(), "little")
+            out[i] = np.frombuffer(((a * b) % L).to_bytes(32, "little"), np.uint8)
+        return out
 
     def _chunk_passes(self, dispatched) -> bool:
         """Force one `_dispatch_group_chunk` result: device validity lanes

@@ -4,10 +4,10 @@ Port copy of `StageTimer` from `narwhal_tpu/pacing.py` (the JAX package's
 counterpart), with the `_now` clock it reads. The PyTorch port keeps its own
 copy so that it imports nothing of `narwhal_tpu`.
 
-Only `StageTimer` is here: `ConsensusMetrics` needs it. The rest of the JAX
-module (`PacingController`, `BackpressureState`, `IngestGate`,
-`backpressure_level`) comes with the host plane's pacing (ROADMAP queue 1
-item 7). No tracer is ported yet either, so callers pass `tracer=None`.
+Only `StageTimer` is here: `ConsensusMetrics` needs it. Its span sink is a
+`tracing.Tracer` (or None). The rest of the JAX module (`PacingController`,
+`BackpressureState`, `IngestGate`, `backpressure_level`) comes with the
+node, where its callers are.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""Typed stores over the in-memory storage engine.
+"""Typed stores over the storage engine — the 9 column families.
 
-Port of `narwhal_tpu/stores.py` (the JAX package's counterpart), cut to
-what the ported consensus path uses: `CertificateStore` (consensus crash
-recovery reads it), `ConsensusStore` (the engine persists every commit) and
-a `NodeStorage(None)` holding both. The header, payload, batch and vote
-stores are not ported yet (ROADMAP queue 1, host plane).
+Port copy of `narwhal_tpu/stores.py` (the JAX package's counterpart). The
+PyTorch port keeps its own copy so that it imports nothing of `narwhal_tpu`.
+
+Reference: NodeStorage opens 9 RocksDB CFs (narwhal/node/src/lib.rs:53-123):
+votes, headers, certificates, certificate_id_by_round, payload, batches,
+last_committed, sequence, temp_batches. CertificateStore adds a round
+secondary index and notify_read (narwhal/storage/src/certificate_store.rs:28-331).
 """
 
 from __future__ import annotations
@@ -14,13 +16,31 @@ from typing import Iterable
 
 from .bounded_cache import BoundedCache
 from .storage import ColumnFamily, StorageEngine
-from .types import Certificate, Digest, PublicKey, Round, SequenceNumber
+from .types import (
+    Certificate,
+    Digest,
+    Header,
+    PublicKey,
+    Round,
+    SequenceNumber,
+    WorkerId,
+)
 
 _RK = struct.Struct(">Q")  # big-endian round for ordered iteration
 
 
+# Digest -> decoded object caches (BoundedCache: thread-safe FIFO, shared
+# implementation with the decode/verify caches). The stores are
+# CONTENT-ADDRESSED (the key is the value's digest), so a digest can only
+# ever map to one object and the cache needs no invalidation for
+# correctness; presence/absence still comes from the engine on every
+# read, so deletions behave exactly as before — only the re-decode is
+# skipped. The N=50 profile measured repeated certificate decode at 48%
+# of the host's CPU (1.58M decodes for ~2.5k distinct live certs).
+
+
 class CertificateStore:
-    """Certificates by digest + (round, digest) secondary index
+    """Certificates by digest + (round, digest) secondary index + notify_read
     (narwhal/storage/src/certificate_store.rs)."""
 
     def __init__(self, engine: StorageEngine):
@@ -47,6 +67,15 @@ class CertificateStore:
     def write_all(self, certs: Iterable[Certificate]) -> None:
         self._engine.write_batch(self._puts(certs))
 
+    def write_async(self, cert: Certificate):
+        """Group-commit write: returns the shared commit future (the
+        memtable — and notify_read waiters — see the certificate without
+        awaiting it)."""
+        return self._engine.write_batch_async(self._puts([cert]))
+
+    def write_all_async(self, certs: Iterable[Certificate]):
+        return self._engine.write_batch_async(self._puts(certs))
+
     def read(self, digest: Digest) -> Certificate | None:
         raw = self._main.get(digest)
         if raw is None:
@@ -62,6 +91,14 @@ class CertificateStore:
 
     def contains(self, digest: Digest) -> bool:
         return self._main.contains(digest)
+
+    async def notify_read(self, digest: Digest) -> Certificate:
+        raw = await self._main.notify_read(digest)
+        cert = self._decoded.get(digest)
+        if cert is None:
+            cert = Certificate.from_bytes(raw)
+            self._decoded.put(digest, cert)
+        return cert
 
     def delete(self, digest: Digest) -> None:
         cert = self.read(digest)
@@ -105,6 +142,130 @@ class CertificateStore:
 
     def __len__(self) -> int:
         return len(self._main)
+
+
+class HeaderStore:
+    def __init__(self, engine: StorageEngine):
+        self._cf = engine.column_family("headers")
+        self._decoded = BoundedCache(max_entries=2048)
+
+    def write(self, header: Header) -> None:
+        self._cf.put(header.digest, header.to_bytes())
+
+    def write_async(self, header: Header):
+        return self._cf.put_async(header.digest, header.to_bytes())
+
+    def read(self, digest: Digest) -> Header | None:
+        raw = self._cf.get(digest)
+        if raw is None:
+            return None
+        header = self._decoded.get(digest)
+        if header is None:
+            header = Header.from_bytes(raw)
+            self._decoded.put(digest, header)
+        return header
+
+    async def notify_read(self, digest: Digest) -> Header:
+        raw = await self._cf.notify_read(digest)
+        header = self._decoded.get(digest)
+        if header is None:
+            header = Header.from_bytes(raw)
+            self._decoded.put(digest, header)
+        return header
+
+    def delete_all(self, digests: Iterable[Digest]) -> None:
+        self._cf.delete_all(digests)
+
+
+class PayloadStore:
+    """(BatchDigest, WorkerId) -> available token
+    (node/src/lib.rs payload_store)."""
+
+    def __init__(self, engine: StorageEngine):
+        self._cf = engine.column_family("payload")
+
+    @staticmethod
+    def _key(digest: Digest, worker_id: WorkerId) -> bytes:
+        return digest + struct.pack("<I", worker_id)
+
+    def write(self, digest: Digest, worker_id: WorkerId) -> None:
+        self._cf.put(self._key(digest, worker_id), b"\1")
+
+    def write_async(self, digest: Digest, worker_id: WorkerId):
+        return self._cf.put_async(self._key(digest, worker_id), b"\1")
+
+    def write_all_async(self, pairs: Iterable[tuple[Digest, WorkerId]]):
+        """One grouped availability commit for a burst of worker reports."""
+        return self._cf.put_all_async(
+            (self._key(d, w), b"\1") for d, w in pairs
+        )
+
+    def contains(self, digest: Digest, worker_id: WorkerId) -> bool:
+        return self._cf.contains(self._key(digest, worker_id))
+
+    async def notify_contains(self, digest: Digest, worker_id: WorkerId) -> None:
+        await self._cf.notify_read(self._key(digest, worker_id))
+
+    def delete_all(self, pairs: Iterable[tuple[Digest, WorkerId]]) -> None:
+        self._cf.delete_all(self._key(d, w) for d, w in pairs)
+
+
+class BatchStore:
+    """BatchDigest -> serialized batch bytes (the worker's bulk store)."""
+
+    def __init__(self, engine: StorageEngine, name: str = "batches"):
+        self._cf = engine.column_family(name)
+
+    def write(self, digest: Digest, serialized: bytes) -> None:
+        self._cf.put(digest, serialized)
+
+    def read(self, digest: Digest) -> bytes | None:
+        return self._cf.get(digest)
+
+    def read_all(self, digests: Iterable[Digest]) -> list[bytes | None]:
+        """One coalesced engine read for a whole fetch group (the server
+        side of RequestBatchesMsg): per-digest presence, request order."""
+        return self._cf.get_all(digests)
+
+    async def notify_read(self, digest: Digest) -> bytes:
+        return await self._cf.notify_read(digest)
+
+    def contains(self, digest: Digest) -> bool:
+        return self._cf.contains(digest)
+
+    def delete_all(self, digests: Iterable[Digest]) -> None:
+        self._cf.delete_all(digests)
+
+    def __len__(self) -> int:
+        return len(self._cf)
+
+
+class VoteDigestStore:
+    """origin -> last vote info (round, header_digest) — the equivocation
+    guard that must survive restart (primary/src/core.rs:281-308)."""
+
+    def __init__(self, engine: StorageEngine):
+        self._cf = engine.column_family("votes")
+
+    def write(self, origin: PublicKey, round: Round, header_digest: Digest) -> None:
+        self._cf.put(origin, struct.pack("<Q", round) + header_digest)
+
+    def write_async(self, origin: PublicKey, round: Round, header_digest: Digest):
+        return self._cf.put_async(
+            origin, struct.pack("<Q", round) + header_digest
+        )
+
+    def read(self, origin: PublicKey) -> tuple[Round, Digest] | None:
+        raw = self._cf.get(origin)
+        if raw is None:
+            return None
+        (r,) = struct.unpack("<Q", raw[:8])
+        return r, raw[8:]
+
+    def clear(self) -> None:
+        """Epoch change: rounds restart at 0, so per-epoch vote guards must
+        reset with them (core.rs change_epoch clears this store)."""
+        self._cf.delete_all(self._cf.keys())
 
 
 class ConsensusStore:
@@ -151,12 +312,17 @@ class ConsensusStore:
 
 
 class NodeStorage:
-    """The stores the ported consensus path needs, over one in-memory engine
-    (`narwhal_tpu.stores.NodeStorage` with `path=None`)."""
+    """All stores of one node, the NodeStorage::reopen analog
+    (narwhal/node/src/lib.rs:43-124)."""
 
-    def __init__(self, path: str | None = None):
+    def __init__(self, path: str | None):
         self.engine = StorageEngine(path)
+        self.vote_digest_store = VoteDigestStore(self.engine)
+        self.header_store = HeaderStore(self.engine)
         self.certificate_store = CertificateStore(self.engine)
+        self.payload_store = PayloadStore(self.engine)
+        self.batch_store = BatchStore(self.engine, "batches")
+        self.temp_batch_store = BatchStore(self.engine, "temp_batches")
         self.consensus_store = ConsensusStore(self.engine)
 
     def close(self) -> None:

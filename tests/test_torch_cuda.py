@@ -472,6 +472,28 @@ def test_engine_on_card_matches_cpu():
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 100
 
 
+@pytest.mark.parametrize("engine", ["GpuBullshark", "GpuTusk"])
+def test_runner_restart_on_card_matches_host(engine):
+    """The consensus runner over the card engine and a native-engine
+    NodeStorage at N = 50, stopped inside a stretch without commits (the
+    window grew) and restarted from the same directory: its outputs,
+    tx_primary stream and ConsensusStore record equal the host engine's
+    over the stream without a stop."""
+    _need_card("window_sync/chain_commit", "csrc/dag_window.cu")
+    from narwhal_tpu_torch.consensus import Bullshark, Tusk
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+
+    f = CommitteeFixture(size=50)
+    certs = chip_smoke.engine_stream(f, 120, 3)
+    kernel_registry.reset_launch_counts()
+    outs, prim, record, runner, _walls = chip_smoke.runner_restart(
+        torch.device("cuda:0"), f, getattr(td, engine), certs, 60)
+    launches = kernel_registry.launch_counts()
+    host = chip_smoke.host_run(Tusk if engine == "GpuTusk" else Bullshark, f, certs)
+    chip_smoke.check_runner(engine, outs, prim, record, runner, host, 60)
+    assert launches["window_sync"] > 0 and launches["chain_commit"] > 0
+
+
 @pytest.mark.parametrize("b", [1, 64, 200])
 def test_leader_support_kernel_matches_plain(b):
     _need_card("leader_support", "csrc/dag_window.cu")

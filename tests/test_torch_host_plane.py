@@ -1,6 +1,6 @@
 """The port's copies of host-plane modules behave as the JAX package's.
 
-`narwhal_tpu_torch.{dag, channels, metrics, pacing}`,
+`narwhal_tpu_torch.{dag, channels, metrics, pacing, tracing}`,
 `narwhal_tpu_torch.consensus.metrics` and the host engines
 `narwhal_tpu_torch.consensus.{Bullshark, Tusk}` are copies (the port imports
 nothing of `narwhal_tpu`). Each case runs one scenario against both
@@ -24,6 +24,7 @@ import narwhal_tpu.fixtures as j_fixtures
 import narwhal_tpu.metrics as j_metrics
 import narwhal_tpu.pacing as j_pacing
 import narwhal_tpu.stores as j_stores
+import narwhal_tpu.tracing as j_tracing
 import narwhal_tpu.types as j_types
 import narwhal_tpu_torch.channels as t_channels
 import narwhal_tpu_torch.consensus as t_consensus
@@ -33,14 +34,15 @@ import narwhal_tpu_torch.fixtures as t_fixtures
 import narwhal_tpu_torch.metrics as t_metrics
 import narwhal_tpu_torch.pacing as t_pacing
 import narwhal_tpu_torch.stores as t_stores
+import narwhal_tpu_torch.tracing as t_tracing
 import narwhal_tpu_torch.types as t_types
 
 JAX = SimpleNamespace(dag=j_dag, channels=j_channels, metrics=j_metrics, pacing=j_pacing,
                       cmetrics=j_cmetrics, consensus=j_consensus, fixtures=j_fixtures,
-                      stores=j_stores, types=j_types)
+                      stores=j_stores, types=j_types, tracing=j_tracing)
 PORT = SimpleNamespace(dag=t_dag, channels=t_channels, metrics=t_metrics, pacing=t_pacing,
                        cmetrics=t_cmetrics, consensus=t_consensus, fixtures=t_fixtures,
-                       stores=t_stores, types=t_types)
+                       stores=t_stores, types=t_types, tracing=t_tracing)
 
 
 @dataclass
@@ -140,6 +142,139 @@ async def _drain(ch, n):
     return [await ch.recv() for _ in range(n)]
 
 
+def watch_subscriber(m):
+    """Watch versions and values, Subscribers that wait for a change or
+    see one already sent, and a metered channel's depth gauge."""
+
+    async def scenario():
+        w = m.channels.Watch("boot")
+        early, late = m.channels.Subscriber(w), None
+        trace = [w.value, w.version, early.peek()]
+        waiter = asyncio.ensure_future(early.changed())
+        await asyncio.sleep(0)
+        w.send("epoch-1")
+        trace.append(await waiter)
+        late = m.channels.Subscriber(w)
+        w.send("epoch-2")
+        w.send("shutdown")
+        trace += [await early.changed(), await late.changed(), w.version,
+                  await w.changed(1), late.peek()]
+        reg = m.metrics.Registry()
+        ch = m.channels.metered_channel(reg, "primary", "certs", 4)
+        await ch.send(1)
+        ch.try_send(2)
+        trace += [ch.capacity, reg.value("primary_channel_certs_depth"), reg.render()]
+        return trace
+
+    return asyncio.run(scenario())
+
+
+def bounded_futures(m):
+    """BoundedFuturesOrdered pops in push order whatever finishes first and
+    blocks a push when full; BoundedExecutor caps running tasks and refuses
+    a try_spawn when full; cancel_all, CancelOnDrop and drain_cancelled end
+    what is left."""
+
+    async def scenario():
+        trace = []
+        pool = m.channels.BoundedFuturesOrdered(2)
+
+        async def job(x, delay):
+            await asyncio.sleep(delay)
+            return x
+
+        await pool.push(job("a", 0.03))
+        await pool.push(job("b", 0.0))
+        third = asyncio.ensure_future(pool.push(job("c", 0.01)))
+        await asyncio.sleep(0.005)
+        trace += [pool.qsize(), third.done()]
+        trace += [await pool.next(), await pool.next()]
+        await third
+        trace.append(await pool.next())
+        await pool.push(job("d", 10))
+        pool.cancel_all()
+        with pytest.raises(asyncio.CancelledError):
+            await pool.next()
+
+        ex = m.channels.BoundedExecutor(2)
+        gate = asyncio.Event()
+
+        async def held(x):
+            await gate.wait()
+            return x
+
+        t1 = await ex.spawn(held(1))
+        t2 = await ex.spawn(held(2))
+        trace.append(ex.try_spawn(held(3)) is None)
+        gate.set()
+        trace += [await t1, await t2]
+        t3 = ex.try_spawn(held(4))
+        trace.append(await t3)
+        slow = await ex.spawn(asyncio.sleep(10))
+        await ex.shutdown()
+        trace.append(slow.cancelled())
+
+        handle = m.channels.CancelOnDrop(asyncio.ensure_future(asyncio.sleep(10)))
+        handle.cancel()
+        await m.channels.drain_cancelled([handle.task], timeout=1.0, who="test")
+        trace.append(handle.task.cancelled())
+        done = m.channels.CancelOnDrop(asyncio.ensure_future(job("e", 0)))
+        trace.append(await done)
+        return trace
+
+    return asyncio.run(scenario())
+
+
+def tracer_spans(m):
+    """Two nodes' Tracers fed by StageTimers on one fixed clock, with the
+    causal links a batch -> header -> certificate chain records; the
+    waterfall and stage percentiles over their dumps, the digest sampling
+    decisions, and the live dumps, archive and anomaly surface."""
+    now = [0.0]
+
+    def clock():
+        now[0] += 0.25
+        return now[0]
+
+    m.tracing.new_generation()
+    m.tracing.clear_archive()
+    reg = m.metrics.Registry()
+    hist = reg.histogram("primary_stage_seconds", "per stage", labels=("stage",))
+    nodes = [m.tracing.Tracer(node=f"n{i}", enabled=True, sample=1.0, ring=64)
+             for i in range(2)]
+    half = m.tracing.Tracer(node="sampler", enabled=True, sample=0.5, ring=16)
+    trace = [[half.sampled(bytes([b]) * 32) for b in range(0, 256, 17)]]
+    rng = random.Random(2)
+    for i, tracer in enumerate(nodes):
+        timers = {s: m.pacing.StageTimer(hist, s, clock=clock, tracer=tracer)
+                  for s in ("seal", "propose", "certify", "commit")}
+        for k in range(3):
+            batch, header, cert = (bytes([i, k, x]) * 11 for x in (1, 2, 3))
+            timers["seal"].close(batch, clock())
+            tracer.link("propose", batch, header)
+            timers["propose"].start(header)
+            timers["propose"].stop(header)
+            tracer.link("certify", header, cert)
+            timers["certify"].start(cert)
+            for _ in range(rng.randrange(1, 4)):
+                clock()
+            timers["certify"].stop(cert)
+            timers["commit"].start(cert)
+            timers["commit"].stop(cert)
+        tracer.link("self", b"x" * 32, b"x" * 32)
+    dumps = m.tracing.live_dumps()
+    trace += [[d["node"] for d in dumps], [d["events"] for d in dumps]]
+    trace.append(m.tracing.waterfall(dumps))
+    trace.append(m.tracing.stage_percentiles(dumps))
+    nodes[0].archive()
+    got = sorted(m.tracing.on_anomaly("stall"), key=lambda d: d["node"])
+    trace += [[(d["node"], d["anomalies"]) for d in got],
+              sorted((d["node"], d.get("anomaly", "")) for d in m.tracing.ARCHIVE),
+              len(m.tracing.all_dumps())]
+    m.tracing.clear_archive()
+    return trace
+
+
 def metrics(m):
     """Counters, gauges, labelled histograms; the rendered exposition and
     re-registration rules."""
@@ -206,7 +341,7 @@ def consensus_metrics(m):
 @pytest.mark.parametrize(
     "scenario",
     [nodedag_compression, nodedag_tombstones, channels, metrics, stage_timer,
-     consensus_metrics],
+     consensus_metrics, watch_subscriber, bounded_futures, tracer_spans],
     ids=lambda f: f.__name__,
 )
 def test_port_copy_matches_the_jax_module(scenario):
