@@ -95,6 +95,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             exactly those rejected after exactly 3 host re-checks, and the
             sequence equals the CPU engine's and the pipeline phase's; then
             profiled as the pipeline phase is, with the host epilogue timed;
+  wire      the network and the workers (`narwhal_tpu_torch.network`,
+            `.worker`). Leg 1: the pipeline phase's 600 signed certificates,
+            its 3 forged ones included, travel over authenticated RPC
+            (handshake, per-frame AEAD) from NetworkClients of the 49 other
+            authorities to authority 0's RpcServer, whose CertificateMsg
+            route allows the committee's primaries (cached_allow_sets);
+            authority 0's own go straight to the channel. A consumer
+            releases a round once all its certificates have arrived and feeds
+            FusedCertificatePipeline on the card (an engine replayed to the
+            pipeline phase's start) in the pipeline phase's batches of 40:
+            exactly the forged ones rejected, the pipeline phase's sequence
+            committed, every handled frame from an authenticated committee
+            key, a key outside the committee refused by the allow-set and a
+            client without credentials by the handshake. Leg 2: 50 Workers
+            (worker 0 of each authority, each on a NodeStorage in a
+            temporary directory, default Parameters) with stub primaries
+            recording OurBatchMsg and OthersBatchMsg; 10 clients stream
+            1,000 transactions of 512 bytes each to 10 workers: every
+            transaction in exactly one batch, every batch quorum-acknowledged
+            (2f + 1) before its primary hears of it, one OurBatchMsg to its
+            author's primary and one OthersBatchMsg to every other, every
+            store holding every batch; then a new worker for authority 49 on
+            an empty store fetches every batch its primary asks it to
+            synchronize. The workers' leg launches no kernel. Prints the
+            AEAD branch, certificates/s from the first send to the last
+            commit, transactions/s sealed and quorum-acknowledged, frames and
+            bytes on the wire, and the path's wall;
   service   VerifyService.shared("item") serves the compact groups and a
             2048-item burst of header signatures concurrently from an
             asyncio loop; VerifyService.shared("msm") then checks one bucket
@@ -153,7 +180,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the eleven paths and read
+Launch counts are set to 0 just before each of the twelve paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS; the script prints the sharded walk's route), and a path
 that syncs a device window may launch window_sync at most once per view
@@ -213,6 +240,7 @@ PATH_KERNELS = {
     "dryrun": ("reach_many", "sharded_walk", "leader_support", "consensus_commit",
                "verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                "msm_shard_reduce"),
+    "wire": ("verify_batch", "window_sync", "chain_commit"),
 }
 
 
@@ -3090,7 +3118,7 @@ def phase_pipeline(device, f, ctx, rounds=12, batch=40, bucket=BUCKET, n_forged=
         f"{base0} -> {engine.win.round_base}; {wall:.3f} s wall: "
         f"{n_items / wall:.1f} signatures/s, {len(certs) / wall:.1f} certificates/s; "
         f"launches {launches}")
-    return {"launches": launches, "signed": signed, "forged_at": forged_at,
+    return {"launches": launches, "signed": signed, "certs": certs, "forged_at": forged_at,
             "batch": batch, "seq": [(o.certificate.digest, o.consensus_index) for o in out],
             "ref_seq": [(o.certificate.digest, o.consensus_index) for o in ref_out],
             "rates": {"signatures_per_s": n_items / wall,
@@ -3219,6 +3247,469 @@ def phase_compact(device, f, ctx, pctx, bucket=BUCKET):
     return {"launches": launches, "certs": certs,
             "rates": {"signatures_per_s": n_sigs / wall,
                       "certificates_per_s": len(certs) / wall}}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the wire -- certificates over authenticated RPC into the card, and
+# the workers' batch dissemination
+# ---------------------------------------------------------------------------
+
+
+def wire_modules():
+    """The port's modules the wire path uses, as one namespace. The CPU
+    parity tests pass the JAX package's modules in its place for some
+    authorities, so one committee mixes both packages' workers."""
+    from types import SimpleNamespace
+
+    import narwhal_tpu_torch.channels as channels
+    import narwhal_tpu_torch.config as config
+    import narwhal_tpu_torch.crypto as crypto
+    import narwhal_tpu_torch.fixtures as fixtures
+    import narwhal_tpu_torch.messages as messages
+    import narwhal_tpu_torch.network as network
+    import narwhal_tpu_torch.stores as stores
+    import narwhal_tpu_torch.types as types
+    import narwhal_tpu_torch.worker as worker
+
+    return SimpleNamespace(channels=channels, config=config, crypto=crypto, fixtures=fixtures,
+                           messages=messages, network=network, stores=stores, types=types,
+                           worker=worker)
+
+
+def aead_branch(m) -> str:
+    """Which branch of the network's authentication the package runs here."""
+    if m.network.auth._HAVE_OPENSSL:
+        return "AES-256-GCM and X25519 from OpenSSL (cryptography)"
+    return "blake2b AEAD and pure-Python X25519 (no cryptography)"
+
+
+def _patch_primary(fixtures, pk, address: str) -> None:
+    """Point every package's committee at `pk`'s bound primary address."""
+    for fx, m in fixtures:
+        old = fx.committee.authorities[pk]
+        fx.committee.authorities[pk] = m.config.Authority(old.stake, address, old.network_key)
+
+
+def _patch_worker(fixtures, pk, worker_address: str, transactions: str) -> None:
+    for fx, m in fixtures:
+        old = fx.worker_cache.workers[pk][0]
+        fx.worker_cache.workers[pk][0] = m.config.WorkerInfo(
+            name=old.name, transactions=transactions, worker_address=worker_address)
+
+
+async def certificate_wire(m, f, certs, batch: int, feed, timeout: float = 300.0) -> dict:
+    """`certs` (a stream in commit order, whole rounds) over authenticated
+    RPC to authority 0, set up as a primary: an RpcServer with its network
+    keypair, CertificateMsg allowed from the committee's primaries
+    (`cached_allow_sets`). Every other authority reliably sends its own
+    certificates from a NetworkClient with its credentials; authority 0's
+    go straight to the channel. A consumer releases a round once all of its
+    certificates have arrived, in stream order, and hands `feed` batches of
+    `batch` (on the loop: a feed that outlasts a sender's deadline draws a
+    resend, counted, never a second copy in the stream). A key outside the committee, and a client without credentials,
+    must be refused before the handler. Returns the wire's numbers."""
+    ch = m.messages
+    me = f.authorities[0]
+    position = {(c.round, c.origin): i for i, c in enumerate(certs)}
+    rounds = sorted({c.round for c in certs})
+    of_round = {r: [i for i, c in enumerate(certs) if c.round == r] for r in rounds}
+
+    class Receiver:
+        """The allow-set holder, as the primary is (`_auth_cache`)."""
+
+        def primaries(self):
+            return m.network.cached_allow_sets(
+                self, f.committee, f.worker_cache,
+                lambda: (frozenset(a.network_key for a in f.committee.authorities.values()),),
+            )[0]
+
+    receiver = Receiver()
+    channel = m.channels.Channel(len(certs) + 1)
+    peers, handled = [], [0]
+
+    async def on_certificate(msg, peer):
+        peers.append(peer.key)
+        handled[0] += 1
+        await channel.send(msg.certificate)
+
+    server_counters = m.network.WireCounters()
+    server = m.network.RpcServer(auth_keypair=me.network_keypair, counters=server_counters)
+    server.route(ch.CertificateMsg, on_certificate,
+                 allow=lambda peer: peer.key is not None and peer.key in receiver.primaries())
+    port = await server.start("127.0.0.1", 0)
+    address = f"127.0.0.1:{port}"
+    _patch_primary([(f, m)], me.public, address)
+    resolve = m.network.committee_resolver(lambda: f.committee, lambda: f.worker_cache)
+    senders = {a.public: m.network.NetworkClient(
+        credentials=m.network.Credentials(a.network_keypair, resolve),
+        counters=m.network.WireCounters()) for a in f.authorities[1:]}
+
+    async def consume():
+        arrived, released, pending = {}, 0, []
+        while released < len(rounds):
+            c = await channel.recv()
+            arrived[position[(c.round, c.origin)]] = c
+            while released < len(rounds) and all(
+                    i in arrived for i in of_round[rounds[released]]):
+                pending.extend(arrived[i] for i in of_round[rounds[released]])
+                released += 1
+            while len(pending) >= batch or (pending and released == len(rounds)):
+                feed(pending[:batch])
+                pending = pending[batch:]
+
+    rogue_kp = m.crypto.KeyPair.from_seed(b"outside-the-committee".ljust(32, b"\0"))
+    rogue = m.network.NetworkClient(credentials=m.network.Credentials(rogue_kp, resolve))
+    plain = m.network.NetworkClient()
+    try:
+        t0 = time.perf_counter()
+        consumer = asyncio.ensure_future(consume())
+        handles = []
+        for c in certs:
+            if c.origin == me.public:
+                await channel.send(c)
+            else:
+                handles.append(senders[c.origin].send(address, ch.CertificateMsg(c)))
+        # Refused: a key the committee does not list (handshake passes, the
+        # allow-set refuses), and a client that cannot handshake at all.
+        refused = []
+        for who, client in (("outside key", rogue), ("no credentials", plain)):
+            try:
+                await client.request(address, ch.CertificateMsg(certs[0]), timeout=30.0)
+                refused.append((who, None))
+            except m.network.RpcError as e:
+                refused.append((who, str(e)))
+        await asyncio.wait_for(asyncio.gather(*(h.task for h in handles)), timeout)
+        await asyncio.wait_for(consumer, timeout)
+    finally:
+        for client in (*senders.values(), rogue, plain):
+            client.close()
+        await server.stop()
+    for who, err in refused:
+        if err is None:
+            raise AssertionError(f"wire: a request with {who} reached the handler's route")
+    if "unauthorized" not in refused[0][1] or "handshake" not in refused[1][1]:
+        raise AssertionError(f"wire: refusals were not the allow-set and the handshake: "
+                             f"{refused}")
+    sent_by = {c.origin for c in certs} - {me.public}
+    committee_keys = {a.network_keypair.public for a in f.authorities}
+    if any(k is None or k not in committee_keys for k in peers) or rogue_kp.public in peers:
+        raise AssertionError("wire: a frame reached the handler from outside the committee "
+                             "or unauthenticated")
+    if {k for k in peers} != {a.network_keypair.public for a in f.authorities
+                              if a.public in sent_by}:
+        raise AssertionError("wire: not every sender's certificates arrived authenticated")
+    expected = sum(1 for c in certs if c.origin != me.public)
+    if handled[0] < expected:
+        raise AssertionError(f"wire: the handler ran {handled[0]} times, {expected} sent")
+    frames = sum(s._counters.frames_sent for s in senders.values())
+    nbytes = sum(s._counters.bytes_sent for s in senders.values())
+    return {"t0": t0, "certificates": len(certs), "handled": handled[0],
+            "resent": handled[0] - expected,
+            "senders": len(senders), "frames_sent": frames, "bytes_sent": nbytes,
+            "frames_received": server_counters.frames_received,
+            "bytes_received": server_counters.bytes_received,
+            "refused": refused}
+
+
+def wire_transactions(client: int, count: int, size: int) -> list:
+    """`count` distinct transactions of `size` bytes for client `client`."""
+    rng = np.random.default_rng(1000 + client)
+    body = rng.integers(0, 256, (count, size - 8), dtype=np.uint8)
+    return [client.to_bytes(4, "little") + i.to_bytes(4, "little") + body[i].tobytes()
+            for i in range(count)]
+
+
+async def worker_wire(mods, tmpdir: str, clients: int, txs_per_client: int,
+                      tx_size: int = 512, chunk: int = 50, parameters=None,
+                      sync_mods=None, timeout: float = 300.0) -> dict:
+    """One worker (id 0) per authority, authority i's from the package
+    `mods[i]` (a `wire_modules()` namespace), each on its own
+    NodeStorage under `tmpdir`, over loopback TCP with authentication; each
+    authority's primary a stub RpcServer with its network keypair that
+    records OurBatchMsg and OthersBatchMsg. `clients` clients stream
+    `txs_per_client` transactions each (SubmitTransactionStreamMsg, `chunk`
+    a message) to as many workers. Then authority n - 1's worker is
+    replaced by a new one (from `sync_mods`, default its own package) on an
+    empty store, and its primary asks it to synchronize every batch.
+    Fails unless every transaction lands in exactly one batch, each batch
+    had its 2f + 1 quorum before its author's primary heard of it, each
+    author's primary heard OurBatchMsg once a batch and every other primary
+    OthersBatchMsg once, every store holds every batch byte for byte, and
+    the new worker fetched them all. Returns the numbers."""
+    n = len(mods)
+    pkgs = []
+    for m in mods:
+        if all(m is not p for p in pkgs):
+            pkgs.append(m)
+    fixtures = [(p.fixtures.CommitteeFixture(size=n), p) for p in pkgs]
+    fx_of = {id(p): fx for fx, p in fixtures}
+    names = [a.public for a in fixtures[0][0].authorities]
+    for fx, _ in fixtures:
+        if [a.public for a in fx.authorities] != names:
+            raise AssertionError("wire: the packages' fixtures disagree on the committee")
+    if parameters is not None:
+        for fx, _ in fixtures:
+            for k, v in parameters.items():
+                setattr(fx.parameters, k, v)
+    f0 = fixtures[0][0]
+    quorum = f0.committee.quorum_threshold()
+    worker_key = [a.worker_keypairs[0].public for a in f0.authorities]
+
+    stub_log: list[list] = [[] for _ in range(n)]
+    acks: dict[bytes, set] = {}
+    quorum_at_our: dict[bytes, int] = {}
+    stubs, workers, storages = [], [None] * n, []
+
+    def stub_handler(i):
+        async def on(msg, peer):
+            if type(msg).__name__ == "OurBatchMsg":
+                quorum_at_our.setdefault(msg.digest, len(acks.get(msg.digest, ())) + 1)
+            stub_log[i].append((type(msg).__name__, msg.digest, msg.worker_id,
+                                time.perf_counter()))
+        return on
+
+    async def start_worker(i, m, path):
+        fx = fx_of[id(m)]
+        a = fx.authorities[i]
+        storage = m.stores.NodeStorage(path)
+        storages.append(storage)
+        w = m.worker.Worker(a.public, 0, fx.committee, fx.worker_cache, fx.parameters,
+                            storage.batch_store, network_keypair=a.worker_keypairs[0])
+        real = w._on_peer_batch
+
+        async def counted(msg, peer):
+            out = await real(msg, peer)
+            d = m.types.serialized_batch_digest(msg.serialized_batch)
+            acks.setdefault(d, set()).add(i)
+            return out
+
+        w._on_peer_batch = counted
+        await w.spawn()
+        _patch_worker(fixtures, a.public, w.worker_address, w.transactions_address)
+        return w
+
+    client_m = mods[0]
+    submit = client_m.network.NetworkClient(counters=client_m.network.WireCounters())
+    control = None
+    try:
+        for i, m in enumerate(mods):
+            a = fx_of[id(m)].authorities[i]
+            srv = m.network.RpcServer(auth_keypair=a.network_keypair)
+            mine = worker_key[i]
+            allow = lambda peer, k=mine: peer.key == k  # noqa: E731
+            srv.route(m.messages.OurBatchMsg, stub_handler(i), allow=allow)
+            srv.route(m.messages.OthersBatchMsg, stub_handler(i), allow=allow)
+            port = await srv.start("127.0.0.1", 0)
+            stubs.append(srv)
+            _patch_primary(fixtures, a.public, f"127.0.0.1:{port}")
+        for i, m in enumerate(mods):
+            workers[i] = await start_worker(i, m, os.path.join(tmpdir, f"worker-{i}"))
+
+        targets = [c * n // clients for c in range(clients)]
+        sent = {}
+        t0 = time.perf_counter()
+
+        async def stream(c, i):
+            txs = wire_transactions(c, txs_per_client, tx_size)
+            for t in txs:
+                sent[t[:8]] = t
+            addr = workers[i].transactions_address
+            for lo in range(0, len(txs), chunk):
+                msg = client_m.messages.SubmitTransactionStreamMsg(tuple(txs[lo:lo + chunk]))
+                await submit.request(addr, msg, timeout=60.0)
+
+        await asyncio.wait_for(
+            asyncio.gather(*(stream(c, i) for c, i in enumerate(targets))), timeout)
+        t_submitted = time.perf_counter()
+
+        def our_batches():
+            return {d: i for i in range(n) for kind, d, _w, _t in stub_log[i]
+                    if kind == "OurBatchMsg"}
+
+        def sealed_count(batches) -> int:
+            total = 0
+            for d, i in batches.items():
+                raw = workers[i].store.read(d)
+                total += int.from_bytes(raw[:4], "little") if raw else 0
+            return total
+
+        deadline = time.perf_counter() + timeout
+        while sealed_count(our_batches()) < len(sent):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"wire: {sealed_count(our_batches())} of {len(sent)} "
+                                     "transactions sealed and acknowledged in time")
+            await asyncio.sleep(0.05)
+        batches = our_batches()
+        t_acked = max(t for i in range(n) for kind, _d, _w, t in stub_log[i]
+                      if kind == "OurBatchMsg")
+
+        def others_done() -> bool:
+            return all(
+                sum(1 for kind, d2, _w, _t in stub_log[j] if kind == "OthersBatchMsg"
+                    and d2 == d) >= 1 for d, i in batches.items() for j in range(n) if j != i)
+
+        while not others_done():
+            if time.perf_counter() > deadline:
+                raise AssertionError("wire: not every primary heard OthersBatchMsg in time")
+            await asyncio.sleep(0.05)
+        while not all(w.store.contains(d) for w in workers for d in batches):
+            if time.perf_counter() > deadline:
+                raise AssertionError("wire: not every store holds every batch in time")
+            await asyncio.sleep(0.05)
+        t_disseminated = time.perf_counter()
+        await asyncio.sleep(0.2)  # let a duplicate notification show, if any
+
+        # Exactly once: every transaction in one batch, no other bytes.
+        seen = {}
+        for d, i in batches.items():
+            raw = workers[i].store.read(d)
+            txs = list(mods[i].types.Batch.from_bytes(raw).transactions)
+            for t in txs:
+                if t[:8] in seen or sent.get(t[:8]) != t:
+                    raise AssertionError("wire: a transaction sealed twice or altered")
+                seen[t[:8]] = d
+        if len(seen) != len(sent):
+            raise AssertionError(f"wire: {len(seen)} of {len(sent)} transactions sealed")
+        for d, i in batches.items():
+            if quorum_at_our.get(d, 0) < quorum:
+                raise AssertionError(f"wire: a batch reached its primary with "
+                                     f"{quorum_at_our.get(d)} acknowledgements, quorum "
+                                     f"{quorum}")
+            raw = workers[i].store.read(d)
+            if any(w.store.read(d) != raw for w in workers):
+                raise AssertionError("wire: stores differ on a batch's bytes")
+        for j in range(n):
+            ours = sorted(d for kind, d, _w, _t in stub_log[j] if kind == "OurBatchMsg")
+            others = sorted(d for kind, d, _w, _t in stub_log[j] if kind == "OthersBatchMsg")
+            if ours != sorted(d for d, i in batches.items() if i == j):
+                raise AssertionError(f"wire: primary {j} heard OurBatchMsg {len(ours)} times")
+            if others != sorted(d for d, i in batches.items() if i != j):
+                raise AssertionError(f"wire: primary {j} heard OthersBatchMsg {len(others)} "
+                                     "times, not once a peer's batch")
+        wire_bytes = sum(w.wire_counters.bytes_sent for w in workers)
+        wire_frames = sum(w.wire_counters.frames_sent for w in workers)
+
+        # A new worker for authority n - 1 on an empty store, asked by its
+        # primary to synchronize every batch of the others.
+        last = n - 1
+        m_new = sync_mods or mods[last]
+        await workers[last].shutdown()
+        workers[last] = await start_worker(last, m_new, os.path.join(tmpdir, "worker-new"))
+        fx_new = fx_of[id(m_new)]
+        a_last = fx_new.authorities[last]
+        control = m_new.network.NetworkClient(credentials=m_new.network.Credentials(
+            a_last.network_keypair,
+            m_new.network.committee_resolver(lambda: fx_new.committee,
+                                             lambda: fx_new.worker_cache)))
+        wanted = {d: i for d, i in batches.items() if i != last}
+        t_sync = time.perf_counter()
+        for i in sorted(set(wanted.values())):
+            msg = m_new.messages.SynchronizeMsg(
+                tuple(d for d, j in wanted.items() if j == i), names[i])
+            if not await control.unreliable_send(workers[last].worker_address, msg,
+                                                 timeout=30.0):
+                raise AssertionError("wire: the primary's SynchronizeMsg was refused")
+        while not all(workers[last].store.contains(d) for d in wanted):
+            if time.perf_counter() > deadline:
+                raise AssertionError("wire: the new worker did not fetch every batch")
+            await asyncio.sleep(0.05)
+        sync_wall = time.perf_counter() - t_sync
+        for d, i in wanted.items():
+            if workers[last].store.read(d) != workers[i].store.read(d):
+                raise AssertionError("wire: a synchronized batch differs from its author's")
+    finally:
+        submit.close()
+        if control is not None:
+            control.close()
+        for w in workers:
+            if w is not None:
+                await w.shutdown()
+        for srv in stubs:
+            await srv.stop()
+        for s in storages:
+            s.close()
+    total = len(sent)
+    return {"workers": n, "clients": clients, "transactions": total,
+            "tx_size": tx_size, "batches": len(batches), "quorum": quorum,
+            "submit_s": t_submitted - t0, "acked_s": t_acked - t0,
+            "disseminated_s": t_disseminated - t0,
+            "transactions_per_s": total / (t_acked - t0),
+            "wire_bytes_sent": wire_bytes, "wire_frames_sent": wire_frames,
+            "synchronized": len(wanted), "sync_s": sync_wall}
+
+
+def phase_wire(device, f, ctx, pctx, bucket=BUCKET, clients=10, txs_per_client=1000):
+    """The wire path. Leg 1: the pipeline phase's signed certificates (its 3
+    forged ones included) travel over authenticated RPC from the 49 other
+    authorities into authority 0, whose consumer feeds them, a round at a
+    time in batches of the pipeline phase's size, to FusedCertificatePipeline
+    on the card, on an engine replayed to the pipeline phase's start: exactly
+    the forged ones rejected, the pipeline phase's sequence committed. Leg 2:
+    the workers of the N = 50 committee disseminate 512-byte transactions
+    (`worker_wire`); it launches no kernel."""
+    import tempfile
+
+    import torch
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.pipeline import FusedCertificatePipeline
+    from narwhal_tpu_torch.gpu.verifier import GpuVerifier
+
+    m = wire_modules()
+    branch = aead_branch(m)
+    signing = ("OpenSSL" if m.crypto.HAVE_OPENSSL else "pure Python")
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    log(f"wire: network authentication {branch}; ed25519 signing {signing}{card}")
+    certs = pctx["certs"]
+    forged = {(certs[i].round, certs[i].origin) for i in pctx["forged_at"]}
+    eng, st = replay_engine(device, f, ctx)
+    pipe = FusedCertificatePipeline(
+        GpuVerifier(max_bucket=bucket, mode="item", fixed_bucket=True, device=device),
+        eng, st, start_index=ctx["index"])
+    t_path = time.perf_counter()
+    kernel_registry.reset_launch_counts()
+    leg1 = asyncio.run(certificate_wire(m, f, certs, pctx["batch"], pipe.feed))
+    out = pipe.drain()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    leg1["commit_wall_s"] = time.perf_counter() - leg1.pop("t0")
+    leg1["certificates_per_s_to_commit"] = len(certs) / leg1["commit_wall_s"]
+    launches = kernel_registry.launch_counts()
+    if {(c.round, c.origin) for c in pipe.rejected} != forged or \
+            len(pipe.rejected) != len(forged):
+        raise AssertionError(f"wire: rejected {[(c.round) for c in pipe.rejected]}, forged "
+                             f"{sorted(r for r, _ in forged)}")
+    seq = [(o.certificate.digest, o.consensus_index) for o in out]
+    if seq != pctx["seq"]:
+        raise AssertionError("wire: the commit sequence differs from the pipeline phase's")
+    log(f"wire: {len(certs)} certificates of N={f.committee.size()} over authenticated RPC "
+        f"from {leg1['senders']} senders ({leg1['frames_sent']} frames, "
+        f"{leg1['bytes_sent']} bytes sent; {leg1['frames_received']} frames, "
+        f"{leg1['bytes_received']} bytes received, {leg1['resent']} resent) into the card's "
+        f"pipeline: rejected "
+        f"exactly the {len(forged)} forged, {len(out)} committed (== pipeline phase); "
+        f"{leg1['commit_wall_s']:.3f} s from the first send to the last commit = "
+        f"{leg1['certificates_per_s_to_commit']:.1f} certificates/s; refused "
+        f"{[w for w, _ in leg1['refused']]} ({[e for _, e in leg1['refused']]}){card}")
+    with tempfile.TemporaryDirectory(prefix="wire-") as tmp:
+        leg2 = asyncio.run(worker_wire([m] * f.committee.size(), tmp, clients,
+                                       txs_per_client))
+    if kernel_registry.launch_counts() != launches:
+        raise AssertionError("wire: the workers' leg launched a kernel")
+    require_launches("wire", launches, device)
+    wall = time.perf_counter() - t_path
+    log(f"wire: {leg2['workers']} workers, {leg2['clients']} clients x {txs_per_client} "
+        f"transactions of {leg2['tx_size']} bytes: {leg2['batches']} batches, each "
+        f"acknowledged by a quorum of {leg2['quorum']} before its primary heard of it; "
+        f"{leg2['transactions']} transactions sealed and acknowledged in "
+        f"{leg2['acked_s']:.3f} s = {leg2['transactions_per_s']:.1f} transactions/s "
+        f"(submitted in {leg2['submit_s']:.3f} s, every store full at "
+        f"{leg2['disseminated_s']:.3f} s); {leg2['wire_frames_sent']} frames, "
+        f"{leg2['wire_bytes_sent']} bytes sent by the workers; a new worker synchronized "
+        f"{leg2['synchronized']} batches in {leg2['sync_s']:.3f} s; the path's wall "
+        f"{wall:.3f} s; launches {launches}{card}")
+    return {"launches": launches, "aead": branch, "signing": signing, "wall_s": wall,
+            "certificates": {k: v for k, v in leg1.items() if k != "refused"},
+            "workers": leg2}
 
 
 # ---------------------------------------------------------------------------
@@ -3450,6 +3941,7 @@ def main(argv=None) -> int:
     dsctx = phase_dag_shards(device, f, ctx)  # before the pipeline moves ctx's states on
     pctx = phase_pipeline(device, f, ctx)
     cctx = phase_compact(device, f, ctx, pctx)
+    wctx = phase_wire(device, f, ctx, pctx)
     sctx = phase_service(device, f, pctx, cctx)
     shctx = phase_sharded(device, sctx)
     tctx = phase_tusk(device, f)
@@ -3463,7 +3955,7 @@ def main(argv=None) -> int:
                "tusk": tctx["launches"], "runner": rctx["launches"],
                "dag_service": dctx["launches"],
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
-               "dryrun": drctx["launches"]}
+               "dryrun": drctx["launches"], "wire": wctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
@@ -3480,7 +3972,9 @@ def main(argv=None) -> int:
              "consensus_step": {"unmeshed_s": csctx["unmeshed_s"],
                                 "meshed_s": csctx["meshed_s"], "route": csctx["route"],
                                 "meshed_s_by_route": csctx["meshed_s_by_route"]},
-             "dryrun_wall_s": drctx["wall_s"]}
+             "dryrun_wall_s": drctx["wall_s"],
+             "wire": {k: wctx[k] for k in ("aead", "signing", "wall_s", "certificates",
+                                           "workers")}}
 
     kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS
     rows = []

@@ -5,9 +5,11 @@ port keeps its own copy so that it imports nothing of `narwhal_tpu`.
 
 Reference: narwhal/config/src/lib.rs — Parameters :107-138 (defaults
 :259-275), Committee + stake math :488-685, WorkerCache :360-473, JSON
-Import/Export traits :65-97. The port-placeholder allocator, the
-environment knob readers and the hot-swap holder of the JAX package's module
-are left for the network slice, which is the first to read them.
+Import/Export traits :65-97. With them: the environment knob readers the
+worker reads (`pacing_enabled`, `env_float`, `env_int`,
+`connection_pool_effective`) and the port-placeholder allocator the RPC
+server binds through. The relay and header-wire readers and the hot-swap
+holder `Shared` of the JAX package's module come with the primary.
 
 Addresses here are plain "host:port" strings. Durations are float seconds in
 memory, serialized as milliseconds in JSON.
@@ -16,12 +18,18 @@ memory, serialized as milliseconds in JSON.
 from __future__ import annotations
 
 import json
+import logging
+import os
+import socket
+from collections import deque
 from dataclasses import asdict, dataclass, replace
 from typing import Mapping
 
 from .bounded_cache import BoundedCache
 from .crypto import digest256
 from .types import Epoch, PublicKey, WorkerId
+
+logger = logging.getLogger("narwhal.config")
 
 Stake = int
 
@@ -185,6 +193,47 @@ class Parameters:
     def import_(path: str) -> "Parameters":
         with open(path) as f:
             return Parameters.from_json(f.read())
+
+
+def connection_pool_effective(parameters: "Parameters") -> bool:
+    """Whether the node runs the per-peer-pair connection pool after the
+    NARWHAL_POOL env kill-switch (0/false/off forces dedicated per-role
+    connections, the pre-pool behavior)."""
+    if os.environ.get("NARWHAL_POOL", "1").lower() in ("0", "false", "off"):
+        return False
+    return bool(parameters.connection_pool)
+
+
+def pacing_enabled() -> bool:
+    """NARWHAL_PACING=0/false/off pins the seal/header delays at their
+    configured ceilings (the pre-pacing behavior); anything else adapts."""
+    return os.environ.get("NARWHAL_PACING", "1").lower() not in ("0", "false", "off")
+
+
+def env_float(name: str, default: float) -> float:
+    """Environment override for a float knob; non-numeric values are
+    ignored loudly rather than crashing the boot."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        logger.warning("ignoring non-numeric %s=%r (using %s)", name, raw, default)
+        return default
+
+
+def env_int(name: str, default: int) -> int:
+    """Environment override for an int knob; non-numeric values are
+    ignored loudly rather than crashing the boot."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        logger.warning("ignoring non-numeric %s=%r (using %s)", name, raw, default)
+        return default
 
 
 @dataclass(frozen=True)
@@ -489,3 +538,142 @@ class WorkerCache:
     def import_(path: str) -> "WorkerCache":
         with open(path) as f:
             return WorkerCache.from_json(f.read())
+
+
+_HANDED_OUT: set[int] = set()
+_HANDED_ORDER: deque[int] = deque()
+# Placeholder sockets keep every handed-out port BOUND (with SO_REUSEPORT)
+# until the real server co-binds: between assignment and bind the kernel
+# would otherwise happily hand the same port to an ephemeral *outbound*
+# connection — with a 20-node committee (~100 pre-assigned ports, thousands
+# of mesh dials) that collision is routine, and the server's bind then fails
+# with EADDRINUSE. Outbound sockets don't set SO_REUSEPORT so they can never
+# share a placeheld port; servers do (RpcServer reuse_port, gRPC's default),
+# so they bind straight through the placeholder.
+_PLACEHOLDERS: dict[int, socket.socket] = {}
+# Only the recent tail matters: servers bind within moments of assignment,
+# and an unbounded set would eventually exhaust the 64 bind attempts in a
+# long-lived process that keeps building clusters.
+_HANDED_WINDOW = 1024
+
+
+def get_available_port(host: str = "127.0.0.1") -> int:
+    """(narwhal/config/src/utils.rs:9-33). Ports are pre-assigned
+    before servers bind them: hand out a port at most once per window and
+    keep it placeheld (see _PLACEHOLDERS) until its server binds.
+
+    The probe binds WITHOUT SO_REUSEPORT — the kernel then never selects a
+    port owned by a live reuse-port listener (which a REUSEPORT probe would
+    happily co-bind, silently splitting that listener's traffic). The
+    placeholder then re-binds the probed port with SO_REUSEPORT so the real
+    server can bind through it; losing the tiny re-bind race just retries.
+    """
+    for _ in range(64):
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind((host, 0))
+            port = s.getsockname()[1]
+        except OSError:
+            s.close()
+            continue
+        s.close()
+        if port in _HANDED_OUT:
+            continue
+        ph = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        ph.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        try:
+            ph.bind((host, port))
+        except OSError:
+            ph.close()  # an ephemeral connection won the re-bind race
+            continue
+        _HANDED_OUT.add(port)
+        _HANDED_ORDER.append(port)
+        _PLACEHOLDERS[port] = ph
+        while len(_HANDED_ORDER) > _HANDED_WINDOW:
+            old = _HANDED_ORDER[0]
+            if old in _PLACEHOLDERS:
+                # Still placeheld: its server has not bound yet. Closing the
+                # placeholder here would re-open the exact collision it
+                # exists to prevent (an ephemeral connection or a fresh
+                # hand-out grabbing the port before the server binds), so
+                # keep it and let the window grow. Loud, because a window
+                # full of unbound ports usually means someone is leaking
+                # placeholders (forgot release_port/release_all_ports).
+                logger.warning(
+                    "port window (%d) full of still-placeheld ports; "
+                    "oldest=%d not evicted — check for placeholder leaks",
+                    _HANDED_WINDOW,
+                    old,
+                )
+                break
+            _HANDED_ORDER.popleft()
+            _HANDED_OUT.discard(old)
+        return port
+    raise OSError("no available port after 64 attempts")
+
+
+def placeheld_ports() -> list[int]:
+    """The ports this process currently reserves with live placeholders.
+    Harness parents advertise exactly this list (NARWHAL_PLACEHELD_PORTS)
+    to their node children, so the children co-bind only genuinely
+    placeheld ports and every other duplicate bind still fails fast."""
+    return sorted(_PLACEHOLDERS)
+
+
+# Ports with a live server bound by THIS process. The parent's
+# NARWHAL_PLACEHELD_PORTS advertisement is spawn-time static, so without
+# this set a second server in the same child (same node started twice, a
+# committee file assigning one port to two roles) would still co-bind
+# "through" an advertisement whose placeholder its sibling already consumed.
+_BOUND_IN_PROCESS: set[int] = set()
+
+
+def mark_port_bound(port: int) -> None:
+    """Record that a server in this process holds `port` (RpcServer.start)."""
+    _BOUND_IN_PROCESS.add(port)
+
+
+def mark_port_unbound(port: int) -> None:
+    """The server on `port` has stopped; a later bind (node restart) may
+    again co-bind through a parent's still-live placeholder."""
+    _BOUND_IN_PROCESS.discard(port)
+
+
+def port_is_placeheld(port: int) -> bool:
+    """True when `port` is reserved by a live SO_REUSEPORT placeholder —
+    this process's (_PLACEHOLDERS) or a harness parent's, advertised via
+    NARWHAL_PLACEHELD_PORTS ("all", or a comma-separated port list). Servers
+    use this to decide whether co-binding with reuse_port is intended
+    (binding through a placeholder) or a misconfiguration that should fail
+    fast with EADDRINUSE (two servers on one address). A port already bound
+    by a live server in this process is never placeheld — the placeholder
+    behind any advertisement has done its job."""
+    if port in _BOUND_IN_PROCESS:
+        return False
+    if port in _PLACEHOLDERS:
+        return True
+    env = os.environ.get("NARWHAL_PLACEHELD_PORTS", "")
+    if env == "all":
+        return True
+    return any(tok.strip() == str(port) for tok in env.split(",") if tok.strip())
+
+
+def release_port(port: int) -> None:
+    """Drop the placeholder for `port` once its real server has bound (or
+    will never bind). Safe to call for ports this process never placeheld —
+    a subprocess binding a parent-assigned port simply co-binds via
+    SO_REUSEPORT and the parent releases via release_all_ports."""
+    s = _PLACEHOLDERS.pop(port, None)
+    if s is not None:
+        s.close()
+
+
+def release_all_ports() -> None:
+    """Drop every live placeholder. For multi-process harness parents: the
+    children bind the assigned ports themselves, so the parent must free
+    its placeholder fds once the fleet is up (a sweep would otherwise
+    accumulate them toward the fd ulimit)."""
+    while _PLACEHOLDERS:
+        _, s = _PLACEHOLDERS.popitem()
+        s.close()

@@ -61,6 +61,8 @@ def test_port_package_imports_without_jax_loaded():
         "import narwhal_tpu_torch.native, narwhal_tpu_torch.storage\n"
         "import narwhal_tpu_torch.stores, narwhal_tpu_torch.tracing\n"
         "from narwhal_tpu_torch.consensus import Consensus\n"
+        "import narwhal_tpu_torch.messages, narwhal_tpu_torch.network\n"
+        "from narwhal_tpu_torch.worker import Worker\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
