@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's certificate and DAG paths on one NVIDIA card.
+"""Drive the PyTorch port's certificate, DAG and protocol paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -122,6 +122,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             AEAD branch, certificates/s from the first send to the last
             commit, transactions/s sealed and quorum-acknowledged, frames and
             bytes on the wire, and the path's wall;
+  primary   the primary's protocol core (`narwhal_tpu_torch.primary`): 50
+            port Primaries, each with its network keypair and one port
+            Worker, over authenticated loopback RPC with default Parameters
+            (compact certificates, delta header wire, relay fanout 3); every
+            primary verifies through one process-wide
+            VerifyService.shared("item") on the card (headers and votes in
+            verify_batch, compact proofs that miss the process-wide verdict
+            cache in msm_accumulate); authority 0's certificates are ordered
+            by a Consensus runner over GpuBullshark (its stores a
+            NodeStorage in a temporary directory), the others' by runners
+            over the host Bullshark, each runner's commits driving its
+            primary's garbage collection. 10 clients submit 200
+            transactions of 512 bytes each to the workers of authorities
+            0-9; authority 1 sends authority 0 a vote with a flipped
+            signature byte and a compact certificate with a flipped agg_s
+            byte. Runs until authority 0 has committed every sealed batch:
+            every transaction in exactly one batch, each batch in exactly
+            one committed certificate, every runner's sequence a
+            prefix-equal of authority 0's, authority 0's accepted
+            certificates replayed through the host Bullshark commit its
+            sequence, the tampered two dropped by authority 0's verifier
+            stage and nothing else dropped by any stage. Prints rounds,
+            certificates committed and per second, transactions/s, commit
+            latency p50/p99 (a header's creation to its certificate's commit
+            at authority 0), the service's flushes and real rows a flush,
+            and frames and bytes a round;
   service   VerifyService.shared("item") serves the compact groups and a
             2048-item burst of header signatures concurrently from an
             asyncio loop; VerifyService.shared("msm") then checks one bucket
@@ -180,7 +206,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the twelve paths and read
+Launch counts are set to 0 just before each of the thirteen paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS; the script prints the sharded walk's route), and a path
 that syncs a device window may launch window_sync at most once per view
@@ -199,6 +225,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import os
 import random
@@ -241,6 +268,7 @@ PATH_KERNELS = {
                "verify_decompress", "verify_straus", "verify_verdict", "msm_window",
                "msm_shard_reduce"),
     "wire": ("verify_batch", "window_sync", "chain_commit"),
+    "primary": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
 }
 
 
@@ -3713,6 +3741,482 @@ def phase_wire(device, f, ctx, pctx, bucket=BUCKET, clients=10, txs_per_client=1
 
 
 # ---------------------------------------------------------------------------
+# Phase: the primary — real primaries forming, voting and certifying
+# ---------------------------------------------------------------------------
+
+
+def primary_modules():
+    """The port's modules the primary path uses: `wire_modules()` plus
+    `primary` and `consensus`. The CPU parity tests pass a namespace of the
+    JAX package's modules for some authorities, so one committee mixes both
+    packages' primaries."""
+    import narwhal_tpu_torch.consensus as consensus
+    import narwhal_tpu_torch.primary as primary
+
+    m = wire_modules()
+    m.primary, m.consensus = primary, consensus
+    return m
+
+
+class StampedSend:
+    """Stands in for a Proposer's `tx_core`: notes the time each header it
+    carries was created, then hands the header on."""
+
+    def __init__(self, channel, stamps: dict):
+        self.channel, self.stamps = channel, stamps
+
+    async def send(self, header) -> None:
+        self.stamps[header.digest] = time.perf_counter()
+        await self.channel.send(header)
+
+
+def tampered_messages(m, fx):
+    """A vote by authority 1 for a header of authority 0, byte 40 of its
+    signature flipped, and a compact certificate of authority 1 for a
+    round-1 header, voted by a quorum, byte 0 of its `agg_s` flipped (as
+    tests/test_compact_default.py tampers one). Both headers carry a
+    payload digest no worker sealed, so neither message's digest exists
+    anywhere else."""
+    from dataclasses import replace
+
+    committee = fx.committee
+    a0, a1 = fx.authorities[0], fx.authorities[1]
+    genesis = frozenset(c.digest for c in m.types.Certificate.genesis(committee))
+    h0 = m.types.Header.build(a0.public, 1, committee.epoch, {b"\xa0" * 32: 0}, genesis,
+                              a0.signature_service())
+    vote = m.types.Vote.for_header(h0, a1.public, a1.signature_service())
+    sig = vote.signature
+    vote = replace(vote, signature=sig[:40] + bytes([sig[40] ^ 0x01]) + sig[41:])
+    h1 = m.types.Header.build(a1.public, 1, committee.epoch, {b"\xa1" * 32: 0}, genesis,
+                              a1.signature_service())
+    votes, stake = [], 0
+    for a in fx.authorities:
+        if stake >= committee.quorum_threshold():
+            break
+        votes.append((committee.index_of(a.public),
+                      m.types.Vote.for_header(h1, a.public, a.signature_service()).signature))
+        stake += committee.stake(a.public)
+    votes.sort()
+    cert = m.types.Certificate.compact_from_votes(h1, tuple(i for i, _ in votes),
+                                                  tuple(s for _, s in votes))
+    cert = m.types.Certificate(cert.header, cert.signers, cert.signatures,
+                               bytes([cert.agg_s[0] ^ 0x80]) + cert.agg_s[1:])
+    return vote, cert
+
+
+PRIMARY_TX_SIZE = 512  # the reference bench's transaction size
+PRIMARY_MIN_ROUND = 6  # a round whose commit follows the window's first upload
+
+
+async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, targets=None,
+                       engine0=None, pool=None, timeout: float = 300.0) -> dict:
+    """A committee of real primaries, one per authority, authority i's from
+    the package `mods[i]` (a `primary_modules()` namespace), each with its
+    network keypair (the handshake and the connection pool on), one worker
+    (id 0) wired to it, and a consensus runner fed by its
+    `tx_new_certificates` whose committed certificates go back to its
+    `rx_committed_certificates` (the StateHandler's garbage collection),
+    as a node assembles them. Authority 0's primary and worker store on
+    NodeStorage under `tmpdir`, the others on NodeStorage(None). Authority
+    0's runner drives `engine0(m, fixture, storage)` (default: its
+    package's host Bullshark), the others their package's host Bullshark.
+    Every primary gets `pool` as its crypto pool (None: the Core verifies
+    inline). `clients` clients stream `txs_per_client` transactions of
+    PRIMARY_TX_SIZE bytes, 50 a message, to the workers of authorities
+    `targets` (default 0 .. clients - 1). Authority 1 sends authority 0 a
+    vote with a flipped signature byte and a compact certificate with a
+    flipped `agg_s` byte over its authenticated routes.
+
+    Runs until authority 0's runner has committed every sealed batch and a
+    certificate of round PRIMARY_MIN_ROUND or later (so a device window
+    syncs after its first upload), then
+    fails unless every transaction is in exactly one sealed batch, each
+    sealed batch in the payload of exactly one certificate authority 0
+    committed, every runner's (digest, consensus_index) sequence equal to
+    authority 0's over their common length, authority 0's accepted
+    certificates replayed in arrival order through its package's host
+    Bullshark commit its sequence, the tampered messages never reach
+    authority 0's certificate store, runner or output, and, with `pool`,
+    every stage dropped nothing but them. Returns the numbers."""
+    n = len(mods)
+    pkgs = []
+    for m in mods:
+        if all(m is not p for p in pkgs):
+            pkgs.append(m)
+    fixtures = [(p.fixtures.CommitteeFixture(size=n), p) for p in pkgs]
+    fx_of = {id(p): fx for fx, p in fixtures}
+    names = [a.public for a in fixtures[0][0].authorities]
+    for fx, _ in fixtures:
+        if [a.public for a in fx.authorities] != names:
+            raise AssertionError("primary: the packages' fixtures disagree on the committee")
+    f0 = fixtures[0][0]
+    gc_depth = f0.parameters.gc_depth
+    # Every address before any server binds, as the JAX package's Cluster
+    # assigns them; each from its own package's allocator, whose server then
+    # binds through the placeholder.
+    for i, m in enumerate(mods):
+        port = m.config.get_available_port
+        _patch_primary(fixtures, names[i], f"127.0.0.1:{port()}")
+        _patch_worker(fixtures, names[i], f"127.0.0.1:{port()}", f"127.0.0.1:{port()}")
+
+    stamps: dict = {}  # header digest -> its creation time
+    sealed: dict = {}  # batch digest -> the authority whose worker sealed it
+    outputs = [[] for _ in range(n)]  # (certificate, consensus_index, time)
+    primaries, workers, runners, storages, collectors, out_channels = [], [], [], [], [], []
+    accepted = None
+
+    def host_bullshark(m, fx, storage):
+        return m.consensus.Bullshark(fx.committee, storage.consensus_store, gc_depth)
+
+    async def collect(i, channel):
+        while True:
+            o = await channel.recv()
+            outputs[i].append((o.certificate, o.consensus_index, time.perf_counter()))
+
+    client_m = mods[0]
+    submit = client_m.network.NetworkClient(counters=client_m.network.WireCounters())
+    rogue = None
+    t_boot = time.perf_counter()
+    try:
+        for i, m in enumerate(mods):
+            fx = fx_of[id(m)]
+            a = fx.authorities[i]
+            storage = m.stores.NodeStorage(os.path.join(tmpdir, "primary-0") if i == 0 else None)
+            wstorage = m.stores.NodeStorage(os.path.join(tmpdir, "worker-0") if i == 0 else None)
+            storages += [storage, wstorage]
+            tx_new, tx_committed = m.channels.Channel(10_000), m.channels.Channel(10_000)
+            tx_output = m.channels.Channel(1 << 20)
+            tap = m.channels.Channel(1 << 20) if i == 0 else None
+            p = m.primary.Primary(a.public, a.signature_service(), fx.committee, fx.worker_cache,
+                                  fx.parameters, storage, tx_new, tx_committed,
+                                  crypto_pool=pool, network_keypair=a.network_keypair)
+            engine = (engine0 or host_bullshark)(m, fx, storage) if i == 0 else \
+                host_bullshark(m, fx, storage)
+            runner = m.consensus.Consensus(fx.committee, engine, storage.consensus_store,
+                                           storage.certificate_store, tx_new, tx_committed,
+                                           tx_output, p.tx_reconfigure, gc_depth, tx_accepted=tap)
+            real = p._on_our_batch
+
+            async def on_our_batch(msg, peer, real=real, i=i):
+                sealed.setdefault(msg.digest, i)
+                return await real(msg, peer)
+
+            p._on_our_batch = on_our_batch
+            p.proposer.tx_core = StampedSend(p.proposer.tx_core, stamps)
+            primaries.append(p)
+            await p.spawn()
+            runners.append(runner.spawn())
+            out_channels.append(tx_output)
+            collectors.append(asyncio.ensure_future(collect(i, tx_output)))
+            if i == 0:
+                accepted = tap
+            w = m.worker.Worker(a.public, 0, fx.committee, fx.worker_cache, fx.parameters,
+                                wstorage.batch_store, network_keypair=a.worker_keypairs[0])
+            await w.spawn()
+            workers.append(w)
+        t0 = time.perf_counter()
+        boot_s = t0 - t_boot
+
+        m1 = mods[1]
+        fx1 = fx_of[id(m1)]
+        bad_vote, bad_cert = tampered_messages(m1, fx1)
+        rogue = m1.network.NetworkClient(credentials=m1.network.Credentials(
+            fx1.authorities[1].network_keypair,
+            m1.network.committee_resolver(lambda: fx1.committee, lambda: fx1.worker_cache)))
+        address0 = fx1.committee.primary_address(names[0])
+        await rogue.request(address0, m1.messages.VoteMsg(bad_vote), timeout=60.0)
+        await rogue.request(address0, m1.messages.CertificateMsg(bad_cert), timeout=60.0)
+
+        targets = list(range(clients)) if targets is None else list(targets)
+        sent = {}
+
+        async def stream(c, i):
+            txs = wire_transactions(c, txs_per_client, PRIMARY_TX_SIZE)
+            for t in txs:
+                sent[t[:8]] = t
+            addr = workers[i].transactions_address
+            for lo in range(0, len(txs), 50):
+                msg = client_m.messages.SubmitTransactionStreamMsg(tuple(txs[lo:lo + 50]))
+                await submit.request(addr, msg, timeout=60.0)
+
+        t_submit = time.perf_counter()
+        await asyncio.wait_for(
+            asyncio.gather(*(stream(c, i) for c, i in enumerate(targets))), timeout)
+        t_submitted = time.perf_counter()
+
+        counts: dict = {}
+
+        def sealed_transactions() -> int:
+            for d, i in list(sealed.items()):
+                if d not in counts:
+                    raw = workers[i].store.read(d)
+                    if raw is None:
+                        continue
+                    counts[d] = int.from_bytes(raw[:4], "little")
+            return sum(counts.values())
+
+        def committed_payload() -> set:
+            return {d for c, _, _ in outputs[0] for d in c.header.payload}
+
+        deadline = time.perf_counter() + timeout
+        def committed_round() -> int:
+            return max((c.round for c, _, _ in outputs[0]), default=0)
+
+        while sealed_transactions() < len(sent) or not set(sealed) <= committed_payload() \
+                or committed_round() < PRIMARY_MIN_ROUND:
+            for i, task in enumerate(runners):
+                if task.done():
+                    task.result()
+                    raise AssertionError(f"primary: authority {i}'s runner ended")
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"primary: {sealed_transactions()} of {len(sent)} transactions sealed, "
+                    f"{len(set(sealed) & committed_payload())} of {len(sealed)} batches "
+                    f"committed at authority 0, its last commit of round "
+                    f"{committed_round()}, in {timeout} s")
+            await asyncio.sleep(0.05)
+        t_done = time.perf_counter()
+        rounds = primaries[0].proposer.round
+        if pool is not None:
+            stage0 = primaries[0].verifier_stage
+            while sum(stage0.drops.values()) < 2 and time.perf_counter() < deadline:
+                await asyncio.sleep(0.05)
+        batch_bytes = {d: workers[i].store.read(d) for d, i in sealed.items()}
+        stored_tampered = \
+            primaries[0].storage.certificate_store.read(bad_cert.digest) is not None
+    finally:
+        for p in primaries:
+            await p.shutdown()
+        for w in workers:
+            await w.shutdown()
+        submit.close()
+        if rogue is not None:
+            rogue.close()
+        # The runners end on their primary's shutdown notification.
+        ended = await asyncio.wait_for(asyncio.gather(*runners, return_exceptions=True), 60.0)
+        for c in collectors:
+            c.cancel()
+        await asyncio.gather(*collectors, return_exceptions=True)
+        for i, channel in enumerate(out_channels):
+            outputs[i].extend((o.certificate, o.consensus_index, time.perf_counter())
+                              for o in _drain(channel))
+        for s in storages:
+            s.close()
+    for r in ended:
+        if isinstance(r, BaseException):
+            raise r
+    # Every transaction in exactly one sealed batch.
+    seen = {}
+    for d, i in sealed.items():
+        raw = batch_bytes[d]
+        if raw is None:
+            raise AssertionError("primary: a sealed batch is missing from its worker's store")
+        for t in mods[i].types.Batch.from_bytes(raw).transactions:
+            if t[:8] in seen or sent.get(t[:8]) != t:
+                raise AssertionError("primary: a transaction sealed twice or altered")
+            seen[t[:8]] = d
+    if len(seen) != len(sent):
+        raise AssertionError(f"primary: {len(seen)} of {len(sent)} transactions sealed")
+    # Each sealed batch in exactly one certificate authority 0 committed.
+    committed0 = [c for c, _, _ in outputs[0]]
+    times0 = {c.digest: t for c, _, t in outputs[0]}
+    holders: dict = {}
+    for c in committed0:
+        for d in c.header.payload:
+            holders.setdefault(d, []).append(c)
+    for d in sealed:
+        if len(holders.get(d, ())) != 1:
+            raise AssertionError(f"primary: a sealed batch is in {len(holders.get(d, ()))} "
+                                 "committed certificates")
+    if set(holders) - set(sealed):
+        raise AssertionError("primary: a committed payload digest no worker sealed")
+    # Every runner agrees with authority 0 over their common length.
+    seqs = [[(c.digest, idx) for c, idx, _ in outputs[i]] for i in range(n)]
+    for i in range(1, n):
+        k = min(len(seqs[i]), len(seqs[0]))
+        if seqs[i][:k] != seqs[0][:k]:
+            first = next(j for j in range(k) if seqs[i][j] != seqs[0][j])
+            raise AssertionError(f"primary: authority {i}'s runner diverges from authority "
+                                 f"0's at consensus index {first}")
+    # Authority 0's accepted certificates through the host Bullshark.
+    m0 = mods[0]
+    arrivals = _drain(accepted)
+    state = m0.consensus.ConsensusState(m0.types.Certificate.genesis(f0.committee))
+    host = m0.consensus.Bullshark(f0.committee, m0.stores.NodeStorage(None).consensus_store,
+                                  gc_depth)
+    replay, idx = [], 0
+    for c in arrivals:
+        outs = host.process_certificate(state, idx, c)
+        idx += len(outs)
+        replay.extend((o.certificate.digest, o.consensus_index) for o in outs)
+    if replay != seqs[0]:
+        raise AssertionError(f"primary: the host replay of authority 0's {len(arrivals)} "
+                             f"accepted certificates commits {len(replay)}, the runner "
+                             f"{len(seqs[0])}, or another sequence")
+    # The tampered messages never reached authority 0's DAG.
+    drops = [dict(p.verifier_stage.drops) if p.verifier_stage is not None else None
+             for p in primaries]
+    if any(c.digest == bad_cert.digest for c in arrivals) or bad_cert.digest in times0 \
+            or stored_tampered:
+        raise AssertionError("primary: the tampered certificate entered authority 0's DAG")
+    if pool is not None:
+        want0 = {("Vote", "signature"): 1, ("Certificate", "signature"): 1}
+        if drops[0] != want0 or any(d for d in drops[1:]):
+            raise AssertionError(f"primary: the stages dropped {drops[0]} at authority 0 "
+                                 f"(the tampered: {want0}) and "
+                                 f"{[d for d in drops[1:] if d]} elsewhere")
+    # Certificates whose signers span packages, by the author's package.
+    pkg_of = {names[i]: j for i, m in enumerate(mods) for j, p in enumerate(pkgs) if m is p}
+    mixed = [0] * len(pkgs)
+    for c in committed0:
+        signer_pkgs = {pkg_of[f0.committee.key_of(s)] for s in c.signers}
+        if signer_pkgs - {pkg_of[c.origin]}:
+            mixed[pkg_of[c.origin]] += 1
+    latency = [times0[c.digest] - stamps[c.header.digest] for c in committed0
+               if c.header.digest in stamps]
+    t_last = max(times0[holders[d][0].digest] for d in sealed)
+    committed_all = len(committed0)
+    return {
+        "authorities": n, "clients": clients, "transactions": len(sent),
+        "tx_size": PRIMARY_TX_SIZE, "batches": len(sealed),
+        "rounds": rounds, "committed": committed_all, "accepted": len(arrivals),
+        "runner_lengths": [len(s) for s in seqs],
+        "boot_s": boot_s, "run_s": t_done - t0, "submit_s": t_submitted - t_submit,
+        "certificates_per_s": committed_all / (times0[committed0[-1].digest] - t0),
+        "transactions_per_s": len(sent) / (t_last - t_submit),
+        "commit_latency_p50_s": float(np.percentile(latency, 50)),
+        "commit_latency_p99_s": float(np.percentile(latency, 99)),
+        "latency_samples": len(latency),
+        "mixed_signers_by_package": mixed,
+        "drops": [{f"{k[0]}/{k[1]}": v for k, v in d.items()} if d else d for d in drops],
+        "primary_frames_sent": sum(p.wire_counters.frames_sent for p in primaries),
+        "primary_bytes_sent": sum(p.wire_counters.bytes_sent for p in primaries),
+        "worker_frames_sent": sum(w.wire_counters.frames_sent for w in workers),
+        "worker_bytes_sent": sum(w.wire_counters.bytes_sent for w in workers),
+    }
+
+
+def record_flushes(svc) -> dict:
+    """Count a VerifyService's flushes and the real rows in them, by lane:
+    its verifier's `submit` (the item lane, A1) and `submit_groups` (the
+    group lane, A2: two rows a signer), wrapped on the instance, with the
+    host wall of the item lane's submits (packing, upload and launch, on
+    the service's submit thread)."""
+    stats = {"item_flushes": 0, "item_rows": 0, "group_flushes": 0, "group_rows": 0,
+             "groups": 0, "item_submit_s": 0.0}
+    v = svc.verifier
+    submit, submit_groups = v.submit, v.submit_groups
+
+    def counted_submit(items):
+        stats["item_flushes"] += 1
+        stats["item_rows"] += len(items)
+        t0 = time.perf_counter()
+        handle = submit(items)
+        stats["item_submit_s"] += time.perf_counter() - t0
+        return handle
+
+    def counted_submit_groups(groups):
+        stats["group_flushes"] += 1
+        stats["groups"] += len(groups)
+        stats["group_rows"] += sum(2 * len(g[0]) for g in groups)
+        return submit_groups(groups)
+
+    v.submit, v.submit_groups = counted_submit, counted_submit_groups
+    return stats
+
+
+def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
+                  timeout: float = 300.0):
+    """The primary path: `primary_wire` over N port primaries (N = f's
+    committee size), each verifying through one process-wide card
+    VerifyService("item") (A1 for headers and votes, A2 for compact
+    certificates' aggregate proofs), authority 0's runner on
+    GpuBullshark(device) (B2, B3 + B4), the others on the host Bullshark;
+    the tampered vote and certificate sent to authority 0. A `bucket`
+    other than the service's 2048 builds a service of that bucket (a CPU
+    rehearsal)."""
+    import tempfile
+
+    import torch
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
+    from narwhal_tpu_torch.gpu.verifier import GpuVerifier, VerifyService
+
+    m = primary_modules()
+    n = f.committee.size()
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    if bucket == BUCKET:
+        svc = VerifyService.shared("item", device=device)
+    else:
+        svc = VerifyService(GpuVerifier(max_bucket=bucket, msm_min_bucket=16, mode="item",
+                                        device=device), max_batch=bucket)
+    flushes = record_flushes(svc)
+
+    def engine0(m, fx, storage):
+        return GpuBullshark(fx.committee, storage.consensus_store, fx.parameters.gc_depth,
+                            device=device)
+
+    # The host's garbage collector, timed over the path: every collection's
+    # wall, and the full (generation 2) ones counted.
+    collecting = {"s": 0.0, "full": 0, "t": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            collecting["t"] = time.perf_counter()
+        else:
+            collecting["s"] += time.perf_counter() - collecting["t"]
+            collecting["full"] += info["generation"] == 2
+
+    t_path = time.perf_counter()
+    kernel_registry.reset_launch_counts()
+    gc.callbacks.append(on_gc)
+    try:
+        with tempfile.TemporaryDirectory(prefix="primary-") as tmp:
+            out = asyncio.run(primary_wire([m] * n, tmp, clients, txs_per_client,
+                                           engine0=engine0, pool=svc, timeout=timeout))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(on_gc)
+        svc.shutdown()
+    if svc._submit_thread.is_alive() or svc._collect_thread.is_alive():
+        raise AssertionError("primary: a service thread outlived shutdown")
+    launches = kernel_registry.launch_counts()
+    require_launches("primary", launches, device)
+    wall = time.perf_counter() - t_path
+    rounds = max(out["rounds"], 1)
+    per_item = flushes["item_rows"] / max(flushes["item_flushes"], 1)
+    per_group = flushes["group_rows"] / max(flushes["group_flushes"], 1)
+    log(f"primary: {n} port primaries and workers over authenticated RPC, one card "
+        f"VerifyService; {out['rounds']} rounds reached and {out['committed']} certificates "
+        f"committed at authority 0 ({out['accepted']} accepted; the other runners "
+        f"{min(out['runner_lengths'][1:])}-{max(out['runner_lengths'][1:])} committed, "
+        f"every one a prefix-equal of authority 0's; the host replay equal); "
+        f"{out['certificates_per_s']:.1f} certificates/s; {clients} clients x "
+        f"{txs_per_client} transactions of {out['tx_size']} bytes in {out['batches']} "
+        f"batches, each committed once: {out['transactions_per_s']:.1f} transactions/s from "
+        f"the first submit to the last commit; commit latency p50 "
+        f"{out['commit_latency_p50_s']:.3f} s, p99 {out['commit_latency_p99_s']:.3f} s over "
+        f"{out['latency_samples']} certificates{card}")
+    log(f"primary: VerifyService {flushes['item_flushes']} item flushes, "
+        f"{flushes['item_rows']} rows ({per_item:.1f} real rows a flush of {bucket}; "
+        f"{flushes['item_submit_s']:.3f} s of host wall in their submits); "
+        f"{flushes['group_flushes']} group flushes, {flushes['groups']} proofs, "
+        f"{flushes['group_rows']} rows ({per_group:.1f} a flush); stage drops "
+        f"{out['drops'][0]} at authority 0 (the tampered vote and certificate), none "
+        f"elsewhere; primaries sent {out['primary_frames_sent'] / rounds:.1f} frames and "
+        f"{out['primary_bytes_sent'] / rounds:.0f} bytes a round, workers "
+        f"{out['worker_frames_sent'] / rounds:.1f} frames and "
+        f"{out['worker_bytes_sent'] / rounds:.0f} bytes a round; boot "
+        f"{out['boot_s']:.3f} s, the path's wall {wall:.3f} s, {collecting['s']:.3f} s of it "
+        f"in the garbage collector ({collecting['full']} full collections); launches "
+        f"{launches}{card}")
+    return {"launches": launches, "wall_s": wall, "flushes": flushes,
+            "gc_s": collecting["s"], "gc_full": collecting["full"],
+            **{k: v for k, v in out.items() if k != "drops"}, "drops_0": out["drops"][0]}
+
+
+# ---------------------------------------------------------------------------
 # Phase: the process-wide VerifyService, both modes
 # ---------------------------------------------------------------------------
 
@@ -3942,6 +4446,7 @@ def main(argv=None) -> int:
     pctx = phase_pipeline(device, f, ctx)
     cctx = phase_compact(device, f, ctx, pctx)
     wctx = phase_wire(device, f, ctx, pctx)
+    prctx = phase_primary(device, f)
     sctx = phase_service(device, f, pctx, cctx)
     shctx = phase_sharded(device, sctx)
     tctx = phase_tusk(device, f)
@@ -3955,7 +4460,8 @@ def main(argv=None) -> int:
                "tusk": tctx["launches"], "runner": rctx["launches"],
                "dag_service": dctx["launches"],
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
-               "dryrun": drctx["launches"], "wire": wctx["launches"]}
+               "dryrun": drctx["launches"], "wire": wctx["launches"],
+               "primary": prctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
@@ -3974,7 +4480,8 @@ def main(argv=None) -> int:
                                 "meshed_s_by_route": csctx["meshed_s_by_route"]},
              "dryrun_wall_s": drctx["wall_s"],
              "wire": {k: wctx[k] for k in ("aead", "signing", "wall_s", "certificates",
-                                           "workers")}}
+                                           "workers")},
+             "primary": {k: v for k, v in prctx.items() if k != "launches"}}
 
     kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS
     rows = []

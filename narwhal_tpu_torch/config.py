@@ -7,9 +7,10 @@ Reference: narwhal/config/src/lib.rs — Parameters :107-138 (defaults
 :259-275), Committee + stake math :488-685, WorkerCache :360-473, JSON
 Import/Export traits :65-97. With them: the environment knob readers the
 worker reads (`pacing_enabled`, `env_float`, `env_int`,
-`connection_pool_effective`) and the port-placeholder allocator the RPC
-server binds through. The relay and header-wire readers and the hot-swap
-holder `Shared` of the JAX package's module come with the primary.
+`connection_pool_effective`), the ones the primary reads
+(`relay_fanout_effective`, `header_wire_effective`) and the
+port-placeholder allocator the RPC server binds through. The hot-swap
+holder `Shared` of the JAX package's module comes with the node.
 
 Addresses here are plain "host:port" strings. Durations are float seconds in
 memory, serialized as milliseconds in JSON.
@@ -234,6 +235,21 @@ def env_int(name: str, default: int) -> int:
     except ValueError:
         logger.warning("ignoring non-numeric %s=%r (using %s)", name, raw, default)
         return default
+
+
+def relay_fanout_effective(parameters: "Parameters") -> int:
+    """The relay fanout after env overrides: NARWHAL_RELAY=0/false/off is
+    the kill-switch (forces direct all-to-all broadcast), NARWHAL_RELAY_FANOUT
+    overrides the branching factor."""
+    if os.environ.get("NARWHAL_RELAY", "1").lower() in ("0", "false", "off"):
+        return 0
+    return max(0, env_int("NARWHAL_RELAY_FANOUT", parameters.relay_fanout))
+
+
+def header_wire_effective(parameters: "Parameters") -> str:
+    """The header/certificate announcement wire form after the
+    NARWHAL_HEADER_WIRE env override (full | delta)."""
+    return os.environ.get("NARWHAL_HEADER_WIRE", parameters.header_wire)
 
 
 @dataclass(frozen=True)

@@ -63,6 +63,8 @@ def test_port_package_imports_without_jax_loaded():
         "from narwhal_tpu_torch.consensus import Consensus\n"
         "import narwhal_tpu_torch.messages, narwhal_tpu_torch.network\n"
         "from narwhal_tpu_torch.worker import Worker\n"
+        "from narwhal_tpu_torch.primary import Primary\n"
+        "import narwhal_tpu_torch.primary.verifier_stage\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
