@@ -148,6 +148,39 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             latency p50/p99 (a header's creation to its certificate's commit
             at authority 0), the service's flushes and real rows a flush,
             and frames and bytes a round;
+  node      the node, in the primary path's committee (its launches counted
+            from the primary path's stop condition, which with it also needs
+            every committed transaction executed): authority 0's runner
+            output and accepted tap feed `executor.Executor` on its store
+            with `node.SimpleExecutionState` (Subscriber, Prefetcher, Core
+            fetching from its own worker through its primary's network):
+            every committed transaction executed exactly once, in the
+            order of consensus index, batch digest and position, the
+            persisted ExecutionIndices the cursor past the last; authority
+            2 runs under external consensus (no runner,
+            NetworkModel.ASYNCHRONOUS), its certificates feeding
+            Dag(backend="cuda") (adaptive) and a host Dag; a ConsensusApi
+            at authorities 0 and 2 over their BlockWaiter,
+            BlockSynchronizer and BlockRemover, asked over a NetworkClient:
+            at 2 Rounds for every authority, bursts of K = 1, 8, 64
+            ReadCausal from committed digests and a NodeReadCausal, every
+            answer (error replies included) the host Dag's, B6 launched; at
+            0 GetCollections for 16 committed certificates, byte-equal to
+            the sealed batches, and a TelemetryScrape read with
+            parse_exposition (the executor's counters); RemoveCollections
+            for 4 digests at 2, then GetCollections for them an error; then
+            a BlockSynchronizer for authority 0 on a fresh store with a card
+            VerifyService of its own catches up from round 0 against the
+            live committee: the fetched set is the digests the asked peers
+            reported with half their answers behind them, each verified
+            (A1 for the header, A2 for the compact proof, one certificate at
+            a time as the reference does), and the tampered compact
+            certificate raises InvalidSignatureError after an A2 launch;
+            until authority 0 commits again. Prints transactions executed a
+            second, execution lag p50/p99, fetch RPCs a certificate,
+            prefetch hits and misses, the read bursts' walls and the routing
+            split, and the catch-up's certificates, wall, rate and A1 and A2
+            flushes with their real rows;
   service   VerifyService.shared("item") serves the compact groups and a
             2048-item burst of header signatures concurrently from an
             asyncio loop; VerifyService.shared("msm") then checks one bucket
@@ -206,7 +239,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the thirteen paths and read
+Launch counts are set to 0 just before each of the fourteen paths and read
 just after it, and each path must have launched the kernels it names
 (PATH_KERNELS; the script prints the sharded walk's route), and a path
 that syncs a device window may launch window_sync at most once per view
@@ -269,6 +302,7 @@ PATH_KERNELS = {
                "msm_shard_reduce"),
     "wire": ("verify_batch", "window_sync", "chain_commit"),
     "primary": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
+    "node": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit", "reach_many"),
 }
 
 
@@ -3746,15 +3780,24 @@ def phase_wire(device, f, ctx, pctx, bucket=BUCKET, clients=10, txs_per_client=1
 
 
 def primary_modules():
-    """The port's modules the primary path uses: `wire_modules()` plus
-    `primary` and `consensus`. The CPU parity tests pass a namespace of the
-    JAX package's modules for some authorities, so one committee mixes both
-    packages' primaries."""
+    """The port's modules the primary and node paths use: `wire_modules()`
+    plus `primary` (with its block services and consensus API),
+    `consensus`, `executor`, `node` and `metrics`. The CPU parity tests pass
+    a namespace of the JAX package's modules for some authorities, so one
+    committee mixes both packages' primaries."""
     import narwhal_tpu_torch.consensus as consensus
+    import narwhal_tpu_torch.executor as executor
+    import narwhal_tpu_torch.metrics as metrics
+    import narwhal_tpu_torch.node as node
     import narwhal_tpu_torch.primary as primary
+    import narwhal_tpu_torch.primary.api_server  # noqa: F401  (m.primary.api_server)
+    import narwhal_tpu_torch.primary.block_remover  # noqa: F401
+    import narwhal_tpu_torch.primary.block_synchronizer  # noqa: F401
+    import narwhal_tpu_torch.primary.block_waiter  # noqa: F401
 
     m = wire_modules()
-    m.primary, m.consensus = primary, consensus
+    m.primary, m.consensus, m.executor, m.node, m.metrics = \
+        primary, consensus, executor, node, metrics
     return m
 
 
@@ -3808,8 +3851,295 @@ PRIMARY_TX_SIZE = 512  # the reference bench's transaction size
 PRIMARY_MIN_ROUND = 6  # a round whose commit follows the window's first upload
 
 
+NODE_EXTERNAL = 2  # the external-consensus authority (1 sends the tampered messages)
+NODE_READS = (1, 8, 64)  # concurrent ReadCausal a burst
+NODE_COLLECTIONS = 16  # committed certificates GetCollections asks for
+NODE_REMOVALS = 4  # certificates RemoveCollections removes
+
+
+class NodeLegs:
+    """The `node` legs of `primary_wire`, run inside its committee (none
+    without one):
+
+    - authority 0's runner output feeds an `executor.Executor` on its
+      storage, with a `node.SimpleExecutionState` that also records each
+      transaction it is handed, and the accepted tap fans out to the
+      Executor's Prefetcher; the run's stop condition gains "every
+      committed transaction executed";
+    - authority NODE_EXTERNAL runs its Primary under
+      `NetworkModel.ASYNCHRONOUS` with no runner, its `tx_new_certificates`
+      fanned out to `dag(m, committee, rx)` (the node's Dag) and to a host
+      `Dag(backend="cpu")` of its package;
+    - a `ConsensusApi` at authorities 0 and NODE_EXTERNAL over each one's
+      BlockWaiter, BlockSynchronizer (crypto pool: the committee's `pool`)
+      and BlockRemover, as the node wires them;
+    - once the run's stop condition holds, `mark()` (the caller ends one
+      path's launch counts there), then the reads at NODE_EXTERNAL
+      (Rounds, ReadCausal bursts of NODE_READS concurrent reads, a
+      NodeReadCausal: the same answers as the host Dag), GetCollections for
+      NODE_COLLECTIONS committed certificates and a TelemetryScrape at
+      authority 0, RemoveCollections for NODE_REMOVALS digests at
+      NODE_EXTERNAL, then a range catch-up by a fresh BlockSynchronizer
+      named for authority 0 that verifies through `sync_pool`, with
+      `sync_timeout`; the legs end once authority 0 has committed again
+      after the mark."""
+
+    def __init__(self, dag, sync_pool, mark=None, sync_timeout: float = 300.0):
+        self.dag, self.sync_pool, self.mark, self.sync_timeout = \
+            dag, sync_pool, mark, sync_timeout
+
+
+def recording_state(m, storage, log: list):
+    """Package `m`'s `SimpleExecutionState` on `storage`, noting each
+    transaction it is handed as (certificate digest, consensus index,
+    ExecutionIndices bytes, transaction, time)."""
+
+    class Recording(m.node.SimpleExecutionState):
+        async def handle_consensus_transaction(self, output, indices, transaction):
+            log.append((output.certificate.digest, output.consensus_index, indices.to_bytes(),
+                        transaction, time.perf_counter()))
+            return await super().handle_consensus_transaction(output, indices, transaction)
+
+    return Recording(storage)
+
+
+class RangeRecorder:
+    """Stands in for a BlockSynchronizer's NetworkClient: every call goes to
+    the real client, and each CertificatesRangeResponse is noted."""
+
+    def __init__(self, network, messages):
+        self.network, self.messages, self.ranges = network, messages, []
+
+    async def request(self, address, msg, timeout=None):
+        resp = await self.network.request(address, msg, timeout=timeout)
+        if isinstance(resp, self.messages.CertificatesRangeResponse):
+            self.ranges.append(resp.digests)
+        return resp
+
+    def __getattr__(self, name):
+        return getattr(self.network, name)
+
+
+async def node_api(m, fx, name, p, storage, pool, dag):
+    """A ConsensusApi over `p`'s own block services, wired as the JAX
+    package's `PrimaryNode` wires them (`narwhal_tpu/node.py:383-429`; the
+    port's node is ROADMAP queue 1 item 5)."""
+    sync = m.primary.block_synchronizer.BlockSynchronizer(
+        name, fx.committee, fx.worker_cache, storage.certificate_store, storage.payload_store,
+        p.network, fx.parameters, tx_loopback=p.tx_primary_messages, crypto_pool=pool)
+    waiter = m.primary.block_waiter.BlockWaiter(name, fx.worker_cache,
+                                                storage.certificate_store, p.network, sync)
+    remover = m.primary.block_remover.BlockRemover(
+        name, fx.worker_cache, storage.certificate_store, storage.header_store,
+        storage.payload_store, p.network, dag=dag)
+    api = m.primary.api_server.ConsensusApi(name, fx.committee, waiter, remover, dag=dag,
+                                            registry=p.registry, tracer=p.tracer)
+    api.set_primary_address(p.address)
+    await api.spawn("127.0.0.1:0")
+    return api
+
+
+async def feed_dags(rx, feeds, lock, fed: list) -> None:
+    """The external authority's certificate stream, one certificate at a
+    time under `lock`, to every Dag's feed (holding the lock freezes it)."""
+    while True:
+        cert = await rx.recv()
+        async with lock:
+            for ch in feeds:
+                await ch.send(cert)
+            fed.append(cert.digest)
+
+
+async def answer(call, error) -> tuple:
+    """("ok", the call's result) or ("error", its message) when it raises
+    `error`: a reply and an error reply compare alike."""
+    try:
+        return "ok", await call
+    except error as e:
+        return "error", str(e)
+
+
+async def external_reads(m, names, api, dags, lock, fed: list, committed: list) -> dict:
+    """The reads at the external authority over a NetworkClient, its feed
+    frozen so the device Dag and the host Dag hold the same certificates:
+    Rounds for every authority, a burst of each of NODE_READS concurrent
+    ReadCausal from committed digests, and a NodeReadCausal. Every answer,
+    error replies included, must equal the host Dag's (each API call comes
+    just before the host Dag's, as both sweep their DAG)."""
+    dev, host = dags
+    client = m.network.NetworkClient()
+    out = {"bursts": {}}
+    live = []
+    try:
+        async with lock:
+            while fed and not (await dev.contains(fed[-1]) and await host.contains(fed[-1])):
+                await asyncio.sleep(0.01)
+            for pk in names:
+                got = await answer(client.request(api.address, m.messages.RoundsRequest(pk),
+                                                  timeout=60.0), m.network.RpcError)
+                want = await answer(host.rounds(pk), m.consensus.ValidatorDagError)
+                if got[0] == "ok":
+                    got = ("ok", (got[1].oldest_round, got[1].newest_round))
+                    live.append((pk, got[1][1]))
+                if got != want:
+                    raise AssertionError(f"node: Rounds answered {got}, the host Dag {want}")
+            out["rounds_answered"] = len(live)
+            starts = [d for d in committed if await dev.contains(d)]
+            if not starts:
+                raise AssertionError("node: no committed digest in the external Dag")
+            for k in NODE_READS:
+                pick = [starts[(len(starts) - 1 - j) % len(starts)] for j in range(k)]
+                t0 = time.perf_counter()
+                got = await asyncio.gather(*(
+                    client.request(api.address, m.messages.ReadCausalRequest(d), timeout=120.0)
+                    for d in pick))
+                wall = time.perf_counter() - t0
+                for d, g in zip(pick, got):
+                    if list(g.digests) != await host.read_causal(d):
+                        raise AssertionError(f"node: ReadCausal (K = {k}) differs from the "
+                                             "host Dag's")
+                out["bursts"][k] = {"wall_s": wall, "digests": sum(len(g.digests) for g in got)}
+            if not live:
+                raise AssertionError("node: Rounds answered no authority")
+            origin, newest = max(live, key=lambda x: x[1])
+            got = await client.request(api.address,
+                                       m.messages.NodeReadCausalRequest(origin, newest),
+                                       timeout=120.0)
+            if list(got.digests) != await host.node_read_causal(origin, newest):
+                raise AssertionError("node: NodeReadCausal differs from the host Dag's")
+            out["node_read_causal"] = {"round": newest, "digests": len(got.digests)}
+    finally:
+        client.close()
+    out["routing"] = dev.routing_stats()
+    return out
+
+
+async def api_collections(m, api, committed: list, batch_bytes: dict, count: int) -> dict:
+    """GetCollections for `count` committed certificates (those with a
+    payload first) and a TelemetryScrape, over a NetworkClient."""
+    client = m.network.NetworkClient()
+    try:
+        pick = sorted(committed, key=lambda c: not c.header.payload)[:count]
+        t0 = time.perf_counter()
+        got = await client.request(
+            api.address, m.messages.GetCollectionsRequest(tuple(c.digest for c in pick)),
+            timeout=120.0)
+        wall = time.perf_counter() - t0
+        batches = 0
+        for c, (digest, served, error) in zip(pick, got.results):
+            if digest != c.digest or error:
+                raise AssertionError(f"node: GetCollections answered {error!r}")
+            if sorted(d for d, _ in served) != sorted(c.header.payload):
+                raise AssertionError("node: GetCollections served another payload")
+            for d, txs in served:
+                if m.types.Batch(list(txs)).to_bytes() != batch_bytes[d]:
+                    raise AssertionError("node: a served batch differs from the sealed one")
+                batches += 1
+        scrape = await client.request(api.address, m.messages.TelemetryScrapeMsg(),
+                                      timeout=60.0)
+    finally:
+        client.close()
+    parsed = m.metrics.parse_exposition(scrape.text)
+    counters = {}
+    for name in ("executor_executed_transactions", "executor_executed_certificates",
+                 "executor_prefetch_hits", "executor_prefetch_misses",
+                 "executor_prefetched_batches", "executor_bytes_fetched"):
+        counters[name] = parsed[name]["samples"][""]
+    rpcs = parsed["executor_fetch_rpcs_per_certificate"]["samples"]
+    counters["executor_fetch_rpcs"] = rpcs["_sum"]
+    counters["executor_fetch_rpcs_certificates"] = rpcs["_count"]
+    return {"certificates": len(pick), "batches": batches, "wall_s": wall,
+            "counters": counters}
+
+
+async def remove_collections(m, api, p, worker, committed: list, count: int) -> dict:
+    """RemoveCollections for `count` committed certificates with a payload
+    that `p` holds; then they are gone from its stores and its worker's,
+    and GetCollections for them answers with the reference's BlockError
+    for each: BatchError when its BlockSynchronizer fetches the certificate
+    back from a peer (the worker no longer holds the batches), BlockNotFound
+    when no peer answers within the synchronizer's deadline."""
+    client = m.network.NetworkClient()
+    try:
+        pick = [c for c in committed if c.header.payload
+                and p.storage.certificate_store.read(c.digest) is not None][:count]
+        digests = tuple(c.digest for c in pick)
+        await client.request(api.address, m.messages.RemoveCollectionsRequest(digests),
+                             timeout=120.0)
+        for c in pick:
+            if p.storage.certificate_store.read(c.digest) is not None \
+                    or p.storage.header_store.read(c.header.digest) is not None \
+                    or any(worker.store.read(d) is not None for d in c.header.payload):
+                raise AssertionError("node: RemoveCollections left a certificate or a batch")
+        got = await client.request(api.address, m.messages.GetCollectionsRequest(digests),
+                                   timeout=120.0)
+    finally:
+        client.close()
+    errors = [error for _, served, error in got.results if not served]
+    if len(errors) != len(pick) or not set(errors) <= {"BatchError", "BlockNotFound"}:
+        raise AssertionError(f"node: GetCollections after removal answered {got.results!r}")
+    return {"removed": len(pick), "errors": sorted(set(errors))}
+
+
+async def catch_up(m, fx, name, p, pool, timeout: float) -> dict:
+    """A range catch-up from round 0 by a BlockSynchronizer named for
+    authority 0 on a fresh NodeStorage(None), sending through `p.network`,
+    its fetched certificates collected on a loopback channel of its own,
+    verifying through `pool`. Every fetched certificate passed
+    `_verify_certificate`; the fetched set is the digests that the asked
+    peers reported with the reference's backing (half the answers, rounded
+    up); then a compact certificate with a flipped `agg_s` byte raises
+    InvalidSignatureError there."""
+    storage = m.stores.NodeStorage(None)
+    loopback = m.channels.Channel(1 << 20)
+    network = RangeRecorder(p.network, m.messages)
+    sync = m.primary.block_synchronizer.BlockSynchronizer(
+        name, fx.committee, fx.worker_cache, storage.certificate_store, storage.payload_store,
+        network, fx.parameters, tx_loopback=loopback, crypto_pool=pool)
+    verify, verified = sync._verify_certificate, set()
+
+    async def verify_noted(cert):
+        await verify(cert)
+        verified.add(cert.digest)
+
+    sync._verify_certificate = verify_noted
+    flushes = record_flushes(pool) if hasattr(pool, "verifier") else None
+    t0 = time.perf_counter()
+    wanted = await sync.synchronize_range(0, timeout=timeout)
+    wall = time.perf_counter() - t0
+    fetched = _drain(loopback)
+    got = {c.digest for c in fetched}
+    counts: dict = {}
+    for digests in network.ranges:
+        for d in digests:
+            counts[d] = counts.get(d, 0) + 1
+    backing = max(1, -(-len(network.ranges) // 2))
+    backed = {d for d, k in counts.items() if k >= backing}
+    if got != set(wanted) or set(wanted) != backed or len(fetched) != len(got):
+        raise AssertionError(f"node: catch-up fetched {len(got)} of {len(wanted)} wanted, "
+                             f"{len(backed)} backed by {backing} of {len(network.ranges)} "
+                             "answers")
+    if not got <= verified:
+        raise AssertionError("node: catch-up fetched a certificate it did not verify")
+    before = dict(flushes) if flushes is not None else None
+    _vote, bad = tampered_messages(m, fx)
+    try:
+        await verify(bad)
+    except m.types.InvalidSignatureError:
+        pass
+    else:
+        raise AssertionError("node: the tampered certificate passed _verify_certificate")
+    if flushes is not None and flushes["group_flushes"] <= before["group_flushes"]:
+        raise AssertionError("node: the tampered proof reached no msm_accumulate launch")
+    storage.close()
+    return {"fetched": len(got), "answers": len(network.ranges), "backing": backing,
+            "wall_s": wall, "certificates_per_s": len(got) / wall if wall else None,
+            "rounds": max((c.round for c in fetched), default=0),
+            "flushes": before}
+
+
 async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, targets=None,
-                       engine0=None, pool=None, timeout: float = 300.0) -> dict:
+                       engine0=None, pool=None, timeout: float = 300.0, node=None) -> dict:
     """A committee of real primaries, one per authority, authority i's from
     the package `mods[i]` (a `primary_modules()` namespace), each with its
     network keypair (the handshake and the connection pool on), one worker
@@ -3837,8 +4167,16 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
     certificates replayed in arrival order through its package's host
     Bullshark commit its sequence, the tampered messages never reach
     authority 0's certificate store, runner or output, and, with `pool`,
-    every stage dropped nothing but them. Returns the numbers."""
+    every stage dropped nothing but them. With `node` (a NodeLegs), the
+    node legs run in the same committee (see NodeLegs), authority
+    NODE_EXTERNAL is left out of the runners' check, and authority 0's
+    executor must have executed every committed transaction exactly once,
+    in the order of consensus index, then the payload's batch digests (the
+    executor's canonical order), then the batch, with the last
+    ExecutionIndices in its store the cursor past the last of them.
+    Returns the numbers."""
     n = len(mods)
+    ext = NODE_EXTERNAL if node is not None else None
     pkgs = []
     for m in mods:
         if all(m is not p for p in pkgs):
@@ -3864,14 +4202,26 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
     outputs = [[] for _ in range(n)]  # (certificate, consensus_index, time)
     primaries, workers, runners, storages, collectors, out_channels = [], [], [], [], [], []
     accepted = None
+    arrivals = []  # authority 0's accepted certificates, in arrival order
+    executed = []  # what authority 0's executor handed its execution state
+    executor, apis, dags, dag_tasks, feed_lock, fed = None, {}, (), [], asyncio.Lock(), []
 
     def host_bullshark(m, fx, storage):
         return m.consensus.Bullshark(fx.committee, storage.consensus_store, gc_depth)
 
-    async def collect(i, channel):
+    async def collect(i, channel, forward=None):
         while True:
             o = await channel.recv()
             outputs[i].append((o.certificate, o.consensus_index, time.perf_counter()))
+            if forward is not None:
+                await forward.send(o)
+
+    async def tap(channel, forward=None):
+        while True:
+            c = await channel.recv()
+            arrivals.append(c)
+            if forward is not None:
+                await forward.send(c)
 
     client_m = mods[0]
     submit = client_m.network.NetworkClient(counters=client_m.network.WireCounters())
@@ -3886,15 +4236,19 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
             storages += [storage, wstorage]
             tx_new, tx_committed = m.channels.Channel(10_000), m.channels.Channel(10_000)
             tx_output = m.channels.Channel(1 << 20)
-            tap = m.channels.Channel(1 << 20) if i == 0 else None
+            accepted_i = m.channels.Channel(1 << 20) if i == 0 else None
+            model = {"network_model": m.primary.NetworkModel.ASYNCHRONOUS} if i == ext else {}
             p = m.primary.Primary(a.public, a.signature_service(), fx.committee, fx.worker_cache,
                                   fx.parameters, storage, tx_new, tx_committed,
-                                  crypto_pool=pool, network_keypair=a.network_keypair)
-            engine = (engine0 or host_bullshark)(m, fx, storage) if i == 0 else \
-                host_bullshark(m, fx, storage)
-            runner = m.consensus.Consensus(fx.committee, engine, storage.consensus_store,
-                                           storage.certificate_store, tx_new, tx_committed,
-                                           tx_output, p.tx_reconfigure, gc_depth, tx_accepted=tap)
+                                  crypto_pool=pool, network_keypair=a.network_keypair, **model)
+            runner = None
+            if i != ext:
+                engine = (engine0 or host_bullshark)(m, fx, storage) if i == 0 else \
+                    host_bullshark(m, fx, storage)
+                runner = m.consensus.Consensus(fx.committee, engine, storage.consensus_store,
+                                               storage.certificate_store, tx_new, tx_committed,
+                                               tx_output, p.tx_reconfigure, gc_depth,
+                                               tx_accepted=accepted_i)
             real = p._on_our_batch
 
             async def on_our_batch(msg, peer, real=real, i=i):
@@ -3905,15 +4259,35 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
             p.proposer.tx_core = StampedSend(p.proposer.tx_core, stamps)
             primaries.append(p)
             await p.spawn()
-            runners.append(runner.spawn())
+            runners.append(runner.spawn() if runner is not None else None)
             out_channels.append(tx_output)
-            collectors.append(asyncio.ensure_future(collect(i, tx_output)))
+            to_executor = prefetch = None
+            if i == 0 and node is not None:
+                to_executor, prefetch = m.channels.Channel(1 << 20), m.channels.Channel(1 << 20)
+                executor = m.executor.Executor(
+                    a.public, fx.worker_cache, storage, recording_state(m, storage, executed),
+                    p.network, to_executor, registry=p.registry, rx_accepted=prefetch,
+                    gc_depth=gc_depth, tracer=p.tracer)
+                await executor.spawn()
+            if i == ext:
+                feeds = (m.channels.Channel(10_000), m.channels.Channel(10_000))
+                dags = (node.dag(m, fx.committee, feeds[0]),
+                        m.consensus.Dag(fx.committee, feeds[1], backend="cpu"))
+                dag_tasks = [d.spawn() for d in dags]
+                collectors.append(asyncio.ensure_future(feed_dags(tx_new, feeds, feed_lock, fed)))
+            collectors.append(asyncio.ensure_future(collect(i, tx_output, to_executor)))
             if i == 0:
-                accepted = tap
+                accepted = accepted_i
+                collectors.append(asyncio.ensure_future(tap(accepted, prefetch)))
             w = m.worker.Worker(a.public, 0, fx.committee, fx.worker_cache, fx.parameters,
                                 wstorage.batch_store, network_keypair=a.worker_keypairs[0])
             await w.spawn()
             workers.append(w)
+        if node is not None:
+            for i in (0, ext):
+                m = mods[i]
+                apis[i] = await node_api(m, fx_of[id(m)], names[i], primaries[i],
+                                         primaries[i].storage, pool, dags[0] if i == ext else None)
         t0 = time.perf_counter()
         boot_s = t0 - t_boot
 
@@ -3963,9 +4337,10 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
             return max((c.round for c, _, _ in outputs[0]), default=0)
 
         while sealed_transactions() < len(sent) or not set(sealed) <= committed_payload() \
-                or committed_round() < PRIMARY_MIN_ROUND:
+                or committed_round() < PRIMARY_MIN_ROUND \
+                or (node is not None and len(executed) < len(sent)):
             for i, task in enumerate(runners):
-                if task.done():
+                if task is not None and task.done():
                     task.result()
                     raise AssertionError(f"primary: authority {i}'s runner ended")
             if time.perf_counter() > deadline:
@@ -3973,7 +4348,7 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
                     f"primary: {sealed_transactions()} of {len(sent)} transactions sealed, "
                     f"{len(set(sealed) & committed_payload())} of {len(sealed)} batches "
                     f"committed at authority 0, its last commit of round "
-                    f"{committed_round()}, in {timeout} s")
+                    f"{committed_round()}, {len(executed)} executed, in {timeout} s")
             await asyncio.sleep(0.05)
         t_done = time.perf_counter()
         rounds = primaries[0].proposer.round
@@ -3984,7 +4359,23 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
         batch_bytes = {d: workers[i].store.read(d) for d, i in sealed.items()}
         stored_tampered = \
             primaries[0].storage.certificate_store.read(bad_cert.digest) is not None
+        legs = None
+        if node is not None:
+            m0 = mods[0]
+            persisted = await m0.node.SimpleExecutionState(storages[0]).load_execution_indices()
+            if node.mark is not None:
+                node.mark()
+            legs = await run_node_legs(node, mods, fx_of, names, primaries, workers, apis, dags,
+                                       feed_lock, fed, [c for c, _, _ in outputs[0]],
+                                       batch_bytes, outputs[0], deadline)
+            legs["persisted"] = persisted.to_bytes()
     finally:
+        if executor is not None:
+            executor.shutdown()
+        for api in apis.values():
+            await api.shutdown()
+        for d in dags:
+            await d.shutdown()
         for p in primaries:
             await p.shutdown()
         for w in workers:
@@ -3993,10 +4384,11 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
         if rogue is not None:
             rogue.close()
         # The runners end on their primary's shutdown notification.
-        ended = await asyncio.wait_for(asyncio.gather(*runners, return_exceptions=True), 60.0)
-        for c in collectors:
+        ended = await asyncio.wait_for(
+            asyncio.gather(*(r for r in runners if r is not None), return_exceptions=True), 60.0)
+        for c in collectors + dag_tasks:
             c.cancel()
-        await asyncio.gather(*collectors, return_exceptions=True)
+        await asyncio.gather(*collectors, *dag_tasks, return_exceptions=True)
         for i, channel in enumerate(out_channels):
             outputs[i].extend((o.certificate, o.consensus_index, time.perf_counter())
                               for o in _drain(channel))
@@ -4033,6 +4425,8 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
     # Every runner agrees with authority 0 over their common length.
     seqs = [[(c.digest, idx) for c, idx, _ in outputs[i]] for i in range(n)]
     for i in range(1, n):
+        if i == ext:
+            continue
         k = min(len(seqs[i]), len(seqs[0]))
         if seqs[i][:k] != seqs[0][:k]:
             first = next(j for j in range(k) if seqs[i][j] != seqs[0][j])
@@ -4040,7 +4434,7 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
                                  f"0's at consensus index {first}")
     # Authority 0's accepted certificates through the host Bullshark.
     m0 = mods[0]
-    arrivals = _drain(accepted)
+    arrivals += _drain(accepted)
     state = m0.consensus.ConsensusState(m0.types.Certificate.genesis(f0.committee))
     host = m0.consensus.Bullshark(f0.committee, m0.stores.NodeStorage(None).consensus_store,
                                   gc_depth)
@@ -4076,11 +4470,14 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
                if c.header.digest in stamps]
     t_last = max(times0[holders[d][0].digest] for d in sealed)
     committed_all = len(committed0)
+    if node is not None:
+        legs["executor"] = check_execution(m0, outputs[0], batch_bytes, executed, sent,
+                                           legs.pop("persisted"), t_submit)
     return {
         "authorities": n, "clients": clients, "transactions": len(sent),
         "tx_size": PRIMARY_TX_SIZE, "batches": len(sealed),
         "rounds": rounds, "committed": committed_all, "accepted": len(arrivals),
-        "runner_lengths": [len(s) for s in seqs],
+        "runner_lengths": [len(s) for i, s in enumerate(seqs) if i != ext],
         "boot_s": boot_s, "run_s": t_done - t0, "submit_s": t_submitted - t_submit,
         "certificates_per_s": committed_all / (times0[committed0[-1].digest] - t0),
         "transactions_per_s": len(sent) / (t_last - t_submit),
@@ -4093,7 +4490,68 @@ async def primary_wire(mods, tmpdir: str, clients: int, txs_per_client: int, tar
         "primary_bytes_sent": sum(p.wire_counters.bytes_sent for p in primaries),
         "worker_frames_sent": sum(w.wire_counters.frames_sent for w in workers),
         "worker_bytes_sent": sum(w.wire_counters.bytes_sent for w in workers),
+        "node": legs,
     }
+
+
+async def run_node_legs(node, mods, fx_of, names, primaries, workers, apis, dags, feed_lock,
+                        fed, committed, batch_bytes, outputs0, deadline) -> dict:
+    """The NodeLegs' legs after the run's stop condition, in order: the
+    external authority's reads, GetCollections and the scrape at authority
+    0, RemoveCollections at the external authority, the catch-up; then
+    until authority 0 commits again after them."""
+    ext = NODE_EXTERNAL
+    n_mark = len(outputs0)
+    t0 = time.perf_counter()
+    out = {"reads": await external_reads(mods[ext], names, apis[ext], dags, feed_lock, fed,
+                                         [c.digest for c in committed])}
+    out["collections"] = await api_collections(mods[0], apis[0], committed, batch_bytes,
+                                               NODE_COLLECTIONS)
+    out["removal"] = await remove_collections(mods[ext], apis[ext], primaries[ext],
+                                              workers[ext], committed, NODE_REMOVALS)
+    m0 = mods[0]
+    out["catch_up"] = await catch_up(m0, fx_of[id(m0)], names[0], primaries[0],
+                                     node.sync_pool, node.sync_timeout)
+    while len(outputs0) <= n_mark:
+        if time.perf_counter() > deadline + node.sync_timeout:
+            raise AssertionError("node: authority 0 committed nothing after the mark")
+        await asyncio.sleep(0.05)
+    out["wall_s"] = time.perf_counter() - t0
+    out["commits_after_mark"] = len(outputs0) - n_mark
+    return out
+
+
+def check_execution(m, outputs0, batch_bytes: dict, executed: list, sent: dict,
+                    persisted: bytes, t_submit: float) -> dict:
+    """Authority 0's executor handed its execution state every committed
+    transaction exactly once, in the order of consensus index, then batch
+    digest within the payload, then position in the batch; the indices in
+    its store are the cursor past the last of them. Returns throughput and
+    the lag from a certificate's commit to its last transaction's
+    execution."""
+    want, last_of = [], {}
+    for ordinal, (c, idx, _t) in enumerate(outputs0):
+        for d, _w in sorted(c.header.payload.items()):
+            for tx in m.types.Batch.from_bytes(batch_bytes[d]).transactions:
+                want.append((c.digest, idx, tx))
+                last_of[c.digest] = ordinal
+    got = [(d, idx, tx) for d, idx, _i, tx, _t in executed]
+    if got != want or len(got) != len(sent) or {tx[:8] for _, _, tx in got} != set(sent):
+        raise AssertionError(f"node: the executor ran {len(got)} transactions, "
+                             f"{len(want)} committed, or in another order")
+    cursor = m.executor.ExecutionIndices(last_of[got[-1][0]] + 1, 0, 0).to_bytes()
+    if persisted != cursor or executed[-1][2] != cursor:
+        raise AssertionError("node: the persisted ExecutionIndices is not the cursor past "
+                             "the last executed transaction")
+    done = {}
+    for d, _idx, _i, _tx, t in executed:
+        done[d] = t
+    commit = {c.digest: t for c, _idx, t in outputs0}
+    lag = [done[d] - commit[d] for d in done]
+    return {"transactions": len(got), "certificates": len(done),
+            "transactions_per_s": len(got) / (executed[-1][4] - t_submit),
+            "lag_p50_s": float(np.percentile(lag, 50)),
+            "lag_p99_s": float(np.percentile(lag, 99))}
 
 
 def record_flushes(svc) -> dict:
@@ -4127,14 +4585,20 @@ def record_flushes(svc) -> dict:
 
 def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
                   timeout: float = 300.0):
-    """The primary path: `primary_wire` over N port primaries (N = f's
-    committee size), each verifying through one process-wide card
-    VerifyService("item") (A1 for headers and votes, A2 for compact
-    certificates' aggregate proofs), authority 0's runner on
-    GpuBullshark(device) (B2, B3 + B4), the others on the host Bullshark;
-    the tampered vote and certificate sent to authority 0. A `bucket`
-    other than the service's 2048 builds a service of that bucket (a CPU
-    rehearsal)."""
+    """The primary path, then the node path in the same committee:
+    `primary_wire` over N port primaries (N = f's committee size), each
+    verifying through one process-wide card VerifyService("item") (A1 for
+    headers and votes, A2 for compact certificates' aggregate proofs),
+    authority 0's runner on GpuBullshark(device) (B2, B3 + B4), the others
+    but authority 2 on the host Bullshark; the tampered vote and
+    certificate sent to authority 0. The node legs (NodeLegs): authority
+    0's Executor, authority 2 under external consensus into
+    Dag(backend="cuda", device) (B6, B3 + B4), the ConsensusApi at both,
+    and a catch-up verifying through a VerifyService of its own (A1, A2).
+    The primary path's launches are read when its stop condition holds
+    (every batch committed and executed, a round-6 commit), the node
+    path's from then to the end. A `bucket` other than the service's 2048
+    builds services of that bucket (a CPU rehearsal)."""
     import tempfile
 
     import torch
@@ -4150,11 +4614,18 @@ def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
     else:
         svc = VerifyService(GpuVerifier(max_bucket=bucket, msm_min_bucket=16, mode="item",
                                         device=device), max_batch=bucket)
+    # The catch-up's own service, built as the shared one is: a cold start.
+    sync_svc = VerifyService(GpuVerifier(max_bucket=bucket, msm_min_bucket=16, mode="item",
+                                         fixed_bucket=bucket == BUCKET, device=device),
+                             max_batch=bucket)
     flushes = record_flushes(svc)
 
     def engine0(m, fx, storage):
         return GpuBullshark(fx.committee, storage.consensus_store, fx.parameters.gc_depth,
                             device=device)
+
+    def node_dag(m, committee, rx):
+        return m.consensus.Dag(committee, rx, backend="cuda", device=device)
 
     # The host's garbage collector, timed over the path: every collection's
     # wall, and the full (generation 2) ones counted.
@@ -4167,26 +4638,43 @@ def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
             collecting["s"] += time.perf_counter() - collecting["t"]
             collecting["full"] += info["generation"] == 2
 
+    marked = {}
+
+    def mark():
+        """The primary path ends here: its launches, flushes and walls."""
+        marked["launches"] = kernel_registry.launch_counts()
+        require_launches("primary", marked["launches"], device)
+        kernel_registry.reset_launch_counts()
+        marked["flushes"] = dict(flushes)
+        marked["gc"] = dict(collecting)
+        marked["t"] = time.perf_counter()
+
+    legs = NodeLegs(node_dag, sync_svc, mark=mark)
     t_path = time.perf_counter()
     kernel_registry.reset_launch_counts()
     gc.callbacks.append(on_gc)
     try:
         with tempfile.TemporaryDirectory(prefix="primary-") as tmp:
             out = asyncio.run(primary_wire([m] * n, tmp, clients, txs_per_client,
-                                           engine0=engine0, pool=svc, timeout=timeout))
+                                           engine0=engine0, pool=svc, timeout=timeout,
+                                           node=legs))
         if device.type == "cuda":
             torch.cuda.synchronize()
     finally:
         gc.callbacks.remove(on_gc)
         svc.shutdown()
-    if svc._submit_thread.is_alive() or svc._collect_thread.is_alive():
-        raise AssertionError("primary: a service thread outlived shutdown")
-    launches = kernel_registry.launch_counts()
-    require_launches("primary", launches, device)
-    wall = time.perf_counter() - t_path
+        sync_svc.shutdown()
+    for s in (svc, sync_svc):
+        if s._submit_thread.is_alive() or s._collect_thread.is_alive():
+            raise AssertionError("primary: a service thread outlived shutdown")
+    node_launches = kernel_registry.launch_counts()
+    require_launches("node", node_launches, device)
+    launches, flushes_p, gc_p = marked["launches"], marked["flushes"], marked["gc"]
+    wall = marked["t"] - t_path
+    node_wall = time.perf_counter() - marked["t"]
     rounds = max(out["rounds"], 1)
-    per_item = flushes["item_rows"] / max(flushes["item_flushes"], 1)
-    per_group = flushes["group_rows"] / max(flushes["group_flushes"], 1)
+    per_item = flushes_p["item_rows"] / max(flushes_p["item_flushes"], 1)
+    per_group = flushes_p["group_rows"] / max(flushes_p["group_flushes"], 1)
     log(f"primary: {n} port primaries and workers over authenticated RPC, one card "
         f"VerifyService; {out['rounds']} rounds reached and {out['committed']} certificates "
         f"committed at authority 0 ({out['accepted']} accepted; the other runners "
@@ -4198,22 +4686,74 @@ def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
         f"the first submit to the last commit; commit latency p50 "
         f"{out['commit_latency_p50_s']:.3f} s, p99 {out['commit_latency_p99_s']:.3f} s over "
         f"{out['latency_samples']} certificates{card}")
-    log(f"primary: VerifyService {flushes['item_flushes']} item flushes, "
-        f"{flushes['item_rows']} rows ({per_item:.1f} real rows a flush of {bucket}; "
-        f"{flushes['item_submit_s']:.3f} s of host wall in their submits); "
-        f"{flushes['group_flushes']} group flushes, {flushes['groups']} proofs, "
-        f"{flushes['group_rows']} rows ({per_group:.1f} a flush); stage drops "
+    log(f"primary: VerifyService {flushes_p['item_flushes']} item flushes, "
+        f"{flushes_p['item_rows']} rows ({per_item:.1f} real rows a flush of {bucket}; "
+        f"{flushes_p['item_submit_s']:.3f} s of host wall in their submits); "
+        f"{flushes_p['group_flushes']} group flushes, {flushes_p['groups']} proofs, "
+        f"{flushes_p['group_rows']} rows ({per_group:.1f} a flush); stage drops "
         f"{out['drops'][0]} at authority 0 (the tampered vote and certificate), none "
         f"elsewhere; primaries sent {out['primary_frames_sent'] / rounds:.1f} frames and "
         f"{out['primary_bytes_sent'] / rounds:.0f} bytes a round, workers "
         f"{out['worker_frames_sent'] / rounds:.1f} frames and "
         f"{out['worker_bytes_sent'] / rounds:.0f} bytes a round; boot "
-        f"{out['boot_s']:.3f} s, the path's wall {wall:.3f} s, {collecting['s']:.3f} s of it "
-        f"in the garbage collector ({collecting['full']} full collections); launches "
+        f"{out['boot_s']:.3f} s, the path's wall {wall:.3f} s, {gc_p['s']:.3f} s of it "
+        f"in the garbage collector ({gc_p['full']} full collections); launches "
         f"{launches}{card}")
-    return {"launches": launches, "wall_s": wall, "flushes": flushes,
-            "gc_s": collecting["s"], "gc_full": collecting["full"],
-            **{k: v for k, v in out.items() if k != "drops"}, "drops_0": out["drops"][0]}
+    node = node_report(out.pop("node"), flushes, flushes_p, node_launches, node_wall, card)
+    return {"launches": launches, "wall_s": wall, "flushes": flushes_p,
+            "gc_s": gc_p["s"], "gc_full": gc_p["full"],
+            **{k: v for k, v in out.items() if k != "drops"}, "drops_0": out["drops"][0]}, node
+
+
+def node_report(legs: dict, flushes: dict, flushes_p: dict, launches: dict, wall: float,
+                card: str) -> dict:
+    """Print the node path's numbers and return them."""
+    ex, col, reads = legs["executor"], legs["collections"], legs["reads"]
+    cu, rem = legs["catch_up"], legs["removal"]
+    cnt = col["counters"]
+    rpcs = cnt["executor_fetch_rpcs"] / max(cnt["executor_fetch_rpcs_certificates"], 1)
+    log(f"node: authority 0's executor ran {ex['transactions']} transactions of "
+        f"{ex['certificates']} certificates, each once and in order, the persisted "
+        f"ExecutionIndices the cursor past the last; {ex['transactions_per_s']:.1f} "
+        f"transactions/s from the first submit to the last execution; execution lag p50 "
+        f"{ex['lag_p50_s']:.4f} s, p99 {ex['lag_p99_s']:.4f} s (a certificate's commit to its "
+        f"last transaction); {rpcs:.3f} fetch RPCs a certificate over "
+        f"{cnt['executor_fetch_rpcs_certificates']:.0f} certificates, prefetch hits "
+        f"{cnt['executor_prefetch_hits']:.0f}, misses {cnt['executor_prefetch_misses']:.0f}, "
+        f"{cnt['executor_prefetched_batches']:.0f} batches prefetched (TelemetryScrape){card}")
+    routing = reads["routing"]
+    calls = routing["host_calls"] + routing["dev_calls"]
+    bursts = ", ".join(f"K = {k}: {b['wall_s'] * 1e3:.3f} ms" for k, b in reads["bursts"].items())
+    log(f"node: authority 2 (external consensus, Dag(backend='cuda'), adaptive): Rounds for "
+        f"every authority ({reads['rounds_answered']} live), ReadCausal bursts {bursts}, "
+        f"NodeReadCausal at round {reads['node_read_causal']['round']} "
+        f"({reads['node_read_causal']['digests']} digests): every answer the host Dag's; "
+        f"routing {routing['host_calls']} host, {routing['dev_calls']} device "
+        f"({100 * routing['dev_calls'] / max(calls, 1):.1f} % device; EWMA host "
+        f"{routing['ewma_host_ms']} ms, device {routing['ewma_dev_ms']} ms)")
+    log(f"node: GetCollections at authority 0 for {col['certificates']} committed "
+        f"certificates served {col['batches']} batches byte-equal to the sealed ones in "
+        f"{col['wall_s'] * 1e3:.3f} ms; RemoveCollections at authority 2 removed "
+        f"{rem['removed']}, then GetCollections answered {rem['errors']}")
+    cf = cu["flushes"]
+    if cf is not None:
+        a1 = f"{cf['item_flushes']} A1 flushes of {cf['item_rows']} real rows"
+        a2 = f"{cf['group_flushes']} A2 flushes of {cf['group_rows']} real rows"
+    else:
+        a1 = a2 = "no service"
+    log(f"node: catch-up from round 0 fetched {cu['fetched']} certificates (rounds 1-"
+        f"{cu['rounds']}; backed by {cu['backing']} of {cu['answers']} answers) in "
+        f"{cu['wall_s']:.3f} s, {cu['certificates_per_s']:.1f} certificates/s, each verified "
+        f"one at a time: {a1}, {a2}; the tampered compact certificate raised "
+        f"InvalidSignatureError after its A2 launch")
+    shared = {k: flushes[k] - flushes_p[k] for k in ("item_flushes", "item_rows",
+                                                     "group_flushes", "group_rows")}
+    log(f"node: the legs' wall {legs['wall_s']:.3f} s ({legs['commits_after_mark']} commits "
+        f"at authority 0 after the primary path's end), the path's wall {wall:.3f} s; the "
+        f"committee's service {shared}; launches {launches}{card}")
+    return {"launches": launches, "wall_s": wall, "executor": ex, "reads": reads,
+            "collections": col, "removal": rem, "catch_up": cu, "legs_wall_s": legs["wall_s"],
+            "commits_after_mark": legs["commits_after_mark"], "committee_flushes": shared}
 
 
 # ---------------------------------------------------------------------------
@@ -4446,7 +4986,7 @@ def main(argv=None) -> int:
     pctx = phase_pipeline(device, f, ctx)
     cctx = phase_compact(device, f, ctx, pctx)
     wctx = phase_wire(device, f, ctx, pctx)
-    prctx = phase_primary(device, f)
+    prctx, nctx = phase_primary(device, f)
     sctx = phase_service(device, f, pctx, cctx)
     shctx = phase_sharded(device, sctx)
     tctx = phase_tusk(device, f)
@@ -4461,7 +5001,7 @@ def main(argv=None) -> int:
                "dag_service": dctx["launches"],
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
                "dryrun": drctx["launches"], "wire": wctx["launches"],
-               "primary": prctx["launches"]}
+               "primary": prctx["launches"], "node": nctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
@@ -4481,7 +5021,8 @@ def main(argv=None) -> int:
              "dryrun_wall_s": drctx["wall_s"],
              "wire": {k: wctx[k] for k in ("aead", "signing", "wall_s", "certificates",
                                            "workers")},
-             "primary": {k: v for k, v in prctx.items() if k != "launches"}}
+             "primary": {k: v for k, v in prctx.items() if k != "launches"},
+             "node": {k: v for k, v in nctx.items() if k != "launches"}}
 
     kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS
     rows = []

@@ -3,8 +3,8 @@ exposition.
 
 Port copy of `narwhal_tpu/metrics.py` (the JAX package's counterpart). The PyTorch
 port keeps its own copy so that it imports nothing of `narwhal_tpu`. The
-exposition parser, the scrape snapshot and the HTTP exporter stay with the
-node wiring (ROADMAP queue 1, item 5).
+HTTP exporter (`serve_metrics`) stays with the node wiring (ROADMAP queue 1,
+item 5).
 
 The reference registers ~50+ metrics per role (primary/src/metrics.rs:51-485,
 worker/src/metrics.rs, consensus/src/metrics.rs:13-49) and exposes them over
@@ -207,3 +207,66 @@ class Registry:
                 else:
                     out.append(f"{m.name}{lbl} {child.value}")
         return "\n".join(out) + "\n"
+
+
+def parse_exposition(text: str) -> dict[str, dict]:
+    """Parse Prometheus text exposition (the exact dialect render() emits)
+    into {name: {"type", "help", "samples": {label_suffix: value}}}. The
+    label_suffix key is the raw '{...}' chunk ('' for unlabelled samples),
+    so round-tripping a scrape is lossless for assertions and benchmark
+    snapshots; _bucket/_sum/_count series fold under their base name."""
+    out: dict[str, dict] = {}
+
+    def entry(name: str) -> dict:
+        return out.setdefault(
+            name, {"type": "untyped", "help": "", "samples": {}}
+        )
+
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            name, _, help_ = line[len("# HELP "):].partition(" ")
+            entry(name)["help"] = help_
+            continue
+        if line.startswith("# TYPE "):
+            name, _, kind = line[len("# TYPE "):].partition(" ")
+            entry(name)["type"] = kind.strip()
+            continue
+        if line.startswith("#"):
+            continue
+        series, _, raw_value = line.rpartition(" ")
+        try:
+            value = float(raw_value)
+        except ValueError:
+            continue
+        name, labels = series, ""
+        if "{" in series:
+            name, _, rest = series.partition("{")
+            labels = "{" + rest
+        base = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[: -len(suffix)] in out:
+                base = name[: -len(suffix)]
+                labels = name[len(base):] + labels
+                break
+        entry(base)["samples"][labels] = value
+    return out
+
+
+def scrape_snapshot(registry: Registry) -> dict[str, dict]:
+    """Benchmark-sized scrape snapshot: the full exposition parsed back,
+    minus histogram bucket series (they dominate the byte count and the
+    percentile story belongs to the trace-waterfall artifacts). Counters,
+    gauges, and histogram _sum/_count survive — enough for any A/B to
+    recompute rates and means from the embedded record alone."""
+    out = {}
+    for name, entry in parse_exposition(registry.render()).items():
+        samples = {
+            k: v
+            for k, v in entry["samples"].items()
+            if not k.startswith("_bucket")
+        }
+        out[name] = {"type": entry["type"], "samples": samples}
+    return out

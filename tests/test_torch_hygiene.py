@@ -65,6 +65,11 @@ def test_port_package_imports_without_jax_loaded():
         "from narwhal_tpu_torch.worker import Worker\n"
         "from narwhal_tpu_torch.primary import Primary\n"
         "import narwhal_tpu_torch.primary.verifier_stage\n"
+        "import narwhal_tpu_torch.executor, narwhal_tpu_torch.node\n"
+        "import narwhal_tpu_torch.primary.api_server\n"
+        "import narwhal_tpu_torch.primary.block_synchronizer\n"
+        "import narwhal_tpu_torch.primary.block_waiter, narwhal_tpu_torch.primary.block_remover\n"
+        "from narwhal_tpu_torch.metrics import parse_exposition, scrape_snapshot\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
