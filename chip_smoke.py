@@ -133,7 +133,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             by a Consensus runner over GpuBullshark (its stores a
             NodeStorage in a temporary directory), the others' by runners
             over the host Bullshark, each runner's commits driving its
-            primary's garbage collection. 10 clients submit 200
+            primary's garbage collection. 10 clients submit 100
             transactions of 512 bytes each to the workers of authorities
             0-9; authority 1 sends authority 0 a vote with a flipped
             signature byte and a compact certificate with a flipped agg_s
@@ -162,16 +162,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             Dag(backend="cuda") (adaptive) and a host Dag; a ConsensusApi
             at authorities 0 and 2 over their BlockWaiter,
             BlockSynchronizer and BlockRemover, asked over a NetworkClient:
-            at 2 Rounds for every authority, bursts of K = 1, 8, 64
-            ReadCausal from committed digests and a NodeReadCausal, every
-            answer (error replies included) the host Dag's, B6 launched; at
+            at 2 Rounds for 10 authorities (a cut for time from all 50),
+            bursts of K = 1, 8, 64 ReadCausal from committed digests and a
+            NodeReadCausal, every answer (error replies included) the host
+            Dag's, B6 launched; at
             0 GetCollections for 16 committed certificates, byte-equal to
             the sealed batches, and a TelemetryScrape read with
             parse_exposition (the executor's counters); RemoveCollections
             for 4 digests at 2, then GetCollections for them an error; then
             a BlockSynchronizer for authority 0 on a fresh store with a card
-            VerifyService of its own catches up from round 0 against the
-            live committee: the fetched set is the digests the asked peers
+            VerifyService of its own catches up from the highest round
+            authority 0 committed by the primary path's end (a cut for
+            time: the range from round 0 takes about three minutes at N =
+            50) against the live committee: the fetched set is the digests the asked peers
             reported with half their answers behind them, each verified
             (A1 for the header, A2 for the compact proof, one certificate at
             a time as the reference does), and the tampered compact
@@ -181,6 +184,45 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             prefetch hits and misses, the read bursts' walls and the routing
             split, and the catch-up's certificates, wall, rate and A1 and A2
             flushes with their real rows;
+  cluster   the port's node assembly in process: Cluster(size=50, workers=1,
+            crypto_backend="cuda", dag_backend="cuda", benchmark=True) over
+            temporary stores, default parameters (so the cofactored rule:
+            every primary verifies through one VerifyService.shared("msm"),
+            a bucket that fails its msm check going to verify_batch; every
+            node's consensus is a runner over GpuBullshark). Authority 1
+            sends authority 0 the primary path's tampered vote and compact
+            certificate; 10 clients stream 100 transactions of 512 bytes
+            each through gRPC SubmitTransactionStream to the workers of
+            authorities 0-9 (GrpcTransactions). Runs until authority 0 has
+            executed every transaction: each exactly once there,
+            assert_progress at every node, every node's (digest,
+            consensus_index) sequence agreeing where two hold an index, the
+            tampered certificate never stored, Validator.GetCollections over
+            gRPC for 8 committed certificates byte-equal to the sealing
+            workers' stores; beside the load, once it has committed round
+            2 level with the committee, restart_node(10): its store holds
+            exactly what it committed, and it commits past the highest
+            round any node had committed at the stop. The nodes stop
+            together. Prints rounds,
+            certificates and transactions a second, commit latency p50/p99
+            from the nodes' ConsensusMetrics commit timers, the boot wall,
+            and the restart's replay and catch-up counts;
+  cli       the command line as OS processes, the reference's `fab local`
+            deployment: `python -m narwhal_tpu_torch generate_keys` four
+            times, the committee, workers and parameters files from the
+            port's config exports, `run ... primary --crypto-backend cuda
+            --dag-backend cuda` for primaries 0-2 and with
+            --consensus-disabled for primary 3, four `run ... worker --id
+            0`, one `benchmark_client` at 1,000 transactions/s of 512 bytes
+            over the four workers for 20 s; each primary's TELEMETRY_ADDR=
+            line leads to a gRPC Telemetry scrape that must show
+            certificates committed at primaries 0-2, Validator.ReadCausal
+            at primary 3 must answer with the asked digest and
+            GetCollections must answer; every child must exit after
+            SIGTERM (each in a session of its own, every group killed on
+            the way out, a failing child's log tail printed), and
+            nvidia-smi's compute apps are printed beside the children's
+            PIDs;
   service   VerifyService.shared("item") serves the compact groups and a
             2048-item burst of header signatures concurrently from an
             asyncio loop; VerifyService.shared("msm") then checks one bucket
@@ -239,8 +281,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the fourteen paths and read
-just after it, and each path must have launched the kernels it names
+Launch counts are set to 0 just before each of the fifteen in-process
+paths and read just after it (the cli path's launches happen in its
+children, which the parent cannot count), and each path must have launched the kernels it names
 (PATH_KERNELS; the script prints the sharded walk's route), and a path
 that syncs a device window may launch window_sync at most once per view
 that rolls or places, more only for a sync past a parameter block (the
@@ -260,6 +303,7 @@ import argparse
 import asyncio
 import gc
 import json
+import logging
 import os
 import random
 import statistics
@@ -303,6 +347,7 @@ PATH_KERNELS = {
     "wire": ("verify_batch", "window_sync", "chain_commit"),
     "primary": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
     "node": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit", "reach_many"),
+    "cluster": ("verify_batch", "window_sync", "chain_commit"),
 }
 
 
@@ -3849,12 +3894,14 @@ def tampered_messages(m, fx):
 
 PRIMARY_TX_SIZE = 512  # the reference bench's transaction size
 PRIMARY_MIN_ROUND = 6  # a round whose commit follows the window's first upload
+PRIMARY_TXS = 100  # transactions a client (200 until a cut for time)
 
 
 NODE_EXTERNAL = 2  # the external-consensus authority (1 sends the tampered messages)
 NODE_READS = (1, 8, 64)  # concurrent ReadCausal a burst
 NODE_COLLECTIONS = 16  # committed certificates GetCollections asks for
 NODE_REMOVALS = 4  # certificates RemoveCollections removes
+NODE_ROUNDS = 10  # authorities Rounds is asked for (a cut for time from all N)
 
 
 class NodeLegs:
@@ -3881,12 +3928,15 @@ class NodeLegs:
       authority 0, RemoveCollections for NODE_REMOVALS digests at
       NODE_EXTERNAL, then a range catch-up by a fresh BlockSynchronizer
       named for authority 0 that verifies through `sync_pool`, with
-      `sync_timeout`; the legs end once authority 0 has committed again
-      after the mark."""
+      `sync_timeout`, from round 0 or, with `sync_from_top`, from the
+      highest round authority 0 committed by the mark;
+      the legs end once authority 0 has committed again after the mark."""
 
-    def __init__(self, dag, sync_pool, mark=None, sync_timeout: float = 300.0):
+    def __init__(self, dag, sync_pool, mark=None, sync_timeout: float = 300.0,
+                 sync_from_top: bool = False):
         self.dag, self.sync_pool, self.mark, self.sync_timeout = \
             dag, sync_pool, mark, sync_timeout
+        self.sync_from_top = sync_from_top
 
 
 def recording_state(m, storage, log: list):
@@ -3962,7 +4012,7 @@ async def answer(call, error) -> tuple:
 async def external_reads(m, names, api, dags, lock, fed: list, committed: list) -> dict:
     """The reads at the external authority over a NetworkClient, its feed
     frozen so the device Dag and the host Dag hold the same certificates:
-    Rounds for every authority, a burst of each of NODE_READS concurrent
+    Rounds for the first NODE_ROUNDS authorities, a burst of each of NODE_READS concurrent
     ReadCausal from committed digests, and a NodeReadCausal. Every answer,
     error replies included, must equal the host Dag's (each API call comes
     just before the host Dag's, as both sweep their DAG)."""
@@ -3974,7 +4024,7 @@ async def external_reads(m, names, api, dags, lock, fed: list, committed: list) 
         async with lock:
             while fed and not (await dev.contains(fed[-1]) and await host.contains(fed[-1])):
                 await asyncio.sleep(0.01)
-            for pk in names:
+            for pk in names[:NODE_ROUNDS]:
                 got = await answer(client.request(api.address, m.messages.RoundsRequest(pk),
                                                   timeout=60.0), m.network.RpcError)
                 want = await answer(host.rounds(pk), m.consensus.ValidatorDagError)
@@ -4081,8 +4131,8 @@ async def remove_collections(m, api, p, worker, committed: list, count: int) -> 
     return {"removed": len(pick), "errors": sorted(set(errors))}
 
 
-async def catch_up(m, fx, name, p, pool, timeout: float) -> dict:
-    """A range catch-up from round 0 by a BlockSynchronizer named for
+async def catch_up(m, fx, name, p, pool, timeout: float, from_round: int = 0) -> dict:
+    """A range catch-up past `from_round` by a BlockSynchronizer named for
     authority 0 on a fresh NodeStorage(None), sending through `p.network`,
     its fetched certificates collected on a loopback channel of its own,
     verifying through `pool`. Every fetched certificate passed
@@ -4105,7 +4155,7 @@ async def catch_up(m, fx, name, p, pool, timeout: float) -> dict:
     sync._verify_certificate = verify_noted
     flushes = record_flushes(pool) if hasattr(pool, "verifier") else None
     t0 = time.perf_counter()
-    wanted = await sync.synchronize_range(0, timeout=timeout)
+    wanted = await sync.synchronize_range(from_round, timeout=timeout)
     wall = time.perf_counter() - t0
     fetched = _drain(loopback)
     got = {c.digest for c in fetched}
@@ -4134,7 +4184,7 @@ async def catch_up(m, fx, name, p, pool, timeout: float) -> dict:
     storage.close()
     return {"fetched": len(got), "answers": len(network.ranges), "backing": backing,
             "wall_s": wall, "certificates_per_s": len(got) / wall if wall else None,
-            "rounds": max((c.round for c in fetched), default=0),
+            "rounds": max((c.round for c in fetched), default=0), "from_round": from_round,
             "flushes": before}
 
 
@@ -4510,8 +4560,9 @@ async def run_node_legs(node, mods, fx_of, names, primaries, workers, apis, dags
     out["removal"] = await remove_collections(mods[ext], apis[ext], primaries[ext],
                                               workers[ext], committed, NODE_REMOVALS)
     m0 = mods[0]
+    from_round = max(c.round for c in committed) if node.sync_from_top else 0
     out["catch_up"] = await catch_up(m0, fx_of[id(m0)], names[0], primaries[0],
-                                     node.sync_pool, node.sync_timeout)
+                                     node.sync_pool, node.sync_timeout, from_round)
     while len(outputs0) <= n_mark:
         if time.perf_counter() > deadline + node.sync_timeout:
             raise AssertionError("node: authority 0 committed nothing after the mark")
@@ -4583,7 +4634,7 @@ def record_flushes(svc) -> dict:
     return stats
 
 
-def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
+def phase_primary(device, f, clients=10, txs_per_client=PRIMARY_TXS, bucket=BUCKET,
                   timeout: float = 300.0):
     """The primary path, then the node path in the same committee:
     `primary_wire` over N port primaries (N = f's committee size), each
@@ -4594,7 +4645,8 @@ def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
     certificate sent to authority 0. The node legs (NodeLegs): authority
     0's Executor, authority 2 under external consensus into
     Dag(backend="cuda", device) (B6, B3 + B4), the ConsensusApi at both,
-    and a catch-up verifying through a VerifyService of its own (A1, A2).
+    and a catch-up verifying through a VerifyService of its own (A1, A2),
+    from the top round committed at the mark.
     The primary path's launches are read when its stop condition holds
     (every batch committed and executed, a round-6 commit), the node
     path's from then to the end. A `bucket` other than the service's 2048
@@ -4649,7 +4701,7 @@ def phase_primary(device, f, clients=10, txs_per_client=200, bucket=BUCKET,
         marked["gc"] = dict(collecting)
         marked["t"] = time.perf_counter()
 
-    legs = NodeLegs(node_dag, sync_svc, mark=mark)
+    legs = NodeLegs(node_dag, sync_svc, mark=mark, sync_from_top=True)
     t_path = time.perf_counter()
     kernel_registry.reset_launch_counts()
     gc.callbacks.append(on_gc)
@@ -4725,7 +4777,7 @@ def node_report(legs: dict, flushes: dict, flushes_p: dict, launches: dict, wall
     calls = routing["host_calls"] + routing["dev_calls"]
     bursts = ", ".join(f"K = {k}: {b['wall_s'] * 1e3:.3f} ms" for k, b in reads["bursts"].items())
     log(f"node: authority 2 (external consensus, Dag(backend='cuda'), adaptive): Rounds for "
-        f"every authority ({reads['rounds_answered']} live), ReadCausal bursts {bursts}, "
+        f"{NODE_ROUNDS} authorities ({reads['rounds_answered']} live), ReadCausal bursts {bursts}, "
         f"NodeReadCausal at round {reads['node_read_causal']['round']} "
         f"({reads['node_read_causal']['digests']} digests): every answer the host Dag's; "
         f"routing {routing['host_calls']} host, {routing['dev_calls']} device "
@@ -4741,9 +4793,9 @@ def node_report(legs: dict, flushes: dict, flushes_p: dict, launches: dict, wall
         a2 = f"{cf['group_flushes']} A2 flushes of {cf['group_rows']} real rows"
     else:
         a1 = a2 = "no service"
-    log(f"node: catch-up from round 0 fetched {cu['fetched']} certificates (rounds 1-"
-        f"{cu['rounds']}; backed by {cu['backing']} of {cu['answers']} answers) in "
-        f"{cu['wall_s']:.3f} s, {cu['certificates_per_s']:.1f} certificates/s, each verified "
+    log(f"node: catch-up past round {cu['from_round']} fetched {cu['fetched']} certificates "
+        f"(rounds {cu['from_round'] + 1}-{cu['rounds']}; backed by {cu['backing']} of "
+        f"{cu['answers']} answers) in {cu['wall_s']:.3f} s, {cu['certificates_per_s']:.1f} certificates/s, each verified "
         f"one at a time: {a1}, {a2}; the tampered compact certificate raised "
         f"InvalidSignatureError after its A2 launch")
     shared = {k: flushes[k] - flushes_p[k] for k in ("item_flushes", "item_rows",
@@ -4754,6 +4806,645 @@ def node_report(legs: dict, flushes: dict, flushes_p: dict, launches: dict, wall
     return {"launches": launches, "wall_s": wall, "executor": ex, "reads": reads,
             "collections": col, "removal": rem, "catch_up": cu, "legs_wall_s": legs["wall_s"],
             "commits_after_mark": legs["commits_after_mark"], "committee_flushes": shared}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the port's Cluster in process, at N = 50
+# ---------------------------------------------------------------------------
+
+CLUSTER_RESTART = 10  # the authority the cluster path restarts: no client's, booted early
+CLUSTER_COLLECTIONS = 8  # committed certificates GetCollections asks for over gRPC
+CLUSTER_TXS = 100  # transactions a client (a cut for time from the primary path's 200)
+
+
+def grpc_call(channel, service: str, method: str, reply_cls):
+    """A unary method of the port's `narwhal.proto` services on `channel`."""
+    return channel.unary_unary(f"/narwhal.{service}/{method}",
+                               request_serializer=lambda msg: msg.SerializeToString(),
+                               response_deserializer=reply_cls.FromString)
+
+
+async def grpc_submit(address: str, txs) -> None:
+    """`txs` to a worker's gRPC Transactions ingest, as one
+    SubmitTransactionStream."""
+    import grpc
+    from narwhal_tpu_torch.proto import narwhal_pb2 as pb
+
+    async with grpc.aio.insecure_channel(address) as channel:
+        stream = channel.stream_unary("/narwhal.Transactions/SubmitTransactionStream",
+                                      request_serializer=lambda msg: msg.SerializeToString(),
+                                      response_deserializer=pb.Empty.FromString)
+        await stream(iter(pb.Transaction(transaction=tx) for tx in txs), timeout=120.0)
+
+
+async def _drain_execution(channel, out: list) -> None:
+    while True:
+        _result, tx = await channel.recv()
+        out.append(tx)
+
+
+def _timed_commits(node, samples: list) -> None:
+    """Note every duration the node's ConsensusMetrics commit timer observes
+    (a certificate's acceptance by its engine to its commit)."""
+    timer = node.consensus_metrics.commit_timer
+    observe = timer.observe
+
+    def noted(seconds: float) -> None:
+        samples.append(seconds)
+        observe(seconds)
+
+    timer.observe = noted
+
+
+class CatchUpLog(logging.Handler):
+    """The certificates a restarted node's catch-up fetched, from the
+    node's own "Catch-up: fetched N certificates" line (None until one is
+    logged: the catch-up is still running, or fetched nothing). Only a
+    node booted on a non-empty store runs a catch-up."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.fetched = None
+        self.logger = logging.getLogger("narwhal.node")
+        self.level_was = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+
+    def emit(self, record) -> None:
+        if record.msg.startswith("Catch-up: fetched"):
+            self.fetched = record.args[0]
+
+    def close(self) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level_was)
+        super().close()
+
+
+async def restart_from_store(cluster, k: int, tmpdir: str, commits: dict, watch, timeout: float,
+                             min_round: int = 2):
+    """Once authority k has committed round `min_round` and is level with
+    the highest round any node has committed (a node that lags when it
+    stops rejoins only through rounds of sync on the shared loop),
+    `cluster.restart_node(k)` with its checks: between the stop and the
+    start, the stopped node's store (reopened) must hold exactly the
+    (consensus_index, digest) sequence its runner committed, and
+    `get_restored_consensus_output` gives what the node replays past its
+    execution cursor; its catch-up's fetched certificates are noted
+    (`CatchUpLog`); then it must commit past the highest round any node had
+    committed at the stop. `watch(details)` re-attaches the caller's
+    instruments to the new node."""
+    from narwhal_tpu_torch import executor, node, stores
+
+    def committed(a) -> float:
+        return a.metric("consensus_last_committed_round")
+
+    deadline = time.perf_counter() + timeout
+    while committed(cluster.authorities[k]) < max(
+            min_round, *(committed(a) for a in cluster.authorities if a.primary is not None)):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"cluster: authority {k} never committed round {min_round} "
+                                 "level with the committee")
+        await asyncio.sleep(0.2)
+    before_round = max(committed(a) for a in cluster.authorities if a.primary is not None)
+    await cluster.stop_node(k)
+    reopened = stores.NodeStorage(f"{tmpdir}/node-{k}-primary")
+    held = reopened.consensus_store.read_sequenced_digests_after(0)
+    mine = [(index, digest) for digest, index, _r in commits[k]]
+    if held != mine:
+        reopened.close()
+        raise AssertionError(f"cluster: authority {k}'s store holds {len(held)} sequenced "
+                             f"certificates, its runner committed {len(mine)}")
+    replay = await executor.get_restored_consensus_output(
+        reopened.consensus_store, reopened.certificate_store,
+        node.SimpleExecutionState(reopened))
+    reopened.close()
+    caught = CatchUpLog()
+    t0 = time.perf_counter()
+    try:
+        again = await cluster.start_node(k)
+        boot_s = time.perf_counter() - t0
+        watch(again)
+        deadline = t0 + timeout
+        while committed(again) <= before_round:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"cluster: authority {k} never committed past round "
+                                     f"{before_round} after its restart")
+            await asyncio.sleep(0.2)
+        rejoin_s = time.perf_counter() - t0
+    finally:
+        caught.close()
+    return {"authority": k, "round_before": int(before_round), "sequenced_in_store": len(held),
+            "replayed": len(replay), "boot_s": boot_s, "rejoin_s": rejoin_s,
+            "catch_up_fetched": caught.fetched}
+
+
+async def cluster_run(device, tmpdir: str, n: int, clients: int, txs_per_client: int,
+                      crypto: str = "cuda", dag: str = "cuda", restart: int = CLUSTER_RESTART,
+                      collections: int = CLUSTER_COLLECTIONS, timeout: float = 600.0) -> dict:
+    """The port's `Cluster(size=n, workers=1, crypto_backend=crypto,
+    dag_backend=dag, benchmark=True, store_base=tmpdir, device=device)`
+    with default parameters (on `cuda` the cofactored rule: every primary
+    verifies through the one VerifyService.shared("msm"), and every node's
+    consensus runs GpuBullshark). Authority 1 sends authority 0 the
+    tampered vote and compact certificate of `tampered_messages`; `clients`
+    clients stream `txs_per_client` transactions of PRIMARY_TX_SIZE bytes
+    through SubmitTransactionStream to the gRPC ingest (GrpcTransactions)
+    of the workers of authorities 0 .. clients - 1. Beside them, authority
+    `restart` (no client's) is restarted from its store once it has
+    committed round 2 level with the committee (`restart_from_store`).
+    Runs until
+    authority 0 has executed every transaction and the restarted node has
+    committed again, then fails unless each transaction was executed
+    exactly once there, `assert_progress(commit_threshold=2)` holds at
+    every node, the committed (digest, consensus_index) sequences of all
+    nodes agree at every index two of them hold, neither tampered message
+    reached authority 0's store, and Validator.GetCollections over gRPC at
+    authority 0 returns `collections` committed certificates' batches
+    byte-equal to the sealing worker's store. The nodes stop together.
+    Returns the numbers."""
+    import grpc
+    from narwhal_tpu_torch import cluster as cl
+    from narwhal_tpu_torch import types
+    from narwhal_tpu_torch.proto import narwhal_pb2 as pb
+
+    m = primary_modules()
+    commits: dict[int, list] = {}
+    k = restart % n
+    if k < clients:
+        raise ValueError("cluster: the restarted authority must not take a client's load")
+
+    class Recorded(cl.Cluster):
+        def _commit_tap(self, index):
+            log_ = commits.setdefault(index, [])
+            return lambda out: log_.append((out.certificate.digest, out.consensus_index,
+                                            out.certificate.round))
+
+    executed = {i: [] for i in range(n)}
+    latency: list[float] = []
+    drains: dict[int, asyncio.Task] = {}
+
+    def watch(details) -> None:
+        i = details.index
+        _timed_commits(details.primary, latency)
+        if i in drains:
+            drains[i].cancel()
+        drains[i] = asyncio.ensure_future(
+            _drain_execution(details.primary.tx_execution_output, executed[i]))
+
+    restarted = None
+    t_boot = time.perf_counter()
+    cluster = Recorded(size=n, workers=1, crypto_backend=crypto, dag_backend=dag,
+                       benchmark=True, store_base=tmpdir, device=device)
+    rule = cluster.parameters.verify_rule
+    try:
+        await cluster.start()
+        boot_s = time.perf_counter() - t_boot
+        for a in cluster.authorities:
+            watch(a)
+        # The restart runs beside the load (on an H100 host a node
+        # restarted past round 4 committed again after 78 s, one past
+        # round 6 after 335 s, and one stopped while it lagged the
+        # committee by four rounds not within 600 s).
+        restarted = asyncio.ensure_future(
+            restart_from_store(cluster, k, tmpdir, commits, watch, timeout))
+        fx = cluster.fixture
+        bad_vote, bad_cert = tampered_messages(m, fx)
+        rogue = m.network.NetworkClient(credentials=m.network.Credentials(
+            fx.authorities[1].network_keypair,
+            m.network.committee_resolver(lambda: cluster.committee,
+                                         lambda: cluster.worker_cache)))
+        address0 = cluster.committee.primary_address(cluster.authorities[0].name)
+        await rogue.request(address0, m.messages.VoteMsg(bad_vote), timeout=60.0)
+        await rogue.request(address0, m.messages.CertificateMsg(bad_cert), timeout=60.0)
+        rogue.close()
+
+        sent = [wire_transactions(c, txs_per_client, PRIMARY_TX_SIZE) for c in range(clients)]
+        want = {tx for txs in sent for tx in txs}
+        t_submit = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(
+            grpc_submit(cluster.authorities[c].workers[0].worker.grpc_transactions_address, txs)
+            for c, txs in enumerate(sent))), timeout)
+        deadline = time.perf_counter() + timeout
+        while len(executed[0]) < len(want):
+            if restarted.done() and restarted.exception() is not None:
+                raise restarted.exception()
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"cluster: authority 0 executed {len(executed[0])} of "
+                                     f"{len(want)} transactions in {timeout} s")
+            await asyncio.sleep(0.2)
+        t_executed = time.perf_counter()
+        restart_out = await restarted
+        rounds = await cluster.assert_progress(commit_threshold=2, timeout=timeout)
+        if len(executed[0]) != len(want) or set(executed[0]) != want:
+            raise AssertionError("cluster: authority 0 executed a transaction twice, or one "
+                                 "that was never sent")
+        store0 = cluster.authorities[0].primary.storage.certificate_store
+        if store0.contains(bad_cert.digest):
+            raise AssertionError("cluster: the tampered certificate reached authority 0's store")
+        at: dict[int, bytes] = {}
+        for i, log_ in commits.items():
+            for digest, index, _r in log_:
+                if at.setdefault(index, digest) != digest:
+                    raise AssertionError(f"cluster: authority {i} committed another "
+                                         f"certificate at consensus index {index}")
+        prefix = min(len(log_) for log_ in commits.values())
+
+        # Validator.GetCollections over gRPC at authority 0.
+        picked = []
+        for digest, _index, _r in commits[0]:
+            cert = store0.read(digest)
+            if cert is not None and cert.header.payload and len(picked) < collections:
+                picked.append(cert)
+        t_get = time.perf_counter()
+        async with grpc.aio.insecure_channel(
+                cluster.authorities[0].primary.grpc_api_address) as channel:
+            got = await grpc_call(channel, "Validator", "GetCollections",
+                                  pb.GetCollectionsResponse)(
+                pb.CollectionRequest(collection_ids=[c.digest for c in picked]), timeout=120.0)
+        get_s = time.perf_counter() - t_get
+        index_of = {a.name: i for i, a in enumerate(cluster.authorities)}
+        batches = 0
+        if len(got.results) != len(picked):
+            raise AssertionError("cluster: GetCollections answered another number of results")
+        for cert, res in zip(picked, got.results):
+            if res.collection_id != cert.digest or res.error:
+                raise AssertionError(f"cluster: GetCollections failed for a committed "
+                                     f"certificate: {res.error!r}")
+            owner = cluster.authorities[index_of[cert.origin]]
+            served = {b.digest: types.Batch(tuple(b.transactions)).to_bytes()
+                      for b in res.batches}
+            for batch_digest, wid in cert.header.payload.items():
+                sealed = owner.workers[wid].storage.batch_store.read(batch_digest)
+                if sealed is None or served.get(batch_digest) != sealed:
+                    raise AssertionError("cluster: GetCollections served a batch unlike the "
+                                         "sealing worker's")
+                batches += 1
+        end_rounds = [a.metric("consensus_last_committed_round") for a in cluster.authorities]
+        wall = time.perf_counter() - t_boot
+    finally:
+        for t in [*drains.values(), restarted]:
+            if t is not None:
+                t.cancel()
+        t_stop = time.perf_counter()
+        # The nodes stop together: one at a time, each gRPC server's grace
+        # would add up to a minute at N = 50.
+        await asyncio.gather(*(a.stop() for a in cluster.authorities))
+        stop_s = time.perf_counter() - t_stop
+    lat = np.array(latency) if latency else np.zeros(1)
+    committed0 = len(commits[0])
+    restart_out["commits_after"] = sum(1 for e in commits[k]
+                                       if e[2] > restart_out["round_before"])
+    return {
+        "nodes": n, "verify_rule": rule, "boot_s": boot_s, "wall_s": wall, "stop_s": stop_s,
+        "rounds": int(max(end_rounds)), "rounds_at_execution": int(max(rounds.values())),
+        "committed_0": committed0, "agreed_prefix": prefix,
+        "certificates_per_s": committed0 / (t_executed - t_boot),
+        "transactions": len(want), "transactions_per_s": len(want) / (t_executed - t_submit),
+        "commit_latency_p50_s": float(np.percentile(lat, 50)),
+        "commit_latency_p99_s": float(np.percentile(lat, 99)),
+        "commit_samples": len(latency),
+        "executed_elsewhere": sorted({len(v) for i, v in executed.items() if i}),
+        "get_collections": {"certificates": len(picked), "batches": batches, "wall_s": get_s},
+        "restart": restart_out,
+    }
+
+
+def phase_cluster(device, n=N, clients=10, txs_per_client=CLUSTER_TXS, timeout: float = 600.0):
+    """The cluster path: `cluster_run` on the card (crypto and DAG backends
+    `cuda`), its launches counted from the boot to the shutdown."""
+    import tempfile
+
+    import torch
+    from narwhal_tpu_torch.gpu import kernel_registry, named_device
+    from narwhal_tpu_torch.gpu.verifier import VerifyService
+
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    kernel_registry.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory(prefix="cluster-") as tmp:
+            out = asyncio.run(cluster_run(device, tmp, n, clients, txs_per_client,
+                                          timeout=timeout))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernel_registry.launch_counts()
+    finally:
+        svc = VerifyService._shared.get(f"msm:1:{named_device(device)}")
+        if svc is not None:
+            svc.shutdown()
+    require_launches("cluster", launches, device)
+    r, g = out["restart"], out["get_collections"]
+    log(f"cluster: Cluster(size={n}, workers=1, crypto_backend='cuda', dag_backend='cuda', "
+        f"benchmark=True), verify_rule={out['verify_rule']}, one VerifyService for every "
+        f"primary and GpuBullshark at every node; boot {out['boot_s']:.3f} s; {clients} "
+        f"clients x {txs_per_client} transactions of {PRIMARY_TX_SIZE} bytes over gRPC "
+        f"SubmitTransactionStream, each executed once at authority 0: "
+        f"{out['transactions_per_s']:.1f} transactions/s from the first submit to the last "
+        f"execution; {out['committed_0']} certificates committed at authority 0 by then "
+        f"({out['certificates_per_s']:.1f} a second from the boot), round "
+        f"{out['rounds_at_execution']} committed at every node, round {out['rounds']} at the "
+        f"end; every node's sequence agrees where two hold an index (common prefix "
+        f"{out['agreed_prefix']}); commit latency p50 {out['commit_latency_p50_s']:.3f} s, "
+        f"p99 {out['commit_latency_p99_s']:.3f} s over {out['commit_samples']} certificates "
+        f"(ConsensusMetrics' commit timer: acceptance to commit){card}")
+    log(f"cluster: GetCollections over gRPC for {g['certificates']} committed certificates "
+        f"served {g['batches']} batches byte-equal to the sealing workers' stores in "
+        f"{g['wall_s'] * 1e3:.3f} ms; restart of authority {r['authority']} under the load: "
+        f"its store held the {r['sequenced_in_store']} certificates it committed, "
+        f"{r['replayed']} replayed past its execution cursor, boot {r['boot_s']:.3f} s, "
+        f"committed past round {r['round_before']} {r['rejoin_s']:.3f} s after the restart "
+        f"({r['commits_after']} commits past it); its catch-up fetched "
+        f"{r['catch_up_fetched']} certificates before the 5 s deadline (None: still "
+        f"running at the end, or none); the other nodes executed "
+        f"{out['executed_elsewhere']} transactions; the path's wall {out['wall_s']:.3f} s, "
+        f"the nodes' stop {out['stop_s']:.3f} s; launches {launches}{card}")
+    return {"launches": launches, **out}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the command line as OS processes
+# ---------------------------------------------------------------------------
+
+CLI_NODES = 4  # the reference's `fab local` deployment (README.md:48-54)
+CLI_RATE = 1_000  # transactions/s (benchmark/local.py:58-62 defaults)
+CLI_DURATION = 20.0  # seconds of load
+CLI_EXTERNAL = 3  # the primary run with --consensus-disabled
+CLI_COLLECTIONS = 4  # digests of a ReadCausal answer GetCollections asks for
+
+
+def _tail(path: str, lines: int = 12) -> str:
+    try:
+        with open(path, errors="replace") as fh:
+            return "".join(fh.readlines()[-lines:])
+    except OSError as e:
+        return f"({e})"
+
+
+def cli_committee(workdir: str, crypto: str = "cuda", dag: str = "cuda", nodes: int = CLI_NODES,
+                  rate: int = CLI_RATE, size: int = PRIMARY_TX_SIZE,
+                  duration: float = CLI_DURATION, boot_timeout: float = 300.0) -> dict:
+    """The real entry point as OS processes: `python -m narwhal_tpu_torch
+    generate_keys` for each of `nodes` authorities, the committee, workers
+    and parameters files written with the port's `config` exports
+    (Parameters(max_header_delay=0.1, max_batch_delay=0.1), cofactored on
+    `cuda` crypto, as benchmark/local.py writes them), `run ... primary
+    --crypto-backend crypto --dag-backend dag` for each authority
+    (CLI_EXTERNAL with --consensus-disabled), `run ... worker --id 0` for
+    each, and one `benchmark_client` at `rate` transactions/s of `size`
+    bytes over every worker's transactions address for `duration` s. Every
+    child runs in a session of its own, with its output in a log under
+    `workdir`. Fails unless every primary prints its TELEMETRY_ADDR= line,
+    a gRPC Telemetry scrape there shows certificates committed at every
+    primary but CLI_EXTERNAL, Validator.ReadCausal at CLI_EXTERNAL answers
+    for a certificate it holds with the asked digest among the answer,
+    GetCollections answers there, and every child exits after SIGTERM; a
+    child's log tail is printed on a failure, and every child's group is
+    killed on the way out. Returns the numbers."""
+    import signal
+
+    from narwhal_tpu_torch import config as cfg
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs: list[tuple[str, subprocess.Popen, str]] = []
+
+    def spawn(name: str, argv: list[str], extra_env=None) -> subprocess.Popen:
+        path = os.path.join(workdir, f"{name}.log")
+        with open(path, "w") as out:
+            proc = subprocess.Popen([sys.executable, "-m", "narwhal_tpu_torch", *argv],
+                                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
+                                    env=dict(env, **(extra_env or {})),
+                                    start_new_session=True)
+        procs.append((name, proc, path))
+        return proc
+
+    ok = False
+    t0 = time.perf_counter()
+    try:
+        keys = []
+        gens = [spawn(f"generate_keys-{i}", ["generate_keys", "--filename",
+                                             os.path.join(workdir, f"key-{i}.json"),
+                                             "--workers", "1"]) for i in range(nodes)]
+        for proc in gens:
+            if proc.wait(timeout=120) != 0:
+                raise AssertionError("cli: generate_keys failed")
+        for i in range(nodes):
+            with open(os.path.join(workdir, f"key-{i}.json")) as fh:
+                keys.append(json.load(fh))
+        authorities, workers = {}, {}
+        for doc in keys:
+            name = bytes.fromhex(doc["name"])
+            authorities[name] = cfg.Authority(
+                stake=1, primary_address=f"127.0.0.1:{cfg.get_available_port()}",
+                network_key=bytes.fromhex(doc["network_key"]))
+            workers[name] = {0: cfg.WorkerInfo(
+                name=bytes.fromhex(doc["worker_network_keys"]["0"]),
+                transactions=f"127.0.0.1:{cfg.get_available_port()}",
+                worker_address=f"127.0.0.1:{cfg.get_available_port()}")}
+        committee = cfg.Committee(authorities)
+        files = {k: os.path.join(workdir, f"{k}.json")
+                 for k in ("committee", "workers", "parameters")}
+        committee.export(files["committee"])
+        cfg.WorkerCache(workers).export(files["workers"])
+        params = cfg.Parameters(max_header_delay=0.1, max_batch_delay=0.1)
+        if crypto == "cuda":
+            from dataclasses import replace
+
+            params = replace(params, verify_rule="cofactored")
+        params.export(files["parameters"])
+        placeheld = {"NARWHAL_PLACEHELD_PORTS": ",".join(map(str, cfg.placeheld_ports()))}
+        common = ["run", "--committee", files["committee"], "--workers", files["workers"],
+                  "--parameters", files["parameters"]]
+        primaries = []
+        for i in range(nodes):
+            role = ["primary", "--crypto-backend", crypto, "--dag-backend", dag]
+            if i == CLI_EXTERNAL:
+                role.append("--consensus-disabled")
+            primaries.append(spawn(f"primary-{i}", [
+                *common[:1], "--keys", os.path.join(workdir, f"key-{i}.json"), *common[1:],
+                "--store", os.path.join(workdir, f"db-{i}"), *role], placeheld))
+        for i in range(nodes):
+            spawn(f"worker-{i}", [*common[:1], "--keys", os.path.join(workdir, f"key-{i}.json"),
+                                  *common[1:], "--store", os.path.join(workdir, f"db-{i}"),
+                                  "worker", "--id", "0"], placeheld)
+        # Boot: every primary's TELEMETRY_ADDR= line, every worker's boot line.
+        telemetry: dict[int, str] = {}
+        booted: set[int] = set()
+        deadline = time.perf_counter() + boot_timeout
+        while len(telemetry) < nodes or len(booted) < nodes:
+            for name, proc, path in procs:
+                if name.startswith("generate_keys"):
+                    continue
+                if proc.poll() is not None:
+                    raise AssertionError(f"cli: {name} exited with {proc.returncode} during "
+                                         "boot")
+                text = open(path, errors="replace").read()
+                i = int(name.rsplit("-", 1)[1])
+                if name.startswith("primary"):
+                    for line in text.splitlines():
+                        if line.startswith("TELEMETRY_ADDR="):
+                            telemetry[i] = line.split("=", 1)[1].strip()
+                elif "successfully booted" in text:
+                    booted.add(i)
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"cli: not booted in {boot_timeout} s: primaries "
+                                     f"{sorted(telemetry)}, workers {sorted(booted)}")
+            time.sleep(0.5)
+        boot_s = time.perf_counter() - t0
+        cfg.release_all_ports()
+        if not all(telemetry.values()):
+            raise AssertionError(f"cli: a primary mounted no gRPC plane: {telemetry}")
+        targets = [w[0].transactions for w in workers.values()]
+        spawn("benchmark_client", ["benchmark_client", *[a for t in targets
+                                                         for a in ("--target", t)],
+                                   "--rate", str(rate), "--size", str(size)])
+        t_load = time.perf_counter()
+        while time.perf_counter() - t_load < duration:
+            for name, proc, _path in procs:
+                if not name.startswith("generate_keys") and proc.poll() is not None:
+                    raise AssertionError(f"cli: {name} exited with {proc.returncode} under "
+                                         "load")
+            time.sleep(0.5)
+        probe = asyncio.run(cli_probe(telemetry, [k["name"] for k in keys]))
+        committed = {i: probe["scrapes"][i].get("consensus_committed_certificates", 0.0)
+                     for i in range(nodes) if i != CLI_EXTERNAL}
+        if not all(v > 0 for v in committed.values()):
+            raise AssertionError(f"cli: a primary committed nothing: {committed}")
+        pids = {name: proc.pid for name, proc, _ in procs if proc.poll() is None}
+        apps = None
+        if crypto == "cuda" or dag == "cuda":
+            apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                   "--format=csv,noheader"], capture_output=True,
+                                  text=True).stdout.strip()
+        # Stop: SIGTERM to every child; each must exit.
+        exits = {}
+        for name, proc, _path in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for name, proc, _path in procs:
+            if name.startswith("generate_keys"):
+                continue
+            try:
+                exits[name] = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"cli: {name} outlived SIGTERM by 30 s")
+        ok = True
+    finally:
+        for name, proc, path in procs:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except (ProcessLookupError, PermissionError):
+                    pass
+                proc.wait()
+            if not ok:
+                log(f"cli: --- {name} (exit {proc.returncode}) log tail ---\n{_tail(path)}")
+    return {"nodes": nodes, "rate": rate, "size": size, "duration_s": duration,
+            "boot_s": boot_s, "wall_s": time.perf_counter() - t0, "committed": committed,
+            "pids": pids, "compute_apps": apps, "exits": exits,
+            **{k: v for k, v in probe.items() if k != "scrapes"},
+            "scraped": {i: {k: s.get(k) for k in CLI_SCRAPED} for i, s in
+                        probe["scrapes"].items()}}
+
+
+CLI_SCRAPED = ("consensus_committed_certificates", "consensus_last_committed_round",
+               "executor_executed_transactions", "executor_executed_certificates",
+               'consensus_dag_read_causal_latency_seconds_count{route="host"}',
+               'consensus_dag_read_causal_latency_seconds_count{route="device"}')
+
+
+async def cli_probe(telemetry: dict, names_hex: list, reads: int = 8,
+                    timeout: float = 60.0) -> dict:
+    """gRPC against the running primaries: a Telemetry scrape of each
+    (parse_exposition), then at CLI_EXTERNAL Proposer.Rounds and
+    NodeReadCausal for a live certificate, `reads` concurrent
+    Validator.ReadCausal from it (each answer must hold the asked digest)
+    and GetCollections for the digests the first answered; a scrape there
+    again for the read routes."""
+    import grpc
+    from narwhal_tpu_torch.metrics import parse_exposition
+    from narwhal_tpu_torch.proto import narwhal_pb2 as pb
+
+    def flat(text: str) -> dict:
+        out = {}
+        for name, entry in parse_exposition(text).items():
+            for key, value in entry["samples"].items():
+                out[name + key] = value
+        return out
+
+    async def scrape(addr: str) -> dict:
+        async with grpc.aio.insecure_channel(addr) as ch:
+            call = ch.unary_unary("/narwhal.Telemetry/Scrape")
+            return flat((await call(b"", timeout=30.0)).decode())
+
+    scrapes = {i: await scrape(a) for i, a in telemetry.items()}
+    deadline = time.perf_counter() + timeout
+    async with grpc.aio.insecure_channel(telemetry[CLI_EXTERNAL]) as ch:
+        rounds = grpc_call(ch, "Proposer", "Rounds", pb.RoundsResponse)
+        nrc = grpc_call(ch, "Proposer", "NodeReadCausal", pb.NodeReadCausalResponse)
+        rc = grpc_call(ch, "Validator", "ReadCausal", pb.ReadCausalResponse)
+        get = grpc_call(ch, "Validator", "GetCollections", pb.GetCollectionsResponse)
+        while True:
+            try:
+                pk = bytes.fromhex(names_hex[0])
+                r = await rounds(pb.RoundsRequest(public_key=pk), timeout=30.0)
+                causal = await nrc(pb.NodeReadCausalRequest(public_key=pk,
+                                                            round=r.newest_round),
+                                   timeout=30.0)
+                if causal.collection_ids:
+                    break
+            except grpc.aio.AioRpcError as e:
+                if e.code() not in (grpc.StatusCode.NOT_FOUND, grpc.StatusCode.UNAVAILABLE):
+                    raise
+            if time.perf_counter() > deadline:
+                raise AssertionError("cli: NodeReadCausal never answered at the "
+                                     "external-consensus primary")
+            await asyncio.sleep(0.2)
+        start = causal.collection_ids[0]
+        t0 = time.perf_counter()
+        answers = await asyncio.gather(*(rc(pb.ReadCausalRequest(collection_id=start),
+                                            timeout=30.0) for _ in range(reads)))
+        read_s = time.perf_counter() - t0
+        if not all(start in list(a.collection_ids) for a in answers):
+            raise AssertionError("cli: a ReadCausal answer lacks the asked digest")
+        # A few of them: a reply past gRPC's 4 MiB default is refused.
+        ids = list(answers[0].collection_ids)[:CLI_COLLECTIONS]
+        got = await get(pb.CollectionRequest(collection_ids=ids), timeout=60.0)
+        if len(got.results) != len(ids):
+            raise AssertionError("cli: GetCollections answered another number of results")
+        txs = sum(len(b.transactions) for res in got.results for b in res.batches)
+    scrapes[CLI_EXTERNAL] = await scrape(telemetry[CLI_EXTERNAL])
+    return {"scrapes": scrapes, "read_round": r.newest_round, "reads": reads,
+            "read_digests": len(answers[0].collection_ids), "read_burst_s": read_s,
+            "collections": len(got.results), "collection_transactions": txs,
+            "collection_errors": sum(bool(res.error) for res in got.results)}
+
+
+def phase_cli(device, duration: float = CLI_DURATION):
+    """The cli path: `cli_committee` on the card's backends."""
+    import tempfile
+
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory(prefix="cli-") as tmp:
+        out = cli_committee(tmp, crypto=backend, dag=backend, duration=duration)
+    routes = out["scraped"][CLI_EXTERNAL]
+    log(f"cli: {out['nodes']} primaries (`run ... primary --crypto-backend {backend} "
+        f"--dag-backend {backend}`, primary {CLI_EXTERNAL} with --consensus-disabled), "
+        f"{out['nodes']} workers and a benchmark_client at {out['rate']} transactions/s of "
+        f"{out['size']} bytes for {out['duration_s']:.0f} s, all OS processes; boot "
+        f"{out['boot_s']:.3f} s; committed certificates by gRPC Telemetry scrape "
+        f"{out['committed']}; at primary {CLI_EXTERNAL}: {out['reads']} concurrent "
+        f"ReadCausal from round {out['read_round']} answered with the asked digest among "
+        f"{out['read_digests']} in {out['read_burst_s'] * 1e3:.3f} ms (reads by route: "
+        f"host {routes[CLI_SCRAPED[4]]}, device {routes[CLI_SCRAPED[5]]}); GetCollections "
+        f"answered for the first {out['collections']} digests ({out['collection_errors']} "
+        f"errors, {out['collection_transactions']} transactions); every child exited after "
+        f"SIGTERM "
+        f"{out['exits']}; the path's wall {out['wall_s']:.3f} s{card}")
+    log(f"cli: scrapes {out['scraped']}")
+    if out["compute_apps"] is not None:
+        log(f"cli: children {out['pids']}; nvidia-smi compute apps before the stop: "
+            f"{out['compute_apps']!r}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4978,22 +5669,34 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     log(card)
 
-    phase_build()
+    walls: dict[str, float] = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = time.perf_counter() - t0
+        log(f"{phase}: phase wall {walls[phase]:.3f} s")
+        return out
+
+    timed("build", phase_build)
     f = CommitteeFixture(size=N)
-    kernels = phase_kernels(device, f)
-    ctx = phase_engine(device, f)
-    dsctx = phase_dag_shards(device, f, ctx)  # before the pipeline moves ctx's states on
-    pctx = phase_pipeline(device, f, ctx)
-    cctx = phase_compact(device, f, ctx, pctx)
-    wctx = phase_wire(device, f, ctx, pctx)
-    prctx, nctx = phase_primary(device, f)
-    sctx = phase_service(device, f, pctx, cctx)
-    shctx = phase_sharded(device, sctx)
-    tctx = phase_tusk(device, f)
-    rctx = phase_runner(device, f, ctx)
-    dctx = phase_dag_service(device, f)
-    csctx = phase_consensus_step(device, f)
-    drctx = phase_dryrun(device)
+    kernels = timed("kernels", phase_kernels, device, f)
+    ctx = timed("engine", phase_engine, device, f)
+    # dag_shards before the pipeline moves ctx's states on
+    dsctx = timed("dag_shards", phase_dag_shards, device, f, ctx)
+    pctx = timed("pipeline", phase_pipeline, device, f, ctx)
+    cctx = timed("compact", phase_compact, device, f, ctx, pctx)
+    wctx = timed("wire", phase_wire, device, f, ctx, pctx)
+    prctx, nctx = timed("primary_node", phase_primary, device, f)
+    clctx = timed("cluster", phase_cluster, device)
+    clictx = timed("cli", phase_cli, device)
+    sctx = timed("service", phase_service, device, f, pctx, cctx)
+    shctx = timed("sharded", phase_sharded, device, sctx)
+    tctx = timed("tusk", phase_tusk, device, f)
+    rctx = timed("runner", phase_runner, device, f, ctx)
+    dctx = timed("dag_service", phase_dag_service, device, f)
+    csctx = timed("consensus_step", phase_consensus_step, device, f)
+    drctx = timed("dryrun", phase_dryrun, device)
     by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
                "compact": cctx["launches"], "service": sctx["launches"],
                "sharded": shctx["launches"],
@@ -5001,7 +5704,8 @@ def main(argv=None) -> int:
                "dag_service": dctx["launches"],
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
                "dryrun": drctx["launches"], "wire": wctx["launches"],
-               "primary": prctx["launches"], "node": nctx["launches"]}
+               "primary": prctx["launches"], "node": nctx["launches"],
+               "cluster": clctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
@@ -5022,7 +5726,9 @@ def main(argv=None) -> int:
              "wire": {k: wctx[k] for k in ("aead", "signing", "wall_s", "certificates",
                                            "workers")},
              "primary": {k: v for k, v in prctx.items() if k != "launches"},
-             "node": {k: v for k, v in nctx.items() if k != "launches"}}
+             "node": {k: v for k, v in nctx.items() if k != "launches"},
+             "cluster": {k: v for k, v in clctx.items() if k != "launches"},
+             "cli": clictx, "phase_walls_s": walls}
 
     kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS
     rows = []

@@ -43,10 +43,16 @@ the reference does; unlike the reference, which runs item mode for any value
 but "msm", a value other than "msm" or "item" raises ConfigError, so a
 misspelt variable cannot boot a node on another verdict rule.
 
-Not ported (ROADMAP): `make_batch_verifier`, `AsyncVerifierPool` and the
-strict-mode host-library fallback (with the node boot rules that decide
-when a host fallback is allowed); `data_mesh`'s fallback to virtual CPU
-devices (the port raises instead: a silent CPU mesh would hide the card).
+`AsyncVerifierPool` is the host pool behind `--crypto-backend pool` (and
+behind `cpu` under compact certificates), a copy of the reference's.
+
+No fallback from the card to the host, where the reference has three:
+`VerifyService` fails every waiter of a failed submit or collect (the
+reference host-verifies a failed item-mode collect, `_finish_failed`);
+`make_batch_verifier` raises where the reference returns None, lets a
+failed launch's error through, and refuses `fallback_on_error=True` with a
+ConfigError; `data_mesh` raises where the reference falls back to virtual
+CPU devices.
 """
 
 from __future__ import annotations
@@ -776,14 +782,15 @@ class VerifyService:
 
     @classmethod
     def shared(cls, mode: str, shards: int = 1, device=None, devices=None) -> "VerifyService":
-        """The process-wide instance for an accept-set mode ('item'/'msm')
-        and shard count. Raises if the device verifier cannot be built. The
+        """The process-wide instance for an accept-set mode ('item'/'msm'),
+        shard count and (unsharded) device: every in-process node of a
+        committee shares it. Raises if the device verifier cannot be built. The
         verifier runs fixed-bucket (every flush pads to 2048 rows), with the
         msm lane from 16 rows up. `shards > 1` (--verify-shards) shards
         every flush over `data_mesh(shards, devices)` (`device` is then
         unused); a mesh that cannot split the bucket raises ConfigError
         here, not at the first verify."""
-        key = f"{mode}:{shards}"
+        key = f"{mode}:{shards}" if shards > 1 else f"{mode}:1:{_named(device)}"
         svc = cls._shared.get(key)
         if svc is None:
             mesh = data_mesh(shards, devices) if shards > 1 else None
@@ -933,6 +940,12 @@ class VerifyService:
             # waiting anymore.
             pass
 
+    async def close(self) -> None:
+        """Per-node shutdown is a no-op for the process-wide instance: other
+        nodes (and the next in-process cluster) keep using it; threads are
+        daemons and idle when no traffic flows."""
+        return None
+
     def shutdown(self) -> None:
         """Really stop the threads (tests; process teardown)."""
         with self._wake:
@@ -943,3 +956,158 @@ class VerifyService:
         for key, svc in list(self._shared.items()):
             if svc is self:
                 del self._shared[key]
+
+
+def make_batch_verifier(fallback_on_error: bool = False, mode: str | None = None, device=None):
+    """Build a crypto.BatchVerifier backed by the card's kernels.
+
+    `mode` pins the accept set ("item" = strict/cofactorless like the host
+    library, "msm" = cofactored batch rule); None defers to the
+    NARWHAL_TPU_VERIFY_MODE default (`verify_mode`). `device` as for
+    GpuVerifier: None is the card.
+
+    Unlike the reference, there is no host fallback: a verifier that
+    cannot be built raises (the reference returns None unless `require`,
+    a parameter the port does not take: the card is always required), a
+    failed launch's error propagates, and `fallback_on_error=True` raises
+    ConfigError."""
+    if fallback_on_error:
+        raise ConfigError(
+            "make_batch_verifier(fallback_on_error=True): the port has no host "
+            "fallback for a failed launch; the error propagates"
+        )
+    return GpuVerifier(mode=mode, device=device)  # callable: items -> verdicts
+
+
+class AsyncVerifierPool:
+    """Size-or-deadline coalescing of concurrent verification requests.
+
+    await pool.verify(pk, msg, sig) from any task; items are flushed to the
+    backend in one batch when `max_batch` are waiting or `max_delay` elapsed
+    since the first queued item (BatchMaker's seal rule, applied to crypto).
+    The backend call runs in a thread so the event loop never blocks on it.
+    The default backends are the host library's (`crypto.batch_verify`,
+    `types.host_batch_verify_aggregates`).
+    """
+
+    def __init__(
+        self,
+        backend=None,
+        max_batch: int = 512,
+        max_delay: float = 0.002,
+        group_backend=None,
+        max_groups: int = 64,
+    ):
+        from .. import crypto
+        from ..types import host_batch_verify_aggregates
+
+        self.backend = backend or crypto.batch_verify
+        self.max_batch = max_batch
+        self.max_delay = max_delay
+        self._pending: list[tuple[BatchItem, asyncio.Future]] = []
+        self._flusher: asyncio.Task | None = None
+        self._batches: set[asyncio.Task] = set()  # strong refs: loop holds weak
+        # Aggregate-certificate group lane (compact certs): concurrent
+        # verify_aggregate calls coalesce under the same seal rule and
+        # dispatch as ONE host_batch_verify_aggregates call — one
+        # bucket-method MSM amortized across every certificate in the
+        # flush, the host analog of VerifyService's device group lane.
+        self.group_backend = group_backend or host_batch_verify_aggregates
+        self.max_groups = max_groups
+        self._pending_groups: list[tuple[tuple, asyncio.Future]] = []
+        self._group_flusher: asyncio.Task | None = None
+
+    async def verify(self, public_key: bytes, message: bytes, signature: bytes) -> bool:
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._pending.append(((public_key, message, signature), fut))
+        if len(self._pending) >= self.max_batch:
+            self._flush_now()
+        elif self._flusher is None or self._flusher.done():
+            self._flusher = asyncio.ensure_future(self._deadline_flush())
+        return await fut
+
+    def _flush_now(self) -> None:
+        pending, self._pending = self._pending, []
+        if pending:
+            task = asyncio.ensure_future(self._run_batch(pending))
+            self._batches.add(task)
+            task.add_done_callback(self._batches.discard)
+
+    async def _deadline_flush(self) -> None:
+        await asyncio.sleep(self.max_delay)
+        self._flush_now()
+
+    async def _run_batch(self, pending) -> None:
+        items = [item for item, _ in pending]
+        loop = asyncio.get_running_loop()
+        try:
+            results = await loop.run_in_executor(None, self.backend, items)
+        except Exception as e:
+            for _, fut in pending:
+                if not fut.done():
+                    fut.set_exception(e)
+            return
+        for (_, fut), res in zip(pending, results):
+            if not fut.done():
+                fut.set_result(res)
+
+    async def verify_aggregate(self, items, zs, s_agg: int) -> bool:
+        """Half-aggregated certificate proof check (compact certs), batched:
+        groups queued by concurrent callers — the verifier stage's
+        per-message tasks, the block synchronizer's catch-up fetches —
+        seal into one `host_batch_verify_aggregates` dispatch (size- or
+        deadline-triggered, like the item lane), so many certificates
+        share one randomized-linear-combination MSM instead of paying a
+        per-certificate scalar-mul walk."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._pending_groups.append(((items, zs, s_agg), fut))
+        if len(self._pending_groups) >= self.max_groups:
+            self._flush_groups_now()
+        elif self._group_flusher is None or self._group_flusher.done():
+            self._group_flusher = asyncio.ensure_future(self._deadline_flush_groups())
+        return await fut
+
+    def _flush_groups_now(self) -> None:
+        pending, self._pending_groups = self._pending_groups, []
+        if pending:
+            task = asyncio.ensure_future(self._run_group_batch(pending))
+            self._batches.add(task)
+            task.add_done_callback(self._batches.discard)
+
+    async def _deadline_flush_groups(self) -> None:
+        await asyncio.sleep(self.max_delay)
+        self._flush_groups_now()
+
+    async def _run_group_batch(self, pending) -> None:
+        groups = [group for group, _ in pending]
+        loop = asyncio.get_running_loop()
+        try:
+            results = await loop.run_in_executor(None, self.group_backend, groups)
+        except Exception as e:
+            for _, fut in pending:
+                if not fut.done():
+                    fut.set_exception(e)
+            return
+        for (_, fut), res in zip(pending, results):
+            if not fut.done():
+                fut.set_result(res)
+
+    async def close(self) -> None:
+        if self._flusher is not None:
+            self._flusher.cancel()
+            self._flusher = None
+        if self._group_flusher is not None:
+            self._group_flusher.cancel()
+            self._group_flusher = None
+        self._flush_now()
+        self._flush_groups_now()
+        # In-flight batch dispatches resolve their callers' futures; give
+        # them a bounded window to finish, then cancel stragglers so no
+        # batch task survives its owner (a wedged executor thread must not
+        # hang node shutdown or leak tasks into the next test).
+        if self._batches:
+            _, stuck = await asyncio.wait(set(self._batches), timeout=5.0)
+            for t in stuck:
+                t.cancel()

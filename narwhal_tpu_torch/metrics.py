@@ -1,21 +1,20 @@
 """Prometheus-style metrics: registry, counters/gauges/histograms, text
-exposition.
+exposition, HTTP exporter.
 
 Port copy of `narwhal_tpu/metrics.py` (the JAX package's counterpart). The PyTorch
-port keeps its own copy so that it imports nothing of `narwhal_tpu`. The
-HTTP exporter (`serve_metrics`) stays with the node wiring (ROADMAP queue 1,
-item 5).
+port keeps its own copy so that it imports nothing of `narwhal_tpu`.
 
 The reference registers ~50+ metrics per role (primary/src/metrics.rs:51-485,
 worker/src/metrics.rs, consensus/src/metrics.rs:13-49) and exposes them over
 HTTP (node/src/main.rs:279-285); cluster tests assert progress by scraping the
 registry (test_utils/src/cluster.rs:210-269,315). We implement the same shape
 in-process: a Registry of named metrics with labels, rendered in the
-Prometheus text format.
+Prometheus text format, served by a tiny asyncio HTTP endpoint.
 """
 
 from __future__ import annotations
 
+import asyncio
 from typing import Iterable
 
 
@@ -270,3 +269,27 @@ def scrape_snapshot(registry: Registry) -> dict[str, dict]:
         }
         out[name] = {"type": entry["type"], "samples": samples}
     return out
+
+
+async def serve_metrics(registry: Registry, host: str, port: int):
+    """Minimal HTTP /metrics exporter (node/src/main.rs:279-285). Returns the
+    asyncio server; the bound port is server.sockets[0].getsockname()[1]."""
+
+    async def handle(reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        try:
+            await reader.readuntil(b"\r\n\r\n")
+        except (asyncio.IncompleteReadError, asyncio.LimitOverrunError):
+            writer.close()
+            return
+        body = registry.render().encode()
+        writer.write(
+            b"HTTP/1.1 200 OK\r\nContent-Type: text/plain; version=0.0.4\r\n"
+            + f"Content-Length: {len(body)}\r\n\r\n".encode()
+            + body
+        )
+        try:
+            await writer.drain()
+        finally:
+            writer.close()
+
+    return await asyncio.start_server(handle, host, port)

@@ -210,11 +210,25 @@ class Worker:
         thost, tport = me.transactions.rsplit(":", 1)
         tbound = await self.tx_server.start(thost, int(tport))
         self.transactions_address = f"{thost}:{tbound}"
-        # The reference's tonic Transactions service (worker.rs:369-423) is
-        # the JAX package's gRPC ingest; it comes to the port with
-        # `grpc_api`. Until then the typed ingest above is the only one, as
-        # under the JAX package's simnet transport.
-        self.grpc_transactions_address = ""
+        # Interoperable gRPC ingest (the reference's tonic Transactions
+        # service, worker.rs:369-423) alongside the high-throughput typed
+        # ingest; ephemeral port, surfaced via grpc_transactions_address.
+        # grpc.aio binds a REAL socket, so it is skipped under the simnet
+        # transport (simulated committees are zero-socket by contract; the
+        # typed ingest above already rides the fabric).
+        from ..network import transport as _transport
+
+        if _transport.simnet_active():
+            self.grpc_transactions_address = ""
+        else:
+            from ..grpc_api import GrpcTransactions
+
+            self.grpc_transactions = GrpcTransactions(
+                self.tx_batch_maker, self.metrics, gate=self.ingest_gate
+            )
+            self.grpc_transactions_address = await self.grpc_transactions.spawn(
+                f"{thost}:0"
+            )
 
         # Route the three planes with the authorization matrix: batch planes
         # accept same-lane workers of any committee member, the control plane
@@ -430,4 +444,6 @@ class Worker:
             self.pool.unregister_lane(worker_lane(self.worker_id))
         await self.server.stop()
         await self.tx_server.stop()
+        if hasattr(self, "grpc_transactions"):
+            await self.grpc_transactions.shutdown()
         self.network.close()

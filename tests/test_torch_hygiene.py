@@ -70,11 +70,64 @@ def test_port_package_imports_without_jax_loaded():
         "import narwhal_tpu_torch.primary.block_synchronizer\n"
         "import narwhal_tpu_torch.primary.block_waiter, narwhal_tpu_torch.primary.block_remover\n"
         "from narwhal_tpu_torch.metrics import parse_exposition, scrape_snapshot\n"
+        "from narwhal_tpu_torch.metrics import serve_metrics\n"
+        "import narwhal_tpu_torch.proto.narwhal_pb2, narwhal_tpu_torch.grpc_api\n"
+        "from narwhal_tpu_torch.node import PrimaryNode, WorkerNode, NodeRestarter\n"
+        "import narwhal_tpu_torch.cluster, narwhal_tpu_torch.benchmark_client\n"
+        "import narwhal_tpu_torch.__main__\n"
+        "from narwhal_tpu_torch.gpu.verifier import AsyncVerifierPool, make_batch_verifier\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_the_scan_covers_the_node_and_its_edges():
+    scanned = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {
+        "narwhal_tpu_torch/proto/__init__.py", "narwhal_tpu_torch/proto/narwhal_pb2.py",
+        "narwhal_tpu_torch/grpc_api.py", "narwhal_tpu_torch/node.py",
+        "narwhal_tpu_torch/cluster.py", "narwhal_tpu_torch/benchmark_client.py",
+        "narwhal_tpu_torch/__main__.py", "narwhal_tpu_torch/metrics.py",
+        "narwhal_tpu_torch/gpu/verifier.py", "narwhal_tpu_torch/worker/worker.py",
+    } <= scanned
+
+
+def test_node_and_cluster_on_cuda_raise_without_a_card(monkeypatch):
+    """The node's and the cluster's backends default to `cuda`, and their
+    cuda backends take the card unless a device is named: without one they
+    raise, before any port is bound."""
+    from narwhal_tpu_torch.cluster import Cluster
+    from narwhal_tpu_torch.fixtures import CommitteeFixture
+    from narwhal_tpu_torch.node import PrimaryNode
+    from narwhal_tpu_torch.stores import NodeStorage
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fx = CommitteeFixture(size=4)
+
+    def node(**kw):
+        return PrimaryNode(fx.authorities[0].keypair, fx.committee, fx.worker_cache,
+                           fx.parameters, NodeStorage(None), **kw)
+
+    for make in (
+        lambda: node(),
+        lambda: node(crypto_backend="cuda", dag_backend="cpu"),
+        lambda: node(crypto_backend="cpu", dag_backend="cuda"),
+        lambda: node(crypto_backend="cpu", dag_backend="cuda", internal_consensus=False),
+        lambda: Cluster(),
+        lambda: Cluster(crypto_backend="cuda", dag_backend="cpu"),
+        lambda: Cluster(crypto_backend="cpu", dag_backend="cuda"),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    from narwhal_tpu_torch.config import ConfigError
+
+    for kw in ({"crypto_backend": "tpu", "dag_backend": "cpu"},
+               {"crypto_backend": "cpu", "dag_backend": "tpu"},
+               {"crypto_backend": "cpu", "dag_backend": "cpu", "dag_shards": 2}):
+        with pytest.raises(ConfigError):
+            node(**kw)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -43,8 +43,10 @@ TIMED = {"test_reliable_send_escalates_deadline_for_slow_peer"}
 def port_scenarios(filename: str, leave_out=frozenset()) -> dict:
     """The test functions of the JAX package's `tests/<filename>`, run
     against the port: the source with `narwhal_tpu` renamed to
-    `narwhal_tpu_torch`, executed as a module of its own."""
+    `narwhal_tpu_torch` (and its device plane `narwhal_tpu.tpu` to the
+    port's `narwhal_tpu_torch.gpu`), executed as a module of its own."""
     src = (TESTS / filename).read_text()
+    src = re.sub(r"\bnarwhal_tpu\.tpu\b", "narwhal_tpu_torch.gpu", src)
     src = re.sub(r"\bnarwhal_tpu\b", "narwhal_tpu_torch", src)
     mod = types.ModuleType(f"port_{Path(filename).stem}")
     mod.__file__ = str(TESTS / filename)
@@ -53,6 +55,25 @@ def port_scenarios(filename: str, leave_out=frozenset()) -> dict:
         name: fn for name, fn in vars(mod).items()
         if name.startswith("test_") and callable(fn) and name not in leave_out
     }
+
+
+@pytest.fixture
+def host_backends(monkeypatch):
+    """The JAX node's backend defaults (`cpu`) for the port's Cluster and
+    PrimaryNode (and so NodeRestarter's nodes), whose defaults are the
+    card's (`cuda`): the renamed scenarios that name no backend run on the
+    host, as they do in the JAX package."""
+    import inspect
+
+    from narwhal_tpu_torch import cluster, node
+
+    for cls in (cluster.Cluster, node.PrimaryNode):
+        init = cls.__init__
+        named = [p.name for p in inspect.signature(init).parameters.values()
+                 if p.default is not p.empty][-len(init.__defaults__):]
+        monkeypatch.setattr(init, "__defaults__", tuple(
+            "cpu" if name in ("crypto_backend", "dag_backend") else default
+            for name, default in zip(named, init.__defaults__)))
 
 
 _SCENARIOS = {}
