@@ -11,11 +11,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   kernels   each kernel against its plain PyTorch version on the same card
             tensors at the main path's shapes (N = 50, W = 64, 2048-row
             buckets; window_sync, a view's roll and placements, at W = 64
-            and 128, N = 50 and 49, T = 64 and past a parameter block,
+            and 128, N = 50, 49 and 4, T = 64 and past a parameter block,
             shifts 0, 1, W - 1 and W, and through B4 roll_window and B3
             place_batch, each of those with its library call's time;
             chain_commit on a healed partition where the gc filter
-            provably bites; msm_accumulate in the group-lane shape, 20
+            provably bites, and at CHAIN_SHAPES (N = 4 among them); msm_accumulate in the group-lane shape, 20
             compact proofs of 50 signers as 2000 doubled rows plus 48 zero
             rows, and in the item shape with real R and z digits, a torsion
             row and an invalid encoding; reach_many at K = 64 with padding
@@ -133,7 +133,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             by a Consensus runner over GpuBullshark (its stores a
             NodeStorage in a temporary directory), the others' by runners
             over the host Bullshark, each runner's commits driving its
-            primary's garbage collection. 10 clients submit 100
+            primary's garbage collection. 10 clients submit 50
             transactions of 512 bytes each to the workers of authorities
             0-9; authority 1 sends authority 0 a vote with a flipped
             signature byte and a compact certificate with a flipped agg_s
@@ -184,14 +184,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             prefetch hits and misses, the read bursts' walls and the routing
             split, and the catch-up's certificates, wall, rate and A1 and A2
             flushes with their real rows;
-  cluster   the port's node assembly in process: Cluster(size=50, workers=1,
+  cluster   (in a child process, `--path cluster`, started with the simnet
+            child just before primary_node and joined after it: the three
+            paths run side by side, each on its own event loop, sharing the
+            card and the host's cores)
+            the port's node assembly in process: Cluster(size=50, workers=1,
             crypto_backend="cuda", dag_backend="cuda", benchmark=True) over
             temporary stores, default parameters (so the cofactored rule:
             every primary verifies through one VerifyService.shared("msm"),
             a bucket that fails its msm check going to verify_batch; every
             node's consensus is a runner over GpuBullshark). Authority 1
             sends authority 0 the primary path's tampered vote and compact
-            certificate; 10 clients stream 100 transactions of 512 bytes
+            certificate; 10 clients stream 30 transactions of 512 bytes
             each through gRPC SubmitTransactionStream to the workers of
             authorities 0-9 (GrpcTransactions). Runs until authority 0 has
             executed every transaction: each exactly once there,
@@ -207,6 +211,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             certificates and transactions a second, commit latency p50/p99
             from the nodes' ConsensusMetrics commit timers, the boot wall,
             and the restart's replay and catch-up counts;
+  simnet    (in a child process, `--path simnet`, beside primary_node)
+            `narwhal_tpu_torch.simnet.run_scenario` on the card
+            (crypto_backend="cuda", dag_backend="cuda"): seeded fault
+            scenarios on the virtual clock, every node verifying through an
+            AsyncVerifierPool over one GpuVerifier that launches on the
+            loop's thread (no VerifyService: its threads would race the
+            virtual clock) and ordering with GpuBullshark. Leg 1, N = 4, one
+            worker each, 200 transactions of 64 bytes a second: fault-free
+            (seed 3, 3.0 virtual s), a 2|2 partition from 1.0 to 2.5 (seed
+            5, 4.0 s, strict rule: verify_batch), node 3 equivocating (seed
+            7, 3.0 s) and node 1 crashed at 1.0 and restarted at 2.0 (seed
+            5, 4.0 s, strict), the others on the cofactored default
+            (msm_accumulate); each twice on the card and once on the host
+            backends: the card runs bit-identical to each other and to the
+            host run (event log digest and length, commits, rounds; the
+            first diverging log entry printed otherwise), the reference
+            tests' oracles, no "backend" drop, no VerifyService built.
+            Leg 2, N = 50 (gc_depth 50, one worker each, auth=False,
+            max_header_delay 1.0, max_batch_delay 0.5), 500 transactions of
+            512 bytes a second, nodes 0-15 cut off from 16-49 at 0.1
+            virtual s and healed at 1.6, for 2.3 s, once on the card:
+            safety over all 50; the partition had an effect (the 34's
+            highest committed round at the heal above the 16's and above
+            every node's at the cut); two committed rounds at every node
+            after the heal; no "backend" drop; msm_accumulate,
+            window_sync and chain_commit launched. Prints each scenario's
+            walls, events and card flushes, and leg 2's wall, rounds, events,
+            wire bytes a round, flushes and launches;
   cli       the command line as OS processes, the reference's `fab local`
             deployment: `python -m narwhal_tpu_torch generate_keys` four
             times, the committee, workers and parameters files from the
@@ -214,7 +246,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             --dag-backend cuda` for primaries 0-2 and with
             --consensus-disabled for primary 3, four `run ... worker --id
             0`, one `benchmark_client` at 1,000 transactions/s of 512 bytes
-            over the four workers for 20 s; each primary's TELEMETRY_ADDR=
+            over the four workers for 10 s; each primary's TELEMETRY_ADDR=
             line leads to a gRPC Telemetry scrape that must show
             certificates committed at primaries 0-2, Validator.ReadCausal
             at primary 3 must answer with the asked digest and
@@ -281,9 +313,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
             four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the fifteen in-process
-paths and read just after it (the cli path's launches happen in its
-children, which the parent cannot count), and each path must have launched the kernels it names
+Launch counts are set to 0 just before each of the sixteen in-process
+paths and read just after it (the cluster and simnet paths' in their own
+processes, which hand them to the parent; the cli path's launches happen
+in its children, which the parent cannot count), and each path must have launched the kernels it names
 (PATH_KERNELS; the script prints the sharded walk's route), and a path
 that syncs a device window may launch window_sync at most once per view
 that rolls or places, more only for a sync past a parameter block (the
@@ -295,6 +328,8 @@ forced routes apart, under "forced_route_launches"), and as the last line
 
 The script needs a CUDA card: without one it exits 2 before printing any
 result. It imports nothing of JAX and nothing of `narwhal_tpu`.
+`--path cluster|simnet --out FILE` runs that one path (after a build) and
+writes its results to FILE: the parent starts its children so.
 """
 
 from __future__ import annotations
@@ -309,6 +344,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -348,6 +384,7 @@ PATH_KERNELS = {
     "primary": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
     "node": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit", "reach_many"),
     "cluster": ("verify_batch", "window_sync", "chain_commit"),
+    "simnet": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
 }
 
 
@@ -615,7 +652,7 @@ def verify_rows(seed: int, n_keys: int, b: int):
     return [np.ascontiguousarray(a[pick]) for a in arrays]
 
 
-VERIFY_SIZES = (1, 7, 1024, 8192)  # beside the bucket's 2048
+VERIFY_SIZES = (1, 7, 16, 1024, 8192)  # beside the bucket's 2048; 16: simnet's A1 bucket
 
 
 def verdict_inputs(rng: np.random.Generator, acc, r_y, r_sign, a_valid, r_valid):
@@ -897,10 +934,12 @@ def check_msm_accumulate(device, f, bucket: int, n_keys: int, plain_reps: int):
     return row
 
 
-def check_msm_shapes(device, bucket_sizes=(16, 512, 1024, 8192), n_keys: int = 300):
+def check_msm_shapes(device, bucket_sizes=(16, 32, 64, 128, 256, 512, 1024, 8192),
+                     n_keys: int = 300):
     """A2 and A3 -> A6 at the other bucket shapes the kernels meet (the
-    smallest bucket, the sharded verifier's per-shard 1024 rows, the largest
-    bucket, whose A2 rows take two tiles of shared memory): on the group lane
+    smallest bucket, the simnet path's msm buckets of 32 to 256 rows, the
+    sharded verifier's per-shard 1024 rows, the largest bucket, whose A2
+    rows take two tiles of shared memory): on the group lane
     (compact proofs of the N = 50 committee, or of 4 signers where 2 x 50
     rows do not fit; the R slot all zero) and the item bucket (invalid
     encodings among its rows). A2's lanes and A6's equal to their plain
@@ -1344,7 +1383,8 @@ def check_roll_window(device, n: int, w: int):
 # The window syncs the kernels phase holds to the plain version, (W, N, T):
 # the engine's window, the Dag service's grown W 128, an odd N, and a batch
 # past one parameter block (three launches).
-SYNC_SHAPES = ((W, N, 64), (2 * W, N, 64), (W, N - 1, 64), (W, N, "past"))
+# (W, N, slots); N = 4 is the window of the simnet and cli paths' committees
+SYNC_SHAPES = ((W, N, 64), (2 * W, N, 64), (W, N - 1, 64), (W, N, "past"), (W, 4, 64))
 
 
 def check_window_sync(device, n: int, w: int):
@@ -1469,6 +1509,7 @@ CHAIN_SHAPES = (
     (64, 50, GC_DEPTH, (1,)),
     (128, 50, GC_DEPTH, (1, 120, None, 127)),
     (512, 50, GC_DEPTH, (200, None, 505)),
+    (64, 4, GC_DEPTH, (40, None, 58)),  # the simnet and cli paths' committee of 4
 )
 
 
@@ -2121,7 +2162,7 @@ def check_walk_deadline(device, n: int = 50, w: int = 64, timeout_ms: int = 100,
     return wall
 
 
-def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=3):
+def phase_kernels(device, f, w=W, bucket=BUCKET, n_keys=300, n_ref=300, plain_reps=1):
     n = f.committee.size()
     rows = [
         check_verify_batch(device, bucket, n_keys, n_ref, plain_reps),
@@ -3894,7 +3935,7 @@ def tampered_messages(m, fx):
 
 PRIMARY_TX_SIZE = 512  # the reference bench's transaction size
 PRIMARY_MIN_ROUND = 6  # a round whose commit follows the window's first upload
-PRIMARY_TXS = 100  # transactions a client (200 until a cut for time)
+PRIMARY_TXS = 50  # transactions a client (200, then 100, until cuts for time)
 
 
 NODE_EXTERNAL = 2  # the external-consensus authority (1 sends the tampered messages)
@@ -4635,7 +4676,7 @@ def record_flushes(svc) -> dict:
 
 
 def phase_primary(device, f, clients=10, txs_per_client=PRIMARY_TXS, bucket=BUCKET,
-                  timeout: float = 300.0):
+                  timeout: float = 480.0):
     """The primary path, then the node path in the same committee:
     `primary_wire` over N port primaries (N = f's committee size), each
     verifying through one process-wide card VerifyService("item") (A1 for
@@ -4814,7 +4855,7 @@ def node_report(legs: dict, flushes: dict, flushes_p: dict, launches: dict, wall
 
 CLUSTER_RESTART = 10  # the authority the cluster path restarts: no client's, booted early
 CLUSTER_COLLECTIONS = 8  # committed certificates GetCollections asks for over gRPC
-CLUSTER_TXS = 100  # transactions a client (a cut for time from the primary path's 200)
+CLUSTER_TXS = 30  # transactions a client (200, then 100, until cuts for time)
 
 
 def grpc_call(channel, service: str, method: str, reply_cls):
@@ -5161,12 +5202,259 @@ def phase_cluster(device, n=N, clients=10, txs_per_client=CLUSTER_TXS, timeout: 
 
 
 # ---------------------------------------------------------------------------
+# Phase: simnet, seeded fault scenarios on the virtual clock
+# ---------------------------------------------------------------------------
+
+SIMNET_LOAD = 200  # leg 1: transactions/s of 64 bytes over the four workers
+SIMNET_WIDE_N = N  # leg 2: the repo's committee
+SIMNET_WIDE_CUT = 16  # f of 50: the minority the partition cuts off
+SIMNET_WIDE_LOAD = 500  # transactions/s of 512 bytes over the 50 workers
+SIMNET_WIDE_SEED = 11
+# virtual s: the cut, then the heal. Cut off, the 34 commit once, about a
+# max_header_delay into the cut (PERF.md section 4): 1.5 s lets them.
+SIMNET_WIDE_PARTITION = (0.1, 1.6)
+SIMNET_WIDE_DURATION = 2.3  # virtual s: 0.7 past the heal, set by measurement
+SIMNET_WIDE_DRAIN = 0.05  # virtual s after the load stops
+
+
+def simnet_leg1(m):
+    """Leg 1's scenarios at N = 4 in the port's simnet `m`: (name, keyword
+    arguments of run_scenario, the matching reference test's oracles).
+    The partition and the crash run under the strict rule (verify_batch),
+    the others under the card's default, the cofactored rule
+    (msm_accumulate)."""
+    from narwhal_tpu_torch.config import Parameters
+
+    o = m.oracles
+    strict = Parameters(max_header_delay=0.05, max_batch_delay=0.05, verify_rule="strict")
+
+    def fault_free(r):
+        o.assert_safety(r.commits)
+        o.assert_liveness(r.rounds, min_rounds=2)
+
+    def partition(r):  # test_partition_then_heal_safety_and_liveness
+        o.assert_safety(r.commits)
+        at_heal = r.round_marks["heal@2.5"]
+        assert max(at_heal) <= max(r.round_marks["partition@1.0"]) + 1, r.round_marks
+        o.assert_liveness(r.rounds, at_heal, min_rounds=2)
+
+    def equivocate(r):  # test_byzantine_equivocator_under_load
+        assert r.equivocation[3]["twins_sent"] > 0
+        o.assert_safety(r.commits, honest=r.honest())
+        o.assert_liveness(r.rounds, min_rounds=3, nodes=r.honest())
+        assert r.identical_execution_prefix
+
+    def crash(r):  # test_crash_restart_catches_up
+        o.assert_safety(r.commits)
+        o.assert_liveness(r.rounds, r.round_marks["crash@1.0"], min_rounds=2, nodes=[0, 2, 3])
+        assert len(r.commits[1]) > 0
+
+    base = dict(nodes=4, workers=1, load_rate=SIMNET_LOAD, tx_size=64)
+    return (
+        ("fault_free", dict(base, duration=3.0, plan=m.FaultPlan(seed=3)), fault_free),
+        ("partition", dict(base, duration=4.0, parameters=strict, plan=m.FaultPlan(
+            seed=5, events=(m.Partition(at=1.0, heal=2.5, groups=((0, 1), (2, 3))),))),
+         partition),
+        ("equivocate", dict(base, duration=3.0, plan=m.FaultPlan(
+            seed=7, events=(m.Equivocate(node=3),))), equivocate),
+        ("crash", dict(base, duration=4.0, parameters=strict, plan=m.FaultPlan(
+            seed=5, events=(m.Crash(at=1.0, node=1, restart_at=2.0),))), crash),
+    )
+
+
+class CardFlushes:
+    """Counts the card pool's flushes while it is entered: `GpuVerifier`'s
+    item lane (`__call__`) and group lane (`submit_groups`), wrapped on the
+    class, with their real rows; and every `VerifyService` built."""
+
+    def __enter__(self):
+        from narwhal_tpu_torch.gpu import verifier as gv
+
+        self.stats = {"item_flushes": 0, "item_rows": 0, "group_flushes": 0, "groups": 0,
+                      "services_built": 0}
+        self._saved = (gv.GpuVerifier.__call__, gv.GpuVerifier.submit_groups,
+                       gv.VerifyService.__init__)
+        call, submit_groups, service_init = self._saved
+        stats = self.stats
+
+        def counted_call(v, items):
+            stats["item_flushes"] += 1
+            stats["item_rows"] += len(items)
+            return call(v, items)
+
+        def counted_groups(v, groups):
+            stats["group_flushes"] += 1
+            stats["groups"] += len(groups)
+            return submit_groups(v, groups)
+
+        def counted_service(svc, *args, **kwargs):
+            stats["services_built"] += 1
+            service_init(svc, *args, **kwargs)
+
+        gv.GpuVerifier.__call__ = counted_call
+        gv.GpuVerifier.submit_groups = counted_groups
+        gv.VerifyService.__init__ = counted_service
+        return self.stats
+
+    def __exit__(self, *exc):
+        from narwhal_tpu_torch.gpu import verifier as gv
+
+        (gv.GpuVerifier.__call__, gv.GpuVerifier.submit_groups,
+         gv.VerifyService.__init__) = self._saved
+
+
+def first_divergence(a, b) -> str:
+    """The first fabric event log entry where two kept logs differ."""
+    for i, (x, y) in enumerate(zip(a.log_entries, b.log_entries)):
+        if x != y:
+            return f"entry {i}: {x} != {y}"
+    return (f"one log is a prefix of the other ({len(a.log_entries)} and "
+            f"{len(b.log_entries)} entries)")
+
+
+def same_scenario(name: str, a, b, what: str) -> None:
+    keys = ("event_log_digest", "event_log_len", "commits", "rounds")
+    diff = [k for k in keys if getattr(a, k) != getattr(b, k)]
+    if diff:
+        raise AssertionError(f"simnet {name}: {what} differ in {diff}; first diverging "
+                             f"event: {first_divergence(a, b)}")
+
+
+def phase_simnet(device) -> dict:
+    """The simnet path: seeded fault scenarios on the virtual clock whose
+    committees verify and order on the card (`run_scenario(...,
+    crypto_backend="cuda", dag_backend="cuda")`: every node's crypto pool
+    an AsyncVerifierPool over one GpuVerifier a scenario, launching on the
+    loop's thread; every node's consensus a GpuBullshark).
+
+    Leg 1, N = 4 (`simnet_leg1`): each scenario twice on the card and once
+    on the port's host backends; the two card runs bit-identical (event
+    log digest and length, commits, rounds) and equal to the host run (on
+    a difference, the first diverging log entry), the reference test's
+    oracles, no "backend" drop, and no VerifyService built (its
+    constructor is counted, and `VerifyService._shared` keeps its keys).
+    Leg 2, N = 50 (`CommitteeFixture(size=50)`, gc_depth 50, one worker
+    each, auth=False as the reference runs large simnet committees,
+    max_header_delay 1.0 and max_batch_delay 0.5): 512-byte transactions
+    at SIMNET_WIDE_LOAD a second over the 50 workers, one Partition that
+    cuts SIMNET_WIDE_CUT nodes from the rest and heals, once on the card:
+    safety over all 50, liveness from the heal (2 rounds at every node),
+    no "backend" drop; msm_accumulate, window_sync and chain_commit
+    launched in the leg. Launches counted from 0 over both legs."""
+    import torch
+    from narwhal_tpu_torch import simnet
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.gpu.verifier import VerifyService
+
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    on_card = dict(crypto_backend="cuda", dag_backend="cuda", device=device)
+    host = dict(crypto_backend="cpu", dag_backend="cpu")
+    services = set(VerifyService._shared)
+    kernel_registry.reset_launch_counts()
+    t_path = time.perf_counter()
+    leg1: dict = {}
+    with CardFlushes() as flushes:
+        for name, kwargs, oracle in simnet_leg1(simnet):
+            before = dict(flushes)
+            runs = []
+            for backends in (on_card, on_card, host):
+                t0 = time.perf_counter()
+                r = simnet.run_scenario(**kwargs, **backends, keep_log=True)
+                runs.append((r, time.perf_counter() - t0))
+            (a, wall_a), (b, wall_b), (h, wall_h) = runs
+            same_scenario(name, a, b, "the two card runs")
+            same_scenario(name, a, h, "the card run and the host run")
+            for r, _ in runs:
+                oracle(r)
+                if r.backend_drops():
+                    raise AssertionError(f"simnet {name}: backend drops {r.stage_drops}")
+            leg1[name] = {
+                "seed": a.seed, "virtual_s": a.duration, "event_log_digest": a.event_log_digest,
+                "events": a.event_log_len, "rounds": a.rounds,
+                "commits": [len(c) for c in a.commits],
+                "card_walls_s": [wall_a, wall_b], "host_wall_s": wall_h,
+                "flushes": {k: flushes[k] - before[k] for k in flushes},
+            }
+            log(f"simnet {name} (seed {a.seed}, {a.duration} virtual s): two card runs and the "
+                f"host run bit-identical, {a.event_log_len} events, digest "
+                f"{a.event_log_digest[:16]}, rounds {a.rounds}; walls card {wall_a:.3f} / "
+                f"{wall_b:.3f} s, host {wall_h:.3f} s; card flushes "
+                f"{leg1[name]['flushes']}{card}")
+        leg1_launches = kernel_registry.launch_counts()
+        leg1_s = time.perf_counter() - t_path
+        at, heal = SIMNET_WIDE_PARTITION
+        cut = tuple(range(SIMNET_WIDE_CUT))
+        rest = tuple(range(SIMNET_WIDE_CUT, SIMNET_WIDE_N))
+        before = dict(flushes)
+        t0 = time.perf_counter()
+        r = simnet.run_scenario(
+            nodes=SIMNET_WIDE_N, workers=1, duration=SIMNET_WIDE_DURATION,
+            load_rate=SIMNET_WIDE_LOAD, tx_size=PRIMARY_TX_SIZE, auth=False,
+            max_header_delay=1.0, max_batch_delay=0.5, drain_tail=SIMNET_WIDE_DRAIN,
+            plan=simnet.FaultPlan(seed=SIMNET_WIDE_SEED, events=(
+                simnet.Partition(at=at, heal=heal, groups=(cut, rest)),)),
+            **on_card)
+        wide_wall = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = kernel_registry.launch_counts()
+        wide_launches = {k: n - leg1_launches.get(k, 0) for k, n in launches.items()}
+        wide_flushes = {k: flushes[k] - before[k] for k in flushes}
+    if flushes["services_built"] or set(VerifyService._shared) != services:
+        raise AssertionError(f"simnet: {flushes['services_built']} VerifyService built; "
+                             f"shared keys {sorted(services)} -> {sorted(VerifyService._shared)}")
+    simnet.oracles.assert_safety(r.commits)
+    at_cut, at_heal = r.round_marks[f"partition@{at}"], r.round_marks[f"heal@{heal}"]
+    # The partition had an effect: the majority committed while it was cut
+    # off, past the minority and past every node's round at the cut.
+    majority_at_heal = max(at_heal[i] for i in rest)
+    minority_at_heal = max(at_heal[i] for i in cut)
+    if not majority_at_heal > max(minority_at_heal, max(at_cut)):
+        raise AssertionError(
+            f"simnet N={SIMNET_WIDE_N}: the partition had no effect: committed rounds at the "
+            f"cut {at_cut}, at the heal {at_heal}")
+    simnet.oracles.assert_liveness(r.rounds, at_heal, min_rounds=2)
+    if r.backend_drops():
+        raise AssertionError(f"simnet N={SIMNET_WIDE_N}: backend drops {r.stage_drops}")
+    if device.type == "cuda":
+        for k in ("msm_accumulate", "window_sync", "chain_commit"):
+            if wide_launches.get(k, 0) <= 0:
+                raise AssertionError(f"simnet N={SIMNET_WIDE_N}: {k} never launched")
+    require_launches("simnet", launches, device)
+    rounds = [int(x) for x in r.rounds]
+    wide = {
+        "nodes": SIMNET_WIDE_N, "cut": SIMNET_WIDE_CUT, "seed": SIMNET_WIDE_SEED,
+        "virtual_s": SIMNET_WIDE_DURATION, "partition": [at, heal], "wall_s": wide_wall,
+        "rounds_min": min(rounds), "rounds_max": max(rounds),
+        "rounds_at_cut": [min(at_cut), max(at_cut)],
+        "rounds_at_heal": {"minority": [min(at_heal[i] for i in cut), minority_at_heal],
+                           "majority": [min(at_heal[i] for i in rest), majority_at_heal]},
+        "events": r.event_log_len, "wire_bytes": r.wire_bytes_sent,
+        "wire_bytes_a_round": r.wire_bytes_sent / max(1, max(rounds)),
+        "sent_txs": r.sent_txs, "executed_min": min(r.executed),
+        "flushes": wide_flushes, "launches": wide_launches,
+    }
+    log(f"simnet N={SIMNET_WIDE_N} (auth=False, gc_depth 50, max_header_delay 1.0, "
+        f"max_batch_delay 0.5, {SIMNET_WIDE_LOAD} transactions/s of {PRIMARY_TX_SIZE} bytes, "
+        f"nodes 0-{SIMNET_WIDE_CUT - 1} cut off at {at} and healed at {heal}, seed "
+        f"{SIMNET_WIDE_SEED}): wall {wide_wall:.3f} s for {SIMNET_WIDE_DURATION} virtual s (+"
+        f"{SIMNET_WIDE_DRAIN} of drain); rounds committed min {min(rounds)} / max {max(rounds)} (at the "
+        f"cut {wide['rounds_at_cut']}, at the heal, min / max, {wide['rounds_at_heal']}); "
+        f"{r.event_log_len} events; "
+        f"{wide['wire_bytes_a_round']:.0f} wire bytes a round; {r.sent_txs} transactions "
+        f"sent, {min(r.executed)} executed at the slowest node; flushes {wide_flushes}; "
+        f"launches {wide_launches}{card}")
+    log(f"simnet: leg 1 {leg1_s:.3f} s, leg 2 {wide_wall:.3f} s; launches {launches}{card}")
+    return {"launches": launches, "leg1": leg1, "leg1_s": leg1_s, "wide": wide}
+
+
+# ---------------------------------------------------------------------------
 # Phase: the command line as OS processes
 # ---------------------------------------------------------------------------
 
 CLI_NODES = 4  # the reference's `fab local` deployment (README.md:48-54)
 CLI_RATE = 1_000  # transactions/s (benchmark/local.py:58-62 defaults)
-CLI_DURATION = 20.0  # seconds of load
+CLI_DURATION = 10.0  # seconds of load (20 until a cut for time)
 CLI_EXTERNAL = 3  # the primary run with --consensus-disabled
 CLI_COLLECTIONS = 4  # digests of a ReadCausal answer GetCollections asks for
 
@@ -5651,8 +5939,84 @@ def profile_run(fn, device, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+# The paths that run beside the primary path, each in a process of its own
+# (`python3 chip_smoke.py --path NAME --out FILE`): each drives its own
+# committee on its own event loop, so they share the card and the host's
+# cores but no state; a child's launch counts are its path's alone.
+CHILD_PATHS = ("cluster", "simnet")
+CHILD_TIMEOUT = 900.0  # seconds a child may take
+
+
+def run_child_path(path: str, out: str) -> int:
+    """A child's whole run: the card, the kernels from the parent's build
+    (the libraries under `gpu/_build/`, keyed by a hash of their sources),
+    one path, and its context, wall and window syncs written to `out`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available", file=sys.stderr)
+        return 2
+    from narwhal_tpu_torch.gpu import kernel_registry, resolve_device
+
+    device = resolve_device("cuda")
+    kernel_registry.build()
+    phases = {"cluster": phase_cluster, "simnet": phase_simnet}
+    t0 = time.perf_counter()
+    ctx = phases[path](device)
+    wall = time.perf_counter() - t0
+    with open(out, "w") as fh:
+        json.dump({"ctx": ctx, "wall_s": wall, "path_syncs": PATH_SYNCS}, fh)
+    return 0
+
+
+def start_children(tmpdir: str) -> dict:
+    """Start every CHILD_PATHS child: its stdout to a file the parent prints
+    when it joins, its stderr the parent's."""
+    children = {}
+    for path in CHILD_PATHS:
+        out = os.path.join(tmpdir, f"{path}.json")
+        stdout = open(os.path.join(tmpdir, f"{path}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--path", path, "--out", out],
+            cwd=ROOT, stdout=stdout, stderr=None)
+        children[path] = (proc, stdout, out)
+    return children
+
+
+def join_child(path: str, proc, stdout, out: str) -> dict:
+    """Wait for a child, print its output and return what it wrote; a
+    child that fails or overruns CHILD_TIMEOUT fails the run."""
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT)
+    finally:
+        stdout.close()
+        with open(stdout.name) as fh:
+            sys.stdout.write(fh.read())
+        sys.stdout.flush()
+    if rc != 0:
+        raise AssertionError(f"{path}: its process exited {rc}")
+    with open(out) as fh:
+        return json.load(fh)
+
+
+def stop_children(children: dict) -> None:
+    for proc, stdout, _out in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stdout.close()
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=CHILD_PATHS, default=None,
+                    help="run only this path, as the parent's child does")
+    ap.add_argument("--out", default=None, help="with --path: where its results go")
+    args = ap.parse_args(argv)
+    if args.path is not None:
+        if args.out is None:
+            ap.error("--path needs --out")
+        return run_child_path(args.path, args.out)
 
     import torch
 
@@ -5668,7 +6032,6 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     log(card)
-
     walls: dict[str, float] = {}
 
     def timed(phase, fn, *args):
@@ -5687,8 +6050,22 @@ def main(argv=None) -> int:
     pctx = timed("pipeline", phase_pipeline, device, f, ctx)
     cctx = timed("compact", phase_compact, device, f, ctx, pctx)
     wctx = timed("wire", phase_wire, device, f, ctx, pctx)
-    prctx, nctx = timed("primary_node", phase_primary, device, f)
-    clctx = timed("cluster", phase_cluster, device)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t_side = time.perf_counter()
+        children = start_children(tmpdir)
+        try:
+            prctx, nctx = timed("primary_node", phase_primary, device, f)
+            side = {p: join_child(p, *children[p]) for p in CHILD_PATHS}
+        finally:
+            stop_children(children)
+        walls["beside_primary_node"] = time.perf_counter() - t_side
+    for p in CHILD_PATHS:
+        walls[p] = side[p]["wall_s"]
+        PATH_SYNCS.update(side[p]["path_syncs"])
+        log(f"{p}: phase wall {walls[p]:.3f} s (its own process, beside primary_node)")
+    log(f"primary_node, {' and '.join(CHILD_PATHS)}: {walls['beside_primary_node']:.3f} s "
+        f"together")
+    clctx, snctx = side["cluster"]["ctx"], side["simnet"]["ctx"]
     clictx = timed("cli", phase_cli, device)
     sctx = timed("service", phase_service, device, f, pctx, cctx)
     shctx = timed("sharded", phase_sharded, device, sctx)
@@ -5705,7 +6082,7 @@ def main(argv=None) -> int:
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
                "dryrun": drctx["launches"], "wire": wctx["launches"],
                "primary": prctx["launches"], "node": nctx["launches"],
-               "cluster": clctx["launches"]}
+               "cluster": clctx["launches"], "simnet": snctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
@@ -5728,6 +6105,7 @@ def main(argv=None) -> int:
              "primary": {k: v for k, v in prctx.items() if k != "launches"},
              "node": {k: v for k, v in nctx.items() if k != "launches"},
              "cluster": {k: v for k, v in clctx.items() if k != "launches"},
+             "simnet": {k: v for k, v in snctx.items() if k != "launches"},
              "cli": clictx, "phase_walls_s": walls}
 
     kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS

@@ -79,9 +79,16 @@ live) and `consensus_step_sharded` over a 2 x 2 mesh (B = 64), each held
 against the unsharded kernel first; events ms a call (each call waits for
 its result on the host, so this is its wall) and the launches of one call
 by kernel.
+Section `epilogue`: the host wall of `gpu.verifier.msm_epilogue_check`,
+the Python half of every msm flush (the Horner walk over A2's lanes and
+the base term), on the lane sets of `chip_smoke.msm_item_bucket` at 16
+rows (the lane sets are [4, NLIMB, 64] and [4, NLIMB, 32] at every
+bucket; the plain `msm_accumulate` on the CPU makes them): the median and
+quartiles over `EPILOGUE_REPS` calls. It needs no card: alone it runs on
+a machine without one.
 `--sections` picks among `lanes` (A2, A6, A3, A1, A4, A5; the default
 runs every section), `walk` (B2), `reach`, `reduce`, `commit`, `steps`,
-`window`, `support` and `routes`.
+`window`, `support`, `routes` and `epilogue`.
 
 `--phases` also builds `csrc/ed25519_msm.cu` with -DMSM_PHASE_TIMES (its
 chain kernel then records %globaltimer at four points of each CTA) and
@@ -93,7 +100,8 @@ the chains, and the last CTA's end, from the kernel's start.
 `git archive` of another commit) instead of from this checkout, so two
 versions of the kernels can be compared in one call on one card; the
 buckets, checks and timing are this script's and `chip_smoke.py`'s either
-way. It needs a card and imports nothing of JAX.
+way. It needs a card (but for `epilogue` alone) and imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -120,13 +128,17 @@ def main(argv=None) -> int:
     sys.path.insert(1, ROOT)
     import torch
 
-    if not torch.cuda.is_available():
-        print("msm_breakdown: needs an NVIDIA card", file=sys.stderr)
-        return 2
     # this checkout's chip_smoke.py, whichever package is imported
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
+    if "epilogue" in args.sections:
+        epilogue(chip_smoke)
+        if args.sections == ["epilogue"]:
+            return 0
+    if not torch.cuda.is_available():
+        print("msm_breakdown: needs an NVIDIA card", file=sys.stderr)
+        return 2
     from narwhal_tpu_torch.fixtures import CommitteeFixture
     from narwhal_tpu_torch.gpu import ed25519, kernel_registry
 
@@ -201,7 +213,30 @@ SECTIONS = {"lanes": ("ed25519_msm", "ed25519_staged", "ed25519_verify"),
             "walk": ("dag_window",), "reach": ("dag_window",), "commit": ("dag_window",),
             "reduce": ("ed25519_msm", "ed25519_staged"),
             "steps": ("dag_window", "ed25519_msm", "ed25519_staged", "ed25519_verify"),
-            "window": ("dag_window",), "support": ("dag_window",), "routes": ("dag_window",)}
+            "window": ("dag_window",), "support": ("dag_window",), "routes": ("dag_window",),
+            "epilogue": ()}
+EPILOGUE_REPS = 200
+
+
+def epilogue(chip_smoke) -> None:
+    import numpy as np
+    import torch
+    from narwhal_tpu_torch.gpu import ed25519, verifier
+
+    print(f"package {os.path.dirname(verifier.__file__)}", flush=True)
+    host, sum_s, _invalid = chip_smoke.msm_item_bucket(23, 300, 16)
+    va, vr, _valid = ed25519.msm_accumulate_plain(*(torch.from_numpy(a) for a in host))
+    va, vr = va.numpy(), vr.numpy()
+    verdict = verifier.msm_epilogue_check(va, vr, sum_s)
+    walls = []
+    for _ in range(EPILOGUE_REPS):
+        t0 = time.perf_counter()
+        verifier.msm_epilogue_check(va, vr, sum_s)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = np.percentile(walls, (25, 50, 75))
+    print(f"epilogue msm_epilogue_check (host, lanes {va.shape} and {vr.shape}, verdict "
+          f"{verdict}): median {med:.4f} ms, quartiles {q1:.4f} / {q3:.4f} ms over "
+          f"{EPILOGUE_REPS} calls", flush=True)
 
 
 def decompress(chip_smoke, ed25519, dev, bucket, timed) -> None:

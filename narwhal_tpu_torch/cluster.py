@@ -173,6 +173,12 @@ class Cluster:
         cluster records (epoch, round, digest) sequences for the oracles."""
         return None
 
+    def _crypto_pool(self, index: int):
+        """Per-node crypto pool in place of the one the backend builds;
+        None keeps the backend's. The simnet cluster's card pool launches
+        on the loop's thread (`simnet.SimCluster._crypto_pool`)."""
+        return None
+
     def _store(self, index: int, role: str) -> NodeStorage:
         if self.store_base is None:
             return NodeStorage(None)
@@ -197,6 +203,7 @@ class Cluster:
             network_keypair=fixture_auth.network_keypair if self.auth else None,
             commit_tap=self._commit_tap(index),
             device=self.device,
+            crypto_pool=self._crypto_pool(index),
         )
         await details.primary.spawn()
         for wid in range(self.fixture.workers_per_authority):

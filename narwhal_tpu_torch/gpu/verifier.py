@@ -105,6 +105,22 @@ def verify_mode(mode: str | None = None) -> str:
     return mode
 
 
+# The base term of the epilogue rides its Horner walk: [sum_s]B is added a
+# 4-bit digit a window from these 16 small multiples of B (extended
+# coordinates), in place of a separate double-and-add walk; and a lane
+# set's limbs become integers in one weighted sum over an object array.
+_BASE_MULTIPLES = tuple(ref.point_mul(d, ref.G) for d in range(16))
+_LIMB_WEIGHTS = np.array(
+    [1 << (ed25519.RADIX * i) for i in range(ed25519.NLIMB)], dtype=object
+)
+
+
+def _lane_ints(v) -> np.ndarray:
+    """[4, lanes] integers (mod p) of a lane set's X/Y/Z/T limbs."""
+    arr = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v).astype(object)
+    return (arr * _LIMB_WEIGHTS[None, :, None]).sum(axis=1) % ref.P
+
+
 def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
     """Host half of the batch check: Horner-collapse the device's
     per-window point sums and test
@@ -113,8 +129,9 @@ def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
     va_limbs: int32[4, NLIMB, 64] and vr_limbs: int32[4, NLIMB, 32] X/Y/Z/T
     limbs from `msm_accumulate` (loose from the plain version, canonical
     from the kernel; MSB-first window lanes; the R accumulator covers only
-    the low 32 windows because z_i < 2^128). ~450 bigint point ops,
-    amortized over the whole batch.
+    the low 32 windows because z_i < 2^128). The base term's 4-bit digits
+    join the same walk, a table add a window (`_BASE_MULTIPLES`): ~420
+    bigint point ops, amortized over the whole batch.
 
     COFACTORED (the [8]): torsion components of adversarial A/R cancel
     deterministically, so acceptance never depends on the random z_i (a
@@ -124,18 +141,21 @@ def msm_epilogue_check(va_limbs, vr_limbs, sum_s: int) -> bool:
     fallback) therefore uses the kernel's cofactored output too."""
     Wa = va_limbs.shape[2]
     off = Wa - vr_limbs.shape[2]
-
-    def window_point(v, w):
-        return tuple(ed25519.limbs_to_int(v[c, :, w]) % ref.P for c in range(4))
-
-    acc = (0, 1, 1, 0)  # identity, extended coordinates
+    va, vr = _lane_ints(va_limbs), _lane_ints(vr_limbs)
+    s = sum_s % ref.L
+    # Base digits above the walk's windows (none for 64 windows: s < 2^253)
+    # start the accumulator, which the walk's doublings then scale.
+    high = s >> (4 * Wa)
+    acc = ref.point_mul(high, ref.G) if high else (0, 1, 1, 0)
     for w in range(Wa):
         for _ in range(4):
             acc = ref.point_double(acc)
-        acc = ref.point_add(acc, window_point(va_limbs, w))
+        acc = ref.point_add(acc, tuple(va[:, w]))
         if w >= off:
-            acc = ref.point_add(acc, window_point(vr_limbs, w - off))
-    acc = ref.point_add(acc, ref.point_mul(sum_s % ref.L, ref.G))
+            acc = ref.point_add(acc, tuple(vr[:, w - off]))
+        d = (s >> (4 * (Wa - 1 - w))) & 15
+        if d:
+            acc = ref.point_add(acc, _BASE_MULTIPLES[d])
     for _ in range(3):  # cofactor 8
         acc = ref.point_double(acc)
     # Identity <=> X == 0 and Y == Z (mod p).

@@ -6,8 +6,8 @@ PyTorch port keeps its own copy so that it imports nothing of `narwhal_tpu`.
 `rpc.py` opens client connections and server listeners through this module
 instead of calling asyncio directly. In production nothing changes: the
 calls delegate straight to `asyncio.open_connection` / `asyncio.start_server`.
-Under the simulation harness (the JAX package's simnet; the port's comes
-later), `install(fabric)` routes both through an in-memory fabric: the same length-prefixed, AEAD-sealed
+Under the simulation harness (narwhal_tpu_torch/simnet), `install(fabric)`
+routes both through an in-memory fabric: the same length-prefixed, AEAD-sealed
 frames flow over seeded virtual-latency queues instead of TCP sockets, so a
 whole committee — hundreds of nodes — fits in one process with zero file
 descriptors spent on the mesh.

@@ -113,6 +113,7 @@ class PrimaryNode:
         network_keypair: KeyPair | None = None,
         commit_tap=None,  # callable(ConsensusOutput): simnet oracle hook
         device=None,  # the cuda backends' device: None = the card; "cpu" for tests
+        crypto_pool=None,  # replaces the backend's pool (simnet's card pool)
     ):
         self.keypair = keypair
         self.name: PublicKey = keypair.public
@@ -219,8 +220,19 @@ class PrimaryNode:
                 f"--verify-shards {verify_shards} requires --crypto-backend "
                 f"cuda (got {crypto_backend!r})"
             )
-        crypto_pool = None
-        if crypto_backend == "cuda":
+        # A pool the caller built takes the place of the one the backend
+        # would build, after the same rule checks: simnet's card pool
+        # (`simnet.SimCluster._crypto_pool`) launches on the loop's thread,
+        # where the shared VerifyService's threads would race the virtual
+        # clock.
+        given_pool, crypto_pool = crypto_pool, None
+        if crypto_backend not in ("cpu", "pool", "cuda"):
+            raise ConfigError(
+                f"--crypto-backend must be cpu|pool|cuda, got {crypto_backend!r}"
+            )
+        if given_pool is not None:
+            crypto_pool = given_pool
+        elif crypto_backend == "cuda":
             from .gpu.verifier import VerifyService
 
             if rule == "cofactored":
@@ -253,10 +265,6 @@ class PrimaryNode:
             from .gpu.verifier import AsyncVerifierPool
 
             crypto_pool = AsyncVerifierPool()
-        elif crypto_backend != "cpu":
-            raise ConfigError(
-                f"--crypto-backend must be cpu|pool|cuda, got {crypto_backend!r}"
-            )
         elif cert_format == "compact":
             # cpu backend under the compact default: certificate proofs
             # must ride the batched aggregate lane, not per-certificate

@@ -7,11 +7,12 @@ live cluster, against the JAX package's scenarios.
 - `tests/test_compact_default.py` whole: the boot's symmetric
   ConfigErrors, the batched host pool under the compact default, the
   pool's group lane, the verifier stage and certificate references.
-- `tests/test_telemetry.py` without its simnet cases (they wait for the
-  port's `simnet/`) and without the metrics catalog gate (it pins the
+- `tests/test_telemetry.py` without the metrics catalog gate (it pins the
   JAX package's registries in `tools/metrics_catalog.json`): the tracer's
-  spans, sampling and waterfalls, and its cluster cases (per-incarnation
-  tracer scoping, a live cluster's scrape, flight dump and waterfall).
+  spans, sampling and waterfalls, its simnet cases (telemetry RPCs over
+  the port's fabric, a seeded scenario's bit-identical trace), and its
+  cluster cases (per-incarnation tracer scoping, a live cluster's scrape,
+  flight dump and waterfall).
 
 Each module's source runs with the package renamed.
 `test_live_cluster_scrape_dump_and_waterfall` is `slow` in the port: it
@@ -33,8 +34,6 @@ pytestmark = pytest.mark.usefixtures("host_backends")
 TESTS = Path(__file__).resolve().parent
 FILES = ("test_fanout.py", "test_compact_default.py", "test_telemetry.py")
 LEFT_OUT = frozenset({
-    "test_telemetry_rpc_over_simnet_fabric",  # simnet/
-    "test_simnet_trace_determinism_and_waterfall",  # simnet/
     "test_metrics_catalog_matches_registries",  # the JAX package's catalog
 })
 FLAKY_UNDER_LOAD = frozenset({"test_live_cluster_scrape_dump_and_waterfall"})
@@ -51,4 +50,4 @@ def test_all_reference_fanout_scenarios_collected():
     ref = set()
     for file in FILES:
         ref |= set(re.findall(r"^def (test_\w+)", (TESTS / file).read_text(), re.M))
-    assert set(_SCENARIOS) == ref - LEFT_OUT and len(_SCENARIOS) == 25
+    assert set(_SCENARIOS) == ref - LEFT_OUT and len(_SCENARIOS) == 27

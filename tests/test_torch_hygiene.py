@@ -75,6 +75,7 @@ def test_port_package_imports_without_jax_loaded():
         "from narwhal_tpu_torch.node import PrimaryNode, WorkerNode, NodeRestarter\n"
         "import narwhal_tpu_torch.cluster, narwhal_tpu_torch.benchmark_client\n"
         "import narwhal_tpu_torch.__main__\n"
+        "import narwhal_tpu_torch.simnet, narwhal_tpu_torch.simnet.fuzz\n"
         "from narwhal_tpu_torch.gpu.verifier import AsyncVerifierPool, make_batch_verifier\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"

@@ -2,11 +2,10 @@
 
 The scenarios of `tests/test_lifecycle.py` (the `NodeRestarter` across an
 epoch change, a staggered boot, causal completion after a restart from
-disk, a larger committee with two faults) and the four cases of
-`tests/test_reconfigure.py` that run on real sockets run against the port's
-`Cluster` and `NodeRestarter` (each module's source with the package
-renamed). `test_partial_committee_change_deterministic_simnet` waits for
-the port's `simnet/`.
+disk, a larger committee with two faults) and the cases of
+`tests/test_reconfigure.py` run against the port's `Cluster`,
+`NodeRestarter` and `simnet.SimCluster` (each module's source with the
+package renamed).
 """
 
 import re
@@ -21,11 +20,10 @@ pytestmark = pytest.mark.usefixtures("host_backends")
 
 TESTS = Path(__file__).resolve().parent
 FILES = ("test_lifecycle.py", "test_reconfigure.py")
-WAITS_FOR_SIMNET = frozenset({"test_partial_committee_change_deterministic_simnet"})
 
 _SCENARIOS = {}
 for _file in FILES:
-    for _name, _fn in port_scenarios(_file, WAITS_FOR_SIMNET).items():
+    for _name, _fn in port_scenarios(_file).items():
         assert _name not in _SCENARIOS and _name not in globals(), _name
         _SCENARIOS[_name] = _fn
 globals().update(_SCENARIOS)
@@ -35,7 +33,7 @@ def test_all_reference_lifecycle_scenarios_collected():
     ref = set()
     for file in FILES:
         ref |= set(re.findall(r"^def (test_\w+)", (TESTS / file).read_text(), re.M))
-    assert set(_SCENARIOS) == ref - WAITS_FOR_SIMNET and len(_SCENARIOS) == 8
+    assert set(_SCENARIOS) == ref and len(_SCENARIOS) == 9
 
 
 def test_port_node_replays_a_store_the_jax_node_wrote(run, tmp_path):

@@ -263,6 +263,43 @@ def test_epilogue_matches_jax_epilogue(monkeypatch):
     assert jverifier.msm_epilogue_check(va, vr, sum_s, jk) is False
 
 
+# An order-8 point: the cofactored check must not see it.
+_TORSION8 = "c7176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac037a"
+
+
+def test_epilogue_base_digits_in_the_walk_match_jax_epilogue():
+    """The port's epilogue adds [sum_s]B a digit a window inside its Horner
+    walk; the JAX one walks [sum_s]B apart. On lanes of random multiples of
+    B in unnormalized extended coordinates, both accept where the lanes
+    and the base term cancel (an order-8 point in the last lane, which the
+    cofactor kills, included) and reject where they are off by B."""
+    rng = random.Random(19)
+    torsion = ref.decompress(bytes.fromhex(_TORSION8))
+
+    def lanes(ks, extra=None):
+        out = np.zeros((4, tk.NLIMB, len(ks)), np.int32)
+        for w, k in enumerate(ks):
+            pt = ref.point_mul(k, ref.G)
+            if extra is not None and w == len(ks) - 1:
+                pt = ref.point_add(pt, extra)
+            z = rng.randrange(1, ref.P)
+            X, Y, Z, T = pt
+            for c, val in enumerate((X * z, Y * z, Z * z, T * z)):
+                out[c, :, w] = tk.int_to_limbs(val % ref.P)
+        return out
+
+    for extra in (None, torsion):
+        ka = [rng.randrange(ref.L) for _ in range(64)]
+        kr = [rng.randrange(ref.L) for _ in range(32)]
+        total = sum(pow(16, 63 - w, ref.L) * (ka[w] + (kr[w - 32] if w >= 32 else 0))
+                    for w in range(64))
+        va, vr = lanes(ka), lanes(kr, extra)
+        sum_s = -total % ref.L
+        for s, want in ((sum_s, True), (sum_s + 1, False), (sum_s + ref.L, True)):
+            assert msm_epilogue_check(va, vr, s) is want
+            assert jverifier.msm_epilogue_check(va, vr, s, jk) is want
+
+
 def _recorder(calls):
     def record(*arrays):
         calls.append([np.asarray(a).copy() for a in arrays])

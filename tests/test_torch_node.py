@@ -15,6 +15,7 @@ N = 50 port committee, and an N = 4 one whose catch-up verifies through
 the port's `VerifyService` on the CPU, are `-m slow`.
 """
 
+import asyncio
 import types
 
 import pytest
@@ -30,6 +31,7 @@ import narwhal_tpu.messages as j_messages
 import narwhal_tpu.metrics as j_metrics
 import narwhal_tpu.network as j_network
 import narwhal_tpu.node as j_node
+import narwhal_tpu.pacing as j_pacing
 import narwhal_tpu.primary as j_primary
 import narwhal_tpu.primary.api_server  # noqa: F401  (m.primary.api_server)
 import narwhal_tpu.primary.block_remover  # noqa: F401
@@ -38,6 +40,7 @@ import narwhal_tpu.primary.block_waiter  # noqa: F401
 import narwhal_tpu.stores as j_stores
 import narwhal_tpu.types as j_types
 import narwhal_tpu.worker as j_worker
+import narwhal_tpu_torch.pacing as t_pacing
 
 PORT = chip_smoke.primary_modules()
 JAX = types.SimpleNamespace(channels=j_channels, config=j_config, consensus=j_consensus,
@@ -90,10 +93,22 @@ async def node_committee(mods, tmpdir, clients, txs, targets=None, engine0=None,
 
 
 @pytest.mark.parametrize("first", ["port", "jax"])
-def test_mixed_committee_runs_the_node_legs(run, tmp_path, first):
+def test_mixed_committee_runs_the_node_legs(run, tmp_path, first, monkeypatch):
     """Authorities 0 and 1 from one package, 2 and 3 from the other; with
-    the port first, authority 0's runner drives GpuBullshark on the CPU."""
+    the port first, authority 0's runner drives GpuBullshark on the CPU.
+
+    The committee's header delay is pinned at its ceiling (NARWHAL_PACING=0,
+    read by both packages' primaries). Under adaptive pacing the rounds run
+    at the 20 ms floor while payload is about, and on a loaded host the
+    certificate of authority 3's round-2 header, which carries the second
+    client's batch, formed after the other three: every round-3 header took
+    parents 0, 1 and 2, so no leader's history holds that certificate, the
+    reference proposer does not propose its batch again, and primary_wire's
+    wait for every sealed batch to commit at authority 0 could not end
+    (round 1,048-1,122 by its 120 s deadline)."""
     from narwhal_tpu_torch.gpu.dag_kernels import GpuBullshark
+
+    monkeypatch.setenv("NARWHAL_PACING", "0")
 
     a, b = (PORT, JAX) if first == "port" else (JAX, PORT)
 
@@ -119,6 +134,62 @@ def test_mixed_committee_runs_the_node_legs(run, tmp_path, first):
     assert legs["removal"]["removed"] > 0
     assert legs["catch_up"]["fetched"] >= 4 * out["rounds"] - 4
     assert legs["commits_after_mark"] > 0
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_orphaned_batch_is_not_proposed_again(run, pkg):
+    """The open fault that the pinned pacing above keeps out of the mixed
+    committee (ROADMAP queue 3), held in both packages: a proposer under
+    the default adaptive pacing proposes a batch digest once, in its
+    round-1 header. When the round-1 parents it then receives leave that
+    header's certificate out (as a quorum that formed without it does), its
+    round-2 and round-3 headers carry neither the digest nor the
+    certificate, so no leader's history can hold the batch and it is never
+    committed. A repair that proposes such a digest again turns this test
+    into the repair's own."""
+    m, pacing_mod = (PORT, t_pacing) if pkg == "port" else (JAX, j_pacing)
+    f = m.fixtures.CommitteeFixture(size=4)
+    me = f.authorities[0]
+    params = f.parameters
+
+    async def scenario():
+        rx_core, rx_workers, tx_core = (m.channels.Channel(10) for _ in range(3))
+        pacing = pacing_mod.PacingController(
+            ceiling=0.2, floor=params.header_delay_floor,
+            low_occupancy=params.pacing_low_occupancy,
+            high_occupancy=params.pacing_high_occupancy,
+            ewma_alpha=params.pacing_ewma_alpha,
+            sources=[rx_workers.occupancy, rx_core.occupancy])
+        proposer = m.primary.proposer.Proposer(
+            me.public, f.committee, me.signature_service(), header_size=32,
+            max_header_delay=0.2, network_model=m.primary.NetworkModel.PARTIALLY_SYNCHRONOUS,
+            rx_core=rx_core, rx_workers=rx_workers, tx_core=tx_core,
+            rx_reconfigure=m.channels.Watch(m.types.ReconfigureNotification("boot")),
+            pacing=pacing)
+        digest = b"\7" * 32
+        await rx_workers.send((digest, 0))
+        task = proposer.spawn()
+        try:
+            own = await asyncio.wait_for(tx_core.recv(), 5.0)
+            assert own.round == 1 and own.payload == {digest: 0}
+            own_cert = f.certificate(own)
+            headers = []
+            parents = {c.digest for c in m.types.Certificate.genesis(f.committee)}
+            for r in (1, 2):
+                others = [m.fixtures.mock_certificate(f.committee, a.public, r, parents)
+                          for a in f.authorities[1:]]
+                await rx_core.send((others, r, f.committee.epoch))
+                header = await asyncio.wait_for(tx_core.recv(), 5.0)
+                assert header.round == r + 1
+                headers.append(header)
+                parents = {c.digest for c in others}
+        finally:
+            task.cancel()
+        for header in headers:
+            assert digest not in header.payload
+            assert own_cert.digest not in header.parents
+
+    run(scenario())
 
 
 @pytest.mark.slow
