@@ -312,8 +312,41 @@ Phases, in order; any failure exits non-zero and nothing is caught:
             "host" included, each counted apart): every output equal;
   dryrun    narwhal_tpu_torch.entry: entry()'s walk on the card equals the
             plain reach; dryrun_multichip(4) over four cards, or the card
-            four times, passes every check of its three legs.
-Launch counts are set to 0 just before each of the sixteen in-process
+            four times, passes every check of its three legs;
+  demo      the demo clients (`narwhal_tpu_torch.examples.demo_client`
+            and `.grpc_demo_client`), each module's `standalone()` as
+            `python -m` runs it: a 4-node Cluster(size=4, workers=1,
+            internal_consensus=False) on the port's defaults (the card:
+            the cofactored rule's VerifyService.shared("msm"), a
+            Dag(backend="cuda") at every node), then `demo()` at authority
+            0 (Rounds, NodeReadCausal, GetCollections, RemoveCollections
+            over the typed RPC or gRPC, its calls recorded): every call
+            answered, NodeReadCausal a collection or more, GetCollections
+            exactly the collections asked, without an error. Then the
+            Dag's card route on a committee of the same shape: three
+            NodeReadCausal a round apart on its fresh adaptive Dag, the
+            first on the host, the next two on the card (its window's
+            upload, then a window_sync, each with a reach_many), each
+            equal to the host walk. msm_accumulate, window_sync and
+            reach_many must launch;
+  profile   the operator tools, after the side-by-side paths (cProfile
+            slows what it profiles): (a) `narwhal_tpu_torch.tools.
+            simnet_profile` at its command line's defaults (6 nodes, 3
+            virtual s, 120 transactions/s, seed 7) on the card, its ranked
+            table printed: no "backend" drop, an attributed share of 0.8
+            or more (`other`'s hottest rows printed), a verify kernel,
+            window_sync and chain_commit launched; (b)
+            FusedCertificatePipeline on the card over the pipeline path's
+            certificates, full and compact, under a Tracer(enabled=True,
+            sample=1.0): the sequence and rejects of the pipeline path,
+            and `tools.epilogue.attribute` over its flight dump with every
+            stage in every batch (the JAX package's eight and the port's
+            item_epilogue and group_epilogue), epilogue_rel_err and
+            resolve_rel_err <= 0.10, the totals printed; (c) `tools.metrics_catalog.extract_catalog`
+            on the cuda backends on the card equal to the checked-in
+            catalog (the rows that differ printed otherwise). verify_batch,
+            msm_accumulate, window_sync and chain_commit must launch.
+Launch counts are set to 0 just before each of the eighteen in-process
 paths and read just after it (the cluster and simnet paths' in their own
 processes, which hand them to the parent; the cli path's launches happen
 in its children, which the parent cannot count), and each path must have launched the kernels it names
@@ -385,6 +418,11 @@ PATH_KERNELS = {
     "node": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit", "reach_many"),
     "cluster": ("verify_batch", "window_sync", "chain_commit"),
     "simnet": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
+    # The cofactored service's item flushes (the standalone flows and the
+    # reads' committee); the Dag's card route, which the adaptive policy
+    # takes for the second and third of DEMO_READS.
+    "demo": ("msm_accumulate", "window_sync", "reach_many"),
+    "profile": ("verify_batch", "msm_accumulate", "window_sync", "chain_commit"),
 }
 
 
@@ -5885,6 +5923,353 @@ def phase_sharded(device, sctx):
                       "msm_fallback_bucket_s": wall_mixed}}
 
 
+# ---------------------------------------------------------------------------
+# Phase: the demo clients (the external-consensus public API)
+# ---------------------------------------------------------------------------
+
+# NodeReadCausal of a fresh committee's external Dag, a round apart
+# (adaptive routing): the first goes to the host (an unmeasured host route
+# is tried first), the next two to the card (an unmeasured card route is
+# tried next, and its first dispatch at a batch size stays out of the
+# measurement): the window's upload and a reach_many launch, then a
+# window_sync of the round's inserts and a reach_many launch.
+DEMO_READS = 3
+
+
+class RecordedRequests:
+    """While installed, every request the typed demo's `NetworkClient`
+    makes, as (request, reply) pairs (the demo module's client class
+    swapped for a recording subclass; no other client is touched)."""
+
+    def __init__(self, mod):
+        self.mod, self.real = mod, mod.NetworkClient
+        self.calls: list = []
+
+    def __enter__(self):
+        calls = self.calls
+
+        class Recording(self.real):
+            async def request(self, address, msg, timeout=10.0):
+                reply = await super().request(address, msg, timeout)
+                calls.append((msg, reply))
+                return reply
+
+        self.mod.NetworkClient = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.NetworkClient = self.real
+
+
+class RecordedGrpc:
+    """While installed, every unary call the gRPC demo makes through its
+    `_unary` helper, as (method, request, reply) triples."""
+
+    def __init__(self, mod):
+        self.mod, self.real = mod, mod._unary
+        self.calls: list = []
+
+    def __enter__(self):
+        real, calls = self.real, self.calls
+
+        def unary(channel, service, method, reply_cls):
+            call = real(channel, service, method, reply_cls)
+
+            async def recorded(request):
+                reply = await call(request)
+                calls.append((method, request, reply))
+                return reply
+
+            return recorded
+
+        self.mod._unary = unary
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._unary = self.real
+
+
+def demo_answers(grpc: bool, rec) -> dict:
+    """The demo's four API answers from its recorded calls, checked: every
+    call answered, NodeReadCausal gave a collection or more, GetCollections
+    returned exactly the collections it asked for, without an error."""
+    if grpc:
+        by = {method: (req, rep) for method, req, rep in rec.calls}
+        rounds = by["Rounds"][1]
+        nrc = list(by["NodeReadCausal"][1].collection_ids)
+        asked, got = by["GetCollections"]
+        asked = list(asked.collection_ids)
+        returned = [r.collection_id for r in got.results]
+        errors = [r.error for r in got.results if r.error]
+        removed = "RemoveCollections" in by
+    else:
+        by = {type(req).__name__: (req, rep) for req, rep in rec.calls}
+        rounds = by["RoundsRequest"][1]
+        nrc = list(by["NodeReadCausalRequest"][1].digests)
+        asked, got = by["GetCollectionsRequest"]
+        asked = list(asked.digests)
+        returned = [d for d, _b, _e in got.results]
+        errors = [e for _d, _b, e in got.results if e]
+        removed = "RemoveCollectionsRequest" in by
+    what = "gRPC" if grpc else "typed"
+    if rounds.newest_round < 2 or not nrc:
+        raise AssertionError(f"demo ({what}): Rounds newest {rounds.newest_round}, "
+                             f"NodeReadCausal {len(nrc)} collections")
+    if not asked or sorted(returned) != sorted(asked) or errors:
+        raise AssertionError(f"demo ({what}): GetCollections asked {len(asked)}, returned "
+                             f"{len(returned)} ({len(set(returned) & set(asked))} of them "
+                             f"asked), errors {errors}")
+    if not removed:
+        raise AssertionError(f"demo ({what}): RemoveCollections never answered")
+    return {"newest_round": rounds.newest_round, "collections": len(nrc),
+            "asked": len(asked)}
+
+
+async def dag_reads(api: str, name, dag, count: int = DEMO_READS) -> list:
+    """`count` NodeReadCausal at authority 0's newest live round, each after
+    the round moved on (so the Dag's window took inserts between them),
+    over the typed API; each answer equal to the host walk of the same
+    start (NodeDag.bft in the service's canonical order)."""
+    from narwhal_tpu_torch.messages import NodeReadCausalRequest, RoundsRequest
+    from narwhal_tpu_torch.network import NetworkClient, RpcError
+
+    client = NetworkClient()
+    out, last = [], None
+    try:
+        for _ in range(count):
+            deadline = time.perf_counter() + 60.0
+            while True:
+                try:  # none live before the first round
+                    newest = (await client.request(api, RoundsRequest(name))).newest_round
+                except RpcError:
+                    newest = None
+                if newest is not None and (last is None or newest > last):
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError("demo: authority 0's newest round stood still")
+                await asyncio.sleep(0.05)
+            last = newest
+            t0 = time.perf_counter()
+            reply = await client.request(api, NodeReadCausalRequest(name, last))
+            wall = time.perf_counter() - t0
+            async with dag._lock:
+                want = dag._canonical([v.cert for v in dag._dag.bft(reply.digests[0])])
+            if list(reply.digests) != want:
+                raise AssertionError(f"demo: NodeReadCausal({last}) differs from the "
+                                     "host walk")
+            out.append({"round": last, "digests": len(reply.digests), "wall_s": wall})
+    finally:
+        client.close()
+    return out
+
+
+def demo_flow(mod, grpc: bool) -> dict:
+    """One client's standalone flow, `mod.standalone()` as `python -m` runs
+    it (the port Cluster's defaults: the card), its printed lines logged
+    and its answers checked from the recorded calls."""
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with (RecordedGrpc(mod) if grpc else RecordedRequests(mod)) as rec, \
+            contextlib.redirect_stdout(printed):
+        asyncio.run(mod.standalone())
+    wall = time.perf_counter() - t0
+    for line in printed.getvalue().strip().splitlines():
+        log(f"  {line}")
+    return {"wall_s": wall, **demo_answers(grpc, rec)}
+
+
+async def demo_dag_reads(device) -> dict:
+    """DEMO_READS reads of the fresh external Dag of a committee shaped as
+    the standalone flows' (on `device`): the host route, then the card's.
+    (A committee of its own: authority 0 may stop advancing after the
+    demo's RemoveCollections, in both packages.)"""
+    from narwhal_tpu_torch.cluster import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(size=4, workers=1, internal_consensus=False, device=device)
+    await cluster.start()
+    boot = time.perf_counter() - t0
+    try:
+        node = cluster.authorities[0]
+        dag = node.primary.dag
+        reads = await dag_reads(node.primary.api_address, node.name, dag)
+        routing = dag.routing_stats()
+    finally:
+        await cluster.shutdown()
+    if (routing["host_calls"], routing["dev_calls"]) != (1, DEMO_READS - 1):
+        raise AssertionError(f"demo: the {DEMO_READS} reads went {routing['host_calls']} to "
+                             f"the host, {routing['dev_calls']} to the card")
+    return {"boot_s": boot, "reads": reads, "routing": routing}
+
+
+def phase_demo(device) -> dict:
+    """The demo path: each demo client's standalone flow (typed RPC, then
+    gRPC) on the card, then the Dag's card route on a committee of the
+    same shape."""
+    from narwhal_tpu_torch.examples import demo_client, grpc_demo_client
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    kernel_registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    flows = {"typed": demo_flow(demo_client, False), "grpc": demo_flow(grpc_demo_client, True)}
+    reads = asyncio.run(demo_dag_reads(device))
+    wall = time.perf_counter() - t0
+    launches = kernel_registry.launch_counts()
+    require_launches("demo", launches, device)
+    for what, fl in flows.items():
+        log(f"demo ({what}): standalone() in {fl['wall_s']:.3f} s: Rounds newest "
+            f"{fl['newest_round']}, NodeReadCausal {fl['collections']} collections, "
+            f"GetCollections returned exactly the {fl['asked']} asked")
+    log(f"demo (reads): boot {reads['boot_s']:.3f} s; NodeReadCausal, host then card twice: "
+        + ", ".join(f"round {r['round']} {r['digests']} digests {r['wall_s'] * 1e3:.3f} ms"
+                    for r in reads["reads"]) + " (each equal to the host walk)")
+    log(f"demo: both clients' flows and the reads in {wall:.3f} s; launches {launches}{card}")
+    return {"launches": launches, "wall_s": wall, "flows": flows, "reads": reads}
+
+
+# ---------------------------------------------------------------------------
+# Phase: the operator tools on the card (simnet profiler, epilogue
+# attributor, metrics catalog)
+# ---------------------------------------------------------------------------
+
+PROFILE_MIN_SHARE = 0.8  # the profiler's own acceptance figure
+EPILOGUE_MAX_REL_ERR = 0.10  # the attributor's own acceptance gate
+
+
+def profile_simnet(device) -> dict:
+    """Leg (a): the simnet profiler at its command line's defaults on the
+    card; its ranked table printed; no "backend" drop; the attributed share
+    at least PROFILE_MIN_SHARE (else `other`'s hottest rows are printed)."""
+    from narwhal_tpu_torch.gpu import kernel_registry
+    from narwhal_tpu_torch.tools import simnet_profile
+
+    kw = {} if device.type == "cuda" else {"crypto_backend": "cpu", "device": "cpu"}
+    kernel_registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = simnet_profile.profile_scenario(**kw)
+    wall = time.perf_counter() - t0
+    launches = kernel_registry.launch_counts()
+    for line in simnet_profile.render_table(report).splitlines():
+        log(f"  {line}")
+    sc = report["scenario"]
+    other = next((c for c in report["components"] if c["component"] == "other"), None)
+    if other is not None:
+        log("  other's hottest: " + "; ".join(
+            f"{t['function']} {t['self_s']:.4f} s" for t in other["top_functions"]))
+    log(f"profile (a): {sc['nodes']} nodes, {sc['duration_virtual_s']} virtual s at "
+        f"{sc['load_rate']} transactions/s, seed {sc['seed']}: {sc['event_log_len']} events, "
+        f"{sc['committed_rounds']} committed rounds, {sc['fabric_counters'].get('transmits')} "
+        f"transmits, scenario wall {sc['wall_s']:.3f} s, profiled {wall:.3f} s; attributed "
+        f"{report['attributed_share']}; backend drops {sc['backend_drops']}; launches "
+        f"{launches}")
+    if sc["backend_drops"]:
+        raise AssertionError(f"profile: {sc['backend_drops']} backend drops")
+    if report["attributed_share"] < PROFILE_MIN_SHARE:
+        raise AssertionError(f"profile: attributed share {report['attributed_share']} < "
+                             f"{PROFILE_MIN_SHARE}")
+    if device.type == "cuda" and not (
+            launches["verify_batch"] + launches["msm_accumulate"] > 0
+            and launches["window_sync"] > 0 and launches["chain_commit"] > 0):
+        raise AssertionError(f"profile: the scenario launched {launches}")
+    return {"report": report, "wall_s": wall, "launches": launches}
+
+
+def profile_epilogue(device, f, ctx, pctx, cctx) -> dict:
+    """Leg (b): FusedCertificatePipeline on the card over the pipeline
+    path's certificates, full and compact, traced (every batch sampled);
+    the port's epilogue attributor over its flight dump: every batch with
+    every stage (the JAX package's eight and the port's two verdict
+    spans), the epilogue's books and the resolve's (readback, verdict
+    epilogue and host_epilogue against their window) within
+    EPILOGUE_MAX_REL_ERR."""
+    from narwhal_tpu_torch import tracing
+    from narwhal_tpu_torch.gpu.pipeline import FusedCertificatePipeline
+    from narwhal_tpu_torch.gpu.verifier import GpuVerifier
+    from narwhal_tpu_torch.tools import epilogue
+
+    batch = pctx["batch"]
+    out = {}
+    for fmt, certs in (("full", pctx["certs"]), ("compact", cctx["certs"])):
+        batches = [certs[lo:lo + batch] for lo in range(0, len(certs), batch)]
+        eng, st = replay_engine(device, f, ctx)
+        tracer = tracing.Tracer(node=f"profile-{fmt}", enabled=True, sample=1.0, ring=1 << 14)
+        pipe = FusedCertificatePipeline(
+            GpuVerifier(max_bucket=BUCKET, mode="item", fixed_bucket=True, device=device),
+            eng, st, start_index=ctx["index"], tracer=tracer)
+        seq = [(o.certificate.digest, o.consensus_index) for o in pipe.run(batches)]
+        if seq != pctx["seq"] or len(pipe.rejected) != len(pctx["forged_at"]):
+            raise AssertionError(f"profile: the traced {fmt} pipeline's sequence or rejects "
+                                 "differ from the pipeline path's")
+        report = epilogue.attribute([tracer.dump()])
+        for line in epilogue.render_table(report).splitlines():
+            log(f"  {line}")
+        totals = report["totals"]
+        log(f"profile (b) {fmt}: totals {json.dumps(totals, sort_keys=True)}")
+        short = [r["batch_key"][:16] for r in report["batches"]
+                 if not set(epilogue.STAGES) <= set(r)]
+        if totals["batches"] != len(batches) or short:
+            raise AssertionError(f"profile: {fmt}: {totals['batches']} batches attributed of "
+                                 f"{len(batches)}; without every stage: {short}")
+        for books in ("epilogue_rel_err", "resolve_rel_err"):
+            if totals[books] > EPILOGUE_MAX_REL_ERR:
+                raise AssertionError(f"profile: {fmt}: {books} {totals[books]} > "
+                                     f"{EPILOGUE_MAX_REL_ERR}")
+        out[fmt] = totals
+    return out
+
+
+def profile_catalog(device) -> int:
+    """Leg (c): the metrics catalog of the card's node assembly (the `cuda`
+    crypto and DAG backends on `device`) equal to the checked-in one; the
+    rows that differ printed otherwise."""
+    from narwhal_tpu_torch.tools import metrics_catalog
+
+    live = {r["name"]: r for r in metrics_catalog.extract_catalog(
+        crypto_backend="cuda", dag_backend="cuda", device=device)}
+    checked = {r["name"]: r for r in metrics_catalog.load_catalog()}
+    differ = sorted(n for n in set(live) | set(checked) if live.get(n) != checked.get(n))
+    for n in differ:
+        log(f"  catalog row differs: {n}: live {live.get(n)}, checked in {checked.get(n)}")
+    if differ:
+        raise AssertionError(f"profile: {len(differ)} catalog rows differ on the card")
+    log(f"profile (c): the card's assembly registers the checked-in catalog's "
+        f"{len(checked)} rows")
+    return len(checked)
+
+
+def phase_profile(device, f, ctx, pctx, cctx) -> dict:
+    """The profile path: legs (a), (b) and (c), counted from one reset (leg
+    (a)'s, which also keeps its own counts)."""
+    from narwhal_tpu_torch.gpu import kernel_registry
+
+    card = f" [{card_line()}]" if device.type == "cuda" else ""
+    t0 = time.perf_counter()
+    simnet = profile_simnet(device)
+    walls = {"simnet_s": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    totals = profile_epilogue(device, f, ctx, pctx, cctx)
+    walls["epilogue_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    rows = profile_catalog(device)
+    walls["catalog_s"] = time.perf_counter() - t2
+    launches = kernel_registry.launch_counts()  # from leg (a)'s reset
+    require_launches("profile", launches, device)
+    log(f"profile: legs {', '.join(f'{k} {v:.3f}' for k, v in walls.items())}; launches "
+        f"{launches}{card}")
+    rep = simnet["report"]
+    return {"launches": launches, "walls_s": walls, "catalog_rows": rows,
+            "epilogue_totals": totals,
+            "simnet": {"attributed_share": rep["attributed_share"],
+                       "total_self_s": rep["total_self_s"], "scenario": rep["scenario"],
+                       "components": [{k: c[k] for k in ("component", "self_s", "share",
+                                                         "calls", "top_functions")}
+                                      for c in rep["components"]]}}
+
+
 class SpanTotals:
     """The tracer interface FusedCertificatePipeline calls (`enabled`,
     `sampled`, `span`), summing each span's duration by name."""
@@ -5949,8 +6334,9 @@ CHILD_TIMEOUT = 900.0  # seconds a child may take
 
 def run_child_path(path: str, out: str) -> int:
     """A child's whole run: the card, the kernels from the parent's build
-    (the libraries under `gpu/_build/`, keyed by a hash of their sources),
-    one path, and its context, wall and window syncs written to `out`."""
+    (the libraries under `gpu/_build/`, keyed by a hash of their sources;
+    run alone, a build of its own), one path, and its context, wall and
+    window syncs written to `out`."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6074,6 +6460,10 @@ def main(argv=None) -> int:
     dctx = timed("dag_service", phase_dag_service, device, f)
     csctx = timed("consensus_step", phase_consensus_step, device, f)
     drctx = timed("dryrun", phase_dryrun, device)
+    dmctx = timed("demo", phase_demo, device)
+    # cProfile slows what it profiles: the profile path runs alone, after
+    # the side-by-side paths are joined.
+    prfctx = timed("profile", phase_profile, device, f, ctx, pctx, cctx)
     by_path = {"engine": ctx["launches"], "pipeline": pctx["launches"],
                "compact": cctx["launches"], "service": sctx["launches"],
                "sharded": shctx["launches"],
@@ -6082,7 +6472,8 @@ def main(argv=None) -> int:
                "dag_shards": dsctx["launches"], "consensus_step": csctx["launches"],
                "dryrun": drctx["launches"], "wire": wctx["launches"],
                "primary": prctx["launches"], "node": nctx["launches"],
-               "cluster": clctx["launches"], "simnet": snctx["launches"]}
+               "cluster": clctx["launches"], "simnet": snctx["launches"],
+               "demo": dmctx["launches"], "profile": prfctx["launches"]}
     rates = {"engine_certificates_per_s": ctx["certificates_per_s"],
              "pipeline": pctx["rates"], "compact": cctx["rates"],
              "service": sctx["rates"],
@@ -6106,6 +6497,8 @@ def main(argv=None) -> int:
              "node": {k: v for k, v in nctx.items() if k != "launches"},
              "cluster": {k: v for k, v in clctx.items() if k != "launches"},
              "simnet": {k: v for k, v in snctx.items() if k != "launches"},
+             "demo": {k: v for k, v in dmctx.items() if k != "launches"},
+             "profile": {k: v for k, v in prfctx.items() if k != "launches"},
              "cli": clictx, "phase_walls_s": walls}
 
     kernels["window_sync"]["extra"]["views_by_path"] = PATH_SYNCS

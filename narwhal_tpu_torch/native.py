@@ -178,42 +178,52 @@ def load_scalar() -> ctypes.CDLL | None:
 
 
 class NativeEngine:
-    """Handle on one C++ engine instance (tables + WAL)."""
+    """Handle on one C++ engine instance (tables + WAL).
+
+    The engine is not thread-safe, and ctypes releases the GIL for each
+    call: the storage engine's committer writes from an executor thread
+    while the loop thread reads, writes and compacts. So every call into
+    the instance holds its lock."""
 
     def __init__(self, path: str | None):
         lib = load()
         if lib is None:
             raise RuntimeError("native storage engine unavailable")
         self._lib = lib
+        self._lock = threading.Lock()
         self._h = lib.nse_open((path or "").encode())
         if not self._h:
             raise RuntimeError(f"nse_open failed for {path!r}")
 
     def write_batch(self, body: bytes) -> None:
-        if self._lib.nse_write_batch(self._h, body, len(body)) != 0:
+        with self._lock:
+            rc = self._lib.nse_write_batch(self._h, body, len(body))
+        if rc != 0:
             raise RuntimeError("malformed write batch")
 
     def get(self, cf: bytes, key: bytes) -> bytes | None:
         val = ctypes.POINTER(ctypes.c_ubyte)()
         vlen = ctypes.c_uint32()
-        hit = self._lib.nse_get(
-            self._h, cf, key, len(key), ctypes.byref(val), ctypes.byref(vlen)
-        )
-        if not hit:
-            return None
-        return ctypes.string_at(val, vlen.value)
+        with self._lock:  # the pointer is valid until the next mutation
+            hit = self._lib.nse_get(
+                self._h, cf, key, len(key), ctypes.byref(val), ctypes.byref(vlen)
+            )
+            return ctypes.string_at(val, vlen.value) if hit else None
 
     def contains(self, cf: bytes, key: bytes) -> bool:
-        return bool(self._lib.nse_contains(self._h, cf, key, len(key)))
+        with self._lock:
+            return bool(self._lib.nse_contains(self._h, cf, key, len(key)))
 
     def len(self, cf: bytes) -> int:
-        return int(self._lib.nse_len(self._h, cf))
+        with self._lock:
+            return int(self._lib.nse_len(self._h, cf))
 
     def items(self, cf: bytes) -> list[tuple[bytes, bytes]]:
         buf = ctypes.POINTER(ctypes.c_ubyte)()
         blen = ctypes.c_uint64()
-        self._lib.nse_dump(self._h, cf, ctypes.byref(buf), ctypes.byref(blen))
-        raw = ctypes.string_at(buf, blen.value) if blen.value else b""
+        with self._lock:
+            self._lib.nse_dump(self._h, cf, ctypes.byref(buf), ctypes.byref(blen))
+            raw = ctypes.string_at(buf, blen.value) if blen.value else b""
         out = []
         pos = 0
         while pos < len(raw):
@@ -228,13 +238,15 @@ class NativeEngine:
         return out
 
     def compact(self) -> None:
-        self._lib.nse_compact(self._h)
+        with self._lock:
+            self._lib.nse_compact(self._h)
 
     def close(self) -> None:
         """Stop appends; tables stay readable (Python-engine close parity:
         late reads during shutdown must not hit a freed handle)."""
-        if self._h:
-            self._lib.nse_close_log(self._h)
+        with self._lock:
+            if self._h:
+                self._lib.nse_close_log(self._h)
 
     def __del__(self) -> None:
         h, self._h = getattr(self, "_h", None), None

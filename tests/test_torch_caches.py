@@ -1,0 +1,24 @@
+"""The JAX package's `tests/test_caches.py` against the port: the decode and
+verify caches, the store's decode cache and `BoundedCache`.
+
+Its source runs with the package renamed
+(`test_torch_network.port_scenarios`), its `Test*` classes included.
+"""
+
+import re
+from pathlib import Path
+
+from test_torch_network import port_scenarios
+
+TESTS = Path(__file__).resolve().parent
+FILE = "test_caches.py"
+LEFT_OUT = frozenset()
+
+_SCENARIOS = port_scenarios(FILE, LEFT_OUT, classes=True)
+assert not set(_SCENARIOS) & set(globals()), sorted(set(_SCENARIOS) & set(globals()))
+globals().update(_SCENARIOS)
+
+
+def test_all_reference_caches_scenarios_collected():
+    ref = re.findall(r"^(?:def (test_\w+)|class (Test\w+))", (TESTS / FILE).read_text(), re.M)
+    assert set(_SCENARIOS) == {a or b for a, b in ref} - LEFT_OUT

@@ -77,6 +77,10 @@ def test_port_package_imports_without_jax_loaded():
         "import narwhal_tpu_torch.__main__\n"
         "import narwhal_tpu_torch.simnet, narwhal_tpu_torch.simnet.fuzz\n"
         "from narwhal_tpu_torch.gpu.verifier import AsyncVerifierPool, make_batch_verifier\n"
+        "import narwhal_tpu_torch.examples.demo_client\n"
+        "import narwhal_tpu_torch.examples.grpc_demo_client\n"
+        "import narwhal_tpu_torch.tools.metrics_catalog, narwhal_tpu_torch.tools.epilogue\n"
+        "import narwhal_tpu_torch.tools.simnet_profile\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'narwhal_tpu' or m.startswith('narwhal_tpu.')]\n"
         "assert not bad, bad\n"
@@ -92,6 +96,10 @@ def test_the_scan_covers_the_node_and_its_edges():
         "narwhal_tpu_torch/cluster.py", "narwhal_tpu_torch/benchmark_client.py",
         "narwhal_tpu_torch/__main__.py", "narwhal_tpu_torch/metrics.py",
         "narwhal_tpu_torch/gpu/verifier.py", "narwhal_tpu_torch/worker/worker.py",
+        "narwhal_tpu_torch/examples/demo_client.py",
+        "narwhal_tpu_torch/examples/grpc_demo_client.py",
+        "narwhal_tpu_torch/tools/metrics_catalog.py", "narwhal_tpu_torch/tools/epilogue.py",
+        "narwhal_tpu_torch/tools/simnet_profile.py",
     } <= scanned
 
 
@@ -132,12 +140,17 @@ def test_node_and_cluster_on_cuda_raise_without_a_card(monkeypatch):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    import asyncio
+
     from narwhal_tpu_torch.consensus import Dag
     from narwhal_tpu_torch.entry import entry
+    from narwhal_tpu_torch.examples import demo_client, grpc_demo_client
     from narwhal_tpu_torch.fixtures import CommitteeFixture
     from narwhal_tpu_torch.gpu import resolve_device
     from narwhal_tpu_torch.gpu.dag_kernels import DagWindow, GpuBullshark, GpuTusk
     from narwhal_tpu_torch.gpu.verifier import GpuVerifier
+    from narwhal_tpu_torch.tools.metrics_catalog import extract_catalog
+    from narwhal_tpu_torch.tools.simnet_profile import profile_scenario
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     committee = CommitteeFixture(size=4).committee
@@ -150,6 +163,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: GpuTusk(committee, None, 50),
         lambda: Dag(committee, backend="cuda"),
         lambda: entry(),
+        lambda: asyncio.run(demo_client.standalone()),
+        lambda: asyncio.run(grpc_demo_client.standalone()),
+        lambda: profile_scenario(nodes=4, duration=0.5),
+        lambda: extract_catalog(crypto_backend="cuda", dag_backend="cuda"),
+        lambda: extract_catalog(crypto_backend="cpu", dag_backend="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()

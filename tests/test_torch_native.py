@@ -202,3 +202,36 @@ def test_verify_mode_reader(monkeypatch, env, mode, want):
         assert named in str(err.value) and repr(mode if mode else env) in str(err.value)
     else:
         assert GpuVerifier(device="cpu", mode=mode).mode == want
+
+
+def test_native_engine_serializes_calls_across_threads(tmp_path):
+    """The storage engine's committer writes from an executor thread while
+    the loop thread writes, reads and compacts: the C++ engine is not
+    thread-safe and ctypes releases the GIL, so `NativeEngine` serializes
+    its calls. Two writer threads against compactions and reads leave every
+    write in the tables and in the log."""
+    from narwhal_tpu_torch.storage import StorageEngine
+
+    if t_native.load() is None:
+        pytest.skip("native storage engine unavailable")
+    eng = t_native.NativeEngine(str(tmp_path))
+    rounds = 400
+
+    def writer(tag: int) -> None:
+        for i in range(rounds):
+            key = tag.to_bytes(1, "big") + i.to_bytes(4, "big")
+            eng.write_batch(StorageEngine._encode_ops([(0, "cf", key, bytes(64))]))
+
+    threads = [threading.Thread(target=writer, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        eng.compact()
+        eng.items(b"cf")
+    for t in threads:
+        t.join()
+    assert eng.len(b"cf") == 2 * rounds
+    eng.close()
+    reopened = t_native.NativeEngine(str(tmp_path))
+    assert sorted(reopened.items(b"cf")) == sorted(eng.items(b"cf"))
+    reopened.close()

@@ -40,21 +40,41 @@ TESTS = Path(__file__).resolve().parent
 TIMED = {"test_reliable_send_escalates_deadline_for_slow_peer"}
 
 
-def port_scenarios(filename: str, leave_out=frozenset()) -> dict:
+def port_scenarios(filename: str, leave_out=frozenset(), subs=(), classes=False) -> dict:
     """The test functions of the JAX package's `tests/<filename>`, run
     against the port: the source with `narwhal_tpu` renamed to
     `narwhal_tpu_torch` (and its device plane `narwhal_tpu.tpu` to the
-    port's `narwhal_tpu_torch.gpu`), executed as a module of its own."""
+    port's `narwhal_tpu_torch.gpu`), then each `(pattern, replacement)` of
+    `subs` applied, executed as a module of its own. With `classes`, its
+    `Test*` classes too."""
     src = (TESTS / filename).read_text()
     src = re.sub(r"\bnarwhal_tpu\.tpu\b", "narwhal_tpu_torch.gpu", src)
     src = re.sub(r"\bnarwhal_tpu\b", "narwhal_tpu_torch", src)
+    for pattern, replacement in subs:
+        src, n = re.subn(pattern, replacement, src)
+        assert n, f"{filename}: {pattern!r} matches nothing"
     mod = types.ModuleType(f"port_{Path(filename).stem}")
     mod.__file__ = str(TESTS / filename)
     exec(compile(src, f"{filename} (against narwhal_tpu_torch)", "exec"), mod.__dict__)
     return {
         name: fn for name, fn in vars(mod).items()
-        if name.startswith("test_") and callable(fn) and name not in leave_out
+        if callable(fn) and name not in leave_out
+        and (name.startswith("test_") or classes and name.startswith("Test")
+             and isinstance(fn, type))
     }
+
+
+def set_defaults(monkeypatch, classes, **values) -> None:
+    """The given keyword defaults of each class's `__init__`, the rest as
+    they are."""
+    import inspect
+
+    for cls in classes:
+        init = cls.__init__
+        named = [p.name for p in inspect.signature(init).parameters.values()
+                 if p.default is not p.empty][-len(init.__defaults__):]
+        monkeypatch.setattr(init, "__defaults__", tuple(
+            values.get(name, default) for name, default in zip(named, init.__defaults__)))
 
 
 @pytest.fixture
@@ -63,17 +83,10 @@ def host_backends(monkeypatch):
     PrimaryNode (and so NodeRestarter's nodes), whose defaults are the
     card's (`cuda`): the renamed scenarios that name no backend run on the
     host, as they do in the JAX package."""
-    import inspect
-
     from narwhal_tpu_torch import cluster, node
 
-    for cls in (cluster.Cluster, node.PrimaryNode):
-        init = cls.__init__
-        named = [p.name for p in inspect.signature(init).parameters.values()
-                 if p.default is not p.empty][-len(init.__defaults__):]
-        monkeypatch.setattr(init, "__defaults__", tuple(
-            "cpu" if name in ("crypto_backend", "dag_backend") else default
-            for name, default in zip(named, init.__defaults__)))
+    set_defaults(monkeypatch, (cluster.Cluster, node.PrimaryNode),
+                 crypto_backend="cpu", dag_backend="cpu")
 
 
 _SCENARIOS = {}
